@@ -1,0 +1,148 @@
+"""The port's flash attention against the JAX package's, on the same inputs.
+
+On the CPU the port's `flash_attention` runs its plain version; the JAX
+`flash_attention` runs its Pallas kernel in interpret mode with 8-row tiles
+(or its reference einsum where the JAX wrapper falls back: ragged lengths,
+causal Sq != Sk). Tolerances are those of tests/test_ops.py: 2e-5 in f32,
+3e-2 in bf16. The CUDA kernel itself is held against the plain version on
+the card by tests/test_torch_kernels_cuda.py and chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from conftest import free_port  # noqa: F401  (pins JAX_PLATFORMS=cpu first)
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from tpunet.ops.flash_attention import NEG_INF
+from tpunet.ops.flash_attention import _flash_fwd_impl as jax_fwd_impl
+from tpunet.ops.flash_attention import attention_reference as jax_reference
+from tpunet.ops.flash_attention import flash_attention as jax_flash
+from tpunet_torch.ops.flash_attention import (attention_reference,
+                                              flash_attention,
+                                              flash_attention_fwd)
+
+
+def _inputs(seed, b, sq, sk, h, hk, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hk, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hk, d)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_scores_lse(q, k, causal, window, group):
+    """logsumexp over the JAX-side masked scores, (B*H, Sq)."""
+    kf = jnp.repeat(jnp.asarray(k), group, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q) / np.sqrt(q.shape[-1]),
+                   kf, precision=jax.lax.Precision.HIGHEST)
+    if causal:
+        sq, sk = s.shape[-2:]
+        qp, kp = jnp.arange(sq)[:, None], jnp.arange(sk)[None, :]
+        keep = qp >= kp
+        if window is not None:
+            keep &= (qp - kp) < window
+        s = jnp.where(keep, s, NEG_INF)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(-1, q.shape[1])
+
+
+CASES = (
+    [(False, g, None, s) for g in (1, 2, 4) for s in (32, 37)]
+    + [(True, g, w, s) for g in (1, 2, 4) for w in (None, 3)
+       for s in (32, 37)]
+)
+
+
+@pytest.mark.parametrize("causal,group,window,seq", CASES)
+def test_flash_matches_jax(causal, group, window, seq):
+    h = 4
+    q, k, v = _inputs(seq * 10 + group, 2, seq, seq, h, h // group, 8)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                     block_q=8, block_k=8, window=window)
+    got, lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        lse.numpy(), _jax_scores_lse(q, k, causal, window, group),
+        atol=2e-5, rtol=2e-5)
+    plain = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal, window=window)
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("sq,sk", [(24, 40), (40, 16)])
+def test_flash_cross_lengths_match_jax(sq, sk):
+    """Non-causal Sq != Sk (the JAX wrapper tiles these in the kernel)."""
+    q, k, v = _inputs(sq + sk, 2, sq, sk, 4, 2, 8)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False,
+                     8, 8)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_lse_matches_jax_kernel_lse():
+    """Where the JAX kernel runs (even tiling), its own lse equals the
+    port's (its TPU layout replicates each row over 8 sublanes)."""
+    q, k, v = _inputs(7, 2, 32, 32, 4, 2, 8)
+    _, jlse = jax_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           True, 8, 8, None, None)
+    _, lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, 0, :],
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_bf16_matches_jax():
+    q, k, v = _inputs(11, 1, 64, 64, 4, 2, 32)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = jax_flash(jq, jk, jv, True, 16, 16)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_reference_matches_jax_reference():
+    q, k, v = _inputs(13, 2, 20, 20, 2, 2, 8)
+    for causal, window in ((False, None), (True, None), (True, 5)):
+        want = jax_reference(jnp.asarray(q), jnp.asarray(k),
+                             jnp.asarray(v), causal, window)
+        got = attention_reference(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal, window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("kv_heads,causal,window", [
+    (3, False, None),   # heads do not divide
+    (4, False, 4),      # window without causal
+    (4, True, 0),       # window < 1
+])
+def test_validation_errors_match_jax(kv_heads, causal, window):
+    q, k, v = _inputs(3, 1, 16, 16, 4, kv_heads, 8)
+    with pytest.raises(ValueError):
+        jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                  8, 8, window=window)
+    with pytest.raises(ValueError):
+        flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal, window=window)
+
+
+def test_cpu_path_never_counts_a_launch():
+    before = flash_attention.kernel_launches
+    q, k, v = _inputs(5, 1, 16, 16, 2, 1, 8)
+    flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                    torch.from_numpy(v), True)
+    flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), False)
+    assert flash_attention.kernel_launches == before == 0

@@ -1,0 +1,78 @@
+"""Carry weights between the JAX package's flax tree and the port.
+
+The flax tree of ``tpunet.models.Transformer`` holds ``embed``,
+``block{i}/attn/{q,k,v,out}/kernel``, ``block{i}/mlp/{up,gate,down}/kernel``,
+``block{i}/norm{1,2}/scale``, ``norm_f/scale`` and ``lm_head/kernel``. The
+port's module tree uses the same names with ``.`` for ``/`` and ``weight``
+for ``kernel``. A flax Dense kernel is (in, out) and a torch weight
+(out, in), so dense kernels are transposed on the way in and out.
+`to_flax(from_flax(tree))` gives back the tree bitwise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict) or hasattr(value, "items"):
+            yield from _flatten(value, path + "/")
+        else:
+            yield path, value
+
+
+def _torch_name(flax_path: str) -> str:
+    parts = flax_path.split("/")
+    if parts[-1] == "kernel":
+        parts[-1] = "weight"
+    return ".".join(parts)
+
+
+def from_flax(params, model, dtype=None, device=None) -> dict:
+    """The port's state_dict from a flax param tree of numpy arrays (a
+    nested dict, as ``jax.tree.map(np.asarray, params)`` gives). `dtype`
+    pre-casts dense kernels and the embedding (norm scales stay f32);
+    `device` defaults to the model's own parameters' device."""
+    expected = dict(model.named_parameters())
+    if device is None:
+        device = next(iter(expected.values())).device
+    out = {}
+    for path, value in _flatten(params):
+        name = _torch_name(path)
+        if name not in expected:
+            raise KeyError(f"flax parameter {path!r} has no counterpart "
+                           f"{name!r} in the port's model")
+        arr = np.asarray(value)
+        t = torch.from_numpy(np.array(
+            arr.T if path.endswith("/kernel") else arr, order="C"))
+        if tuple(t.shape) != tuple(expected[name].shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} does not match "
+                             f"the port's {tuple(expected[name].shape)}")
+        if dtype is not None and not name.endswith(".scale"):
+            t = t.to(dtype)
+        out[name] = t.to(device)
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"flax tree lacks parameters {missing}")
+    return out
+
+
+def to_flax(state_dict) -> dict:
+    """Invert `from_flax`: a nested dict of numpy arrays in flax layout
+    (bf16 tensors come back as f32, numpy having no bfloat16)."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        kernel = parts[-1] == "weight"
+        if kernel:
+            parts[-1] = "kernel"
+        t = t.detach().cpu()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(arr.T) if kernel else arr
+    return tree

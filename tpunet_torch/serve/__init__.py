@@ -1,0 +1,50 @@
+"""Disaggregated prefill/decode serving tier over the tpunet transport.
+
+Prefill ranks run prompt ingestion and produce KV blocks; decode ranks run
+the BatchServer slot machine; the blocks ship between them over the
+transport's multi-stream P2P path with the block-scaled wire codec (int8 by
+default; f32 makes the wire exact and the greedy output stream bitwise
+equal to single-host serving).
+
+Minimal setup::
+
+    # decode box
+    worker = serve.connect_decode("10.0.0.1:7100", model, params,
+                                  slots=8, max_len=512)
+    worker.serve()
+
+    # frontend box
+    pe = serve.PrefillEngine(model, params, max_len=512)
+    router = serve.Router(pe)
+    lsock = serve.Router.listen("0.0.0.0:7100")
+    router.accept_ranks(lsock, n=1)
+    rid = router.submit(prompt_tokens, max_new_tokens=64)
+    tokens = router.run()[rid]
+
+Env knobs: TPUNET_KV_WIRE_DTYPE, TPUNET_ROUTER_POLICY, TPUNET_SERVE_ROLE.
+"""
+
+from tpunet_torch.serve.decode import DecodeWorker, connect as connect_decode  # noqa: F401
+from tpunet_torch.serve.kv import (  # noqa: F401
+    KV_CODECS,
+    decode_kv_block,
+    encode_kv_block,
+    kv_block_elems,
+    kv_wire_bytes,
+    model_signature,
+)
+from tpunet_torch.serve.prefill import PrefillEngine  # noqa: F401
+from tpunet_torch.serve.protocol import (  # noqa: F401
+    FrameLink,
+    Hello,
+    KVCodecMismatchError,
+    KVIntegrityError,
+    NoLiveDecodeRankError,
+    RouterBusyError,
+    ServeError,
+    TierMismatchError,
+    TierProtocolError,
+    wire_decode,
+    wire_frontend,
+)
+from tpunet_torch.serve.router import Router  # noqa: F401

@@ -1,0 +1,320 @@
+"""Frontend tier: request admission, placement, and failure containment.
+
+The Router owns the PrefillEngine and one FrameLink per decode rank:
+
+**Admission + backpressure.** ``submit()`` raises RouterBusyError when
+every decode slot is occupied AND the admission queue is at its limit: a
+typed, retryable signal instead of unbounded queue growth.
+
+**Placement.** Dispatch picks the decode rank with the most free slots
+("least_loaded", default) or cycles ("round_robin", TPUNET_ROUTER_POLICY).
+Prefill runs at dispatch, the KV block is encoded once, and the encoded
+frame is what ships.
+
+**Failure containment.** A decode rank that errors is marked dead and every
+request in flight on it is re-queued at the front and replayed on a
+surviving rank: from the retained encoded KV block when ``retain_kv=True``
+(no second prefill), else by re-prefilling. Results are released only as
+whole token arrays, so a rank death delays a response but never truncates
+it.
+
+**SLO observability.** TTFT (admission -> FIRST frame) feeds
+``tpunet_req_ttft_us``, the decode-measured TPOT of each RESULT frame
+``tpunet_req_tpot_us``, and the router/prefill queue depths
+``tpunet_serve_queue_depth``.
+
+Re-admission of recovered decode hosts and live weight updates are later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+import socket
+import time
+from collections import deque
+
+import numpy as np
+
+from tpunet_torch import _native, telemetry, transport
+from tpunet_torch.serve import kv as kv_mod
+from tpunet_torch.serve import protocol as proto
+from tpunet_torch.serve.prefill import PrefillEngine
+
+POLICIES = ("least_loaded", "round_robin")
+
+
+class _Rank:
+    def __init__(self, link: proto.FrameLink, index: int):
+        self.link = link
+        self.index = index
+        self.slots = max(1, link.peer.slots)
+        self.inflight: set[int] = set()
+        self.alive = True
+
+    def free(self) -> int:
+        return self.slots - len(self.inflight)
+
+
+class Router:
+    """Admission + placement + failover frontend over N decode ranks."""
+
+    def __init__(self, prefill: PrefillEngine, *, kv_codec: str | None = None,
+                 policy: str | None = None, queue_limit: int | None = None,
+                 retain_kv: bool = True, net: transport.Net | None = None):
+        from tpunet_torch.config import Config
+
+        cfg = Config.from_env()
+        kv_codec = kv_codec or cfg.kv_wire_dtype
+        policy = policy or cfg.router_policy
+        if kv_codec not in kv_mod.KV_CODECS:
+            raise ValueError(f"unknown KV wire codec {kv_codec!r}")
+        if policy not in POLICIES:
+            raise ValueError(
+                f"router policy must be one of {POLICIES}, got {policy!r}")
+        self.prefill = prefill
+        self.kv_codec = kv_codec
+        self.policy = policy
+        self.retain_kv = retain_kv
+        self._queue_limit = queue_limit
+        # KV BLOCK and FIRST/RESULT frames ship on a latency-class link, so
+        # TTFT-bound traffic never queues behind a co-tenant's bulk traffic
+        # in the transport's QoS scheduler.
+        self._net = net or transport.Net(traffic_class="latency")
+        self._ranks: list[_Rank] = []
+        self._rr_next = 0
+        self._queue: deque[dict] = deque()
+        self._recs: dict[int, dict] = {}
+        self._results: dict[int, np.ndarray] = {}
+        self._next_id = 0
+        self.stats = {"submitted": 0, "completed": 0, "rank_failures": 0,
+                      "replays_kv": 0, "replays_prefill": 0, "rejected": 0,
+                      "qos_backpressure": 0}
+        # Every TTFT/TPOT sample (us) fed to the histograms, for exact
+        # percentiles over a run.
+        self.samples: dict[str, list[int]] = {"ttft": [], "tpot": []}
+
+    # -- wiring ------------------------------------------------------------
+
+    @staticmethod
+    def listen(addr: str = "127.0.0.1:0") -> socket.socket:
+        """Bind the tier wiring port; returns the listening socket (query
+        ``.getsockname()`` for the chosen port when addr ends in :0)."""
+        host, _, port = addr.rpartition(":")
+        sock = socket.socket()
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind((host or "127.0.0.1", int(port)))
+        sock.listen(16)
+        return sock
+
+    def _hello(self) -> proto.Hello:
+        return proto.Hello(proto.ROLE_FRONTEND, self.kv_codec, 0,
+                           self.prefill.max_len, self.prefill.model.vocab,
+                           kv_mod.model_signature(self.prefill.model))
+
+    def accept_ranks(self, listen_sock: socket.socket, n: int,
+                     timeout: float = 60.0) -> None:
+        """Accept `n` decode ranks on the wiring socket, running the hello
+        handshake (typed mismatch on every rank) and comm bring-up."""
+        listen_sock.settimeout(timeout)
+        for _ in range(n):
+            conn, _ = listen_sock.accept()
+            try:
+                link = proto.wire_frontend(
+                    conn, self._net, self._hello(),
+                    name=f"decode-{len(self._ranks)}")
+            finally:
+                conn.close()
+            self._ranks.append(_Rank(link, len(self._ranks)))
+
+    # -- admission ---------------------------------------------------------
+
+    def _capacity(self) -> int:
+        return sum(r.slots for r in self._ranks if r.alive)
+
+    def submit(self, prompt, max_new_tokens: int) -> int:
+        """Admit one request; returns its id. Raises RouterBusyError when
+        every decode slot is occupied and the queue is at its limit."""
+        limit = (self._queue_limit if self._queue_limit is not None
+                 else 2 * max(1, self._capacity()))
+        free = sum(r.free() for r in self._ranks if r.alive)
+        if free <= 0 and len(self._queue) >= limit:
+            self.stats["rejected"] += 1
+            raise proto.RouterBusyError(
+                f"all decode slots busy and admission queue at its limit "
+                f"({limit}); retry later")
+        rid = self._next_id
+        self._next_id += 1
+        rec = {"id": rid, "prompt": np.asarray(prompt, np.int32),
+               "max_new": int(max_new_tokens), "payload": None,
+               "t_submit": time.monotonic(), "t_first": None, "rank": None}
+        self._recs[rid] = rec
+        self._queue.append(rec)
+        self.stats["submitted"] += 1
+        self._gauges()
+        self._pump()
+        return rid
+
+    def _gauges(self) -> None:
+        telemetry.serve_queue_depth("router", len(self._queue))
+        telemetry.serve_queue_depth(
+            "prefill", sum(1 for r in self._queue if r["payload"] is None))
+
+    # -- placement + dispatch ----------------------------------------------
+
+    def _pick_rank(self) -> _Rank | None:
+        live = [r for r in self._ranks if r.alive and r.free() > 0]
+        if not live:
+            return None
+        if self.policy == "round_robin":
+            live.sort(key=lambda r: (r.index < self._rr_next, r.index))
+            rank = live[0]
+            self._rr_next = rank.index + 1
+            return rank
+        return max(live, key=lambda r: r.free())  # least loaded
+
+    def _build_payload(self, rec: dict) -> bytes:
+        kv_rows, logits = self.prefill.prefill(rec["prompt"])
+        wire = kv_mod.encode_kv_block(kv_rows, self.kv_codec)
+        n_kv = kv_mod.kv_block_elems(
+            self.prefill.kv_leaf_shapes(len(rec["prompt"])))
+        return proto.pack_block(rec["prompt"], rec["max_new"], wire, n_kv,
+                                logits, self.kv_codec)
+
+    def _pump(self) -> None:
+        """Dispatch queued requests while live capacity exists."""
+        while self._queue:
+            rank = self._pick_rank()
+            if rank is None:
+                if not any(r.alive for r in self._ranks):
+                    raise proto.NoLiveDecodeRankError(
+                        "every decode rank has failed; "
+                        f"{len(self._queue)} request(s) cannot be placed")
+                break  # saturated: wait for retirements
+            rec = self._queue.popleft()
+            payload = rec["payload"]
+            if payload is None:
+                payload = self._build_payload(rec)
+                if self.retain_kv:
+                    # Keep the ENCODED block: a decode death re-ships these
+                    # bytes instead of re-prefilling.
+                    rec["payload"] = payload
+            try:
+                rank.link.send_frame(proto.T_BLOCK, rec["id"], payload)
+            except _native.QosAdmissionError:
+                # The header send is the admission point and nothing reached
+                # the wire: requeue front-of-queue and retry next poll.
+                self.stats["qos_backpressure"] += 1
+                self._queue.appendleft(rec)
+                break
+            except (_native.NativeError, TimeoutError, OSError) as e:
+                self._queue.appendleft(rec)
+                self._fail_rank(rank, e)
+                continue
+            rec["rank"] = rank.index
+            rank.inflight.add(rec["id"])
+        self._gauges()
+
+    # -- completion + failover ---------------------------------------------
+
+    def _fail_rank(self, rank: _Rank, exc: Exception) -> None:
+        """Mark a decode rank dead and replay every request it held, from
+        the retained KV block when present, requeued at the front."""
+        if not rank.alive:
+            return
+        rank.alive = False
+        self.stats["rank_failures"] += 1
+        rank.link.close()
+        for rid in sorted(rank.inflight, reverse=True):
+            if rid in self._results:
+                continue
+            rec = self._recs[rid]
+            rec["rank"] = None
+            if rec["payload"] is not None:
+                self.stats["replays_kv"] += 1
+            else:
+                self.stats["replays_prefill"] += 1
+            self._queue.appendleft(rec)
+        rank.inflight.clear()
+        self._gauges()
+
+    def poll(self) -> None:
+        """Drain every live rank's frames; contain failures."""
+        for rank in self._ranks:
+            if not rank.alive:
+                continue
+            while True:
+                try:
+                    frame = rank.link.poll()
+                except (_native.NativeError, proto.KVIntegrityError,
+                        proto.TierProtocolError, OSError) as e:
+                    self._fail_rank(rank, e)
+                    break
+                if frame is None:
+                    break
+                ftype, rid, payload, _aux = frame
+                rec = self._recs.get(rid)
+                if rec is None or rid in self._results:
+                    continue  # duplicate after a replay
+                if ftype == proto.T_FIRST:
+                    if rec["t_first"] is None:
+                        rec["t_first"] = time.monotonic()
+                        self._observe(
+                            "ttft",
+                            int((rec["t_first"] - rec["t_submit"]) * 1e6))
+                elif ftype == proto.T_RESULT:
+                    tokens, status, tpot_us = proto.unpack_result(payload)
+                    if status != 0:
+                        self._fail_rank(
+                            rank, proto.ServeError(f"decode status {status}"))
+                        break
+                    self._results[rid] = np.asarray(tokens, np.int32)
+                    rec["payload"] = None
+                    rank.inflight.discard(rid)
+                    self.stats["completed"] += 1
+                    if tpot_us > 0:
+                        self._observe("tpot", tpot_us)
+        self._pump()
+
+    def _observe(self, kind: str, us: int) -> None:
+        self.samples[kind].append(us)
+        telemetry.serve_observe(kind, us)
+
+    # -- driving -----------------------------------------------------------
+
+    def outstanding(self) -> int:
+        return len(self._recs) - len(self._results)
+
+    def run(self, timeout: float = 300.0,
+            poll_interval: float = 0.001) -> dict[int, np.ndarray]:
+        """Drive until every admitted request has a result (or raise on
+        timeout / total rank loss); returns {request_id: tokens} for every
+        request admitted since the last run() and clears the slate."""
+        deadline = time.monotonic() + timeout
+        while self.outstanding() > 0:
+            self.poll()
+            if self.outstanding() == 0:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{self.outstanding()} request(s) unfinished after "
+                    f"{timeout}s")
+            time.sleep(poll_interval)
+        results, self._results = self._results, {}
+        self._recs.clear()
+        self._gauges()
+        return results
+
+    def shutdown(self) -> None:
+        """Ask every live decode rank to drain and exit (best effort)."""
+        for rank in self._ranks:
+            if not rank.alive:
+                continue
+            try:
+                rank.link.send_frame(proto.T_SHUTDOWN, 0, timeout=5.0)
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+
+    def close(self) -> None:
+        for rank in self._ranks:
+            rank.link.close()
+        self._net.close()

@@ -1,0 +1,270 @@
+"""Point-to-point transport over libtpunet.so, from numpy host buffers.
+
+``Net`` is one native engine instance: listen/connect/accept rendezvous
+through a 64-byte handle shipped out of band, then chunk-striped
+isend/irecv over parallel TCP streams. Every in-flight request pins its
+buffer until ``test()``/``wait()`` reports done, so the garbage collector
+cannot free memory the native stream workers still read or write.
+
+Device tensors never reach this layer: callers stage them to host memory
+first (the serving tier ships KV blocks as f32 numpy rows).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+from typing import Any
+
+import numpy as np
+
+from tpunet_torch import _native
+
+TRAFFIC_CLASSES = ("latency", "bulk", "control")
+_CODECS = {"f32": 0, "bf16": 1, "int8": 2}
+
+
+def crc32c(data: Any, seed: int = 0) -> int:
+    """CRC32C (Castagnoli) of a bytes-like object via the native library;
+    chain calls by passing the previous value as ``seed``."""
+    lib = _native.load()
+    mv = memoryview(data)
+    if not mv.c_contiguous:
+        raise ValueError("crc32c needs a C-contiguous buffer")
+    buf = bytes(mv) if mv.nbytes else b""
+    return int(lib.tpunet_c_crc32c(buf, mv.nbytes, seed & 0xFFFFFFFF))
+
+
+def codec_wire_bytes(codec: str, n: int) -> int:
+    """Encoded byte count of ``n`` f32 elements under ``codec`` (bf16: 2n;
+    int8: n + 4*ceil(n/256) for the per-block f32 scales)."""
+    if codec not in _CODECS:
+        raise ValueError(f"unknown wire codec {codec!r}")
+    return int(_native.load().tpunet_c_codec_wire_bytes(_CODECS[codec], n))
+
+
+def codec_encode(arr: np.ndarray, codec: str) -> np.ndarray:
+    """Encode a C-contiguous float32 array into its wire form (uint8) with
+    the native codec kernel the compressed collectives run."""
+    if codec not in _CODECS:
+        raise ValueError(f"unknown wire codec {codec!r}")
+    if (not isinstance(arr, np.ndarray) or arr.dtype != np.float32
+            or not arr.flags.c_contiguous):
+        raise ValueError("codec_encode needs a C-contiguous float32 array")
+    lib = _native.load()
+    out = np.empty(codec_wire_bytes(codec, arr.size), np.uint8)
+    _native.check(
+        lib.tpunet_c_codec_encode(_CODECS[codec], arr.ctypes.data, arr.size,
+                                  out.ctypes.data if out.size else None,
+                                  out.size),
+        "codec_encode")
+    return out
+
+
+def codec_decode(wire: np.ndarray, codec: str, n: int) -> np.ndarray:
+    """Decode a wire buffer of ``n`` encoded f32 elements back to float32."""
+    if codec not in _CODECS:
+        raise ValueError(f"unknown wire codec {codec!r}")
+    wire = np.ascontiguousarray(wire, np.uint8)
+    want = codec_wire_bytes(codec, n)
+    if wire.size != want:
+        raise ValueError(f"wire buffer is {wire.size}B but {codec} x {n} "
+                         f"elements encodes to {want}B")
+    lib = _native.load()
+    out = np.empty(n, np.float32)
+    _native.check(
+        lib.tpunet_c_codec_decode(_CODECS[codec],
+                                  wire.ctypes.data if wire.size else None, n,
+                                  out.ctypes.data if out.size else None),
+        "codec_decode")
+    return out
+
+
+def _as_buffer(obj: Any, writable: bool) -> tuple[int, int, Any]:
+    """Return (address, nbytes, pin) for bytes/bytearray/numpy/memoryview."""
+    if isinstance(obj, np.ndarray):
+        if writable and not obj.flags.writeable:
+            raise ValueError("recv buffer must be writable")
+        if not obj.flags.c_contiguous:
+            raise ValueError("buffer must be C-contiguous")
+        return obj.ctypes.data, obj.nbytes, obj
+    mv = memoryview(obj)
+    if writable and mv.readonly:
+        raise ValueError("recv buffer must be writable")
+    if not mv.c_contiguous:
+        raise ValueError("buffer must be C-contiguous")
+    arr_t = ctypes.c_char * mv.nbytes
+    c = arr_t.from_buffer_copy(mv) if mv.readonly else arr_t.from_buffer(mv)
+    return ctypes.addressof(c), mv.nbytes, (c, mv)
+
+
+class Request:
+    """In-flight isend/irecv; poll with test(), or wait()."""
+
+    def __init__(self, net: "Net", req_id: int, pin: Any):
+        self._net = net
+        self._id = req_id
+        self._pin = pin  # keeps the buffer alive until done
+        self._done = False
+        self._nbytes = 0
+
+    def test(self) -> tuple[bool, int]:
+        if self._done:
+            return True, self._nbytes
+        done = ctypes.c_uint8(0)
+        nbytes = ctypes.c_uint64(0)
+        _native.check(
+            self._net._lib.tpunet_c_test(self._net._id, self._id,
+                                         ctypes.byref(done),
+                                         ctypes.byref(nbytes)),
+            "test")
+        if done.value:
+            self._done = True
+            self._nbytes = nbytes.value
+            self._pin = None
+        return self._done, self._nbytes
+
+    def wait(self, timeout: float | None = None) -> int:
+        if self._done:
+            return self._nbytes
+        if timeout is None:
+            # Blocking wait in native code: ctypes drops the GIL and the
+            # condvar park costs no CPU.
+            nbytes = ctypes.c_uint64(0)
+            _native.check(
+                self._net._lib.tpunet_c_wait(self._net._id, self._id,
+                                             ctypes.byref(nbytes)),
+                "wait")
+            self._done = True
+            self._nbytes = nbytes.value
+            self._pin = None
+            return self._nbytes
+        deadline = time.monotonic() + timeout
+        polls = 0
+        while True:
+            done, nbytes = self.test()
+            if done:
+                return nbytes
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"request {self._id} not done within {timeout}s")
+            polls += 1
+            if polls > 200:
+                time.sleep(min(1e-3, 1e-5 * (polls - 200)))
+
+
+class SendComm:
+    def __init__(self, net: "Net", comm_id: int):
+        self._net = net
+        self._id = comm_id
+
+    def isend(self, buf: Any) -> Request:
+        addr, nbytes, pin = _as_buffer(buf, writable=False)
+        req = ctypes.c_size_t(0)
+        _native.check(
+            self._net._lib.tpunet_c_isend(self._net._id, self._id, addr,
+                                          nbytes, ctypes.byref(req)),
+            "isend")
+        return Request(self._net, req.value, pin)
+
+    def send(self, buf: Any, timeout: float | None = None) -> int:
+        return self.isend(buf).wait(timeout)
+
+    def close(self) -> None:
+        _native.check(
+            self._net._lib.tpunet_c_close_send(self._net._id, self._id),
+            "close_send")
+
+
+class RecvComm:
+    def __init__(self, net: "Net", comm_id: int):
+        self._net = net
+        self._id = comm_id
+
+    def irecv(self, buf: Any) -> Request:
+        addr, nbytes, pin = _as_buffer(buf, writable=True)
+        req = ctypes.c_size_t(0)
+        _native.check(
+            self._net._lib.tpunet_c_irecv(self._net._id, self._id, addr,
+                                          nbytes, ctypes.byref(req)),
+            "irecv")
+        return Request(self._net, req.value, pin)
+
+    def close(self) -> None:
+        _native.check(
+            self._net._lib.tpunet_c_close_recv(self._net._id, self._id),
+            "close_recv")
+
+
+class ListenComm:
+    def __init__(self, net: "Net", comm_id: int, handle: bytes):
+        self._net = net
+        self._id = comm_id
+        self.handle = handle  # 64-byte rendezvous blob, ship out of band
+
+    def accept(self) -> RecvComm:
+        rid = ctypes.c_size_t(0)
+        _native.check(
+            self._net._lib.tpunet_c_accept(self._net._id, self._id,
+                                           ctypes.byref(rid)),
+            "accept")
+        return RecvComm(self._net, rid.value)
+
+    def close(self) -> None:
+        _native.check(
+            self._net._lib.tpunet_c_close_listen(self._net._id, self._id),
+            "close_listen")
+
+
+class Net:
+    """One transport engine instance. ``traffic_class`` ("latency" / "bulk"
+    / "control") pins the QoS lane every comm this engine connects carries
+    (the class rides the connect preamble; the far side adopts it). None
+    defers to TPUNET_TRAFFIC_CLASS (default bulk)."""
+
+    def __init__(self, traffic_class: str | None = None) -> None:
+        if traffic_class is not None and traffic_class not in TRAFFIC_CLASSES:
+            raise ValueError(f"traffic_class must be one of "
+                             f"{TRAFFIC_CLASSES}, got {traffic_class!r}")
+        self._lib = _native.load()
+        inst = ctypes.c_size_t(0)
+        _native.check(
+            self._lib.tpunet_c_create_ex((traffic_class or "").encode(),
+                                         ctypes.byref(inst)),
+            "create")
+        self._id = inst.value
+        self.traffic_class = traffic_class
+
+    def listen(self, dev: int = 0) -> ListenComm:
+        h = _native.SocketHandle()
+        lid = ctypes.c_size_t(0)
+        _native.check(
+            self._lib.tpunet_c_listen(self._id, dev, ctypes.byref(h),
+                                      ctypes.byref(lid)),
+            "listen")
+        return ListenComm(self, lid.value, bytes(h.data))
+
+    def connect(self, handle: bytes, dev: int = 0) -> SendComm:
+        if len(handle) != _native.HANDLE_SIZE:
+            raise ValueError(f"handle must be {_native.HANDLE_SIZE} bytes")
+        h = _native.SocketHandle()
+        ctypes.memmove(h.data, handle, _native.HANDLE_SIZE)
+        sid = ctypes.c_size_t(0)
+        _native.check(
+            self._lib.tpunet_c_connect(self._id, dev, ctypes.byref(h),
+                                       ctypes.byref(sid)),
+            "connect")
+        return SendComm(self, sid.value)
+
+    def close(self) -> None:
+        if self._id:
+            inst = ctypes.c_size_t(self._id)
+            self._id = 0
+            _native.check(self._lib.tpunet_c_destroy(ctypes.byref(inst)),
+                          "destroy")
+
+    def __enter__(self) -> "Net":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
