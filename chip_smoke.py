@@ -9,19 +9,39 @@ Phases (each raises on failure; the script then exits non-zero):
            parallel from the sources of this checkout
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
-           bf16 and f32), a ragged length (401), a window (128) and
-           non-causal Sq != Sk; errors, kernel time, bound, plain time and
-           scaled_dot_product_attention's time
+           bf16 and f32), the training shape (B=4, S=2048, 16 kv heads,
+           bf16), a ragged length (401), a window (128) and non-causal
+           Sq != Sk; then the backward kernels flash_dq and flash_dkv
+           against theirs at the training shape (bf16 and f32), GQA (4 kv
+           heads), a ragged length (401), a window (128) and non-causal
+           Sq 384 / Sk 512. Errors, kernel time, bound, plain time and the
+           time of scaled_dot_product_attention (its backward alone for
+           the backward kernels)
   model    the 735M GQA Transformer (d2048, 12 layers, 16 heads, 4 kv
            heads, ff 8192, vocab 32000) on a 512-token prompt, flash impl
            against reference impl, in f32 and bf16
   serve    Router + PrefillEngine on this thread and a DecodeWorker on a
            thread, over loopback libtpunet comms, slots 8, max_len 1024:
-           8 greedy requests of 64 tokens. On the f32 KV wire (the main
-           path; kernel launch counts are read over exactly this run) the
-           tokens must equal a single-host BatchServer's; on the int8 wire
-           the codec's wire ratio is read over a reset() window.
-Then one JSON line describing each kernel and, last, the device line.
+           8 greedy requests of 64 tokens. On the f32 KV wire (the serving
+           path; flash_fwd's launches are counted over exactly this run)
+           the tokens must equal a single-host BatchServer's; on the int8
+           wire the codec's wire ratio is read over a reset() window.
+  train    the training path: the 735M MHA Transformer (d2048, 12 layers,
+           16 heads, ff 8192, vocab 32000; bf16 compute, f32 master
+           weights, flash attention, remat), adamw 3e-4, global batch
+           8 x 2048 over 2 data-parallel ranks spawned on this card and
+           joined by loopback tpunet_torch.distributed. fit() takes 4
+           steps on a packed stream of token ramps read through
+           prefetch_to_device; the gradients are averaged by the DCN
+           all-reduce on the f32 wire. Every kernel counter is zeroed just
+           before fit() and read just after, in each rank. The ranks' final
+           params must be bitwise equal to each other and to a single
+           process that applies the mean of the two half-batch gradients,
+           and the loss must be finite and falling. One more step on a
+           bf16-wire communicator with grad_compression="bf16" must leave
+           the ranks bitwise equal, with a codec wire ratio of 0.5.
+Then one JSON line describing each kernel (launches from the train phase)
+and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are False), so f32 references are true f32.
@@ -31,14 +51,19 @@ Weights are random, drawn from --seed at the flax initialisers' scales.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
 import time
+import traceback
+from pathlib import Path
 
-# Deterministic cuBLAS across the two serving threads' handles.
+# Deterministic cuBLAS across the two serving threads' handles and across
+# the training ranks and their single-process reference.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
@@ -47,10 +72,19 @@ import torch  # noqa: E402
 DEVICE = "cuda"
 MODEL_735M = dict(vocab=32000, d_model=2048, n_layers=12, n_heads=16,
                   n_kv_heads=4, d_ff=8192, mlp_impl="gelu")
+# The headline training configuration of benchmarks/tpu_headline.py: MHA.
+MODEL_TRAIN = dict(vocab=32000, d_model=2048, n_layers=12, n_heads=16,
+                   d_ff=8192, mlp_impl="gelu")
+TRAIN_RANKS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4, 2048, 4, 3e-4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
               torch.float32: 67e12}     # f32 outside the tensor cores
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+# Backward tolerances of tests/test_ops.py's gradient tests, relative to
+# max(1, max|reference|).
+BWD_TOL = {torch.bfloat16: 1e-1, torch.float32: 5e-5}
+COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
+            "flash_dkv": "flash_dkv_launches"}
 
 
 def log(phase: str, **fields) -> None:
@@ -110,23 +144,60 @@ def phase_build() -> None:
     log("build", seconds=times, ptxas=ptxas)
 
 
-def _attention_work(b, sq, sk, h, hk, d, causal, window, dtype):
-    """(flops, bytes) the attention must do on these inputs: 4*B*H*D per
-    unmasked (q, k) pair; each input read once, each output written once."""
+def _pairs(sq, sk, causal, window) -> int:
+    """Unmasked (q, k) pairs of one (batch, head)."""
+    if not causal:
+        return sq * sk
     qp = np.arange(sq)[:, None]
     kp = np.arange(sk)[None, :]
-    keep = np.ones((sq, sk), bool)
-    if causal:
-        keep = qp >= kp
-        if window is not None:
-            keep &= (qp - kp) < window
-    pairs = int(keep.sum())
+    keep = qp >= kp
+    if window is not None:
+        keep &= (qp - kp) < window
+    return int(keep.sum())
+
+
+def _bound(flops, nbytes, dtype) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate of their type and the bytes over HBM's rate."""
+    t_flops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_flops, t_bytes) * 1e3,
+                bound_by="operations" if t_flops >= t_bytes else "bytes")
+
+
+def _attention_work(kind, b, sq, sk, h, hk, d, causal, window, dtype):
+    """(flops, bytes) one kernel must do on these inputs; each input read
+    once, each output written once. Per unmasked (q, k) pair: the forward
+    4*D flops (q.k and p.v), dQ 6*D (q.k, dO.v, dS.k), dK/dV 8*D (q.k,
+    dO.v, P^T.dO, dS^T.q)."""
+    pair_flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[kind] * d
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * b * sq * h * d + 2 * b * sk * hk * d) * item + b * h * sq * 4
-    return 4 * b * h * d * pairs, nbytes
+    q_bytes, kv_bytes = b * sq * h * d * item, b * sk * hk * d * item
+    rows_f32 = b * h * sq * 4  # one f32 per query row: lse, delta
+    if kind == "flash_fwd":  # q, k, v in; o, lse out
+        nbytes = 2 * q_bytes + 2 * kv_bytes + rows_f32
+    elif kind == "flash_dq":  # q, k, v, dO, lse, delta in; dQ out
+        nbytes = 3 * q_bytes + 2 * kv_bytes + 2 * rows_f32
+    else:  # q, k, v, dO, lse, delta in; dK, dV out
+        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * rows_f32
+    return pair_flops * b * h * _pairs(sq, sk, causal, window), nbytes
+
+
+def _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=1):
+    """Random q (and n_q - 1 more q-shaped tensors), k, v on the card."""
+    qs = [torch.randn((b, sq, h, d), generator=gen, device=DEVICE).to(dt)
+          for _ in range(n_q)]
+    k = torch.randn((b, sk, hk, d), generator=gen, device=DEVICE).to(dt)
+    v = torch.randn((b, sk, hk, d), generator=gen, device=DEVICE).to(dt)
+    return (*qs, k, v)
+
+
+def _case(b, sq, sk, hk, causal, window, dt) -> dict:
+    return dict(b=b, sq=sq, sk=sk, h=16, hk=hk, causal=causal, window=window,
+                dtype=str(dt).replace("torch.", ""))
 
 
 def phase_kernels(seed: int) -> dict:
+    """flash_fwd's rows; returns the training shape's row."""
     import torch.nn.functional as F
 
     from tpunet_torch.ops.flash_attention import (flash_attention_fwd,
@@ -134,35 +205,32 @@ def phase_kernels(seed: int) -> dict:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    cases = []
+    cases = [(4, 2048, 2048, 16, True, None, torch.bfloat16)]
     for dt in (torch.bfloat16, torch.float32):
-        cases += [(1, 512, 512, True, None, dt), (8, 512, 512, True, None, dt),
-                  (1, 401, 401, True, None, dt), (1, 512, 512, True, 128, dt),
-                  (2, 384, 512, False, None, dt)]
-    h, hk, d = 16, 4, 128
+        cases += [(1, 512, 512, 4, True, None, dt),
+                  (8, 512, 512, 4, True, None, dt),
+                  (1, 401, 401, 4, True, None, dt),
+                  (1, 512, 512, 4, True, 128, dt),
+                  (2, 384, 512, 4, False, None, dt)]
+    h, d = 16, 128
     rows = []
-    for b, sq, sk, causal, window, dt in cases:
-        q = torch.randn((b, sq, h, d), generator=gen, device=DEVICE).to(dt)
-        k = torch.randn((b, sk, hk, d), generator=gen, device=DEVICE).to(dt)
-        v = torch.randn((b, sk, hk, d), generator=gen, device=DEVICE).to(dt)
+    for b, sq, sk, hk, causal, window, dt in cases:
+        q, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt)
         o, lse = flash_attention_fwd(q, k, v, causal, window)
         o_ref, lse_ref = flash_attention_plain(q, k, v, causal, window)
         torch.cuda.synchronize()
         err_o = float((o.float() - o_ref.float()).abs().max())
         err_lse = float((lse - lse_ref).abs().max())
         ok = err_o <= TOL[dt] and err_lse <= TOL[dt]
-        flops, nbytes = _attention_work(b, sq, sk, h, hk, d, causal, window,
-                                        dt)
-        t_flops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
-        row = dict(b=b, sq=sq, sk=sk, causal=causal, window=window,
-                   dtype=str(dt).replace("torch.", ""), err_o=err_o,
+        row = dict(kernel="flash_fwd",
+                   **_case(b, sq, sk, hk, causal, window, dt), err_o=err_o,
                    err_lse=err_lse, tol=TOL[dt], ok=ok,
                    ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal,
                                                           window)),
                    plain_ms=cuda_ms(lambda: flash_attention_plain(
                        q, k, v, causal, window)),
-                   bound_ms=max(t_flops, t_bytes) * 1e3,
-                   bound_by="operations" if t_flops >= t_bytes else "bytes",
+                   **_bound(*_attention_work("flash_fwd", b, sq, sk, h, hk,
+                                             d, causal, window, dt), dt),
                    library_ms=None)
         if window is None:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -171,11 +239,90 @@ def phase_kernels(seed: int) -> dict:
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
         rows.append(row)
         log("kernels", **row)
+        del q, k, v, o, lse, o_ref, lse_ref
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
                              f"{bad}")
-    return rows[0]  # the main path's shape: B=1, S=512, bf16, causal
+    return rows[0]  # the training shape: B=4, S=2048, MHA, bf16, causal
+
+
+def _sdpa_backward_ms(q, k, v, do, causal) -> float:
+    """Time of scaled_dot_product_attention's backward alone (dQ, dK and dV
+    together) on the same inputs and cotangent."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+
+
+def phase_bwd_kernels(seed: int) -> dict:
+    """flash_dq's and flash_dkv's rows; returns {kernel: training-shape
+    row}."""
+    from tpunet_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
+                                                  attention_delta,
+                                                  flash_attention_dkv_plain,
+                                                  flash_attention_dq_plain,
+                                                  flash_attention_fwd)
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    cases = [(4, 2048, 2048, 16, True, None, torch.bfloat16),
+             (4, 2048, 2048, 16, True, None, torch.float32),
+             (1, 2048, 2048, 4, True, None, torch.bfloat16),
+             (1, 401, 401, 4, True, None, torch.bfloat16),
+             (1, 1024, 1024, 16, True, 128, torch.bfloat16),
+             (2, 384, 512, 4, False, None, torch.bfloat16),
+             (2, 384, 512, 4, False, None, torch.float32)]
+    h, d = 16, 128
+    rows, main = [], {}
+    for b, sq, sk, hk, causal, window, dt in cases:
+        q, do, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=2)
+        o, lse = flash_attention_fwd(q, k, v, causal, window)
+        delta = attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, causal, window)
+        got = {"flash_dq": (_launch_dq(*args),),
+               "flash_dkv": _launch_dkv(*args)}
+        want = {"flash_dq": (flash_attention_dq_plain(*args),),
+                "flash_dkv": flash_attention_dkv_plain(*args)}
+        torch.cuda.synchronize()
+        library = None if window is not None else _sdpa_backward_ms(
+            q, k, v, do, causal)
+        launch = {"flash_dq": _launch_dq, "flash_dkv": _launch_dkv}
+        plain = {"flash_dq": flash_attention_dq_plain,
+                 "flash_dkv": flash_attention_dkv_plain}
+        for name in ("flash_dq", "flash_dkv"):
+            err, scale = 0.0, 1.0
+            for g, w in zip(got[name], want[name]):
+                err = max(err, float((g.float() - w.float()).abs().max()))
+                scale = max(scale, float(w.float().abs().max()))
+            again = launch[name](*args)
+            deterministic = all(torch.equal(x, y) for x, y in zip(
+                got[name], again if isinstance(again, tuple) else (again,)))
+            row = dict(kernel=name, **_case(b, sq, sk, hk, causal, window, dt),
+                       max_abs_err=err, ref_scale=scale,
+                       tol=BWD_TOL[dt] * scale,
+                       ok=err <= BWD_TOL[dt] * scale and deterministic,
+                       deterministic=deterministic,
+                       ms=cuda_ms(lambda: launch[name](*args)),
+                       plain_ms=cuda_ms(lambda: plain[name](*args)),
+                       **_bound(*_attention_work(name, b, sq, sk, h, hk, d,
+                                                 causal, window, dt), dt),
+                       library_ms=library)
+            rows.append(row)
+            log("kernels", **row)
+            main.setdefault(name, row)
+        del q, do, k, v, o, lse, delta, args, got, want
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"a backward kernel disagrees with its plain "
+                             f"version: {bad}")
+    return main
 
 
 def _prompts(seed: int, n: int, vocab: int):
@@ -339,6 +486,248 @@ def phase_serve(seed: int, params_bf16) -> int:
     return counts["flash_fwd"]
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ramp_data(seed: int) -> str:
+    """A learnable token stream: ramps (t, t+1, ...) of random starts and
+    lengths, packed into a flat file under build/ by pack_documents; about
+    48 windows of TRAIN_SEQ + 1 tokens."""
+    from tpunet_torch.data import pack_documents
+
+    vocab = MODEL_TRAIN["vocab"]
+    rng = np.random.default_rng(seed + 3)
+    docs, total = [], 0
+    while total < 48 * TRAIN_SEQ + 1:
+        n = int(rng.integers(64, 1024))
+        docs.append((int(rng.integers(0, vocab)) + np.arange(n)) % vocab)
+        total += n
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    path.mkdir(parents=True, exist_ok=True)
+    path = str(path / "ramps.bin")
+    pack_documents(iter(docs), path, vocab=vocab)
+    return path
+
+
+def _train_setup(seed: int):
+    """(model, tx, state) of the headline training configuration; the f32
+    master weights come from `seed`, identically in every process."""
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.train import adamw, create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Transformer(compute_dtype=torch.bfloat16, attn_impl="flash",
+                        remat=True, device="meta", **MODEL_TRAIN)
+    tx = adamw(TRAIN_LR)
+    state, _ = create_train_state(model, seed, None, tx, device=DEVICE)
+    return model, tx, state
+
+
+def _params_crc(params: dict) -> int:
+    """CRC32C of the flat f32 params, in state_dict order."""
+    from tpunet_torch.transport import crc32c
+
+    crc = 0
+    for t in params.values():
+        crc = crc32c(t.detach().cpu().numpy(), crc)
+    return crc
+
+
+def _train_batches(path: str, rank: int, seed: int):
+    from tpunet_torch.data import TokenDataset, token_batches
+
+    ds = TokenDataset(path, seq=TRAIN_SEQ, vocab=MODEL_TRAIN["vocab"])
+    return token_batches(ds, TRAIN_BATCH, rank=rank, world=TRAIN_RANKS,
+                         seed=seed)
+
+
+def _train_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    from tpunet_torch import distributed, interop, telemetry
+    from tpunet_torch.ops.flash_attention import flash_attention
+    from tpunet_torch.train import fit, make_train_step
+
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, TRAIN_RANKS)
+    model, tx, state = _train_setup(seed)
+    step = make_train_step(model, tx, cross_host=True)
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    interop.dcn_reduce_stats_reset()
+    for attr in COUNTERS.values():
+        setattr(flash_attention, attr, 0)
+    t0 = time.perf_counter()
+    state = fit(state, step, _train_batches(path, rank, seed),
+                steps=TRAIN_STEPS, log_every=1, log_fn=logs.append,
+                prefetch=2, prefetch_device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(flash_attention, a) for n, a in COUNTERS.items()}
+    out = dict(rank=rank, params=sum(t.numel() for t in state.params.values()),
+               losses=[m["loss"] for m in logs],
+               step_s=[1.0 / m["steps_per_s"] for m in logs], fit_wall_s=wall,
+               launches=launches, all_reduce=interop.dcn_reduce_stats(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               crc=_params_crc(state.params))
+    distributed.finalize()
+
+    # One more step with bf16 on the wire: the trainer ships f32 and the
+    # ring halves it at the hops.
+    distributed.initialize(f"127.0.0.1:{ports[1]}", rank, TRAIN_RANKS,
+                           wire_dtype="bf16")
+    step16 = make_train_step(model, tx, cross_host=True,
+                             grad_compression="bf16")
+    x, y = next(_train_batches(path, rank, seed + 1))
+    telemetry.reset()
+    state, loss16 = step16(state, x, y, 0)
+    m = telemetry.metrics()
+    out.update(bf16_loss=float(loss16), bf16_crc=_params_crc(state.params),
+               bf16_wire_ratio=next(iter(
+                   m["tpunet_codec_wire_ratio"].values())))
+    distributed.finalize()
+    return out
+
+
+def _train_rank(rank: int, ports, path: str, seed: int, q) -> None:
+    """Entry point of a spawned training rank; reports to `q`."""
+    try:
+        q.put((rank, "OK", _train_rank_body(rank, ports, path, seed)))
+    except Exception:  # noqa: BLE001 — reported to the parent
+        q.put((rank, "FAIL", traceback.format_exc()))
+
+
+def _train_reference(path: str, seed: int):
+    """The same steps in one process: each rank's half-batch gradients
+    computed apart, then (g0 + g1) / 2 applied. Returns (params CRC,
+    per-step [loss of rank 0's half, loss of rank 1's half])."""
+    from tpunet_torch.train.trainer import _make_loss_fn, _value_and_grads
+
+    model, _, state = _train_setup(seed)
+    loss_fn = _make_loss_fn()
+    batches = [list(itertools.islice(_train_batches(path, r, seed),
+                                     TRAIN_STEPS)) for r in range(TRAIN_RANKS)]
+    losses = []
+    for i in range(TRAIN_STEPS):
+        net = model.bind(state.params, trainable=True)
+        halves, step_losses = [], []
+        for r in range(TRAIN_RANKS):
+            x, y = (torch.as_tensor(a, device=DEVICE).long()
+                    for a in batches[r][i])
+            loss, grads = _value_and_grads(net, state.params, x, y, loss_fn,
+                                           None)
+            halves.append(grads)
+            step_losses.append(float(loss))
+        for n, p in state.params.items():
+            p.grad = (halves[0][n] + halves[1][n]) / 2
+        del halves
+        state.opt_state.step()
+        for p in state.params.values():
+            p.grad = None
+        losses.append(step_losses)
+    return _params_crc(state.params), losses
+
+
+def _mfu_flops_per_token(n_params: int) -> float:
+    """Analytic train FLOPs per token of benchmarks/tpu_headline.py: 6 per
+    matmul parameter (the embedding table is a lookup and excluded) plus
+    attention's 12 * L * S * d."""
+    cfg = MODEL_TRAIN
+    n_matmul = n_params - cfg["vocab"] * cfg["d_model"]
+    return 6 * n_matmul + 12 * cfg["n_layers"] * TRAIN_SEQ * cfg["d_model"]
+
+
+def phase_train(seed: int) -> dict:
+    """The training path on TRAIN_RANKS spawned ranks; returns the summed
+    kernel launch counts of the ranks' fit() runs."""
+    import multiprocessing as mp
+
+    path = _ramp_data(seed)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    ports = (_free_port(), _free_port())
+    procs = [ctx.Process(target=_train_rank, args=(r, ports, path, seed, q))
+             for r in range(TRAIN_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        for _ in procs:
+            rank, status, payload = q.get(timeout=900)
+            if status != "OK":
+                raise RuntimeError(f"training rank {rank} failed:\n{payload}")
+            res[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_wall = time.perf_counter() - t0
+    ref_crc, ref_losses = _train_reference(path, seed)
+    torch.cuda.empty_cache()
+
+    ranks = [res[r] for r in range(TRAIN_RANKS)]
+    n_params = ranks[0]["params"]
+    steady = float(np.mean([np.mean(r["step_s"][1:]) for r in ranks]))
+    tokens_per_rank = TRAIN_BATCH * TRAIN_SEQ / steady
+    flops_tok = _mfu_flops_per_token(n_params)
+    global_loss = [float(np.mean(x)) for x in zip(*(r["losses"]
+                                                      for r in ranks))]
+    rank_losses = [list(x) for x in zip(*(r["losses"] for r in ranks))]
+    summary = dict(
+        params=n_params, ranks=TRAIN_RANKS, batch_per_rank=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=global_loss,
+        rank_losses=rank_losses, reference_losses=ref_losses,
+        step_s=[r["step_s"] for r in ranks], steady_step_s=steady,
+        tokens_per_s_per_rank=tokens_per_rank,
+        tokens_per_s=tokens_per_rank * TRAIN_RANKS,
+        flops_per_token=flops_tok,
+        mfu=tokens_per_rank * TRAIN_RANKS * flops_tok
+        / PEAK_FLOPS[torch.bfloat16],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        all_reduce=[r["all_reduce"] for r in ranks],
+        all_reduce_s_per_step=[r["all_reduce"]["seconds"] / TRAIN_STEPS
+                               for r in ranks],
+        fit_wall_s=[r["fit_wall_s"] for r in ranks], ranks_wall_s=ranks_wall,
+        launches=[r["launches"] for r in ranks],
+        crc=[r["crc"] for r in ranks], reference_crc=ref_crc,
+        bf16_wire_ratio=[r["bf16_wire_ratio"] for r in ranks],
+        bf16_crc=[r["bf16_crc"] for r in ranks],
+        bf16_loss=[r["bf16_loss"] for r in ranks])
+    log("train", **summary)
+    if len(set(summary["crc"])) != 1:
+        raise AssertionError("the data-parallel ranks' params differ")
+    if summary["crc"][0] != ref_crc or rank_losses != ref_losses:
+        raise AssertionError("the ranks differ from the single-process "
+                             "half-batch-mean reference")
+    if not all(np.isfinite(global_loss)) or global_loss[-1] >= global_loss[0]:
+        raise AssertionError(f"loss not finite and falling: {global_loss}")
+    if len(set(summary["bf16_crc"])) != 1 or any(
+            r != 0.5 for r in summary["bf16_wire_ratio"]):
+        raise AssertionError("bf16-wire step: ranks differ or wire ratio "
+                             f"{summary['bf16_wire_ratio']} != 0.5")
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in COUNTERS}
+    layer_steps = TRAIN_RANKS * TRAIN_STEPS * MODEL_TRAIN["n_layers"]
+    want = {"flash_fwd": 2 * layer_steps, "flash_dq": layer_steps,
+            "flash_dkv": layer_steps}
+    if launches != want:
+        raise AssertionError(f"kernel launches on the train path {launches}, "
+                             f"expected {want}")
+    return launches
+
+
+def _kernel_entry(name, source, replaces, launches, row, err_key) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row[err_key], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -352,17 +741,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
     phase_build()
-    main_row = phase_kernels(args.seed)
+    fwd_row = phase_kernels(args.seed)
+    bwd_rows = phase_bwd_kernels(args.seed)
     params = phase_model(args.seed)
-    launches = phase_serve(args.seed, params)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpunet_torch/csrc/flash_fwd.cu",
-        "replaces": "tpunet/ops/flash_attention.py:73",
-        "launches": launches, "max_abs_err": main_row["err_o"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}), flush=True)
+    phase_serve(args.seed, params)
+    del params
+    torch.cuda.empty_cache()
+    launches = phase_train(args.seed)
+    src = "tpunet_torch/csrc/"
+    print(json.dumps({"kernels": [
+        _kernel_entry("flash_fwd", src + "flash_fwd.cu",
+                      "tpunet/ops/flash_attention.py:73",
+                      launches["flash_fwd"], fwd_row, "err_o"),
+        _kernel_entry("flash_dq", src + "flash_bwd.cu",
+                      "tpunet/ops/flash_attention.py:136",
+                      launches["flash_dq"], bwd_rows["flash_dq"],
+                      "max_abs_err"),
+        _kernel_entry("flash_dkv", src + "flash_bwd.cu",
+                      "tpunet/ops/flash_attention.py:183",
+                      launches["flash_dkv"], bwd_rows["flash_dkv"],
+                      "max_abs_err")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,7 +14,11 @@ import pytest
 import torch
 
 from tpunet_torch.models import Transformer, init_params
-from tpunet_torch.ops.flash_attention import (flash_attention,
+from tpunet_torch.ops.flash_attention import (attention_delta,
+                                              flash_attention,
+                                              flash_attention_bwd,
+                                              flash_attention_dkv_plain,
+                                              flash_attention_dq_plain,
                                               flash_attention_fwd,
                                               flash_attention_plain)
 
@@ -77,3 +81,107 @@ def test_flash_model_on_card_matches_cpu_reference(card):
         got = flash.bind({k: t.to(card) for k, t in params.items()})(
             toks.to(card))
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# (b, sq, sk, h, hk, d, causal, window, dtype): head dims 64/128/256, GQA,
+# ragged lengths, a window and non-causal Sq != Sk. Tolerances are those of
+# tests/test_ops.py's gradient tests (5e-5 f32, 1e-1 bf16), taken relative
+# to max(1, max|reference|).
+BWD_CASES = [
+    (2, 137, 137, 16, 4, 128, True, None, torch.float32),
+    (2, 128, 128, 8, 8, 64, True, None, torch.float32),
+    (1, 401, 401, 16, 4, 128, True, 128, torch.bfloat16),
+    (2, 96, 160, 8, 2, 128, False, None, torch.float32),
+    (1, 70, 70, 4, 1, 256, True, 16, torch.bfloat16),
+    (1, 160, 96, 4, 2, 64, True, None, torch.float32),
+    (2, 256, 256, 16, 16, 128, True, None, torch.bfloat16),
+]
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-1}
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,causal,window,dtype", BWD_CASES)
+def test_flash_bwd_kernels_match_plain_versions(card, b, sq, sk, h, hk, d,
+                                                causal, window, dtype):
+    rng = np.random.default_rng(sq * 7 + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(card, dtype) for s in (
+        (b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d), (b, sq, h, d)))
+    o, lse = flash_attention_fwd(q, k, v, causal, window)
+    delta = attention_delta(o, do)
+    before = (flash_attention.flash_dq_launches,
+              flash_attention.flash_dkv_launches)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_dq_launches,
+            flash_attention.flash_dkv_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want_dq = flash_attention_dq_plain(q, k, v, do, lse, delta, causal,
+                                       window)
+    want_dk, want_dv = flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                 causal, window)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        ref = want.float()
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got.float() - ref).abs().max()) <= BWD_TOL[dtype] * scale
+    # No atomics: a second run is bitwise the first.
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    for x, y in zip((dq, dk, dv), again):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_on_card_matches_cpu(card):
+    """Gradients through `flash_attention` on the card (both backward
+    kernels) against the plain route on the CPU, f32."""
+    rng = np.random.default_rng(3)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((2, 45, 4, 64), (2, 45, 2, 64), (2, 45, 2, 64),
+                            (2, 45, 4, 64)))
+    grads = []
+    for dev in ("cpu", card):
+        xs = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*xs, True)
+        grads.append(torch.autograd.grad(out, xs, g.to(dev)))
+    for a, b in zip(*grads):
+        assert float((a - b.cpu()).abs().max()) <= 5e-5
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One adamw step of a tiny f32 Transformer (flash attention, remat)
+    on the card against the same step on the CPU: loss and gradients
+    within f32 rounding; after the step every parameter within 2*lr (the
+    most one adam step moves an element, whatever its gradient's sign)."""
+    from tpunet_torch.train import adamw, create_train_state, make_train_step
+    from tpunet_torch.train.trainer import _make_loss_fn, _value_and_grads
+
+    cfg = dict(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+               d_ff=128, compute_dtype=torch.float32, attn_impl="flash",
+               remat=True)
+    model = Transformer(device="meta", **cfg)
+    params = init_params(model, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 64, (2, 45))
+    labels = np.roll(toks, -1, axis=1)
+    lr = 1e-3
+    out = {}
+    for dev in ("cpu", card):
+        state, net = create_train_state(model, 0, None, adamw(lr),
+                                        params=params, device=dev)
+        x, y = (torch.as_tensor(a, device=dev) for a in (toks, labels))
+        before = flash_attention.flash_dq_launches
+        loss, grads = _value_and_grads(net, state.params, x, y,
+                                       _make_loss_fn(), None)
+        launched = flash_attention.flash_dq_launches - before
+        state, step_loss = make_train_step(model)(state, toks, labels, 0)
+        out[str(dev)] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                         {k: p.detach().cpu() for k, p in
+                          state.params.items()}, launched, float(step_loss))
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[3] == 0 and gpu[3] == cfg["n_layers"]
+    assert abs(cpu[0] - gpu[0]) <= 1e-5 * abs(cpu[0])
+    assert cpu[0] == cpu[4] and gpu[0] == gpu[4]
+    for name, g in cpu[1].items():
+        scale = max(float(g.abs().max()), 1e-6)
+        assert float((gpu[1][name] - g).abs().max()) <= 1e-4 * scale, name
+    for name, p in cpu[2].items():
+        assert float((gpu[2][name] - p).abs().max()) <= 2 * lr * 1.001, name

@@ -122,7 +122,7 @@ def test_per_row_decode_step_matches_jax(s):
     want, mut = _jax_apply(dm, {"params": params, "cache": jcache},
                            jnp.asarray(toks), mutable=["cache"])
     with torch.no_grad():
-        got = tm.bind(sd)(torch.from_numpy(toks), cache)
+        got = tm.bind(sd)(torch.from_numpy(toks), cache=cache)
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
     assert np.isnan(want[2]).all() == (s > 1)
@@ -146,8 +146,8 @@ def test_lockstep_decode_step_matches_jax():
                          jnp.asarray(toks[:, :1]), mutable=["cache"])
     net = tm.bind(sd)
     with torch.no_grad():
-        net(torch.from_numpy(toks), cache)
-        got = net(torch.from_numpy(toks[:, :1]), cache)
+        net(torch.from_numpy(toks), cache=cache)
+        got = net(torch.from_numpy(toks[:, :1]), cache=cache)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=TOL, rtol=TOL)
 

@@ -121,6 +121,21 @@ def load() -> ctypes.CDLL:
         "tpunet_c_codec_wire_bytes": ([i32, u64], u64),
         "tpunet_c_codec_encode": ([i32, vp, u64, vp, u64], i32),
         "tpunet_c_codec_decode": ([i32, vp, u64, vp], i32),
+        # Ring communicator (the collectives the data-parallel step uses).
+        "tpunet_comm_create_ex": ([ctypes.c_char_p, i32, i32,
+                                   ctypes.c_char_p, ctypes.c_char_p,
+                                   ctypes.c_char_p, P(u)], i32),
+        "tpunet_comm_wire_dtype": ([u, P(i32)], i32),
+        "tpunet_comm_destroy": ([P(u)], i32),
+        "tpunet_comm_all_reduce": ([u, vp, vp, u64, i32, i32], i32),
+        "tpunet_comm_iall_reduce": ([u, vp, vp, u64, i32, i32, P(u64)],
+                                    i32),
+        "tpunet_comm_ticket_wait": ([u, u64], i32),
+        "tpunet_comm_ticket_test": ([u, u64, P(u8)], i32),
+        "tpunet_comm_reduce_scatter": ([u, vp, vp, u64, i32, i32], i32),
+        "tpunet_comm_all_gather": ([u, vp, vp, u64], i32),
+        "tpunet_comm_broadcast": ([u, vp, u64, i32], i32),
+        "tpunet_comm_barrier": ([u], i32),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)

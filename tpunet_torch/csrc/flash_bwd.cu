@@ -1,0 +1,517 @@
+// Flash-attention backward for Hopper (sm_90a), plain C ABI for ctypes.
+//
+// Two kernels, replacing the TPU kernels of tpunet/ops/flash_attention.py:
+//   * flash_dq_kernel  <- _flash_dq_kernel  (launched by _flash_bwd):
+//       dQ_i = sum_j dS_ij K_j, one block per (batch*head, q tile), K/V
+//       tiles streamed through shared memory with the forward's causal and
+//       sliding-window k-loop bounds;
+//   * flash_dkv_kernel <- _flash_dkv_kernel:
+//       dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
+//       (batch*kv head, k tile), looping over the GQA group's q heads and
+//       the q tiles (causal start k0 / BQ, window end
+//       min(n_qt, cdiv(k0 + BK - 1 + window, BQ))). The whole group is summed
+//       inside the block in f32 and dK/dV are written once: no atomics, so
+//       the result is bitwise deterministic run to run.
+// Both recompute P = exp(scale * q.k - lse) from the forward's per-row lse
+// (B*H, Sq) f32, and take delta = rowsum(dO * O) (B*H, Sq) f32 from the
+// wrapper; dS = P * (dP - delta) * scale with dP = dO . V^T, exactly the TPU
+// kernels' arithmetic. Masked entries (causal/window) give P = 0, as
+// exp(NEG_INF - lse) does on the TPU; ragged tails (q or k positions past
+// Sq/Sk) are zeroed in shared memory and forced to P = 0.
+//
+// Layout: q/dO are (B, Sq, H, D) and k/v (B, Sk, Hkv, D), read through
+// their batch/sequence/head strides (unit stride in D), GQA through kv head
+// h / group, so neither a repeat nor a transpose copy exists. dQ is written
+// contiguous (B, Sq, H, D), dK/dV contiguous (B, Sk, Hkv, D), each in its
+// input's dtype.
+//
+// Numerics: inputs become f32 on their way into shared memory and every
+// product is an f32 FMA (no TF32), the counterpart of Precision.HIGHEST for
+// f32 inputs; bf16 inputs accumulate in f32 as well.
+//
+// What bounds it: at the training shape (S = 2048, D = 128) the backward
+// does 6*D (dQ) and 8*D (dK/dV) flops per unmasked (q, k) pair against a few
+// bytes per row, so arithmetic bounds it. This first version runs on the
+// CUDA cores from shared memory with 256-thread blocks (32 row groups x 8
+// column lanes) and register tiles of RPT rows x CPT score columns and
+// RPT x D/8 output columns per thread, so each shared-memory load feeds
+// several FMAs. Shared memory holds the f32 tiles; dK/dV accumulators stay
+// in registers because each thread owns only RPT (2 or 1) k rows. Tensor
+// cores (mma/wgmma), TMA and pipelining are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 32 row groups x 8 column lanes
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, H, Hkv, Sq, Sk, D;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh;
+  int causal;
+  int window;  // 0 = no window
+  float scale;
+};
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// True when query qpos attends key kpos (both in range).
+__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+  if (!p.causal) return true;
+  bool keep = qpos >= kpos;
+  if (p.window > 0) keep = keep && (qpos - kpos) < p.window;
+  return keep;
+}
+
+// ---------------------------------------------------------------- dQ ----
+
+template <int DMAX, int BQ, int BK>
+struct DqSmem {
+  static constexpr int kRowStride = DMAX + 1;  // sQ / sdO rows
+  static constexpr int kTStride = BK + 1;      // sKt / sVt rows (transposed)
+  static constexpr int kSStride = BK + 8;      // sdS rows
+  static constexpr int kQ = BQ * kRowStride;
+  static constexpr int kKt = DMAX * kTStride;
+  static constexpr int kS = BQ * kSStride;
+  static constexpr size_t kBytes = sizeof(float) * (2 * kQ + 2 * kKt + kS);
+};
+
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const Params p) {
+  constexpr int RPT = BQ / 32;   // q rows per thread
+  constexpr int CPT = BK / 8;    // score columns per thread
+  constexpr int DPT = DMAX / 8;  // dQ columns per thread
+  using S = DqSmem<DMAX, BQ, BK>;
+
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + S::kQ;
+  float* sKt = sdO + S::kQ;
+  float* sVt = sKt + S::kKt;
+  float* sdS = sVt + S::kKt;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;
+  const int ty = tid >> 3;
+  const int D = p.D;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int e = tid; e < BQ * D; e += kThreads) {
+    const int r = e / D, d = e - r * D;
+    const int qpos = q0 + r;
+    const bool ok = qpos < p.Sq;
+    sQ[r * S::kRowStride + d] = ok ? load_f32(qg + qpos * p.q_ss + d) : 0.f;
+    sdO[r * S::kRowStride + d] = ok ? load_f32(dog + qpos * p.do_ss + d) : 0.f;
+  }
+  float lse[RPT], delta[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qpos = q0 + ty + 32 * i;
+    const bool ok = qpos < p.Sq;
+    lse[i] = ok ? p.lse[(long long)bh * p.Sq + qpos] : 0.f;
+    delta[i] = ok ? p.delta[(long long)bh * p.Sq + qpos] : 0.f;
+  }
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+
+  // The forward's k-loop bounds.
+  const int n_kt = (p.Sk + BK - 1) / BK;
+  int kt_end = n_kt;
+  if (p.causal) kt_end = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  int kt_start = 0;
+  if (p.causal && p.window > 0) kt_start = max(q0 - (p.window - 1), 0) / BK;
+
+  for (int kt = kt_start; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // previous tile's readers are done with sKt/sVt/sdS
+    for (int e = tid; e < BK * D; e += kThreads) {
+      const int c = e / D, d = e - c * D;
+      const int kpos = k0 + c;
+      const bool ok = kpos < p.Sk;
+      sKt[d * S::kTStride + c] = ok ? load_f32(kg + kpos * p.k_ss + d) : 0.f;
+      sVt[d * S::kTStride + c] = ok ? load_f32(vg + kpos * p.v_ss + d) : 0.f;
+    }
+    __syncthreads();
+
+    float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; ++d) {
+      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        qv[i] = sQ[(ty + 32 * i) * S::kRowStride + d];
+        ov[i] = sdO[(ty + 32 * i) * S::kRowStride + d];
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        kv[j] = sKt[d * S::kTStride + tx + 8 * j];
+        vv[j] = sVt[d * S::kTStride + tx + 8 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = ty + 32 * i;
+      const int qpos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int c = tx + 8 * j;
+        const int kpos = k0 + c;
+        float pr = 0.f;
+        if (qpos < p.Sq && kpos < p.Sk && visible(p, qpos, kpos)) {
+          pr = expf(p.scale * s[i][j] - lse[i]);
+        }
+        sdS[r * S::kSStride + c] = pr * (dp[i][j] - delta[i]) * p.scale;
+      }
+    }
+    __syncthreads();
+
+    const int c_end = min(BK, p.Sk - k0);
+#pragma unroll 2
+    for (int c = 0; c < c_end; ++c) {
+      float ds[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) ds[i] = sdS[(ty + 32 * i) * S::kSStride + c];
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const float kv = sKt[(tx + 8 * j) * S::kTStride + c];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
+      }
+    }
+  }
+
+  // dQ is contiguous (B, Sq, H, D).
+  T* dqg = static_cast<T*>(p.dq) + ((long long)b * p.Sq * p.H + h) * D;
+  const long long dq_ss = (long long)p.H * D;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qpos = q0 + ty + 32 * i;
+    if (qpos >= p.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = tx + 8 * j;
+      if (d < D) store_from_f32(dqg + qpos * dq_ss + d, acc[i][j]);
+    }
+  }
+}
+
+// -------------------------------------------------------------- dK/dV ----
+
+template <int DMAX, int BK, int BQ>
+struct DkvSmem {
+  static constexpr int kRowStride = DMAX + 1;  // sK / sV rows
+  static constexpr int kTStride = BQ + 1;      // sQt / sdOt rows (transposed)
+  static constexpr int kPStride = BQ + 8;      // sP / sdS rows
+  static constexpr int kK = BK * kRowStride;
+  static constexpr int kQt = DMAX * kTStride;
+  static constexpr int kP = BK * kPStride;
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kK + 2 * kQt + 2 * kP + 2 * BQ);
+};
+
+template <typename T, int DMAX, int BK, int BQ>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const Params p) {
+  constexpr int RPT = BK / 32;   // k rows per thread
+  constexpr int CPT = BQ / 8;    // score (q) columns per thread
+  constexpr int DPT = DMAX / 8;  // dK/dV columns per thread
+  using S = DkvSmem<DMAX, BK, BQ>;
+
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + S::kK;
+  float* sQt = sV + S::kK;
+  float* sdOt = sQt + S::kQt;
+  float* sP = sdOt + S::kQt;
+  float* sdS = sP + S::kP;
+  float* sLse = sdS + S::kP;
+  float* sDelta = sLse + BQ;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;
+  const int ty = tid >> 3;
+  const int D = p.D;
+  const int k0 = blockIdx.x * BK;
+  const int bkv = blockIdx.y;
+  const int b = bkv / p.Hkv;
+  const int hk = bkv % p.Hkv;
+  const int group = p.H / p.Hkv;
+
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  for (int e = tid; e < BK * D; e += kThreads) {
+    const int c = e / D, d = e - c * D;
+    const int kpos = k0 + c;
+    const bool ok = kpos < p.Sk;
+    sK[c * S::kRowStride + d] = ok ? load_f32(kg + kpos * p.k_ss + d) : 0.f;
+    sV[c * S::kRowStride + d] = ok ? load_f32(vg + kpos * p.v_ss + d) : 0.f;
+  }
+
+  float dk[RPT][DPT], dv[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  // The TPU kernel's q-loop bounds: the first q tile holding a row that sees
+  // key k0 (causal), and the last one whose newest row still sees the
+  // tile's oldest key (window).
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  const int it_start = p.causal ? k0 / BQ : 0;
+  int it_end = n_qt;
+  if (p.causal && p.window > 0) {
+    it_end = min(n_qt, (k0 + BK - 1 + p.window + BQ - 1) / BQ);
+  }
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const long long bh = (long long)b * p.H + h;
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int it = it_start; it < it_end; ++it) {
+      const int q0 = it * BQ;
+      __syncthreads();  // previous tile's readers are done with sQt..sDelta
+      for (int e = tid; e < BQ * D; e += kThreads) {
+        const int r = e / D, d = e - r * D;
+        const int qpos = q0 + r;
+        const bool ok = qpos < p.Sq;
+        sQt[d * S::kTStride + r] = ok ? load_f32(qg + qpos * p.q_ss + d) : 0.f;
+        sdOt[d * S::kTStride + r] =
+            ok ? load_f32(dog + qpos * p.do_ss + d) : 0.f;
+      }
+      for (int r = tid; r < BQ; r += kThreads) {
+        const int qpos = q0 + r;
+        const bool ok = qpos < p.Sq;
+        sLse[r] = ok ? p.lse[bh * p.Sq + qpos] : 0.f;
+        sDelta[r] = ok ? p.delta[bh * p.Sq + qpos] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T for this thread's RPT k rows.
+      float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; ++d) {
+        float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          kv[i] = sK[(ty + 32 * i) * S::kRowStride + d];
+          vv[i] = sV[(ty + 32 * i) * S::kRowStride + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          qv[j] = sQt[d * S::kTStride + tx + 8 * j];
+          ov[j] = sdOt[d * S::kTStride + tx + 8 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int c = ty + 32 * i;
+        const int kpos = k0 + c;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int r = tx + 8 * j;
+          const int qpos = q0 + r;
+          float pr = 0.f;
+          if (qpos < p.Sq && kpos < p.Sk && visible(p, qpos, kpos)) {
+            pr = expf(p.scale * s[i][j] - sLse[r]);
+          }
+          sP[c * S::kPStride + r] = pr;
+          sdS[c * S::kPStride + r] = pr * (dp[i][j] - sDelta[r]) * p.scale;
+        }
+      }
+      __syncthreads();
+
+      const int r_end = min(BQ, p.Sq - q0);
+#pragma unroll 2
+      for (int r = 0; r < r_end; ++r) {
+        float pr[RPT], ds[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          pr[i] = sP[(ty + 32 * i) * S::kPStride + r];
+          ds[i] = sdS[(ty + 32 * i) * S::kPStride + r];
+        }
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          const float ov = sdOt[(tx + 8 * j) * S::kTStride + r];
+          const float qv = sQt[(tx + 8 * j) * S::kTStride + r];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            dv[i][j] = fmaf(pr[i], ov, dv[i][j]);
+            dk[i][j] = fmaf(ds[i], qv, dk[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  // dK/dV are contiguous (B, Sk, Hkv, D).
+  const long long base = ((long long)b * p.Sk * p.Hkv + hk) * D;
+  const long long kv_ss = (long long)p.Hkv * D;
+  T* dkg = static_cast<T*>(p.dk) + base;
+  T* dvg = static_cast<T*>(p.dv) + base;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int kpos = k0 + ty + 32 * i;
+    if (kpos >= p.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = tx + 8 * j;
+      if (d < D) {
+        store_from_f32(dkg + kpos * kv_ss + d, dk[i][j]);
+        store_from_f32(dvg + kpos * kv_ss + d, dv[i][j]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- launch ----
+
+template <typename T, int DMAX, int BQ, int BK>
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  auto kernel = flash_dq_kernel<T, DMAX, BQ, BK>;
+  const size_t bytes = DqSmem<DMAX, BQ, BK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int DMAX, int BK, int BQ>
+cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
+  auto kernel = flash_dkv_kernel<T, DMAX, BK, BQ>;
+  const size_t bytes = DkvSmem<DMAX, BK, BQ>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.Sk + BK - 1) / BK, p.B * p.Hkv);
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Tiles by head dim. Shared memory per block (bytes): dQ 85 K / 151 K /
+// 138 K and dK/dV 104 K / 170 K / 144 K for D <= 64 / 128 / 256, under the
+// 227 KB a block may use.
+template <typename T>
+cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
+  if (which == 0) {
+    if (p.D <= 64) return launch_dq<T, 64, 64, 64>(p, s);
+    if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
+    return launch_dq<T, 256, 32, 32>(p, s);
+  }
+  if (p.D <= 64) return launch_dkv<T, 64, 64, 64>(p, s);
+  if (p.D <= 128) return launch_dkv<T, 128, 64, 64>(p, s);
+  return launch_dkv<T, 256, 32, 32>(p, s);
+}
+
+int run(int which, const void* q, const void* k, const void* v,
+        const void* dout, const float* lse, const float* delta, void* dq,
+        void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int D,
+        long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+        long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+        long long v_sh, long long do_sb, long long do_ss, long long do_sh,
+        int causal, int window, float scale, int dtype, void* stream) {
+  if (D < 8 || D > 256 || D % 8 || Hkv <= 0 || H % Hkv) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return (int)cudaSuccess;
+  Params p{q,    k,    v,    dout, lse,  delta, dq,   dk,   dv,
+           B,    H,    Hkv,  Sq,   Sk,   D,     q_sb, q_ss, q_sh,
+           k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  do_sb, do_ss, do_sh,
+           causal, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch<float>(p, which, s);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(p, which, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Each returns
+// the cudaError_t of its launch (0 = launched); the caller checks it.
+extern "C" int tpunet_flash_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int B, int H, int Hkv,
+    int Sq, int Sk, int D, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
+    long long do_sh, int causal, int window, float scale, int dtype,
+    void* stream) {
+  return run(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, H, Hkv,
+             Sq, Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+             do_sb, do_ss, do_sh, causal, window, scale, dtype, stream);
+}
+
+extern "C" int tpunet_flash_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int B, int H,
+    int Hkv, int Sq, int Sk, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long do_sb,
+    long long do_ss, long long do_sh, int causal, int window, float scale,
+    int dtype, void* stream) {
+  return run(1, q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, Hkv, Sq,
+             Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+             do_sb, do_ss, do_sh, causal, window, scale, dtype, stream);
+}

@@ -107,7 +107,7 @@ def _prefill(net, cache, prompt, chunk: int | None):
     b, p = prompt.shape
 
     def step(toks, prefill):
-        return net(toks, cache, prefill)[:, -1, :]
+        return net(toks, cache=cache, prefill=prefill)[:, -1, :]
 
     if chunk is None or chunk >= p:
         return cache, step(prompt, True)
@@ -142,7 +142,7 @@ def generate(model, params, prompt, max_new_tokens: int, *,
     done = (tok == eos_id) if eos_id is not None else None
     out = [prompt, tok[:, None]]
     for _ in range(max_new_tokens - 1):
-        logits = net(tok[:, None], cache)
+        logits = net(tok[:, None], cache=cache)
         nxt = sample(logits[:, -1, :], generator)
         if eos_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)

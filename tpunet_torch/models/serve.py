@@ -99,7 +99,7 @@ class BatchServer:
         (slots, window) device tensor of sampled tokens."""
         outs = []
         for _ in range(self.steps_per_call):
-            logits = self._net(self._toks[:, None], self._cache)
+            logits = self._net(self._toks[:, None], cache=self._cache)
             self._toks = self._sample(logits[:, -1, :], self._gen)
             outs.append(self._toks)
         # Idle rows' indexes park at max_len: their writes land past the

@@ -13,6 +13,15 @@ weight and input to ``compute_dtype`` at use, so weights pre-cast once to
 ``compute_dtype`` give bitwise the same result without the per-call cast.
 The norm scales must stay f32 (the flax RMSNorm multiplies in f32).
 
+Training: ``forward(tokens, train=False, features_only=False)`` keeps the
+flax signature (the family has no dropout, so ``train`` changes nothing).
+``remat=True`` runs each block under ``torch.utils.checkpoint``
+(non-reentrant): its activations are dropped in the forward and recomputed
+in the backward, flax ``nn.remat(Block)`` with ``remat_policy=None``.
+``bind(params, trainable=True)`` gives a module whose parameters ARE the
+given ``nn.Parameter`` tensors (f32 master weights; dense layers cast them
+to ``compute_dtype`` at use, so their gradients land in f32).
+
 Decoding: ``forward(tokens, cache=...)`` runs the cached step against a
 decode cache (see ``generate.init_cache``): a dict keyed
 ``block{i}/attn/cached_key``, ``.../cached_value`` and ``.../cache_index``.
@@ -23,8 +32,8 @@ the per-row cache of continuous batching, a () index the lockstep cache of
 through the configured attention kernel (flash on the card).
 
 Options of the flax model that belong to later slices of the port (MoE,
-int8 weights, LoRA, the sequence-parallel attention impls, remat for
-training, the ring decode cache) raise NotImplementedError.
+int8 weights, LoRA, the sequence-parallel attention impls, the "dots"
+remat policies, the ring decode cache) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpunet_torch import _device
 from tpunet_torch.ops.flash_attention import (_repeat_kv, attention_reference,
@@ -259,7 +269,8 @@ _LATER = {
     "n_experts": (0, "MoE (model options slice)"),
     "weight_quant": (None, "int8 weight quantization (model options slice)"),
     "lora_rank": (0, "LoRA (model options slice)"),
-    "remat": (False, "remat (training slice)"),
+    "remat_policy": (None, "the remat_policy option (training leftovers, "
+                           "ROADMAP A.1)"),
     "mesh": (None, "mesh-sharded attention (sequence-parallel slice)"),
 }
 
@@ -278,14 +289,18 @@ class Transformer(nn.Module):
                  n_kv_heads: int | None = None, mlp_impl: str = "gelu",
                  attn_window: int | None = None, flash_block_q: int = 128,
                  flash_block_k: int = 128, decode_ring_cache: bool = True,
-                 device=None, **later):
+                 remat: bool = False, device=None, **later):
         super().__init__()
         self._kwargs = dict(
             vocab=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
             d_ff=d_ff, compute_dtype=compute_dtype, attn_impl=attn_impl,
             n_kv_heads=n_kv_heads, mlp_impl=mlp_impl, attn_window=attn_window,
             flash_block_q=flash_block_q, flash_block_k=flash_block_k,
-            decode_ring_cache=decode_ring_cache)
+            decode_ring_cache=decode_ring_cache, remat=remat)
+        policy = later.get("remat_policy")
+        if policy not in (None, "dots", "dots_no_batch"):
+            # Validated even when remat is off, like the flax model.
+            raise ValueError(f"unknown remat_policy {policy!r}")
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"unknown Transformer option {name!r}")
@@ -308,6 +323,7 @@ class Transformer(nn.Module):
         # Kept for config parity; the CUDA kernel picks its own tiles.
         self.flash_block_q, self.flash_block_k = flash_block_q, flash_block_k
         self.decode_ring_cache = decode_ring_cache
+        self.remat = remat
         self.n_experts = 0
         head_dim = d_model // n_heads
         self.embed = nn.Parameter(torch.empty(vocab, d_model, device=device))
@@ -333,24 +349,43 @@ class Transformer(nn.Module):
             "attn_window": self.attn_window,
         }
 
-    def forward(self, tokens, cache=None, prefill: bool = False,
-                features_only: bool = False):
+    def forward(self, tokens, train: bool = False,
+                features_only: bool = False, *, cache=None,
+                prefill: bool = False):
+        del train  # no dropout in this family; kept for the trainer
         dt = self.compute_dtype
         x = F.embedding(tokens, self.embed).to(dt)
         for i in range(self.n_layers):
-            x = getattr(self, f"block{i}")(x, cache, prefill, f"block{i}/")
+            block = getattr(self, f"block{i}")
+            if self.remat and cache is None and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x, cache, prefill, f"block{i}/")
         x = self.norm_f(x)
         if features_only:
             return x.to(dt)
         return self.lm_head(x).float()
 
 
-    def bind(self, params: dict) -> "Transformer":
+    def bind(self, params: dict, trainable: bool = False) -> "Transformer":
         """A copy of this architecture whose parameters ARE the tensors of
         `params` (a state_dict, e.g. from ``convert.from_flax`` or
         ``init_params``; nothing is copied). Each engine runs its own bound
-        copy, so threads never share a module whose weights are swapped."""
+        copy, so threads never share a module whose weights are swapped.
+
+        trainable=False freezes the copy (inference). trainable=True takes
+        `params` as ``nn.Parameter`` tensors (the trainer's f32 master
+        weights) and leaves them requiring grad, so gradients land on the
+        very tensors the optimizer updates."""
         net = Transformer(**self._kwargs, device="meta")
+        if trainable:
+            plain = [k for k, t in params.items()
+                     if not isinstance(t, nn.Parameter)]
+            if plain:
+                raise TypeError(f"bind(trainable=True) takes nn.Parameter "
+                                f"tensors; {plain[:3]} are not")
+            net.load_state_dict(params, strict=True, assign=True)
+            return net.requires_grad_(True)
         net.load_state_dict(params, strict=True, assign=True)
         return net.requires_grad_(False)
 

@@ -1,22 +1,29 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
 `flash_attention(q, k, v, causal, block_q, block_k, interpret, window)`
-keeps the JAX package's signature and validation. On a CUDA tensor it
-launches the kernel of ``csrc/flash_fwd.cu`` (the Hopper counterpart of the
-TPU kernel ``tpunet/ops/flash_attention.py:_flash_kernel``) or raises; on a
-CPU tensor it runs `attention_reference`, the plain PyTorch version beside
-it. There is no fallback from one to the other.
+keeps the JAX package's signature, validation and custom VJP. On CUDA
+tensors it launches the kernels of ``csrc/flash_fwd.cu`` (the Hopper
+counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
+_flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
+(``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
+it runs the plain PyTorch versions beside them. There is no fallback from
+one to the other.
+
+The gradient is a `torch.autograd.Function`: its forward saves
+(q, k, v, o, lse), its backward computes delta = rowsum(dO * O) as a plain
+reduction (the TPU wrapper leaves it to XLA too) and runs dQ, then dK/dV.
 
 Differences from the TPU wrapper, all layout rules of the TPU that the card
 does not have:
   * no (8, 128) tile legality: `block_q`/`block_k` are accepted for config
-    parity and the kernel picks its own tiles; `interpret` is ignored;
+    parity and the kernels pick their own tiles; `interpret` is ignored;
   * ragged lengths, causal with Sq != Sk (positions aligned at 0) and any
-    block ratio run in the kernel itself instead of falling back to the
-    einsum, so prompts of any length (137, 401, ...) reach the kernel;
-  * lse is (B*H, Sq) f32, without the TPU's replicated sublanes.
+    block ratio run in the kernels themselves instead of falling back to
+    the einsum, so prompts of any length (137, 401, ...) reach them;
+  * lse and delta are (B*H, Sq) f32, without the TPU's replicated sublanes.
 
-`flash_attention.kernel_launches` counts the kernel's launches.
+Launch counters: `flash_attention.kernel_launches` (forward),
+`flash_attention.flash_dq_launches` and `flash_attention.flash_dkv_launches`.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None  # the bound C entry point, set at the first launch
+_fns: dict = {}  # bound C entry points, set at their first launch
 _count_lock = threading.Lock()  # serving tiers launch from several threads
 
 
@@ -73,43 +80,61 @@ def _gqa_group(q, k) -> int:
     return h // hk
 
 
-def _bind():
-    global _fn
-    if _fn is None:
+# C entry point -> (library, number of pointer arguments before the six
+# shape ints, number of stride arguments).
+_ENTRY = {"tpunet_flash_fwd": ("flash_fwd", 5, 12),
+          "tpunet_flash_bwd_dq": ("flash_bwd", 7, 12),
+          "tpunet_flash_bwd_dkv": ("flash_bwd", 8, 12)}
+
+
+def _bind(name: str = "tpunet_flash_fwd"):
+    if name not in _fns:
         from tpunet_torch.ops import _build
 
-        fn = _build.load("flash_fwd").tpunet_flash_fwd
+        lib, n_ptr, n_stride = _ENTRY[name]
+        fn = getattr(_build.load(lib), name)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([vp] * 5 + [i32] * 6 + [i64] * 12
+        fn.argtypes = ([vp] * n_ptr + [i32] * 6 + [i64] * n_stride
                        + [i32, i32, ctypes.c_float, i32, vp])
         fn.restype = i32
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def _launch(q, k, v, causal: bool, window: int | None):
-    """Run the CUDA kernel; returns (o, lse)."""
+def _check_kernel_inputs(name, q, k, v):
+    """Validation shared by the three kernels' wrappers; returns the
+    (b, sq, h, d, sk, hk) shape."""
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one "
+        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
         raise ValueError("q, k and v must lie on one CUDA device")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the flash backward kernels (dQ, dK/dV) belong to the training "
-            "slice of the port; run the forward under torch.no_grad()")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
     if d % 8 or not 8 <= d <= 256:
-        raise ValueError(f"flash_fwd supports head dims 8..256 in multiples "
+        raise ValueError(f"{name} supports head dims 8..256 in multiples "
                          f"of 8, got {d}")
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} exceeds the kernel's grid")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    return b, sq, h, d, sk, hk
+
+
+def _unit_stride(*ts):
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+
+
+def _launch(q, k, v, causal: bool, window: int | None):
+    """Run the CUDA forward kernel; returns (o, lse)."""
+    b, sq, h, d, sk, hk = _check_kernel_inputs("flash_fwd", q, k, v)
+    q, k, v = _unit_stride(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     rc = _bind()(
@@ -123,9 +148,53 @@ def _launch(q, k, v, causal: bool, window: int | None):
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with cudaError {rc}")
-    with _count_lock:
-        flash_attention.kernel_launches += 1
+    _count("kernel_launches")
     return o, lse
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, window):
+    """The arguments the two backward entry points share, after their
+    output pointers: shapes, the four input tensors' strides, mask, scale,
+    dtype code and stream."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    return ([b, h, hk, sq, sk, d]
+            + [t.stride(i) for t in (q, k, v, do) for i in range(3)]
+            + [int(causal), int(window or 0), 1.0 / math.sqrt(d),
+               _DTYPE_CODES[q.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream])
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool, window: int | None):
+    """Run the dQ kernel; returns dQ (B, Sq, H, D) in q's dtype."""
+    _check_kernel_inputs("flash_dq", q, k, v)
+    q, k, v, do = _unit_stride(q, k, v, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = _bind("tpunet_flash_bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_bwd_args(q, k, v, do, lse, delta, causal, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_dq launch failed with cudaError {rc}")
+    _count("flash_dq_launches")
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool, window: int | None):
+    """Run the dK/dV kernel; returns (dK, dV), (B, Sk, Hkv, D) in k's and
+    v's dtype, each kv head summed over its GQA group inside the kernel."""
+    _check_kernel_inputs("flash_dkv", q, k, v)
+    q, k, v, do = _unit_stride(q, k, v, do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rc = _bind("tpunet_flash_bwd_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_args(q, k, v, do, lse, delta, causal, window))
+    if rc != 0:
+        raise RuntimeError(f"flash_dkv launch failed with cudaError {rc}")
+    _count("flash_dkv_launches")
+    return dk, dv
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
@@ -138,6 +207,50 @@ def flash_attention_plain(q, k, v, causal: bool = False,
     o = attention_reference(q, k_full, v_full, causal, window)
     lse = torch.logsumexp(_masked_scores(q, k_full, causal, window), dim=-1)
     return o, lse.reshape(-1, q.shape[1])
+
+
+def _bwd_plain_parts(q, k, v, do, lse, delta, causal, window):
+    """f32 (p, ds, k_full) over the group-repeated K/V: P = exp(S - lse),
+    dS = P * (dP - delta) * scale with dP = dO . V^T, (B, H, Sq, Sk)."""
+    group = _gqa_group(q, k)
+    b, sq, h, d = q.shape
+    k_full, v_full = _repeat_kv(k, group), _repeat_kv(v, group)
+    s = _masked_scores(q, k_full, causal, window)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v_full.float())
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) / math.sqrt(d)
+    return p, ds, k_full
+
+
+def flash_attention_dq_plain(q, k, v, do, lse, delta, causal: bool = False,
+                             window: int | None = None):
+    """The dQ kernel's plain PyTorch version on any device: dQ = dS . K in
+    q's dtype. lse and delta are (B*H, Sq) f32."""
+    _, ds, k_full = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k_full.float()).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta, causal: bool = False,
+                              window: int | None = None):
+    """The dK/dV kernel's plain PyTorch version on any device:
+    dV = P^T . dO and dK = dS^T . Q, summed over each kv head's GQA group,
+    in k's and v's dtype."""
+    p, ds, _ = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
+    b, sk, hk, d = k.shape
+    group = q.shape[2] // hk
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dk = dk.reshape(b, sk, hk, group, d).sum(3)
+    dv = dv.reshape(b, sk, hk, group, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in f32, (B*H, Sq): the softmax-jacobian term
+    both backward kernels read."""
+    b, sq, h, _ = o.shape
+    delta = (do.float() * o.float()).sum(-1)  # (B, Sq, H)
+    return delta.permute(0, 2, 1).reshape(b * h, sq).contiguous()
 
 
 def _route(q, k, causal: bool, window: int | None) -> bool:
@@ -162,6 +275,40 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return flash_attention_plain(q, k, v, causal, window)
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        window: int | None = None):
+    """(dq, dk, dv) of flash attention from the forward's (o, lse): the
+    kernels' outputs on CUDA tensors, the plain versions' on CPU tensors."""
+    delta = attention_delta(o, do)
+    if q.is_cuda:
+        dq = _launch_dq(q, k, v, do, lse, delta, causal, window)
+        dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, window)
+        return dq, dk, dv
+    dq = flash_attention_dq_plain(q, k, v, do, lse, delta, causal, window)
+    dk, dv = flash_attention_dkv_plain(q, k, v, do, lse, delta, causal,
+                                       window)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the JAX package's custom VJP (`_flash_fwd`,
+    `_flash_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
                     block_k: int = 128, interpret: bool | None = None,
                     window: int | None = None):
@@ -169,13 +316,17 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
     fewer heads (grouped-query attention, heads % kv_heads == 0), read
     per q head as kv head h // group without a repeated copy. Returns
     q-shaped output. window (requires causal): sliding-window attention.
+    Differentiable: the backward runs the dQ and dK/dV kernels on the card.
     block_q/block_k/interpret exist for parity with the JAX signature."""
     del block_q, block_k, interpret
-    if _route(q, k, causal, window):
-        return _launch(q, k, v, causal, window)[0]
-    group = q.shape[2] // k.shape[2]
-    return attention_reference(q, _repeat_kv(k, group), _repeat_kv(v, group),
-                               causal, window)
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        # Inference (serving): the forward alone, no autograd node.
+        return flash_attention_fwd(q, k, v, causal, window)[0]
+    _route(q, k, causal, window)
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 flash_attention.kernel_launches = 0
+flash_attention.flash_dq_launches = 0
+flash_attention.flash_dkv_launches = 0
