@@ -5,18 +5,28 @@ versions.
 
 Phases (each raises on failure; the script then exits non-zero):
   card     nvidia-smi name and power limit, torch and CUDA versions
-  build    libtpunet.so (make) and every csrc/*.cu kernel (nvcc), built in
-           parallel from the sources of this checkout
+  build    libtpunet.so (make) and every csrc/*.cu kernel (nvcc, always
+           rebuilt), in parallel from the sources of this checkout;
+           ptxas's registers and spills per kernel function, and the count
+           of tensor-core instructions (HGMMA, HMMA) per function from
+           cuobjdump -sass. Fails if a bf16 flash_fwd or D <= 128 flash_dkv
+           function has no HGMMA, no ptxas report or spills
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
            bf16 and f32), the training shape (B=4, S=2048, 16 kv heads,
-           bf16), a ragged length (401), a window (128) and non-causal
-           Sq != Sk; then the backward kernels flash_dq and flash_dkv
-           against theirs at the training shape (bf16 and f32), GQA (4 kv
-           heads), a ragged length (401), a window (128) and non-causal
-           Sq 384 / Sk 512. Errors, kernel time, bound, plain time and the
-           time of scaled_dot_product_attention (its backward alone for
-           the backward kernels)
+           bf16), a ragged length (401), a window (128), non-causal
+           Sq != Sk, and bf16 head dims 64, 96 and 256 with GQA-8 and
+           ragged Sq != Sk; each also bitwise equal on a second launch;
+           then the backward kernels flash_dq and flash_dkv against theirs
+           at the training shape (bf16 and f32), GQA (4 kv heads), a
+           ragged length (401), a window (128), non-causal Sq 384 / Sk 512
+           and bf16 D=64 with GQA-8. Each output is held to a limit on its
+           largest error and to one on every row's error relative to that
+           row's norm; each bf16 dK/dV row also shows that the row check
+           sees two planted faults (a q tile or a GQA head left out).
+           Errors, kernel time, bound, plain time and the time of
+           scaled_dot_product_attention (its backward alone for the
+           backward kernels)
   model    the 735M GQA Transformer (d2048, 12 layers, 16 heads, 4 kv
            heads, ff 8192, vocab 32000) on a 512-token prompt, flash impl
            against reference impl, in f32 and bf16
@@ -40,8 +50,9 @@ Phases (each raises on failure; the script then exits non-zero):
            and the loss must be finite and falling. One more step on a
            bf16-wire communicator with grad_compression="bf16" must leave
            the ranks bitwise equal, with a codec wire ratio of 0.5.
-Then one JSON line describing each kernel (launches from the train phase)
-and, last, the device line.
+Then one JSON line describing each kernel (launches from the train phase,
+tensor-core instructions of the function the bf16 D=128 path runs) and,
+last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are False), so f32 references are true f32.
@@ -54,6 +65,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -83,8 +95,22 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
 # Backward tolerances of tests/test_ops.py's gradient tests, relative to
 # max(1, max|reference|).
 BWD_TOL = {torch.bfloat16: 1e-1, torch.float32: 5e-5}
+# A second check that scales with each output row (one position of one head,
+# over D): the row's error norm over the reference row's norm. The limits
+# sit between the largest reading of sound runs and the smallest reading of
+# the planted dK/dV faults (_planted_dkv_faults); PERF.md gives both.
+ROW_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+DKV_TILE = (128, 64)  # flash_dkv_bf16_kernel's k rows and q rows a step
 COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
             "flash_dkv": "flash_dkv_launches"}
+# Kernel functions that must issue wgmma (bf16 forward, bf16 dK/dV to
+# D = 128), and the function each kernel runs on the bf16 D = 128 main
+# path, by the _short names of csrc/*.cu's instantiations.
+TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel<", "flash_dkv_bf16_kernel<")
+MAIN_PATH_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<128,128>",
+                       "flash_dq": "flash_dq_kernel<bf16,128,64,64>",
+                       "flash_dkv": "flash_dkv_bf16_kernel<128>"}
+SASS: dict = {}  # the build phase's tensor-core census, by _short name
 
 
 def log(phase: str, **fields) -> None:
@@ -129,8 +155,10 @@ def phase_build() -> None:
             errors.append(e)
         times[name] = round(time.perf_counter() - t0, 3)
 
+    # Every kernel library is rebuilt, so ptxas reports on each function.
     jobs = [("libtpunet.so", _native.build_native)] + [
-        (f"lib{n}.so", lambda n=n: _build.build(n)) for n in _build.sources()]
+        (f"lib{n}.so", lambda n=n: _build.build(n, force=True))
+        for n in _build.sources()]
     threads = [threading.Thread(target=run, args=job) for job in jobs]
     for th in threads:
         th.start()
@@ -138,10 +166,98 @@ def phase_build() -> None:
         th.join()
     if errors:
         raise errors[0]
-    ptxas = [ln.strip() for log_ in _build.build_logs.values()
-             for ln in log_.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", seconds=times, ptxas=ptxas)
+    ptxas = _ptxas_report(_build.build_logs)
+    SASS.update(_tensor_core_census(_build))
+    log("build", seconds=times, ptxas=ptxas, tensor_core_instrs=SASS)
+    tc = [f for f in SASS if f.startswith(TENSOR_CORE_KERNELS)]
+    missing = [f for f in tc if SASS[f]["HGMMA"] == 0]
+    unreported = [f for f in tc if f not in ptxas]
+    spills = [f for f in tc if f in ptxas and ptxas[f]["spill_bytes"]]
+    if not tc or missing or unreported or spills:
+        raise AssertionError(f"tensor-core kernels without HGMMA {missing}, "
+                             f"without a ptxas report {unreported} or with "
+                             f"register spills {spills}")
+
+
+def _short(fn: str) -> str:
+    """A mangled kernel instantiation as name<args>, e.g.
+    flash_fwd_bf16_kernel<128,128>, flash_dq_kernel<bf16,128,64,64>."""
+    m = re.search(r"(?<=\d)(flash_\w+?_kernel)I(.+?)EEv", fn)
+    if not m:
+        return fn
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "")
+    args = args.replace("E", ",").strip(",")
+    if args.startswith("f"):
+        args = "f32," + args[1:]
+    return f"{m.group(1)}<{args}>"
+
+
+def _ptxas_report(logs: dict) -> dict:
+    """{kernel: {"registers": n, "spill_bytes": n}} from nvcc's -Xptxas -v
+    output. Registers are the launch allocation; the tensor-core kernels'
+    consumer warpgroups raise theirs to 232 with setmaxnreg."""
+    out, fn = {}, None
+    for text in logs.values():
+        for ln in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = _short(m.group(1))
+                out[fn] = {"registers": None, "spill_bytes": 0}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and fn:
+                out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn:
+                out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def _cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, else the copy Triton ships."""
+    for root in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        cand = Path(root) / "bin" / "cuobjdump"
+        if root and cand.exists():
+            return str(cand)
+    import importlib.util
+
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        cand = (Path(spec.origin).parent / "backends" / "nvidia" / "bin"
+                / "cuobjdump")
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("cuobjdump not found")
+
+
+def _tensor_core_census(build) -> dict:
+    """{kernel function: {"HGMMA": n, "HMMA": n}} from each kernel
+    library's SASS: wgmma issues as HGMMA, mma.sync as HMMA."""
+    census = {}
+    for name in build.sources():
+        lib = build.BUILD_DIR / f"lib{name}.so"
+        sass = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = _short(m.group(1))
+                census[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn and "HGMMA" in ln:
+                census[fn]["HGMMA"] += 1
+            elif fn and "HMMA" in ln:
+                census[fn]["HMMA"] += 1
+    return census
+
+
+def _tensor_core_instrs(kernel: str) -> int:
+    """HGMMA + HMMA instructions of the instantiation that the main path
+    runs (bf16, D = 128)."""
+    c = SASS[MAIN_PATH_FUNCTIONS[kernel]]
+    return c["HGMMA"] + c["HMMA"]
 
 
 def _pairs(sq, sk, causal, window) -> int:
@@ -182,6 +298,53 @@ def _attention_work(kind, b, sq, sk, h, hk, d, causal, window, dtype):
     return pair_flops * b * h * _pairs(sq, sk, causal, window), nbytes
 
 
+def _row_err(got, want) -> float:
+    """max over rows of |got - want| / |want|, norms over the last dim; a
+    reference row of (near) zero norm is held to 1e-6 of the largest."""
+    g, w = got.float(), want.float()
+    den = w.norm(dim=-1)
+    den = den.clamp_min(max(1e-6 * float(den.max()), 1e-30))
+    return float(((g - w).norm(dim=-1) / den).max())
+
+
+def _planted_dkv_faults(q, k, v, do, lse, delta, causal, window, got,
+                        want) -> dict:
+    """Readings of two dK/dV faults, planted in the kernel's own outputs by
+    taking away the exact f32 contribution of the work they skip: the row
+    check's (_row_err) and the max-error check's (largest error over
+    max(1, max|ref|), which BWD_TOL bounds). The faults:
+      q_tile_start: every k tile after the first skips its first q tile
+                    (a causal loop start one tile late);
+      gqa_head:     the last q head of each GQA group is left out."""
+    from tpunet_torch.ops.flash_attention import _bwd_plain_parts
+
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    group = h // hk
+    p, ds, _ = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
+    bk, bq = DKV_TILE
+    tile = torch.zeros((sq, sk), device=q.device)
+    for k0 in range(bk, sk, bk):
+        q0 = (k0 // bq) * bq if causal else 0
+        tile[q0:q0 + bq, k0:k0 + bk] = 1
+    masks = {"q_tile_start": tile[None, None]}
+    if group > 1:
+        heads = (torch.arange(h, device=q.device) % group) == group - 1
+        masks["gqa_head"] = heads.float()[None, :, None, None]
+    out = {}
+    for name, mask in masks.items():
+        row_err, max_err = 0.0, 0.0
+        for g, w, x, y in zip(got, want, (ds, p), (q, do)):
+            part = torch.einsum("bhqk,bqhd->bkhd", x * mask, y.float())
+            bad = g.float() - part.reshape(b, sk, hk, group, d).sum(3)
+            row_err = max(row_err, _row_err(bad, w))
+            w = w.float()
+            max_err = max(max_err, float((bad - w).abs().max())
+                          / max(1.0, float(w.abs().max())))
+        out[name] = dict(row_err=row_err, max_err=max_err)
+    return out
+
+
 def _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=1):
     """Random q (and n_q - 1 more q-shaped tensors), k, v on the card."""
     qs = [torch.randn((b, sq, h, d), generator=gen, device=DEVICE).to(dt)
@@ -205,26 +368,38 @@ def phase_kernels(seed: int) -> dict:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    cases = [(4, 2048, 2048, 16, True, None, torch.bfloat16)]
+    h = 16
+    # (b, sq, sk, hk, causal, window, dtype, d)
+    cases = [(4, 2048, 2048, 16, True, None, torch.bfloat16, 128)]
     for dt in (torch.bfloat16, torch.float32):
-        cases += [(1, 512, 512, 4, True, None, dt),
-                  (8, 512, 512, 4, True, None, dt),
-                  (1, 401, 401, 4, True, None, dt),
-                  (1, 512, 512, 4, True, 128, dt),
-                  (2, 384, 512, 4, False, None, dt)]
-    h, d = 16, 128
+        cases += [(1, 512, 512, 4, True, None, dt, 128),
+                  (8, 512, 512, 4, True, None, dt, 128),
+                  (1, 401, 401, 4, True, None, dt, 128),
+                  (1, 512, 512, 4, True, 128, dt, 128),
+                  (2, 384, 512, 4, False, None, dt, 128)]
+    # The tensor-core kernel's other head dims, GQA-8 and ragged Sq != Sk.
+    cases += [(2, 401, 517, 2, True, None, torch.bfloat16, 64),
+              (2, 137, 300, 2, True, 64, torch.bfloat16, 96),
+              (1, 300, 401, 2, False, None, torch.bfloat16, 256),
+              (1, 517, 401, 2, True, None, torch.bfloat16, 256)]
     rows = []
-    for b, sq, sk, hk, causal, window, dt in cases:
+    for b, sq, sk, hk, causal, window, dt, d in cases:
         q, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt)
         o, lse = flash_attention_fwd(q, k, v, causal, window)
         o_ref, lse_ref = flash_attention_plain(q, k, v, causal, window)
+        again = flash_attention_fwd(q, k, v, causal, window)
         torch.cuda.synchronize()
+        deterministic = torch.equal(o, again[0]) and torch.equal(lse, again[1])
         err_o = float((o.float() - o_ref.float()).abs().max())
         err_lse = float((lse - lse_ref).abs().max())
-        ok = err_o <= TOL[dt] and err_lse <= TOL[dt]
+        row_err = _row_err(o, o_ref)
+        ok = (err_o <= TOL[dt] and err_lse <= TOL[dt]
+              and row_err <= ROW_TOL[dt] and deterministic)
         row = dict(kernel="flash_fwd",
-                   **_case(b, sq, sk, hk, causal, window, dt), err_o=err_o,
-                   err_lse=err_lse, tol=TOL[dt], ok=ok,
+                   **_case(b, sq, sk, hk, causal, window, dt), d=d,
+                   err_o=err_o, err_lse=err_lse, tol=TOL[dt],
+                   row_err=row_err, row_tol=ROW_TOL[dt],
+                   deterministic=deterministic, ok=ok,
                    ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal,
                                                           window)),
                    plain_ms=cuda_ms(lambda: flash_attention_plain(
@@ -239,7 +414,7 @@ def phase_kernels(seed: int) -> dict:
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
         rows.append(row)
         log("kernels", **row)
-        del q, k, v, o, lse, o_ref, lse_ref
+        del q, k, v, o, lse, o_ref, lse_ref, again
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
@@ -272,16 +447,18 @@ def phase_bwd_kernels(seed: int) -> dict:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 1)
-    cases = [(4, 2048, 2048, 16, True, None, torch.bfloat16),
-             (4, 2048, 2048, 16, True, None, torch.float32),
-             (1, 2048, 2048, 4, True, None, torch.bfloat16),
-             (1, 401, 401, 4, True, None, torch.bfloat16),
-             (1, 1024, 1024, 16, True, 128, torch.bfloat16),
-             (2, 384, 512, 4, False, None, torch.bfloat16),
-             (2, 384, 512, 4, False, None, torch.float32)]
-    h, d = 16, 128
+    # (b, sq, sk, hk, causal, window, dtype, d)
+    cases = [(4, 2048, 2048, 16, True, None, torch.bfloat16, 128),
+             (4, 2048, 2048, 16, True, None, torch.float32, 128),
+             (1, 2048, 2048, 4, True, None, torch.bfloat16, 128),
+             (1, 401, 401, 4, True, None, torch.bfloat16, 128),
+             (1, 1024, 1024, 16, True, 128, torch.bfloat16, 128),
+             (2, 384, 512, 4, False, None, torch.bfloat16, 128),
+             (2, 384, 512, 4, False, None, torch.float32, 128),
+             (2, 401, 300, 2, True, None, torch.bfloat16, 64)]
+    h = 16
     rows, main = [], {}
-    for b, sq, sk, hk, causal, window, dt in cases:
+    for b, sq, sk, hk, causal, window, dt, d in cases:
         q, do, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=2)
         o, lse = flash_attention_fwd(q, k, v, causal, window)
         delta = attention_delta(o, do)
@@ -297,18 +474,27 @@ def phase_bwd_kernels(seed: int) -> dict:
         plain = {"flash_dq": flash_attention_dq_plain,
                  "flash_dkv": flash_attention_dkv_plain}
         for name in ("flash_dq", "flash_dkv"):
-            err, scale = 0.0, 1.0
+            err, scale, row_err = 0.0, 1.0, 0.0
             for g, w in zip(got[name], want[name]):
                 err = max(err, float((g.float() - w.float()).abs().max()))
                 scale = max(scale, float(w.float().abs().max()))
+                row_err = max(row_err, _row_err(g, w))
             again = launch[name](*args)
             deterministic = all(torch.equal(x, y) for x, y in zip(
                 got[name], again if isinstance(again, tuple) else (again,)))
+            planted = {}
+            if name == "flash_dkv" and dt == torch.bfloat16:
+                # The check must see these faults, or it proves nothing.
+                planted = _planted_dkv_faults(*args, got[name], want[name])
+            ok = (err <= BWD_TOL[dt] * scale and row_err <= ROW_TOL[dt]
+                  and all(x["row_err"] > ROW_TOL[dt]
+                          for x in planted.values())
+                  and deterministic)
             row = dict(kernel=name, **_case(b, sq, sk, hk, causal, window, dt),
-                       max_abs_err=err, ref_scale=scale,
-                       tol=BWD_TOL[dt] * scale,
-                       ok=err <= BWD_TOL[dt] * scale and deterministic,
-                       deterministic=deterministic,
+                       d=d, max_abs_err=err, ref_scale=scale,
+                       tol=BWD_TOL[dt] * scale, row_err=row_err,
+                       row_tol=ROW_TOL[dt], planted_fault_row_err=planted,
+                       ok=ok, deterministic=deterministic,
                        ms=cuda_ms(lambda: launch[name](*args)),
                        plain_ms=cuda_ms(lambda: plain[name](*args)),
                        **_bound(*_attention_work(name, b, sq, sk, h, hk, d,
@@ -725,7 +911,8 @@ def _kernel_entry(name, source, replaces, launches, row, err_key) -> dict:
             "replaces": replaces, "launches": launches,
             "max_abs_err": row[err_key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "tensor_core_instrs": _tensor_core_instrs(name)}
 
 
 def main() -> int:

@@ -45,26 +45,62 @@ def _inputs(seed, b, sq, sk, h, hk, d):
                  for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d)))
 
 
-@pytest.mark.parametrize("sq,sk,causal,window,dtype,tol", [
-    (137, 137, True, None, torch.float32, 2e-5),    # ragged causal GQA
-    (401, 401, True, 128, torch.bfloat16, 3e-2),    # ragged window
-    (96, 160, False, None, torch.float32, 2e-5),    # non-causal Sq != Sk
-    (64, 64, True, None, torch.float32, 2e-5),      # head dim 64 bucket
-    (70, 70, True, 16, torch.bfloat16, 3e-2),       # head dim 256 bucket
-])
-def test_flash_kernel_matches_plain_version(card, sq, sk, causal, window,
-                                            dtype, tol):
-    d = {64: 64, 70: 256}.get(sq, 128)
+def _row_err(got, want) -> float:
+    """max over rows of |got - want| / |want|, norms over the last dim (one
+    position of one head), as chip_smoke.py's row check; a reference row of
+    (near) zero norm is held to 1e-6 of the largest."""
+    g, w = got.float(), want.float()
+    den = w.norm(dim=-1)
+    den = den.clamp_min(max(1e-6 * float(den.max()), 1e-30))
+    return float(((g - w).norm(dim=-1) / den).max())
+
+
+# chip_smoke.py's limits: the forward's largest error (absolute), and every
+# output's row error relative to the row's norm.
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+# (b, sq, sk, h, hk, d, causal, window, dtype). The f32 rows run the CUDA
+# cores; the bf16 rows run the tensor-core kernel (wgmma, TMA) at head dims
+# 64/96/128/256, and 8/40/200, which TMA's zero fill pads up to the
+# 64/128/256 tiles; GQA groups 1/4/8, ragged lengths off the 128-row tiles,
+# windows 16/128, causal with Sq < Sk and Sq > Sk (aligned at position 0),
+# and non-causal Sq != Sk.
+FWD_CASES = [
+    (2, 137, 137, 16, 4, 128, True, None, torch.float32),   # ragged GQA
+    (2, 401, 401, 16, 4, 128, True, 128, torch.bfloat16),   # ragged window
+    (2, 96, 160, 16, 4, 128, False, None, torch.float32),   # Sq != Sk
+    (2, 64, 64, 16, 4, 64, True, None, torch.float32),      # head dim 64
+    (2, 70, 70, 16, 4, 256, True, 16, torch.bfloat16),      # head dim 256
+    (1, 137, 201, 4, 2, 40, True, None, torch.bfloat16),
+    (1, 137, 201, 4, 2, 200, True, None, torch.bfloat16),
+    (2, 137, 137, 16, 16, 64, True, None, torch.bfloat16),
+    (1, 401, 401, 16, 4, 96, True, None, torch.bfloat16),
+    (2, 137, 401, 16, 2, 128, True, None, torch.bfloat16),
+    (1, 401, 137, 8, 1, 128, True, None, torch.bfloat16),
+    (1, 401, 401, 8, 2, 256, True, 16, torch.bfloat16),
+    (2, 300, 300, 16, 4, 128, True, 128, torch.bfloat16),
+    (2, 137, 401, 16, 4, 64, False, None, torch.bfloat16),
+    (1, 401, 137, 8, 8, 256, False, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,causal,window,dtype", FWD_CASES)
+def test_flash_kernel_matches_plain_version(card, b, sq, sk, h, hk, d,
+                                            causal, window, dtype):
     q, k, v = (torch.from_numpy(x).to(card, dtype)
-               for x in _inputs(sq, 2, sq, sk, 16, 4, d))
+               for x in _inputs(sq * 31 + sk + d, b, sq, sk, h, hk, d))
     before = flash_attention.kernel_launches
     got, lse = flash_attention_fwd(q, k, v, causal, window)
     want, want_lse = flash_attention_plain(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert flash_attention.kernel_launches == before + 1
-    assert got.dtype == dtype and lse.shape == (2 * 16, sq)
-    assert float((got.float() - want.float()).abs().max()) <= tol
-    assert float((lse - want_lse).abs().max()) <= tol
+    assert got.dtype == dtype and lse.shape == (b * h, sq)
+    assert float((got.float() - want.float()).abs().max()) <= FWD_TOL[dtype]
+    assert float((lse - want_lse).abs().max()) <= FWD_TOL[dtype]
+    assert _row_err(got, want) <= ROW_TOL[dtype]
+    again, again_lse = flash_attention_fwd(q, k, v, causal, window)
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
 
 
 def test_flash_model_on_card_matches_cpu_reference(card):
@@ -84,9 +120,11 @@ def test_flash_model_on_card_matches_cpu_reference(card):
 
 
 # (b, sq, sk, h, hk, d, causal, window, dtype): head dims 64/128/256, GQA,
-# ragged lengths, a window and non-causal Sq != Sk. Tolerances are those of
-# tests/test_ops.py's gradient tests (5e-5 f32, 1e-1 bf16), taken relative
-# to max(1, max|reference|).
+# ragged lengths, a window and non-causal Sq != Sk; from the eighth row on,
+# the bf16 tensor-core dK/dV (head dims 8/40/64/128, GQA groups 1/4/8,
+# windows 16/128, causal Sq < Sk and Sq > Sk, non-causal). Tolerances are
+# those of tests/test_ops.py's gradient tests (5e-5 f32, 1e-1 bf16), taken
+# relative to max(1, max|reference|), and ROW_TOL on every row.
 BWD_CASES = [
     (2, 137, 137, 16, 4, 128, True, None, torch.float32),
     (2, 128, 128, 8, 8, 64, True, None, torch.float32),
@@ -95,6 +133,15 @@ BWD_CASES = [
     (1, 70, 70, 4, 1, 256, True, 16, torch.bfloat16),
     (1, 160, 96, 4, 2, 64, True, None, torch.float32),
     (2, 256, 256, 16, 16, 128, True, None, torch.bfloat16),
+    (1, 137, 201, 4, 2, 8, True, None, torch.bfloat16),
+    (1, 137, 201, 4, 2, 40, True, None, torch.bfloat16),
+    (2, 137, 137, 16, 16, 64, True, None, torch.bfloat16),
+    (1, 401, 401, 16, 4, 128, True, None, torch.bfloat16),
+    (2, 137, 401, 16, 2, 64, True, None, torch.bfloat16),
+    (1, 401, 137, 8, 1, 128, True, None, torch.bfloat16),
+    (1, 401, 401, 8, 2, 128, True, 16, torch.bfloat16),
+    (2, 300, 300, 16, 4, 64, True, 128, torch.bfloat16),
+    (2, 137, 401, 16, 4, 128, False, None, torch.bfloat16),
 ]
 BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-1}
 
@@ -124,10 +171,22 @@ def test_flash_bwd_kernels_match_plain_versions(card, b, sq, sk, h, hk, d,
         ref = want.float()
         scale = max(1.0, float(ref.abs().max()))
         assert float((got.float() - ref).abs().max()) <= BWD_TOL[dtype] * scale
+        assert _row_err(got, ref) <= ROW_TOL[dtype]
     # No atomics: a second run is bitwise the first.
     again = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
     for x, y in zip((dq, dk, dv), again):
         assert torch.equal(x, y)
+
+
+def test_flash_tensor_core_kernels_refuse_misaligned_strides(card):
+    """TMA takes only 16-byte aligned data and strides: a bf16 view whose
+    head stride is 36 elements (72 bytes) is refused, never quietly run
+    another way."""
+    base = torch.zeros((1, 64, 8, 36), dtype=torch.bfloat16, device=card)
+    q = torch.as_strided(base, (1, 64, 2, 32), (64 * 8 * 36, 8 * 36, 36, 1),
+                         storage_offset=4)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(q, q, q, True)
 
 
 def test_flash_autograd_on_card_matches_cpu(card):

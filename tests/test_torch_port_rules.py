@@ -74,3 +74,25 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
             call()
     out = generate(tm, sd, np.zeros((1, 3), np.int32), 2)
     assert out.device.type == "cpu"  # follows the parameters it was given
+
+
+def test_training_entry_points_raise_without_a_gpu(monkeypatch):
+    """The training slice's entry points resolve device=None to the GPU
+    too: without one, create_train_state and prefetch_to_device raise at
+    the call instead of quietly running on the CPU."""
+    from tpunet_torch.data import prefetch_to_device
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.train import adamw, create_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = Transformer(device="cpu", vocab=16, d_model=16, n_layers=1,
+                     n_heads=2, d_ff=16, compute_dtype=torch.float32)
+    tokens = np.zeros((2, 8), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(tm, 0, tokens, adamw(1e-3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefetch_to_device(iter([tokens]))
+    state, _ = create_train_state(tm, 0, tokens, adamw(1e-3), device="cpu")
+    assert next(iter(state.params.values())).device.type == "cpu"
+    batch = next(prefetch_to_device(iter([tokens]), device="cpu"))
+    assert batch.device.type == "cpu" and batch.shape == (2, 8)

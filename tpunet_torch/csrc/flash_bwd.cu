@@ -1,23 +1,25 @@
 // Flash-attention backward for Hopper (sm_90a), plain C ABI for ctypes.
 //
-// Two kernels, replacing the TPU kernels of tpunet/ops/flash_attention.py:
-//   * flash_dq_kernel  <- _flash_dq_kernel  (launched by _flash_bwd):
-//       dQ_i = sum_j dS_ij K_j, one block per (batch*head, q tile), K/V
-//       tiles streamed through shared memory with the forward's causal and
-//       sliding-window k-loop bounds;
-//   * flash_dkv_kernel <- _flash_dkv_kernel:
-//       dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
-//       (batch*kv head, k tile), looping over the GQA group's q heads and
-//       the q tiles (causal start k0 / BQ, window end
-//       min(n_qt, cdiv(k0 + BK - 1 + window, BQ))). The whole group is summed
-//       inside the block in f32 and dK/dV are written once: no atomics, so
-//       the result is bitwise deterministic run to run.
-// Both recompute P = exp(scale * q.k - lse) from the forward's per-row lse
+// Two TPU kernels of tpunet/ops/flash_attention.py are replaced here:
+//   * _flash_dq_kernel (:136, launched by _flash_bwd at :438) by
+//     flash_dq_kernel: dQ_i = sum_j dS_ij K_j, one block per (batch*head,
+//     q tile), K/V tiles streamed through shared memory with the forward's
+//     causal and sliding-window k-loop bounds;
+//   * _flash_dkv_kernel (:183, launched at :464) by flash_dkv_bf16_kernel
+//     (bf16, D <= 128) and flash_dkv_kernel (f32, and bf16 with D > 128):
+//     dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
+//     (batch*kv head, k tile), looping over the GQA group's q heads and the
+//     q tiles (causal start k0 / BQ, window end
+//     min(n_qt, cdiv(k0 + BK - 1 + window, BQ))). The whole group is summed
+//     inside the block in f32 and dK/dV are written once: no atomics, and
+//     the group and q loops run in a fixed order, so the result is bitwise
+//     deterministic run to run.
+// All recompute P = exp(scale * q.k - lse) from the forward's per-row lse
 // (B*H, Sq) f32, and take delta = rowsum(dO * O) (B*H, Sq) f32 from the
 // wrapper; dS = P * (dP - delta) * scale with dP = dO . V^T, exactly the TPU
 // kernels' arithmetic. Masked entries (causal/window) give P = 0, as
 // exp(NEG_INF - lse) does on the TPU; ragged tails (q or k positions past
-// Sq/Sk) are zeroed in shared memory and forced to P = 0.
+// Sq/Sk) are zero in shared memory and P = 0 there.
 //
 // Layout: q/dO are (B, Sq, H, D) and k/v (B, Sk, Hkv, D), read through
 // their batch/sequence/head strides (unit stride in D), GQA through kv head
@@ -25,24 +27,43 @@
 // contiguous (B, Sq, H, D), dK/dV contiguous (B, Sk, Hkv, D), each in its
 // input's dtype.
 //
-// Numerics: inputs become f32 on their way into shared memory and every
-// product is an f32 FMA (no TF32), the counterpart of Precision.HIGHEST for
-// f32 inputs; bf16 inputs accumulate in f32 as well.
+// flash_dkv_bf16_kernel, tensor cores. For bf16 inputs the TPU kernel runs
+// Precision.DEFAULT (_dot_precision, :267-272): one bf16 MXU pass, so P and
+// dS enter their products rounded to bf16 and every product accumulates in
+// f32; here the four products are wgmma with bf16 operands and f32
+// accumulators, and P and dS are rounded to bf16 in registers.
+// What bounds it: at the training shape (B4 S2048 H16 D128 causal) dK/dV
+// is 137 GFLOP (8*D per unmasked pair) against ~50 MB: the tensor cores,
+// 0.139 ms at 989 TFLOP/s. The design, for that bound:
+//   * one block per (batch*kv head, 128-row k tile); two consumer
+//     warpgroups own 64 k rows each, and their K and V rows stay in shared
+//     memory for the whole block; dK and dV (64 x D f32 each a warpgroup)
+//     stay in registers (setmaxnreg gives the consumers 232);
+//   * Q and dO tiles of 64 rows stream through a 2-stage ring by TMA into
+//     the 128-byte swizzled layout wgmma reads (sm90.cuh), with the tile's
+//     lse * log2(e) and delta stored beside them by the producer warp;
+//   * the block works on the transposed scores, so that every product
+//     reads its operands as stored: S^T = K.Q^T and dP^T = V.dO^T are
+//     SS-wgmma (both K-major), P^T and dS^T are formed on the accumulator
+//     fragments, and dV += P^T.dO and dK += dS^T.Q are RS-wgmma with P^T
+//     and dS^T as bf16 register A fragments and dO and Q read MN-major
+//     through the transpose bit.
+// bf16 with 128 < D <= 256 keeps flash_dkv_kernel: a 64 x D f32 dK plus dV
+// no longer fit a warpgroup's registers (an explicit branch in dispatch).
 //
-// What bounds it: at the training shape (S = 2048, D = 128) the backward
-// does 6*D (dQ) and 8*D (dK/dV) flops per unmasked (q, k) pair against a few
-// bytes per row, so arithmetic bounds it. This first version runs on the
-// CUDA cores from shared memory with 256-thread blocks (32 row groups x 8
-// column lanes) and register tiles of RPT rows x CPT score columns and
-// RPT x D/8 output columns per thread, so each shared-memory load feeds
-// several FMAs. Shared memory holds the f32 tiles; dK/dV accumulators stay
-// in registers because each thread owns only RPT (2 or 1) k rows. Tensor
-// cores (mma/wgmma), TMA and pipelining are later work.
+// flash_dq_kernel and flash_dkv_kernel run on the CUDA cores: inputs become
+// f32 on their way into shared memory and every product is an f32 FMA (no
+// TF32), the counterpart of Precision.HIGHEST for f32 inputs; bf16 dQ
+// accumulates in f32 as well. 256-thread blocks (32 row groups x 8 column
+// lanes) with register tiles of RPT rows x CPT score columns and RPT x D/8
+// output columns per thread, so each shared-memory load feeds several FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -450,8 +471,282 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------- dK/dV, bf16, tensor cores ----
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWgThreads = 384;  // 2 consumer warpgroups + 1 producer
+
+struct DkvArgs {
+  CUtensorMap tq, tk, tv, tdo;
+  const float* lse;
+  const float* delta;
+  void* dk;
+  void* dv;
+  int H, Hkv, Sq, Sk, D;
+  int causal;
+  int window;
+  float scale;
+  float scale_log2;
+};
+
+template <int DT>
+struct DkvTile {
+  static constexpr int kBK = 128;  // k rows: 2 consumer warpgroups x 64
+  static constexpr int kBQ = 64;   // q rows a step
+  static constexpr int kStages = 2;
+  static constexpr int kKBytes = kBK * DT * 2;  // K (or V), resident
+  static constexpr int kQBytes = kBQ * DT * 2;  // Q (or dO), one stage
+  static constexpr int kTiles = 2 * kKBytes + kStages * 2 * kQBytes;
+  static constexpr int kRows = kStages * 2 * kBQ * 4;  // lse, delta
+  static constexpr size_t kSmem =  // alignment slack, tiles, barriers
+      1024 + kTiles + kRows + 8 * (2 * kStages + 1);
+};
+
+template <int DT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
+  using Tile = DkvTile<DT>;
+  constexpr int BK = Tile::kBK, BQ = Tile::kBQ, NS = Tile::kStages;
+  constexpr int NC = DT / 64;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = base;
+  uint8_t* sV = base + Tile::kKBytes;
+  uint8_t* sQO = base + 2 * Tile::kKBytes;  // stage s: Q, then dO
+  float* sRows = reinterpret_cast<float*>(base + Tile::kTiles);
+  uint64_t* kvbar =
+      reinterpret_cast<uint64_t*>(base + Tile::kTiles + Tile::kRows);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + NS;
+
+  const int bkv = blockIdx.x;
+  const int b = bkv / a.Hkv;
+  const int hk = bkv % a.Hkv;
+  const int group = a.H / a.Hkv;
+  const int k0 = blockIdx.y * BK;
+
+  // The TPU kernel's q-loop bounds: the first q tile holding a row that
+  // sees key k0 (causal), and the last one whose newest row still sees the
+  // tile's oldest key (window).
+  const int n_qt = (a.Sq + BQ - 1) / BQ;
+  const int it_start = a.causal ? k0 / BQ : 0;
+  int it_end = n_qt;
+  if (a.causal && a.window > 0) {
+    it_end = min(n_qt, (k0 + BK - 1 + a.window + BQ - 1) / BQ);
+  }
+  const int n_q = max(it_end - it_start, 0);
+  const int total = group * n_q;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kvbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&full[s], 33);  // TMA bytes + the producer's 32 lanes
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: warp 8 loads
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(kvbar, 2 * Tile::kKBytes);
+        for (int c = 0; c < NC; ++c) {
+          sm90::tma_load_4d(sK + c * BK * 128, &a.tk, kvbar, c * 64, k0, hk,
+                            b);
+          sm90::tma_load_4d(sV + c * BK * 128, &a.tv, kvbar, c * 64, k0, hk,
+                            b);
+        }
+      }
+      for (int it = 0; it < total; ++it) {
+        const int g = it / n_q;
+        const int h = hk * group + g;
+        const int q0 = (it_start + it - g * n_q) * BQ;
+        const int s = it % NS;
+        sm90::mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+        uint8_t* sq = sQO + s * 2 * Tile::kQBytes;
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * Tile::kQBytes);
+          for (int c = 0; c < NC; ++c) {
+            sm90::tma_load_4d(sq + c * BQ * 128, &a.tq, &full[s], c * 64, q0,
+                              h, b);
+            sm90::tma_load_4d(sq + Tile::kQBytes + c * BQ * 128, &a.tdo,
+                              &full[s], c * 64, q0, h, b);
+          }
+        }
+        const long long row0 = ((long long)b * a.H + h) * a.Sq;
+        float* rows = sRows + s * 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const int qpos = q0 + r;
+          const bool ok = qpos < a.Sq;
+          rows[r] = ok ? a.lse[row0 + qpos] * kLog2e : 0.f;
+          rows[BQ + r] = ok ? a.delta[row0 + qpos] : 0.f;
+        }
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // consumer warpgroups: 64 k rows each
+    sm90::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int kw0 = k0 + wg * 64;                  // the warpgroup's rows
+    const int kr = kw0 + warp * 16 + (lane >> 2);  // rows kr, kr + 8
+    const int cq = 2 * (lane & 3);                 // column in an 8-group
+    const uint32_t k_addr = sm90::smem_u32(sK) + wg * 64 * 128;
+    const uint32_t v_addr = sm90::smem_u32(sV) + wg * 64 * 128;
+
+    float dk[DT / 2], dv[DT / 2];
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(kvbar, 0);
+    for (int it = 0; it < total; ++it) {
+      const int g = it / n_q;
+      const int q0 = (it_start + it - g * n_q) * BQ;
+      const int s = it % NS;
+      const uint32_t q_addr =
+          sm90::smem_u32(sQO) + s * 2 * Tile::kQBytes;
+      const uint32_t o_addr = q_addr + Tile::kQBytes;
+      sm90::mbar_wait(&full[s], (it / NS) & 1);
+
+      // S^T = K.Q^T and dP^T = V.dO^T, 64 k rows x BQ q columns.
+      float st[BQ / 2], dpt[BQ / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        sm90::wgmma_ss(
+            st, sm90::desc_sw128(k_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
+            sm90::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
+            kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        sm90::wgmma_ss(
+            dpt, sm90::desc_sw128(v_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
+            sm90::desc_sw128(o_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // P^T = exp(scale * S^T - lse) and dS^T = P^T (dP^T - delta) scale.
+      const float* rows = sRows + s * 2 * BQ;
+      const bool need_mask =
+          q0 + BQ > a.Sq ||
+          (a.causal && (q0 < kw0 + 63 ||
+                        (a.window > 0 && q0 + BQ - 1 - kw0 >= a.window)));
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int c = 8 * (i >> 2) + cq + (i & 1);
+        float pv = sm90::ex2(fmaf(st[i], a.scale_log2, -rows[c]));
+        if (need_mask) {
+          const int qpos = q0 + c;
+          const int kpos = kr + 8 * ((i >> 1) & 1);
+          if (qpos >= a.Sq ||
+              (a.causal && (qpos < kpos ||
+                            (a.window > 0 && qpos - kpos >= a.window)))) {
+            pv = 0.f;
+          }
+        }
+        st[i] = pv;
+        dpt[i] = pv * (dpt[i] - rows[BQ + c]) * a.scale;
+      }
+
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      sm90::to_a_frags(st, pa);
+      sm90::to_a_frags(dpt, da);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        sm90::wgmma_rs(dv, pa[kk],
+                       sm90::desc_sw128(o_addr + kk * 2048, BQ * 128, 1024));
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        sm90::wgmma_rs(dk, da[kk],
+                       sm90::desc_sw128(q_addr + kk * 2048, BQ * 128, 1024));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(pa);
+      sm90::fence_regs(da);
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+    // dK/dV are contiguous (B, Sk, Hkv, D).
+    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk);
+    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = kr + 8 * r;
+      if (kpos >= a.Sk) continue;
+      const long long row = (((long long)b * a.Sk + kpos) * a.Hkv + hk) * a.D;
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(dkg + row + col) =
+              __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dvg + row + col) =
+              __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int DT>
+cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
+  using Tile = DkvTile<DT>;
+  DkvArgs a;
+  if (!sm90_host::bf16_bshd_map(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
+                                p.q_ss, p.q_sh, Tile::kBQ) ||
+      !sm90_host::bf16_bshd_map(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
+                                p.do_ss, p.do_sh, Tile::kBQ) ||
+      !sm90_host::bf16_bshd_map(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
+                                p.k_ss, p.k_sh, Tile::kBK) ||
+      !sm90_host::bf16_bshd_map(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
+                                p.v_ss, p.v_sh, Tile::kBK)) {
+    return cudaErrorInvalidValue;
+  }
+  a.lse = p.lse;
+  a.delta = p.delta;
+  a.dk = p.dk;
+  a.dv = p.dv;
+  a.H = p.H;
+  a.Hkv = p.Hkv;
+  a.Sq = p.Sq;
+  a.Sk = p.Sk;
+  a.D = p.D;
+  a.causal = p.causal;
+  a.window = p.window;
+  a.scale = p.scale;
+  a.scale_log2 = p.scale * kLog2e;
+  auto kernel = flash_dkv_bf16_kernel<DT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.B * p.Hkv, (p.Sk + Tile::kBK - 1) / Tile::kBK);
+  kernel<<<grid, kWgThreads, Tile::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // Tiles by head dim. Shared memory per block (bytes): dQ 85 K / 151 K /
-// 138 K and dK/dV 104 K / 170 K / 144 K for D <= 64 / 128 / 256, under the
+// 138 K and the CUDA-core dK/dV 104 K / 170 K / 144 K for D <= 64 / 128 /
+// 256; the tensor-core dK/dV 68 K / 134 K for D <= 64 / 128. All under the
 // 227 KB a block may use.
 template <typename T>
 cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
@@ -460,9 +755,15 @@ cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
     if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
     return launch_dq<T, 256, 32, 32>(p, s);
   }
-  if (p.D <= 64) return launch_dkv<T, 64, 64, 64>(p, s);
-  if (p.D <= 128) return launch_dkv<T, 128, 64, 64>(p, s);
-  return launch_dkv<T, 256, 32, 32>(p, s);
+  if constexpr (sizeof(T) == 2) {  // bf16 dK/dV: tensor cores to D = 128
+    if (p.D <= 64) return launch_dkv_bf16<64>(p, s);
+    if (p.D <= 128) return launch_dkv_bf16<128>(p, s);
+    return launch_dkv<T, 256, 32, 32>(p, s);  // CUDA cores (see the note)
+  } else {
+    if (p.D <= 64) return launch_dkv<T, 64, 64, 64>(p, s);
+    if (p.D <= 128) return launch_dkv<T, 128, 64, 64>(p, s);
+    return launch_dkv<T, 256, 32, 32>(p, s);
+  }
 }
 
 int run(int which, const void* q, const void* k, const void* v,

@@ -36,10 +36,14 @@ def prefetch_to_device(iterator, size: int = 2, device=None):
     `size` batches ahead.
 
     The worker thread is a daemon and stops at source exhaustion or when
-    the consumer drops the generator."""
+    the consumer drops the generator. The size and the device are checked
+    here, at the call, not at the first batch."""
     if size < 1:
         raise ValueError("size must be >= 1")
-    dev = _device.resolve(device)
+    return _prefetch(iterator, size, _device.resolve(device))
+
+
+def _prefetch(iterator, size: int, dev: torch.device):
     q: queue.Queue = queue.Queue(maxsize=size)
     _END = object()
     _full = queue.Full  # bound locally: may outlive the module at shutdown

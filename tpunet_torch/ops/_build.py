@@ -6,11 +6,11 @@ Each ``csrc/<name>.cu`` is compiled at first use with
          -Xcompiler -fPIC -o build/tpunet_torch/lib<name>.so csrc/<name>.cu
 
 into ``build/tpunet_torch/`` at the repo root (the ``build/`` entry of
-``.gitignore`` covers it), and rebuilt when the source is newer than the
-library. The sources include no PyTorch header, so a build takes seconds.
-A file lock serialises concurrent builders; the library is written under a
-temporary name and renamed into place, so no process loads a half-written
-file. Nothing here runs at import time: the CPU-only test environment has
+``.gitignore`` covers it), and rebuilt when the source or a shared header
+(``csrc/*.cuh``) is newer than the library. The sources include no PyTorch
+header, so a build takes seconds. A file lock serialises concurrent
+builders; the library is written under a temporary name and renamed into
+place, so no process loads a half-written file. Nothing here runs at import time: the CPU-only test environment has
 no ``nvcc``.
 """
 
@@ -45,16 +45,20 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu if its library is missing or stale; returns
-    the library path."""
+def build(name: str, force: bool = False) -> Path:
+    """Compile csrc/<name>.cu if its library is missing or stale, or always
+    with `force` (so that `build_logs` holds this build's ptxas report);
+    returns the library path."""
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f".{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+            newest = max(f.stat().st_mtime
+                         for f in [src, *CSRC.glob("*.cuh")])
+            if (not force and lib.exists()
+                    and lib.stat().st_mtime >= newest):
                 return lib
             tmp = lib.with_name(f".{lib.name}.{os.getpid()}")
             cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",

@@ -7,7 +7,10 @@ counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
 _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 (``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
 it runs the plain PyTorch versions beside them. There is no fallback from
-one to the other.
+one to the other. In bf16 the forward and the dK/dV kernel (head dims up
+to 128) run on the tensor cores and load their tiles by TMA, so bf16
+inputs to either need 16-byte aligned data and strides, whatever the head
+dim; f32 runs on the CUDA cores.
 
 The gradient is a `torch.autograd.Function`: its forward saves
 (q, k, v, o, lse), its backward computes delta = rowsum(dO * O) as a plain
@@ -126,6 +129,21 @@ def _unit_stride(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
 
 
+def _check_tma(name, *ts):
+    """The bf16 tensor-core kernels load tiles by TMA, which takes only
+    16-byte aligned base pointers and strides (8 bf16 elements); raise on
+    anything else. A dim of extent 1 is never stepped, so its stride is
+    free. (Unrolled: this runs on every serving-size call.)"""
+    for t in ts:
+        (b, s, h, _), st = t.shape, t.stride()
+        if (t.data_ptr() % 16 or (b > 1 and st[0] % 8)
+                or (s > 1 and st[1] % 8) or (h > 1 and st[2] % 8)):
+            raise ValueError(
+                f"{name}: bf16 tensors need 16-byte aligned data and "
+                f"strides for TMA, got strides {t.stride()} at "
+                f"0x{t.data_ptr():x}")
+
+
 def _count(name: str) -> None:
     with _count_lock:
         setattr(flash_attention, name, getattr(flash_attention, name) + 1)
@@ -135,6 +153,8 @@ def _launch(q, k, v, causal: bool, window: int | None):
     """Run the CUDA forward kernel; returns (o, lse)."""
     b, sq, h, d, sk, hk = _check_kernel_inputs("flash_fwd", q, k, v)
     q, k, v = _unit_stride(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_fwd", q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     rc = _bind()(
@@ -185,6 +205,8 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, window: int | None):
     v's dtype, each kv head summed over its GQA group inside the kernel."""
     _check_kernel_inputs("flash_dkv", q, k, v)
     q, k, v, do = _unit_stride(q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_dkv", q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     rc = _bind("tpunet_flash_bwd_dkv")(
