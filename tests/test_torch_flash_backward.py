@@ -42,21 +42,22 @@ def _inputs(seed, b, sq, sk, h, hk, d):
 @functools.lru_cache(maxsize=None)
 def _jax_vjp(causal, window, dtype):
     def f(q, k, v, g):
-        _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        o, vjp = jax.vjp(lambda q, k, v: jax_flash(
             q, k, v, causal, block_q=8, block_k=8, window=window), q, k, v)
-        return vjp(g)
+        return (o, *vjp(g))
     del dtype  # part of the cache key: one jit per input dtype
     return jax.jit(f)
 
 
 def _grads_both(q, k, v, g, causal, window, jdtype, tdtype):
+    """[o, dq, dk, dv] of the JAX package and of the port, as f32 numpy."""
     want = _jax_vjp(causal, window, str(jdtype))(
         *(jnp.asarray(x, jdtype) for x in (q, k, v, g)))
     ts = [torch.from_numpy(x).to(tdtype).requires_grad_() for x in (q, k, v)]
     out = flash_attention(*ts, causal, window=window)
     got = torch.autograd.grad(out, ts, torch.from_numpy(g).to(tdtype))
     return ([np.asarray(w, np.float32) for w in want],
-            [x.float().numpy() for x in got])
+            [x.detach().float().numpy() for x in (out, *got)])
 
 
 CASES = (
@@ -85,14 +86,34 @@ def test_flash_grads_bf16_match_jax(causal, group):
         np.testing.assert_allclose(x, w, atol=1e-1, rtol=1e-1)
 
 
-@pytest.mark.parametrize("sq,sk", [(24, 40), (40, 24)])
-def test_flash_grads_cross_lengths_match_jax(sq, sk):
-    """Non-causal Sq != Sk: the JAX wrapper tiles these in its kernels."""
-    q, k, v, g = _inputs(sq + sk, 2, sq, sk, 4, 2, 8)
-    want, got = _grads_both(q, k, v, g, False, None, jnp.float32,
-                            torch.float32)
+# (sq, sk, causal, window, group, dtype). Non-causal Sq != Sk: the JAX
+# wrapper tiles these in its kernels. Causal with a window and
+# Sq > Sk + window: queries at qpos >= Sk + window - 1 see no key; the JAX
+# wrapper takes its einsum path (causal Sq != Sk), whose softmax over
+# all-NEG_INF scores averages V over every key, gives such rows dQ = 0, and
+# gives each key dV += dO/Sk from them and no dK.
+CROSS_CASES = [
+    pytest.param(24, 40, False, None, 2, "float32", id="24-40"),
+    pytest.param(40, 24, False, None, 2, "float32", id="40-24"),
+    pytest.param(20, 12, True, 2, 1, "float32", id="no-key-w2-g1-f32"),
+    pytest.param(20, 12, True, 3, 2, "float32", id="no-key-w3-g2-f32"),
+    pytest.param(21, 9, True, 3, 1, "bfloat16", id="no-key-w3-g1-bf16"),
+    pytest.param(20, 12, True, 2, 2, "bfloat16", id="no-key-w2-g2-bf16"),
+]
+TOLS = {"float32": 5e-5, "bfloat16": 1e-1}
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,group,dtype", CROSS_CASES)
+def test_flash_grads_cross_lengths_match_jax(sq, sk, causal, window, group,
+                                             dtype):
+    """o, dQ, dK and dV with Sq != Sk against the JAX package."""
+    q, k, v, g = _inputs(sq + sk, 2, sq, sk, 4, 4 // group, 8)
+    want, got = _grads_both(q, k, v, g, causal, window, getattr(jnp, dtype),
+                            getattr(torch, dtype))
+    if window is not None:
+        assert sq - (sk + window - 1) >= 5  # several rows see no key
     for w, x in zip(want, got):
-        np.testing.assert_allclose(x, w, atol=5e-5, rtol=5e-5)
+        np.testing.assert_allclose(x, w, atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
 def test_plain_parts_match_kernel_arguments():

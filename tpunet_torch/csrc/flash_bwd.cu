@@ -2,9 +2,10 @@
 //
 // Two TPU kernels of tpunet/ops/flash_attention.py are replaced here:
 //   * _flash_dq_kernel (:136, launched by _flash_bwd at :438) by
-//     flash_dq_kernel: dQ_i = sum_j dS_ij K_j, one block per (batch*head,
-//     q tile), K/V tiles streamed through shared memory with the forward's
-//     causal and sliding-window k-loop bounds;
+//     flash_dq_bf16_kernel (bf16, D <= 128) and flash_dq_kernel (f32, and
+//     bf16 with D > 128): dQ_i = sum_j dS_ij K_j, one block per
+//     (batch*head, q tile), K/V tiles streamed through shared memory with
+//     the forward's causal and sliding-window k-loop bounds;
 //   * _flash_dkv_kernel (:183, launched at :464) by flash_dkv_bf16_kernel
 //     (bf16, D <= 128) and flash_dkv_kernel (f32, and bf16 with D > 128):
 //     dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
@@ -13,13 +14,24 @@
 //     min(n_qt, cdiv(k0 + BK - 1 + window, BQ))). The whole group is summed
 //     inside the block in f32 and dK/dV are written once: no atomics, and
 //     the group and q loops run in a fixed order, so the result is bitwise
-//     deterministic run to run.
+//     deterministic run to run. Each dQ block owns its rows and walks its
+//     k tiles in order, so dQ is bitwise deterministic too.
 // All recompute P = exp(scale * q.k - lse) from the forward's per-row lse
 // (B*H, Sq) f32, and take delta = rowsum(dO * O) (B*H, Sq) f32 from the
 // wrapper; dS = P * (dP - delta) * scale with dP = dO . V^T, exactly the TPU
-// kernels' arithmetic. Masked entries (causal/window) give P = 0, as
-// exp(NEG_INF - lse) does on the TPU; ragged tails (q or k positions past
-// Sq/Sk) are zero in shared memory and P = 0 there.
+// kernels' arithmetic. Masked entries (causal/window) give P = 0 and
+// dS = 0; ragged tails (q or k positions past Sq/Sk) are zero in shared
+// memory and P = 0 there.
+//
+// Rows that see no key (causal with a window, qpos >= Sk + window - 1, so
+// only when Sq > Sk) follow the JAX reference (attention_reference under
+// jax.vjp): their scores are Sk equal NEG_INFs, so P = 1/Sk on every key
+// while the mask blocks every gradient through the scores. They add nothing
+// to dQ (all their entries are masked) or dK, and each dV row of their kv
+// head gains (1/Sk) * sum of their dO over the GQA group: one D-vector per
+// (batch, kv head), summed by each dK/dV block in a fixed order (heads, then
+// rows) and added to its rows before the store. A launch without such rows
+// skips it (a uniform branch).
 //
 // Layout: q/dO are (B, Sq, H, D) and k/v (B, Sk, Hkv, D), read through
 // their batch/sequence/head strides (unit stride in D), GQA through kv head
@@ -27,36 +39,62 @@
 // contiguous (B, Sq, H, D), dK/dV contiguous (B, Sk, Hkv, D), each in its
 // input's dtype.
 //
-// flash_dkv_bf16_kernel, tensor cores. For bf16 inputs the TPU kernel runs
-// Precision.DEFAULT (_dot_precision, :267-272): one bf16 MXU pass, so P and
-// dS enter their products rounded to bf16 and every product accumulates in
-// f32; here the four products are wgmma with bf16 operands and f32
-// accumulators, and P and dS are rounded to bf16 in registers.
-// What bounds it: at the training shape (B4 S2048 H16 D128 causal) dK/dV
-// is 137 GFLOP (8*D per unmasked pair) against ~50 MB: the tensor cores,
-// 0.139 ms at 989 TFLOP/s. The design, for that bound:
+// Tensor cores (flash_dq_bf16_kernel, flash_dkv_bf16_kernel). For bf16
+// inputs the TPU kernels run Precision.DEFAULT (_dot_precision, :267-272):
+// one bf16 MXU pass, so P and dS enter their products rounded to bf16 and
+// every product accumulates in f32; here every product is a wgmma with bf16
+// operands and f32 accumulators, and P and dS are rounded to bf16 in
+// registers. Tiles arrive by TMA into the 128-byte swizzled layout wgmma
+// reads (sm90.cuh); one producer warp issues the copies, two consumer
+// warpgroups of 64 rows each run the products, and setmaxnreg gives the
+// consumers 232 registers (the producer 40).
+//
+// flash_dq_bf16_kernel. What bounds it: at the training shape (B4 S2048 H16
+// D128 causal) dQ is 103 GFLOP (6*D per unmasked pair) against ~34 MB: the
+// tensor cores, 0.104 ms at 989 TFLOP/s. The design, for that bound:
+//   * one block per (batch*head, 128-row q tile), heaviest causal tile
+//     first; Q and dO for the block's rows are loaded once by TMA, each row's
+//     lse * log2(e) and delta sit in registers;
+//   * K and V tiles of 64 keys stream through a 3-stage TMA ring with the
+//     forward's k-loop bounds; only edge tiles apply a mask;
+//   * each k tile, each warpgroup: S = Q.K^T and dP = dO.V^T as SS-wgmma
+//     (both K-major as stored); P = exp2(S * scale * log2e - lse * log2e)
+//     and dS = P (dP - delta) scale on the accumulator fragments, rounded to
+//     bf16 A fragments in registers; dQ += dS.K as an RS-wgmma with K read
+//     MN-major through the transpose bit (no transposed copy);
+//   * the warpgroup pipelines its tiles as the forward does: S_j, dP_j and
+//     dQ += dS_(j-1).K_(j-1) are issued together, and dS_j is formed while
+//     the tensor cores still work on the dQ product;
+//   * dQ (64 x D f32 a warpgroup) stays in registers and is stored once as
+//     bf16; ragged rows are never written.
+//
+// flash_dkv_bf16_kernel. What bounds it: at the training shape dK/dV is 137
+// GFLOP (8*D per unmasked pair) against ~50 MB: the tensor cores, 0.139 ms
+// at 989 TFLOP/s. The design, for that bound:
 //   * one block per (batch*kv head, 128-row k tile); two consumer
 //     warpgroups own 64 k rows each, and their K and V rows stay in shared
 //     memory for the whole block; dK and dV (64 x D f32 each a warpgroup)
-//     stay in registers (setmaxnreg gives the consumers 232);
-//   * Q and dO tiles of 64 rows stream through a 2-stage ring by TMA into
-//     the 128-byte swizzled layout wgmma reads (sm90.cuh), with the tile's
-//     lse * log2(e) and delta stored beside them by the producer warp;
+//     stay in registers;
+//   * Q and dO tiles of 64 rows stream through a 2-stage ring by TMA, with
+//     the tile's lse * log2(e) and delta stored beside them by the producer
+//     warp;
 //   * the block works on the transposed scores, so that every product
 //     reads its operands as stored: S^T = K.Q^T and dP^T = V.dO^T are
 //     SS-wgmma (both K-major), P^T and dS^T are formed on the accumulator
 //     fragments, and dV += P^T.dO and dK += dS^T.Q are RS-wgmma with P^T
 //     and dS^T as bf16 register A fragments and dO and Q read MN-major
 //     through the transpose bit.
-// bf16 with 128 < D <= 256 keeps flash_dkv_kernel: a 64 x D f32 dK plus dV
-// no longer fit a warpgroup's registers (an explicit branch in dispatch).
+// bf16 with 128 < D <= 256 keeps the CUDA-core kernels (explicit branches
+// in dispatch): a 64 x D f32 dK plus dV no longer fit a warpgroup's
+// registers, and dQ's 128 f32 a thread plus S and dP leave no room.
 //
 // flash_dq_kernel and flash_dkv_kernel run on the CUDA cores: inputs become
 // f32 on their way into shared memory and every product is an f32 FMA (no
-// TF32), the counterpart of Precision.HIGHEST for f32 inputs; bf16 dQ
-// accumulates in f32 as well. 256-thread blocks (32 row groups x 8 column
-// lanes) with register tiles of RPT rows x CPT score columns and RPT x D/8
-// output columns per thread, so each shared-memory load feeds several FMAs.
+// TF32), the counterpart of Precision.HIGHEST for f32 inputs; bf16 with
+// D > 128 accumulates in f32 as well. 256-thread blocks (32 row groups x 8
+// column lanes) with register tiles of RPT rows x CPT score columns and
+// RPT x D/8 output columns per thread, so each shared-memory load feeds
+// several FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,6 +142,29 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
   bool keep = qpos >= kpos;
   if (p.window > 0) keep = keep && (qpos - kpos) < p.window;
   return keep;
+}
+
+// The first query position that sees no key (causal with a window), or Sq
+// when every row sees one.
+__device__ __forceinline__ int first_no_key_row(int causal, int window,
+                                                int Sq, int Sk) {
+  return causal && window > 0 ? min(Sq, Sk + window - 1) : Sq;
+}
+
+// Column d of the dV term of the rows that see no key: (1/Sk) * the sum of
+// dO over the GQA group's heads h0..h0+group-1 and rows q_first..Sq-1, in
+// f32, heads then rows in order, so every block gets the same bits.
+template <typename T>
+__device__ float no_key_dv(const T* dout, long long sb, long long ss,
+                           long long sh, int b, int h0, int group,
+                           int q_first, int Sq, int Sk, int d) {
+  float u = 0.f;
+  for (int g = 0; g < group; ++g) {
+    const T* col = dout + b * sb + (h0 + g) * sh + d;
+#pragma unroll 4
+    for (int qpos = q_first; qpos < Sq; ++qpos) u += load_f32(col + qpos * ss);
+  }
+  return u / Sk;
 }
 
 // ---------------------------------------------------------------- dQ ----
@@ -274,8 +335,8 @@ struct DkvSmem {
   static constexpr int kK = BK * kRowStride;
   static constexpr int kQt = DMAX * kTStride;
   static constexpr int kP = BK * kPStride;
-  static constexpr size_t kBytes =
-      sizeof(float) * (2 * kK + 2 * kQt + 2 * kP + 2 * BQ);
+  static constexpr size_t kBytes =  // ..., lse, delta, the no-key dV term
+      sizeof(float) * (2 * kK + 2 * kQt + 2 * kP + 2 * BQ + DMAX);
 };
 
 template <typename T, int DMAX, int BK, int BQ>
@@ -295,6 +356,7 @@ flash_dkv_kernel(const Params p) {
   float* sdS = sP + S::kP;
   float* sLse = sdS + S::kP;
   float* sDelta = sLse + BQ;
+  float* sU = sDelta + BQ;
 
   const int tid = threadIdx.x;
   const int tx = tid & 7;
@@ -425,6 +487,21 @@ flash_dkv_kernel(const Params p) {
     }
   }
 
+  const int q_first = first_no_key_row(p.causal, p.window, p.Sq, p.Sk);
+  if (q_first < p.Sq) {  // rows that see no key: dV += their dO / Sk
+    for (int d = tid; d < D; d += kThreads) {
+      sU[d] = no_key_dv(static_cast<const T*>(p.dout), p.do_sb, p.do_ss,
+                        p.do_sh, b, hk * group, group, q_first, p.Sq, p.Sk,
+                        d);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < DPT; ++j)
+        if (tx + 8 * j < D) dv[i][j] += sU[tx + 8 * j];
+  }
+
   // dK/dV are contiguous (B, Sk, Hkv, D).
   const long long base = ((long long)b * p.Sk * p.Hkv + hk) * D;
   const long long kv_ss = (long long)p.Hkv * D;
@@ -481,6 +558,8 @@ struct DkvArgs {
   CUtensorMap tq, tk, tv, tdo;
   const float* lse;
   const float* delta;
+  const __nv_bfloat16* dout;  // the no-key dV term reads it directly
+  long long do_sb, do_ss, do_sh;
   void* dk;
   void* dv;
   int H, Hkv, Sq, Sk, D;
@@ -499,8 +578,9 @@ struct DkvTile {
   static constexpr int kQBytes = kBQ * DT * 2;  // Q (or dO), one stage
   static constexpr int kTiles = 2 * kKBytes + kStages * 2 * kQBytes;
   static constexpr int kRows = kStages * 2 * kBQ * 4;  // lse, delta
-  static constexpr size_t kSmem =  // alignment slack, tiles, barriers
-      1024 + kTiles + kRows + 8 * (2 * kStages + 1);
+  static constexpr int kBars = 8 * (2 * kStages + 1);
+  static constexpr size_t kSmem =  // slack, tiles, rows, barriers, dV term
+      1024 + kTiles + kRows + kBars + 4 * DT;
 };
 
 template <int DT>
@@ -521,6 +601,8 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
       reinterpret_cast<uint64_t*>(base + Tile::kTiles + Tile::kRows);
   uint64_t* full = kvbar + 1;
   uint64_t* empty = full + NS;
+  float* sU = reinterpret_cast<float*>(base + Tile::kTiles + Tile::kRows +
+                                       Tile::kBars);
 
   const int bkv = blockIdx.x;
   const int b = bkv / a.Hkv;
@@ -685,6 +767,24 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
       sm90::mbar_arrive(&empty[s]);
     }
 
+    const int q_first = first_no_key_row(a.causal, a.window, a.Sq, a.Sk);
+    if (q_first < a.Sq) {  // rows that see no key: dV += their dO / Sk
+      if (threadIdx.x < a.D) {
+        sU[threadIdx.x] =
+            no_key_dv(a.dout, a.do_sb, a.do_ss, a.do_sh, b, hk * group,
+                      group, q_first, a.Sq, a.Sk, threadIdx.x);
+      }
+      sm90::bar_sync<1, 256>();  // the consumers only
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < a.D) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dv[4 * j + i] += sU[col + (i & 1)];
+        }
+      }
+    }
+
     // dK/dV are contiguous (B, Sk, Hkv, D).
     __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk);
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv);
@@ -723,6 +823,10 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   }
   a.lse = p.lse;
   a.delta = p.delta;
+  a.dout = static_cast<const __nv_bfloat16*>(p.dout);
+  a.do_sb = p.do_sb;
+  a.do_ss = p.do_ss;
+  a.do_sh = p.do_sh;
   a.dk = p.dk;
   a.dv = p.dv;
   a.H = p.H;
@@ -744,16 +848,297 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles by head dim. Shared memory per block (bytes): dQ 85 K / 151 K /
-// 138 K and the CUDA-core dK/dV 104 K / 170 K / 144 K for D <= 64 / 128 /
-// 256; the tensor-core dK/dV 68 K / 134 K for D <= 64 / 128. All under the
-// 227 KB a block may use.
+// ---------------------------------------------- dQ, bf16, tensor cores ----
+
+struct DqArgs {
+  CUtensorMap tq, tk, tv, tdo;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  int H, Hkv, Sq, Sk, D;
+  int causal;
+  int window;
+  float scale;
+  float scale_log2;
+};
+
+template <int DT>
+struct DqTile {
+  static constexpr int kBQ = 128;  // q rows: 2 consumer warpgroups x 64
+  static constexpr int kBK = 64;   // keys a step
+  // The pipelined consumers hold two stages at a time (K_it and K_(it-1)),
+  // so a third lets the next load run ahead.
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = kBQ * DT * 2;   // Q (or dO), resident
+  static constexpr int kKVBytes = kBK * DT * 2;  // one K (or V) tile
+  static constexpr int kTiles = 2 * kQBytes + kStages * 2 * kKVBytes;
+  static constexpr size_t kSmem =  // alignment slack, tiles, barriers
+      1024 + kTiles + 8 * (2 * kStages + 1);
+};
+
+template <int DT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
+  using Tile = DqTile<DT>;
+  constexpr int BQ = Tile::kBQ, BK = Tile::kBK, NS = Tile::kStages;
+  constexpr int NC = DT / 64;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = base;
+  uint8_t* sdO = base + Tile::kQBytes;
+  uint8_t* sKV = base + 2 * Tile::kQBytes;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Tile::kTiles);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tile first
+
+  // The forward's k-loop bounds. A row that sees no key finds every entry
+  // of the tiles it visits masked, so its dQ is 0.
+  const int n_kt = (a.Sk + BK - 1) / BK;
+  int kt_end = n_kt;
+  if (a.causal) kt_end = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  int kt_start = 0;
+  if (a.causal && a.window > 0) kt_start = max(q0 - (a.window - 1), 0) / BK;
+  const int n_it = max(kt_end - kt_start, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::mbar_init(qbar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues TMA
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_expect_tx(qbar, 2 * Tile::kQBytes);
+      for (int c = 0; c < NC; ++c) {
+        sm90::tma_load_4d(sQ + c * BQ * 128, &a.tq, qbar, c * 64, q0, h, b);
+        sm90::tma_load_4d(sdO + c * BQ * 128, &a.tdo, qbar, c * 64, q0, h,
+                          b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % NS;
+        sm90::mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * Tile::kKVBytes);
+        uint8_t* sk = sKV + s * 2 * Tile::kKVBytes;
+        uint8_t* sv = sk + Tile::kKVBytes;
+        const int k0 = (kt_start + it) * BK;
+        for (int c = 0; c < NC; ++c) {
+          sm90::tma_load_4d(sk + c * BK * 128, &a.tk, &full[s], c * 64, k0,
+                            hk, b);
+          sm90::tma_load_4d(sv + c * BK * 128, &a.tv, &full[s], c * 64, k0,
+                            hk, b);
+        }
+      }
+    }
+  } else {  // consumer warpgroups: 64 q rows each
+    sm90::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int wq0 = q0 + wg * 64;                  // the warpgroup's rows
+    const int qr = wq0 + warp * 16 + (lane >> 2);  // rows qr, qr + 8
+    const int cq = 2 * (lane & 3);                 // column in an 8-group
+    const uint32_t q_addr = sm90::smem_u32(sQ) + wg * 64 * 128;
+    const uint32_t o_addr = sm90::smem_u32(sdO) + wg * 64 * 128;
+    const uint32_t kv_addr = sm90::smem_u32(sKV);
+
+    float lse2[2], dlt[2];  // the rows' lse * log2(e) and delta
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qr + 8 * r;
+      const bool ok = qpos < a.Sq;
+      lse2[r] = ok ? a.lse[(long long)bh * a.Sq + qpos] * kLog2e : 0.f;
+      dlt[r] = ok ? a.delta[(long long)bh * a.Sq + qpos] : 0.f;
+    }
+
+    float dq[DT / 2];
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) dq[i] = 0.f;
+    float st[BK / 2], dpt[BK / 2];
+    uint32_t da[BK / 16][4];
+
+    // S = Q.K^T and dP = dO.V^T of the tile in stage s: 64 rows x BK keys.
+    auto scores = [&](int s) {
+      const uint32_t k_addr = kv_addr + s * 2 * Tile::kKVBytes;
+      const uint32_t v_addr = k_addr + Tile::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        sm90::wgmma_ss(
+            st, sm90::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
+            sm90::desc_sw128(k_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
+            kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        sm90::wgmma_ss(
+            dpt, sm90::desc_sw128(o_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
+            sm90::desc_sw128(v_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
+            kk > 0);
+      }
+    };
+    // dS = P (dP - delta) scale into dpt, P = exp2(S scale log2e - lse
+    // log2e); masked and out-of-range keys give dS = 0 (their P may be inf
+    // for a row whose lse is NEG_INF, so it is replaced, never multiplied).
+    auto grads = [&](int it) {
+      const int k0 = (kt_start + it) * BK;
+      const bool need_mask =
+          k0 + BK > a.Sk ||
+          (a.causal && (k0 + BK - 1 > wq0 ||
+                        (a.window > 0 && wq0 + 63 - k0 >= a.window)));
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float pv = sm90::ex2(fmaf(st[i], a.scale_log2, -lse2[r]));
+        if (need_mask) {
+          const int kpos = k0 + 8 * (i >> 2) + cq + (i & 1);
+          const int qpos = qr + 8 * r;
+          if (kpos >= a.Sk ||
+              (a.causal && (qpos < kpos ||
+                            (a.window > 0 && qpos - kpos >= a.window)))) {
+            pv = 0.f;
+          }
+        }
+        dpt[i] = pv * (dpt[i] - dlt[r]) * a.scale;
+      }
+    };
+    // dQ += dS.K, K (BK keys x DT) of stage s read MN-major.
+    auto dq_product = [&](int s) {
+      const uint32_t k_addr = kv_addr + s * 2 * Tile::kKVBytes;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        sm90::wgmma_rs(dq, da[kk],
+                       sm90::desc_sw128(k_addr + kk * 2048, BK * 128, 1024));
+      }
+    };
+
+    sm90::mbar_wait(qbar, 0);
+    if (n_it > 0) {
+      sm90::mbar_wait(&full[0], 0);
+      sm90::wgmma_fence();
+      scores(0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+      grads(0);
+      sm90::to_a_frags(dpt, da);
+    }
+    // Software pipeline inside the warpgroup: S_it, dP_it and
+    // dQ += dS_(it-1).K_(it-1) are issued together, and dS_it is formed
+    // while the tensor cores still work on the dQ product.
+    for (int it = 1; it < n_it; ++it) {
+      const int s = it % NS;
+      const int sp = (it - 1) % NS;
+      sm90::mbar_wait(&full[s], (it / NS) & 1);
+      sm90::wgmma_fence();
+      scores(s);
+      sm90::wgmma_commit();
+      dq_product(sp);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // S_it and dP_it are ready; dQ may still run
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+      grads(it);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(da);
+      sm90::mbar_arrive(&empty[sp]);
+      sm90::to_a_frags(dpt, da);
+    }
+    if (n_it > 0) {
+      sm90::wgmma_fence();
+      dq_product((n_it - 1) % NS);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(da);
+    }
+
+    // dQ is contiguous (B, Sq, H, D).
+    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qr + 8 * r;
+      if (qpos >= a.Sq) continue;
+      const long long row = (((long long)b * a.Sq + qpos) * a.H + h) * a.D;
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(dqg + row + col) =
+              __floats2bfloat162_rn(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int DT>
+cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
+  using Tile = DqTile<DT>;
+  DqArgs a;
+  if (!sm90_host::bf16_bshd_map(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
+                                p.q_ss, p.q_sh, Tile::kBQ) ||
+      !sm90_host::bf16_bshd_map(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
+                                p.do_ss, p.do_sh, Tile::kBQ) ||
+      !sm90_host::bf16_bshd_map(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
+                                p.k_ss, p.k_sh, Tile::kBK) ||
+      !sm90_host::bf16_bshd_map(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
+                                p.v_ss, p.v_sh, Tile::kBK)) {
+    return cudaErrorInvalidValue;
+  }
+  a.lse = p.lse;
+  a.delta = p.delta;
+  a.dq = p.dq;
+  a.H = p.H;
+  a.Hkv = p.Hkv;
+  a.Sq = p.Sq;
+  a.Sk = p.Sk;
+  a.D = p.D;
+  a.causal = p.causal;
+  a.window = p.window;
+  a.scale = p.scale;
+  a.scale_log2 = p.scale * kLog2e;
+  auto kernel = flash_dq_bf16_kernel<DT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.B * p.H, (p.Sq + Tile::kBQ - 1) / Tile::kBQ);
+  kernel<<<grid, kWgThreads, Tile::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Tiles by head dim. Shared memory per block (bytes): the CUDA-core dQ
+// 85 K / 151 K / 138 K and dK/dV 104 K / 170 K / 145 K for D <= 64 / 128 /
+// 256; the tensor-core dQ 81 K / 161 K and dK/dV 68 K / 134 K for
+// D <= 64 / 128. All under the 227 KB a block may use.
 template <typename T>
 cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
   if (which == 0) {
-    if (p.D <= 64) return launch_dq<T, 64, 64, 64>(p, s);
-    if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
-    return launch_dq<T, 256, 32, 32>(p, s);
+    if constexpr (sizeof(T) == 2) {  // bf16 dQ: tensor cores to D = 128
+      if (p.D <= 64) return launch_dq_bf16<64>(p, s);
+      if (p.D <= 128) return launch_dq_bf16<128>(p, s);
+      return launch_dq<T, 256, 32, 32>(p, s);  // CUDA cores (see the note)
+    } else {
+      if (p.D <= 64) return launch_dq<T, 64, 64, 64>(p, s);
+      if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
+      return launch_dq<T, 256, 32, 32>(p, s);
+    }
   }
   if constexpr (sizeof(T) == 2) {  // bf16 dK/dV: tensor cores to D = 128
     if (p.D <= 64) return launch_dkv_bf16<64>(p, s);

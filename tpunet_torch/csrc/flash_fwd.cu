@@ -12,6 +12,16 @@
 // reads. q/o are (B, Sq, H, D), k/v (B, Sk, Hkv, D), read through their
 // batch/sequence/head strides (unit stride in D): no flatten/transpose copy.
 //
+// Rows that see no key (causal with a window, qpos >= Sk + window - 1, so
+// only when Sq > Sk) get the JAX reference's answer: the softmax of Sk
+// equal NEG_INF scores, o = the mean of V over all Sk keys and
+// lse = NEG_INF (+ log Sk, which f32 absorbs). A block holding such a row
+// walks every k tile from the first: each masked score is NEG_INF, so such
+// a row sums all Sk keys with weight 1, while a row that sees keys drops
+// what it summed before its first visible key (the online rescale by
+// exp(NEG_INF - m) is exactly 0). Blocks without such rows keep the TPU
+// kernel's bounds and do no extra work; l is never 0.
+//
 // bf16: flash_fwd_bf16_kernel, tensor cores. For bf16 inputs the TPU kernel
 // runs Precision.DEFAULT (_dot_precision, :267-272): one bf16 MXU pass, so
 // P enters the P.V product rounded to bf16 and every product accumulates in
@@ -85,6 +95,14 @@ struct Params {
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
 
+// True when one of the rows q0..q0+rows-1 (< Sq) sees no key. Such a row
+// is past Sk, so the causal k-loop end is already the last k tile.
+__device__ __forceinline__ bool holds_no_key_row(int causal, int window,
+                                                 int q0, int rows, int Sq,
+                                                 int Sk) {
+  return causal && window > 0 && min(q0 + rows, Sq) - 1 >= Sk + window - 1;
+}
+
 template <int DMAX, int BQ>
 struct Smem {
   static constexpr int kQStride = DMAX + 1;
@@ -149,6 +167,7 @@ flash_fwd_kernel(const Params p) {
   if (p.causal) kt_end = min(n_kt, (q0 + BQ + kBK - 1) / kBK);
   int kt_start = 0;
   if (p.causal && p.window > 0) kt_start = max(q0 - (p.window - 1), 0) / kBK;
+  if (holds_no_key_row(p.causal, p.window, q0, BQ, p.Sq, p.Sk)) kt_start = 0;
 
   for (int kt = kt_start; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
@@ -401,6 +420,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
   if (a.causal) kt_end = min(n_kt, (q0 + BQ + BK - 1) / BK);
   int kt_start = 0;
   if (a.causal && a.window > 0) kt_start = max(q0 - (a.window - 1), 0) / BK;
+  if (holds_no_key_row(a.causal, a.window, q0, BQ, a.Sq, a.Sk)) kt_start = 0;
   const int n_it = max(kt_end - kt_start, 0);
 
   if (threadIdx.x == 0) {
@@ -535,8 +555,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
                                     o[4 * j + 2 * r + 1] * inv);
         }
       }
-      if ((lane & 3) == 0) {
-        a.lse[(long long)bh * a.Sq + qpos] = m[r] * kLn2 + logf(l[r]);
+      if ((lane & 3) == 0) {  // a row without a key: NEG_INF, exactly
+        a.lse[(long long)bh * a.Sq + qpos] =
+            m[r] == kNegInfL2 ? kNegInf : m[r] * kLn2 + logf(l[r]);
       }
     }
   }

@@ -7,10 +7,16 @@ counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
 _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 (``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
 it runs the plain PyTorch versions beside them. There is no fallback from
-one to the other. In bf16 the forward and the dK/dV kernel (head dims up
-to 128) run on the tensor cores and load their tiles by TMA, so bf16
-inputs to either need 16-byte aligned data and strides, whatever the head
-dim; f32 runs on the CUDA cores.
+one to the other. In bf16 the forward and, for head dims up to 128, the
+dQ and dK/dV kernels run on the tensor cores and load their tiles by TMA,
+so bf16 inputs to any of them need 16-byte aligned data and strides,
+whatever the head dim (a misaligned input is refused, never copied or sent
+to the CUDA-core kernels); f32 runs on the CUDA cores.
+
+Rows that see no key (causal with a window, qpos >= Sk + window - 1, only
+when Sq > Sk) get the JAX reference's answer everywhere: o is the mean of V
+over all Sk keys, lse is NEG_INF, dQ is 0, dK gets nothing from the row and
+every dV row of its kv head gains dO/Sk.
 
 The gradient is a `torch.autograd.Function`: its forward saves
 (q, k, v, o, lse), its backward computes delta = rowsum(dO * O) as a plain
@@ -44,20 +50,26 @@ _fns: dict = {}  # bound C entry points, set at their first launch
 _count_lock = threading.Lock()  # serving tiers launch from several threads
 
 
+def _keep(sq: int, sk: int, causal: bool, window: int | None, device):
+    """(Sq, Sk) bool: query i attends key j (positions aligned at 0), or
+    None when nothing is masked."""
+    if not causal:
+        return None
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    keep = qpos >= kpos
+    if window is not None:
+        keep &= (qpos - kpos) < window
+    return keep
+
+
 def _masked_scores(q, k, causal: bool, window: int | None):
     """f32 (B, H, Sq, Sk) scores of q·kᵀ/sqrt(D) with the causal/window
     mask applied as NEG_INF; k carries q's head count."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
-        qpos = torch.arange(sq, device=s.device)[:, None]
-        kpos = torch.arange(sk, device=s.device)[None, :]
-        keep = qpos >= kpos
-        if window is not None:
-            keep &= (qpos - kpos) < window
-        s = s.masked_fill(~keep, NEG_INF)
-    return s
+    keep = _keep(s.shape[-2], s.shape[-1], causal, window, s.device)
+    return s if keep is None else s.masked_fill(~keep, NEG_INF)
 
 
 def attention_reference(q, k, v, causal: bool = False,
@@ -189,6 +201,8 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool, window: int | None):
     """Run the dQ kernel; returns dQ (B, Sq, H, D) in q's dtype."""
     _check_kernel_inputs("flash_dq", q, k, v)
     q, k, v, do = _unit_stride(q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        _check_tma("flash_dq", q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rc = _bind("tpunet_flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -232,15 +246,27 @@ def flash_attention_plain(q, k, v, causal: bool = False,
 
 
 def _bwd_plain_parts(q, k, v, do, lse, delta, causal, window):
-    """f32 (p, ds, k_full) over the group-repeated K/V: P = exp(S - lse),
-    dS = P * (dP - delta) * scale with dP = dO . V^T, (B, H, Sq, Sk)."""
+    """f32 (p, ds, k_full) over the group-repeated K/V, (B, H, Sq, Sk):
+    P = exp(S - lse) and dS = P * (dP - delta) * scale with dP = dO . V^T,
+    dS = 0 on every masked entry (the mask blocks the gradient, as
+    `jnp.where` does in the JAX reference). A row that sees no key (causal
+    with a window, qpos >= Sk + window - 1) has the softmax of Sk equal
+    NEG_INF scores: P = 1/Sk on every key, so o is the mean of V, dV_k
+    gains dO/Sk, and dQ and dK get nothing from it. (exp(S - lse) would
+    give 1 there: in f32, lse = NEG_INF + log(Sk) rounds to NEG_INF.)"""
     group = _gqa_group(q, k)
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     k_full, v_full = _repeat_kv(k, group), _repeat_kv(v, group)
     s = _masked_scores(q, k_full, causal, window)
     p = torch.exp(s - lse.reshape(b, h, sq, 1))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v_full.float())
     ds = p * (dp - delta.reshape(b, h, sq, 1)) / math.sqrt(d)
+    keep = _keep(sq, sk, causal, window, q.device)
+    if keep is not None:
+        no_key = ~keep.any(-1, keepdim=True)
+        p = torch.where(keep, p, no_key.float() / sk)
+        ds = torch.where(keep, ds, 0.0)
     return p, ds, k_full
 
 
