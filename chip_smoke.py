@@ -9,21 +9,25 @@ Phases (each raises on failure; the script then exits non-zero):
            rebuilt), in parallel from the sources of this checkout;
            ptxas's registers and spills per kernel function, and the count
            of tensor-core instructions (HGMMA, HMMA) per function from
-           cuobjdump -sass. Fails if a bf16 flash_fwd, or D <= 128
-           flash_dq or flash_dkv, function has no HGMMA, no ptxas report or
-           spills
+           cuobjdump -sass. Fails if a bf16 flash_fwd, flash_dq or
+           flash_dkv function (every head dim, D = 256 included) has no
+           HGMMA, no ptxas report or spills, or if a bf16 instantiation of
+           the CUDA-core flash_dq_kernel or flash_dkv_kernel exists
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
            bf16 and f32), the training shape (B=4, S=2048, 16 kv heads,
            bf16), a ragged length (401), a window (128), non-causal
            Sq != Sk, bf16 head dims 64, 96 and 256 with GQA-8 and ragged
-           Sq != Sk, and rows that see no key (Sq 517, Sk 401, window 16,
+           Sq != Sk, D=256 at the training shape's work (B=2, S=2048, 16
+           kv heads), and rows that see no key (Sq 517, Sk 401, window 16,
            bf16 and f32); each also bitwise equal on a second launch;
            then the backward kernels flash_dq and flash_dkv against theirs
            at the training shape (bf16 and f32), GQA (4 kv heads), a
            ragged length (401), a window (128), non-causal Sq 384 / Sk 512,
-           bf16 D=64 with GQA-8, bf16 D=256 (the CUDA-core branches) and
-           the no-key rows in bf16 and f32. Each output is held to a limit
+           bf16 D=64 with GQA-8, bf16 D=256 (B=1 S=1024 GQA-4; B=2 S=2048
+           MHA, the training shape's work; GQA-8 ragged Sq != Sk; the
+           no-key rows) and the no-key rows at D=128 in bf16 and f32.
+           Each output is held to a limit
            on its largest error and to one on every row's error relative
            to that row's norm, and must be finite; each bf16 dQ and dK/dV
            row also shows that the row check sees two planted faults (dQ:
@@ -31,8 +35,8 @@ Phases (each raises on failure; the script then exits non-zero):
            head left out). Errors, kernel time, bound, plain time and the
            time of scaled_dot_product_attention (its backward alone for
            the backward kernels; with an explicit boolean mask where there
-           is a window), and the time of attention_delta at the training
-           shape
+           is a window), the rate in TFLOP/s, and the time of
+           attention_delta at the training shape
   model    the 735M GQA Transformer (d2048, 12 layers, 16 heads, 4 kv
            heads, ff 8192, vocab 32000) on a 512-token prompt, flash impl
            against reference impl, in f32 and bf16
@@ -111,15 +115,31 @@ BWD_TOL = {torch.bfloat16: 1e-1, torch.float32: 5e-5}
 # 7e-7 of the largest row in bf16 on the tensor cores (PERF.md).
 ROW_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 ROW_FLOOR = {torch.bfloat16: 1e-4, torch.float32: 1e-6}
-DKV_TILE = (128, 64)  # flash_dkv_bf16_kernel's k rows and q rows a step
-DQ_TILE = (128, 64)   # flash_dq_bf16_kernel's q rows and keys a step
+
+
+def _dkv_tile(d: int) -> tuple:
+    """The bf16 dK/dV kernel's k rows a block and q rows a step at head dim
+    d: flash_dkv_bf16_kernel to 128, flash_dkv_bf16_dsplit_kernel above."""
+    return (128, 64) if d <= 128 else (64, 32)
+
+
+def _dq_tile(d: int) -> tuple:
+    """flash_dq_bf16_kernel's q rows a block and keys a step at head dim d."""
+    return (128, 64) if d <= 128 else (128, 32)
+
+
 COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
             "flash_dkv": "flash_dkv_launches"}
-# Kernel functions that must issue wgmma (bf16 forward, bf16 dQ and dK/dV
-# to D = 128), and the function each kernel runs on the bf16 D = 128 main
-# path, by the _short names of csrc/*.cu's instantiations.
+# Kernel functions that must issue wgmma (every bf16 forward, dQ and dK/dV),
+# the ones that must exist among them (the D = 256 backward), and the
+# function each kernel runs on the bf16 D = 128 main path, by the _short
+# names of csrc/*.cu's instantiations. No bf16 instantiation of the
+# CUDA-core backward kernels may exist.
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel<", "flash_dq_bf16_kernel<",
-                       "flash_dkv_bf16_kernel<")
+                       "flash_dkv_bf16_kernel<",
+                       "flash_dkv_bf16_dsplit_kernel")
+D256_FUNCTIONS = ("flash_dq_bf16_kernel<256>", "flash_dkv_bf16_dsplit_kernel")
+CUDA_CORE_BF16 = ("flash_dq_kernel<bf16", "flash_dkv_kernel<bf16")
 MAIN_PATH_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<128,128>",
                        "flash_dq": "flash_dq_bf16_kernel<128>",
                        "flash_dkv": "flash_dkv_bf16_kernel<128>"}
@@ -140,7 +160,8 @@ FWD_CASES = (
     + [(2, 401, 517, 2, True, None, BF16, 64),
        (2, 137, 300, 2, True, 64, BF16, 96),
        (1, 300, 401, 2, False, None, BF16, 256),
-       (1, 517, 401, 2, True, None, BF16, 256)]
+       (1, 517, 401, 2, True, None, BF16, 256),
+       (2, 2048, 2048, 16, True, None, BF16, 256)]
     + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32)])
 BWD_CASES = [
     (4, 2048, 2048, 16, True, None, BF16, 128),
@@ -151,9 +172,14 @@ BWD_CASES = [
     (2, 384, 512, 4, False, None, BF16, 128),
     (2, 384, 512, 4, False, None, F32, 128),
     (2, 401, 300, 2, True, None, BF16, 64),
-    (1, 1024, 1024, 4, True, None, BF16, 256),  # the CUDA-core bf16 branches
     (1, 517, 401, 4, True, 16, BF16, 128),
-    (1, 517, 401, 4, True, 16, F32, 128)]
+    (1, 517, 401, 4, True, 16, F32, 128),
+    # D = 256: B1 S1024 GQA-4, the training shape's work, GQA-8 ragged, no
+    # key.
+    (1, 1024, 1024, 4, True, None, BF16, 256),
+    (2, 2048, 2048, 16, True, None, BF16, 256),
+    (2, 401, 300, 2, True, None, BF16, 256),
+    (1, 517, 401, 4, True, 16, BF16, 256)]
 
 
 def log(phase: str, **fields) -> None:
@@ -214,20 +240,27 @@ def phase_build() -> None:
     log("build", seconds=times, ptxas=ptxas, tensor_core_instrs=SASS)
     tc = [f for f in SASS if f.startswith(TENSOR_CORE_KERNELS)]
     missing = [f for f in tc if SASS[f]["HGMMA"] == 0]
+    missing += [f for f in D256_FUNCTIONS if f not in SASS]
     unreported = [f for f in tc if f not in ptxas]
     spills = [f for f in tc if f in ptxas and ptxas[f]["spill_bytes"]]
-    if not tc or missing or unreported or spills:
-        raise AssertionError(f"tensor-core kernels without HGMMA {missing}, "
-                             f"without a ptxas report {unreported} or with "
-                             f"register spills {spills}")
+    cuda_core_bf16 = [f for f in SASS if f.startswith(CUDA_CORE_BF16)]
+    if not tc or missing or unreported or spills or cuda_core_bf16:
+        raise AssertionError(f"tensor-core kernels missing or without HGMMA "
+                             f"{missing}, without a ptxas report "
+                             f"{unreported} or with register spills "
+                             f"{spills}; bf16 CUDA-core backward kernels "
+                             f"{cuda_core_bf16}")
 
 
 def _short(fn: str) -> str:
-    """A mangled kernel instantiation as name<args>, e.g.
-    flash_fwd_bf16_kernel<128,128>, flash_dq_kernel<bf16,128,64,64>."""
-    m = re.search(r"(?<=\d)(flash_\w+?_kernel)I(.+?)EEv", fn)
+    """A mangled kernel function as name<args>, e.g.
+    flash_fwd_bf16_kernel<128,128>, flash_dq_kernel<bf16,128,64,64>, or as
+    its name where it is no template (flash_dkv_bf16_dsplit_kernel)."""
+    m = re.search(r"(?<=\d)(flash_\w+?_kernel)(?:I(.+?)EEv)?", fn)
     if not m:
         return fn
+    if m.group(2) is None:
+        return m.group(1)
     args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "")
     args = args.replace("E", ",").strip(",")
     if args.startswith("f"):
@@ -359,7 +392,8 @@ def _planted_dkv_faults(q, k, v, do, lse, delta, causal, window, got,
     check's (_row_err) and the max-error check's (largest error over
     max(1, max|ref|), which BWD_TOL bounds). The faults:
       q_tile_start: every k tile after the first skips its first q tile
-                    (a causal loop start one tile late);
+                    (a causal loop start one tile late; tiles of 128 k
+                    rows and 64 q rows, 64 and 32 at D > 128);
       gqa_head:     the last q head of each GQA group is left out."""
     from tpunet_torch.ops.flash_attention import _bwd_plain_parts
 
@@ -367,7 +401,7 @@ def _planted_dkv_faults(q, k, v, do, lse, delta, causal, window, got,
     sk, hk = k.shape[1], k.shape[2]
     group = h // hk
     p, ds, _ = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
-    bk, bq = DKV_TILE
+    bk, bq = _dkv_tile(d)
     tile = torch.zeros((sq, sk), device=q.device)
     for k0 in range(bk, sk, bk):
         q0 = (k0 // bq) * bq if causal else 0
@@ -395,9 +429,10 @@ def _planted_dq_faults(q, k, v, do, lse, delta, causal, window, got,
     """Readings of two dQ faults, planted in the kernel's own output as
     _planted_dkv_faults does: the row check's and the max-error check's.
     The faults:
-      last_k_tile: every 128-row q tile leaves out the last 64-key tile its
-                   loop visits (a causal loop end one tile early): the exact
-                   f32 dS.K of that tile is taken away;
+      last_k_tile: every 128-row q tile leaves out the last key tile its
+                   loop visits (64 keys; 32 at D > 128), a causal loop end
+                   one tile early: the exact f32 dS.K of that tile is taken
+                   away;
       kv_head:     every q head reads the next kv head's K and V
                    ((h // group + 1) % Hkv): the exact f32 change of dQ that
                    this makes is added.
@@ -407,7 +442,7 @@ def _planted_dq_faults(q, k, v, do, lse, delta, causal, window, got,
     (got,), (want,) = got, want
     sq, sk = q.shape[1], k.shape[1]
     _, ds, k_full = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
-    bq, bk = DQ_TILE
+    bq, bk = _dq_tile(q.shape[3])
     n_kt = -(-sk // bk)
     tile = torch.zeros((sq, sk), device=q.device)
     for q0 in range(0, sq, bq):
@@ -486,6 +521,8 @@ def phase_kernels(seed: int) -> dict:
         finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
         ok = (err_o <= TOL[dt] and err_lse <= TOL[dt]
               and row_err <= ROW_TOL[dt] and deterministic and finite)
+        work = _attention_work("flash_fwd", b, sq, sk, h, hk, d, causal,
+                               window, dt)
         row = dict(kernel="flash_fwd",
                    **_case(b, sq, sk, hk, causal, window, dt), d=d,
                    err_o=err_o, err_lse=err_lse, tol=TOL[dt],
@@ -495,8 +532,8 @@ def phase_kernels(seed: int) -> dict:
                                                           window)),
                    plain_ms=cuda_ms(lambda: flash_attention_plain(
                        q, k, v, causal, window)),
-                   **_bound(*_attention_work("flash_fwd", b, sq, sk, h, hk,
-                                             d, causal, window, dt), dt))
+                   **_bound(*work, dt))
+        row["tflops"] = work[0] / row["ms"] / 1e9
         qt, kt, vt, kw = _sdpa_inputs(q, k, v, causal, window)
         row["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
@@ -581,6 +618,8 @@ def phase_bwd_kernels(seed: int) -> dict:
                   and all(x["row_err"] > ROW_TOL[dt]
                           for x in planted.values())
                   and deterministic and finite)
+            work = _attention_work(name, b, sq, sk, h, hk, d, causal, window,
+                                   dt)
             row = dict(kernel=name, **_case(b, sq, sk, hk, causal, window, dt),
                        d=d, max_abs_err=err, ref_scale=scale,
                        tol=BWD_TOL[dt] * scale, row_err=row_err,
@@ -589,9 +628,8 @@ def phase_bwd_kernels(seed: int) -> dict:
                        ok=ok, deterministic=deterministic, finite=finite,
                        ms=cuda_ms(lambda: launch[name](*args)),
                        plain_ms=cuda_ms(lambda: plain[name](*args)),
-                       **_bound(*_attention_work(name, b, sq, sk, h, hk, d,
-                                                 causal, window, dt), dt),
-                       library_ms=library)
+                       **_bound(*work, dt), library_ms=library)
+            row["tflops"] = work[0] / row["ms"] / 1e9
             rows.append(row)
             log("kernels", **row)
             main.setdefault(name, row)

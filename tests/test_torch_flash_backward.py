@@ -86,31 +86,40 @@ def test_flash_grads_bf16_match_jax(causal, group):
         np.testing.assert_allclose(x, w, atol=1e-1, rtol=1e-1)
 
 
-# (sq, sk, causal, window, group, dtype). Non-causal Sq != Sk: the JAX
+# (sq, sk, causal, window, group, dtype, d). Non-causal Sq != Sk: the JAX
 # wrapper tiles these in its kernels. Causal with a window and
 # Sq > Sk + window: queries at qpos >= Sk + window - 1 see no key; the JAX
 # wrapper takes its einsum path (causal Sq != Sk), whose softmax over
 # all-NEG_INF scores averages V over every key, gives such rows dQ = 0, and
-# gives each key dV += dO/Sk from them and no dK.
+# gives each key dV += dO/Sk from them and no dK. Head dim 256, the widest
+# tile of the port's bf16 kernels (32-key dQ steps, the dK/dV kernel that
+# splits D between its warpgroups): the plain versions that the card holds
+# those kernels to, at seq 37 (off every tile), GQA 2, causal with and
+# without a window.
 CROSS_CASES = [
-    pytest.param(24, 40, False, None, 2, "float32", id="24-40"),
-    pytest.param(40, 24, False, None, 2, "float32", id="40-24"),
-    pytest.param(20, 12, True, 2, 1, "float32", id="no-key-w2-g1-f32"),
-    pytest.param(20, 12, True, 3, 2, "float32", id="no-key-w3-g2-f32"),
-    pytest.param(21, 9, True, 3, 1, "bfloat16", id="no-key-w3-g1-bf16"),
-    pytest.param(20, 12, True, 2, 2, "bfloat16", id="no-key-w2-g2-bf16"),
+    pytest.param(24, 40, False, None, 2, "float32", 8, id="24-40"),
+    pytest.param(40, 24, False, None, 2, "float32", 8, id="40-24"),
+    pytest.param(20, 12, True, 2, 1, "float32", 8, id="no-key-w2-g1-f32"),
+    pytest.param(20, 12, True, 3, 2, "float32", 8, id="no-key-w3-g2-f32"),
+    pytest.param(21, 9, True, 3, 1, "bfloat16", 8, id="no-key-w3-g1-bf16"),
+    pytest.param(20, 12, True, 2, 2, "bfloat16", 8, id="no-key-w2-g2-bf16"),
+    pytest.param(37, 37, True, None, 2, "float32", 256, id="d256-f32"),
+    pytest.param(37, 37, True, 5, 2, "float32", 256, id="d256-w5-f32"),
+    pytest.param(37, 37, True, None, 2, "bfloat16", 256, id="d256-bf16"),
+    pytest.param(37, 37, True, 5, 2, "bfloat16", 256, id="d256-w5-bf16"),
 ]
 TOLS = {"float32": 5e-5, "bfloat16": 1e-1}
 
 
-@pytest.mark.parametrize("sq,sk,causal,window,group,dtype", CROSS_CASES)
+@pytest.mark.parametrize("sq,sk,causal,window,group,dtype,d", CROSS_CASES)
 def test_flash_grads_cross_lengths_match_jax(sq, sk, causal, window, group,
-                                             dtype):
-    """o, dQ, dK and dV with Sq != Sk against the JAX package."""
-    q, k, v, g = _inputs(sq + sk, 2, sq, sk, 4, 4 // group, 8)
+                                             dtype, d):
+    """o, dQ, dK and dV against the JAX package: Sq != Sk, rows that see no
+    key, head dim 256."""
+    q, k, v, g = _inputs(sq + sk, 2, sq, sk, 4, 4 // group, d)
     want, got = _grads_both(q, k, v, g, causal, window, getattr(jnp, dtype),
                             getattr(torch, dtype))
-    if window is not None:
+    if window is not None and sq > sk:
         assert sq - (sk + window - 1) >= 5  # several rows see no key
     for w, x in zip(want, got):
         np.testing.assert_allclose(x, w, atol=TOLS[dtype], rtol=TOLS[dtype])

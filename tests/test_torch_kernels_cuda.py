@@ -128,13 +128,15 @@ def test_flash_model_on_card_matches_cpu_reference(card):
 
 
 # (b, sq, sk, h, hk, d, causal, window, dtype): head dims 64/128/256, GQA,
-# ragged lengths, a window and non-causal Sq != Sk; every bf16 row with
-# D <= 128 runs the tensor-core dQ and dK/dV (head dims 8/40/64/96/128, GQA
-# groups 1/4/8, windows 16/128, causal Sq < Sk and Sq > Sk, non-causal);
-# the last two rows hold rows that see no key (dQ 0, dV += dO/Sk), in bf16
-# and f32. Tolerances are those of tests/test_ops.py's gradient tests (5e-5
-# f32, 1e-1 bf16), taken relative to max(1, max|reference|), and ROW_TOL on
-# every row.
+# ragged lengths, a window and non-causal Sq != Sk; every bf16 row runs the
+# tensor-core dQ and dK/dV: head dims 8/40/64/96/128 (64/128-wide tiles)
+# and 136/192/248/256 (the 256-wide tiles: 32-key dQ steps, the dK/dV
+# kernel that splits D between its warpgroups), GQA groups 1/4/8, windows
+# 16/64/128, causal Sq < Sk and Sq > Sk, non-causal Sq != Sk, lengths off
+# the 32/64/128-row tiles; the no-key rows (dQ 0, dV += dO/Sk) at Sq 517 /
+# Sk 401 / window 16 in bf16 (D 128, 136, 256) and f32. Tolerances are
+# those of tests/test_ops.py's gradient tests (5e-5 f32, 1e-1 bf16), taken
+# relative to max(1, max|reference|), and ROW_TOL on every row.
 BWD_CASES = [
     (2, 137, 137, 16, 4, 128, True, None, torch.float32),
     (2, 128, 128, 8, 8, 64, True, None, torch.float32),
@@ -159,6 +161,16 @@ BWD_CASES = [
     (1, 300, 300, 8, 1, 128, True, 64, torch.bfloat16),
     (1, 517, 401, 16, 4, 128, True, 16, torch.bfloat16),
     (1, 517, 401, 16, 4, 128, True, 16, torch.float32),
+    # Head dims 129..256.
+    (1, 137, 201, 4, 4, 136, True, None, torch.bfloat16),
+    (2, 201, 137, 8, 2, 192, True, None, torch.bfloat16),
+    (2, 401, 401, 16, 4, 256, True, None, torch.bfloat16),
+    (1, 300, 300, 16, 2, 256, True, 64, torch.bfloat16),
+    (1, 201, 300, 8, 2, 248, True, 128, torch.bfloat16),
+    (2, 137, 401, 8, 1, 192, False, None, torch.bfloat16),
+    (1, 401, 137, 4, 4, 256, False, None, torch.bfloat16),
+    (1, 517, 401, 16, 4, 256, True, 16, torch.bfloat16),
+    (1, 517, 401, 8, 1, 136, True, 16, torch.bfloat16),
 ]
 BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-1}
 
@@ -195,16 +207,19 @@ def test_flash_bwd_kernels_match_plain_versions(card, b, sq, sk, h, hk, d,
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("d", [32, 256])
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv"])
-def test_flash_tensor_core_kernels_refuse_misaligned_strides(card, kernel):
+def test_flash_tensor_core_kernels_refuse_misaligned_strides(card, kernel, d):
     """TMA takes only 16-byte aligned data and strides: a bf16 view whose
-    head stride is 36 elements (72 bytes) is refused by each tensor-core
-    kernel's wrapper, never quietly run another way (no copy, no CUDA-core
+    head stride is d + 4 elements (8 bytes off a 16-byte multiple) is
+    refused by each tensor-core kernel's wrapper, at a 64-wide and at the
+    256-wide tile, never quietly run another way (no copy, no CUDA-core
     kernel, no plain version), and nothing is launched."""
     from tpunet_torch.ops.flash_attention import _launch_dkv, _launch_dq
 
-    base = torch.zeros((1, 64, 8, 36), dtype=torch.bfloat16, device=card)
-    q = torch.as_strided(base, (1, 64, 2, 32), (64 * 8 * 36, 8 * 36, 36, 1),
+    w = d + 4
+    base = torch.zeros((1, 64, 8, w), dtype=torch.bfloat16, device=card)
+    q = torch.as_strided(base, (1, 64, 2, d), (64 * 8 * w, 8 * w, w, 1),
                          storage_offset=4)
     lse = torch.zeros((2, 64), dtype=torch.float32, device=card)
     calls = {"flash_fwd": lambda: flash_attention_fwd(q, q, q, True),

@@ -1,7 +1,7 @@
-"""The port stands alone: nothing under tpunet_torch/ (nor chip_smoke.py)
-imports JAX, flax, optax, orbax or the JAX package, importing the port
-leaves them out of sys.modules, and its entry points refuse to fall back to
-the CPU when no GPU is present."""
+"""The port stands alone: nothing under tpunet_torch/ (nor chip_smoke.py
+and chip_compare.py) imports JAX, flax, optax, orbax or the JAX package,
+importing the port leaves them out of sys.modules, and its entry points
+refuse to fall back to the CPU when no GPU is present."""
 
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpunet")
 
 def _port_files():
     return sorted((REPO / "tpunet_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "chip_compare.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

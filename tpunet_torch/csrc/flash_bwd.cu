@@ -2,12 +2,13 @@
 //
 // Two TPU kernels of tpunet/ops/flash_attention.py are replaced here:
 //   * _flash_dq_kernel (:136, launched by _flash_bwd at :438) by
-//     flash_dq_bf16_kernel (bf16, D <= 128) and flash_dq_kernel (f32, and
-//     bf16 with D > 128): dQ_i = sum_j dS_ij K_j, one block per
+//     flash_dq_bf16_kernel (bf16) and flash_dq_kernel (f32):
+//     dQ_i = sum_j dS_ij K_j, one block per
 //     (batch*head, q tile), K/V tiles streamed through shared memory with
 //     the forward's causal and sliding-window k-loop bounds;
 //   * _flash_dkv_kernel (:183, launched at :464) by flash_dkv_bf16_kernel
-//     (bf16, D <= 128) and flash_dkv_kernel (f32, and bf16 with D > 128):
+//     (bf16, D <= 128), flash_dkv_bf16_dsplit_kernel (bf16, 128 < D <= 256)
+//     and flash_dkv_kernel (f32):
 //     dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
 //     (batch*kv head, k tile), looping over the GQA group's q heads and the
 //     q tiles (causal start k0 / BQ, window end
@@ -39,14 +40,15 @@
 // contiguous (B, Sq, H, D), dK/dV contiguous (B, Sk, Hkv, D), each in its
 // input's dtype.
 //
-// Tensor cores (flash_dq_bf16_kernel, flash_dkv_bf16_kernel). For bf16
+// Tensor cores (flash_dq_bf16_kernel, flash_dkv_bf16_kernel,
+// flash_dkv_bf16_dsplit_kernel), every bf16 head dim. For bf16
 // inputs the TPU kernels run Precision.DEFAULT (_dot_precision, :267-272):
 // one bf16 MXU pass, so P and dS enter their products rounded to bf16 and
 // every product accumulates in f32; here every product is a wgmma with bf16
 // operands and f32 accumulators, and P and dS are rounded to bf16 in
 // registers. Tiles arrive by TMA into the 128-byte swizzled layout wgmma
 // reads (sm90.cuh); one producer warp issues the copies, two consumer
-// warpgroups of 64 rows each run the products, and setmaxnreg gives the
+// warpgroups run the products, and setmaxnreg gives the
 // consumers 232 registers (the producer 40).
 //
 // flash_dq_bf16_kernel. What bounds it: at the training shape (B4 S2048 H16
@@ -83,18 +85,43 @@
 //     SS-wgmma (both K-major), P^T and dS^T are formed on the accumulator
 //     fragments, and dV += P^T.dO and dK += dS^T.Q are RS-wgmma with P^T
 //     and dS^T as bf16 register A fragments and dO and Q read MN-major
-//     through the transpose bit.
-// bf16 with 128 < D <= 256 keeps the CUDA-core kernels (explicit branches
-// in dispatch): a 64 x D f32 dK plus dV no longer fit a warpgroup's
-// registers, and dQ's 128 f32 a thread plus S and dP leave no room.
+//     through the transpose bit;
+//   * the masks (causal, window, ragged q rows) are a select on every
+//     score entry, never a branch: compiled as a branch per entry, the
+//     same arithmetic took 1.3x as long at the training shape.
 //
-// flash_dq_kernel and flash_dkv_kernel run on the CUDA cores: inputs become
-// f32 on their way into shared memory and every product is an f32 FMA (no
-// TF32), the counterpart of Precision.HIGHEST for f32 inputs; bf16 with
-// D > 128 accumulates in f32 as well. 256-thread blocks (32 row groups x 8
-// column lanes) with register tiles of RPT rows x CPT score columns and
-// RPT x D/8 output columns per thread, so each shared-memory load feeds
-// several FMAs.
+// Head dims 128 < D <= 256 (zero-filled by TMA up to 256). What bounds
+// them: at B2 S2048 H16 D256 causal, the work of the training shape, dQ is
+// 103 GFLOP and dK/dV 137 GFLOP against ~170 / ~200 MB: the tensor cores,
+// 0.104 / 0.139 ms. The D <= 128 designs do not fit at 256: Q and dO for
+// 128 rows take 128 KiB, leaving room for one 64-key K/V stage, and a
+// 64 x 256 f32 dK plus dV is 256 registers a thread. What the design does:
+//   * flash_dq_bf16_kernel<256> keeps the dQ design with 32-key K/V tiles
+//     (three 32 KiB stages beside Q and dO: 225 KiB a block). S and dP are
+//     m64n32 SS-wgmma over 16 k16 steps, dQ += dS.K one m64n256 RS-wgmma
+//     per 16 keys, K read MN-major with LBO = 32 keys x 128 B = 4096 bytes
+//     to the next 64 head-dim columns. A thread holds dQ (128 f32), S and
+//     dP (16 + 16) and dS (8). The narrow score products issue four times
+//     as many wgmma per FLOP as the dQ product does.
+//   * flash_dkv_bf16_dsplit_kernel splits the head dim between
+//     the two consumer warpgroups: one block per (batch*kv head, 64-row k
+//     tile), K and V resident (32 KiB each), 32-row Q/dO tiles through a
+//     3-stage ring (195 KiB a block). Warpgroup 0 forms S^T, warpgroup 1
+//     dP^T (m64n32 SS-wgmma over all of D), they swap them through 2 x 16
+//     KiB of shared memory, and warpgroup w adds P^T.dO and dS^T.Q into
+//     its 128 columns of dV and dK (m64n128 RS-wgmma, LBO = 32 rows x
+//     128 B). Each step is a chain (scores, wait, swap, exponentials,
+//     dK/dV products, wait) with no overlap inside a warpgroup. It shares
+//     the block set-up, the producer warp, the exponentials, masks and dK/dV
+//     products, the no-key dV term and the store with flash_dkv_bf16_kernel
+//     (DkvBlock, dkv_produce, dkv_consume); only the score products differ.
+//
+// flash_dq_kernel and flash_dkv_kernel run f32 on the CUDA cores: inputs
+// stay f32 in shared memory and every product is an f32 FMA (no TF32), the
+// counterpart of Precision.HIGHEST for f32 inputs. 256-thread blocks (32
+// row groups x 8 column lanes) with register tiles of RPT rows x CPT score
+// columns and RPT x D/8 output columns per thread, so each shared-memory
+// load feeds several FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,9 +159,6 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // True when query qpos attends key kpos (both in range).
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
@@ -571,6 +595,7 @@ struct DkvArgs {
 
 template <int DT>
 struct DkvTile {
+  static constexpr int kD = DT;
   static constexpr int kBK = 128;  // k rows: 2 consumer warpgroups x 64
   static constexpr int kBQ = 64;   // q rows a step
   static constexpr int kStages = 2;
@@ -583,122 +608,270 @@ struct DkvTile {
       1024 + kTiles + kRows + kBars + 4 * DT;
 };
 
+// flash_dkv_bf16_dsplit_kernel's tiles (128 < D <= 256).
+struct DkvSplitTile {
+  static constexpr int kD = 256;
+  static constexpr int kBK = 64;  // k rows, shared by both warpgroups
+  static constexpr int kBQ = 32;  // q rows a step
+  static constexpr int kStages = 3;
+  static constexpr int kKBytes = kBK * kD * 2;  // K (or V), resident
+  static constexpr int kQBytes = kBQ * kD * 2;  // Q (or dO), one stage
+  static constexpr int kTiles = 2 * kKBytes + kStages * 2 * kQBytes;
+  static constexpr int kRows = kStages * 2 * kBQ * 4;  // lse, delta
+  static constexpr int kBars = 8 * (2 * kStages + 1);
+  // The swapped S^T / dP^T fragments: 2 steps x 2 warpgroups x 64 x kBQ.
+  static constexpr int kSwap = 2 * 2 * 64 * kBQ * 4;
+  static constexpr size_t kSmem =  // slack, tiles, rows, barriers, dV term
+      1024 + kTiles + kRows + kBars + 4 * kD + kSwap;
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// A bf16 dK/dV block of Tile::kBK k rows (flash_dkv_bf16_kernel,
+// flash_dkv_bf16_dsplit_kernel): its shared memory, its batch, kv head and
+// first key, and the TPU kernel's q-loop bounds: the first q tile holding a
+// row that sees key k0 (causal) to the last one whose newest row still sees
+// the tile's oldest key (window), walked once per q head of the GQA group
+// (`total` steps). Thread 0 initialises the barriers and the block syncs.
+template <typename Tile>
+struct DkvBlock {
+  uint8_t* sK;
+  uint8_t* sV;
+  uint8_t* sQO;     // stage s: Q, then dO
+  float* sRows;     // stage s: lse * log2(e), then delta
+  uint64_t* kvbar;  // K and V
+  uint64_t* full;
+  uint64_t* empty;
+  float* sU;        // the no-key dV term, Tile::kD floats
+  int b, hk, group, k0, it_start, n_q, total;
+
+  __device__ __forceinline__ DkvBlock(const DkvArgs& a, uint8_t* smem_raw) {
+    constexpr int BK = Tile::kBK, BQ = Tile::kBQ, NS = Tile::kStages;
+    uint8_t* base =
+        smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+    sK = base;
+    sV = base + Tile::kKBytes;
+    sQO = base + 2 * Tile::kKBytes;
+    sRows = reinterpret_cast<float*>(base + Tile::kTiles);
+    kvbar = reinterpret_cast<uint64_t*>(base + Tile::kTiles + Tile::kRows);
+    full = kvbar + 1;
+    empty = full + NS;
+    sU = reinterpret_cast<float*>(base + Tile::kTiles + Tile::kRows +
+                                  Tile::kBars);
+
+    const int bkv = blockIdx.x;
+    b = bkv / a.Hkv;
+    hk = bkv % a.Hkv;
+    group = a.H / a.Hkv;
+    k0 = blockIdx.y * BK;
+    const int n_qt = (a.Sq + BQ - 1) / BQ;
+    it_start = a.causal ? k0 / BQ : 0;
+    int it_end = n_qt;
+    if (a.causal && a.window > 0) {
+      it_end = min(n_qt, (k0 + BK - 1 + a.window + BQ - 1) / BQ);
+    }
+    n_q = max(it_end - it_start, 0);
+    total = group * n_q;
+
+    if (threadIdx.x == 0) {
+      sm90::mbar_init(kvbar, 1);
+      for (int s = 0; s < NS; ++s) {
+        sm90::mbar_init(&full[s], 33);  // TMA bytes + the producer's 32 lanes
+        sm90::mbar_init(&empty[s], 256);
+      }
+      sm90::mbar_fence_init();
+    }
+    __syncthreads();
+  }
+};
+
+// The producer warp of a bf16 dK/dV block: K and V once, then Q, dO,
+// lse * log2(e) and delta of each step through the ring.
+template <typename Tile>
+__device__ __forceinline__ void dkv_produce(const DkvArgs& a,
+                                            const DkvBlock<Tile>& blk) {
+  constexpr int BK = Tile::kBK, BQ = Tile::kBQ, NS = Tile::kStages;
+  constexpr int NC = Tile::kD / 64;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    sm90::mbar_arrive_expect_tx(blk.kvbar, 2 * Tile::kKBytes);
+    for (int c = 0; c < NC; ++c) {
+      sm90::tma_load_4d(blk.sK + c * BK * 128, &a.tk, blk.kvbar, c * 64,
+                        blk.k0, blk.hk, blk.b);
+      sm90::tma_load_4d(blk.sV + c * BK * 128, &a.tv, blk.kvbar, c * 64,
+                        blk.k0, blk.hk, blk.b);
+    }
+  }
+  for (int it = 0; it < blk.total; ++it) {
+    const int g = it / blk.n_q;
+    const int h = blk.hk * blk.group + g;
+    const int q0 = (blk.it_start + it - g * blk.n_q) * BQ;
+    const int s = it % NS;
+    sm90::mbar_wait(&blk.empty[s], ((it / NS) & 1) ^ 1);
+    uint8_t* sq = blk.sQO + s * 2 * Tile::kQBytes;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&blk.full[s], 2 * Tile::kQBytes);
+      for (int c = 0; c < NC; ++c) {
+        sm90::tma_load_4d(sq + c * BQ * 128, &a.tq, &blk.full[s], c * 64, q0,
+                          h, blk.b);
+        sm90::tma_load_4d(sq + Tile::kQBytes + c * BQ * 128, &a.tdo,
+                          &blk.full[s], c * 64, q0, h, blk.b);
+      }
+    }
+    const long long row0 = ((long long)blk.b * a.H + h) * a.Sq;
+    float* rows = blk.sRows + s * 2 * BQ;
+    for (int r = lane; r < BQ; r += 32) {
+      const int qpos = q0 + r;
+      const bool ok = qpos < a.Sq;
+      rows[r] = ok ? a.lse[row0 + qpos] * kLog2e : 0.f;
+      rows[BQ + r] = ok ? a.delta[row0 + qpos] : 0.f;
+    }
+    sm90::mbar_arrive(&blk.full[s]);
+  }
+}
+
+// A consumer warpgroup of a bf16 dK/dV block: dK and dV of the 64 k rows
+// from kw0, columns [c0, c0 + NCOL), in registers (NCOL / 2 f32 each a
+// thread). Each step, `scores(st, dpt, q_addr, o_addr, it)` leaves the
+// rows' S^T = K.Q^T and dP^T = V.dO^T against the step's Tile::kBQ q rows
+// in st and dpt (f32 accumulator fragments, waited on); then P^T =
+// exp(scale * S^T - lse) and dS^T = P^T (dP^T - delta) scale on the
+// fragments, both 0 where the causal, window or ragged-row mask holds;
+// dV += P^T.dO and dK += dS^T.Q as RS-wgmma with P^T and dS^T as bf16 A
+// fragments and dO and Q read MN-major through the transpose bit
+// (64-column blocks kBQ * 128 bytes apart, 2048 bytes a k16 step). Then
+// the no-key dV term and the bf16 store of the rows below Sk.
+template <typename Tile, int NCOL, typename Scores>
+__device__ __forceinline__ void dkv_consume(const DkvArgs& a,
+                                            const DkvBlock<Tile>& blk,
+                                            int kw0, int c0, Scores scores) {
+  constexpr int BQ = Tile::kBQ, NS = Tile::kStages;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int kr = kw0 + warp * 16 + (lane >> 2);  // rows kr, kr + 8
+  const int cq = 2 * (lane & 3);                 // column in an 8-group
+  const uint32_t cols = (c0 / 64) * BQ * 128;    // dO / Q column offset
+  const bool causal = a.causal != 0;
+  const bool windowed = causal && a.window > 0;
+
+  float dk[NCOL / 2], dv[NCOL / 2];
+#pragma unroll
+  for (int i = 0; i < NCOL / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  sm90::mbar_wait(blk.kvbar, 0);
+  for (int it = 0; it < blk.total; ++it) {
+    const int g = it / blk.n_q;
+    const int q0 = (blk.it_start + it - g * blk.n_q) * BQ;
+    const int s = it % NS;
+    const uint32_t q_addr = sm90::smem_u32(blk.sQO) + s * 2 * Tile::kQBytes;
+    const uint32_t o_addr = q_addr + Tile::kQBytes;
+    sm90::mbar_wait(&blk.full[s], (it / NS) & 1);
+
+    float st[BQ / 2], dpt[BQ / 2];
+    scores(st, dpt, q_addr, o_addr, it);
+
+    // Masked entries are selected away, not branched around (see the note
+    // at the top of the file).
+    const float* rows = blk.sRows + s * 2 * BQ;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int c = 8 * (i >> 2) + cq + (i & 1);
+      const int qpos = q0 + c;
+      const int kpos = kr + 8 * ((i >> 1) & 1);
+      const bool masked =
+          (qpos >= a.Sq) |
+          (causal & ((qpos < kpos) | (windowed & (qpos - kpos >= a.window))));
+      float pv = sm90::ex2(fmaf(st[i], a.scale_log2, -rows[c]));
+      pv = masked ? 0.f : pv;
+      st[i] = pv;
+      dpt[i] = pv * (dpt[i] - rows[BQ + c]) * a.scale;
+    }
+
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    sm90::to_a_frags(st, pa);
+    sm90::to_a_frags(dpt, da);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      sm90::wgmma_rs(dv, pa[kk], sm90::desc_sw128(o_addr + cols + kk * 2048,
+                                                  BQ * 128, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      sm90::wgmma_rs(dk, da[kk], sm90::desc_sw128(q_addr + cols + kk * 2048,
+                                                  BQ * 128, 1024));
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(pa);
+    sm90::fence_regs(da);
+    sm90::mbar_arrive(&blk.empty[s]);
+  }
+
+  const int q_first = first_no_key_row(a.causal, a.window, a.Sq, a.Sk);
+  if (q_first < a.Sq) {  // rows that see no key: dV += their dO / Sk
+    if (threadIdx.x < a.D) {
+      blk.sU[threadIdx.x] =
+          no_key_dv(a.dout, a.do_sb, a.do_ss, a.do_sh, blk.b,
+                    blk.hk * blk.group, blk.group, q_first, a.Sq, a.Sk,
+                    threadIdx.x);
+    }
+    sm90::bar_sync<1, 256>();  // the consumers only
+#pragma unroll
+    for (int j = 0; j < NCOL / 8; ++j) {
+      const int col = c0 + 8 * j + cq;
+      if (col < a.D) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[4 * j + i] += blk.sU[col + (i & 1)];
+      }
+    }
+  }
+
+  // dK/dV are contiguous (B, Sk, Hkv, D).
+  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk);
+  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = kr + 8 * r;
+    if (kpos >= a.Sk) continue;
+    const long long row =
+        (((long long)blk.b * a.Sk + kpos) * a.Hkv + blk.hk) * a.D;
+#pragma unroll
+    for (int j = 0; j < NCOL / 8; ++j) {
+      const int col = c0 + 8 * j + cq;
+      if (col < a.D) {
+        *reinterpret_cast<__nv_bfloat162*>(dkg + row + col) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + row + col) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dK/dV for D <= DT <= 128: each consumer warpgroup owns 64 of the block's
+// 128 k rows and all DT columns, and forms its rows' S^T and dP^T.
 template <int DT>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
   using Tile = DkvTile<DT>;
-  constexpr int BK = Tile::kBK, BQ = Tile::kBQ, NS = Tile::kStages;
-  constexpr int NC = DT / 64;
+  constexpr int BK = Tile::kBK, BQ = Tile::kBQ;
 
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* base =
-      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sK = base;
-  uint8_t* sV = base + Tile::kKBytes;
-  uint8_t* sQO = base + 2 * Tile::kKBytes;  // stage s: Q, then dO
-  float* sRows = reinterpret_cast<float*>(base + Tile::kTiles);
-  uint64_t* kvbar =
-      reinterpret_cast<uint64_t*>(base + Tile::kTiles + Tile::kRows);
-  uint64_t* full = kvbar + 1;
-  uint64_t* empty = full + NS;
-  float* sU = reinterpret_cast<float*>(base + Tile::kTiles + Tile::kRows +
-                                       Tile::kBars);
-
-  const int bkv = blockIdx.x;
-  const int b = bkv / a.Hkv;
-  const int hk = bkv % a.Hkv;
-  const int group = a.H / a.Hkv;
-  const int k0 = blockIdx.y * BK;
-
-  // The TPU kernel's q-loop bounds: the first q tile holding a row that
-  // sees key k0 (causal), and the last one whose newest row still sees the
-  // tile's oldest key (window).
-  const int n_qt = (a.Sq + BQ - 1) / BQ;
-  const int it_start = a.causal ? k0 / BQ : 0;
-  int it_end = n_qt;
-  if (a.causal && a.window > 0) {
-    it_end = min(n_qt, (k0 + BK - 1 + a.window + BQ - 1) / BQ);
-  }
-  const int n_q = max(it_end - it_start, 0);
-  const int total = group * n_q;
-
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(kvbar, 1);
-    for (int s = 0; s < NS; ++s) {
-      sm90::mbar_init(&full[s], 33);  // TMA bytes + the producer's 32 lanes
-      sm90::mbar_init(&empty[s], 256);
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
+  const DkvBlock<Tile> blk(a, smem_raw);
 
   if (threadIdx.x >= 256) {  // producer warpgroup: warp 8 loads
     sm90::setmaxnreg_dec<40>();
-    if (threadIdx.x < 288) {
-      const int lane = threadIdx.x & 31;
-      if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(kvbar, 2 * Tile::kKBytes);
-        for (int c = 0; c < NC; ++c) {
-          sm90::tma_load_4d(sK + c * BK * 128, &a.tk, kvbar, c * 64, k0, hk,
-                            b);
-          sm90::tma_load_4d(sV + c * BK * 128, &a.tv, kvbar, c * 64, k0, hk,
-                            b);
-        }
-      }
-      for (int it = 0; it < total; ++it) {
-        const int g = it / n_q;
-        const int h = hk * group + g;
-        const int q0 = (it_start + it - g * n_q) * BQ;
-        const int s = it % NS;
-        sm90::mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
-        uint8_t* sq = sQO + s * 2 * Tile::kQBytes;
-        if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&full[s], 2 * Tile::kQBytes);
-          for (int c = 0; c < NC; ++c) {
-            sm90::tma_load_4d(sq + c * BQ * 128, &a.tq, &full[s], c * 64, q0,
-                              h, b);
-            sm90::tma_load_4d(sq + Tile::kQBytes + c * BQ * 128, &a.tdo,
-                              &full[s], c * 64, q0, h, b);
-          }
-        }
-        const long long row0 = ((long long)b * a.H + h) * a.Sq;
-        float* rows = sRows + s * 2 * BQ;
-        for (int r = lane; r < BQ; r += 32) {
-          const int qpos = q0 + r;
-          const bool ok = qpos < a.Sq;
-          rows[r] = ok ? a.lse[row0 + qpos] * kLog2e : 0.f;
-          rows[BQ + r] = ok ? a.delta[row0 + qpos] : 0.f;
-        }
-        sm90::mbar_arrive(&full[s]);
-      }
-    }
+    if (threadIdx.x < 288) dkv_produce(a, blk);
   } else {  // consumer warpgroups: 64 k rows each
     sm90::setmaxnreg_inc<232>();
     const int wg = threadIdx.x >> 7;
-    const int warp = (threadIdx.x >> 5) & 3;
-    const int lane = threadIdx.x & 31;
-    const int kw0 = k0 + wg * 64;                  // the warpgroup's rows
-    const int kr = kw0 + warp * 16 + (lane >> 2);  // rows kr, kr + 8
-    const int cq = 2 * (lane & 3);                 // column in an 8-group
-    const uint32_t k_addr = sm90::smem_u32(sK) + wg * 64 * 128;
-    const uint32_t v_addr = sm90::smem_u32(sV) + wg * 64 * 128;
-
-    float dk[DT / 2], dv[DT / 2];
-#pragma unroll
-    for (int i = 0; i < DT / 2; ++i) dk[i] = dv[i] = 0.f;
-
-    sm90::mbar_wait(kvbar, 0);
-    for (int it = 0; it < total; ++it) {
-      const int g = it / n_q;
-      const int q0 = (it_start + it - g * n_q) * BQ;
-      const int s = it % NS;
-      const uint32_t q_addr =
-          sm90::smem_u32(sQO) + s * 2 * Tile::kQBytes;
-      const uint32_t o_addr = q_addr + Tile::kQBytes;
-      sm90::mbar_wait(&full[s], (it / NS) & 1);
-
-      // S^T = K.Q^T and dP^T = V.dO^T, 64 k rows x BQ q columns.
-      float st[BQ / 2], dpt[BQ / 2];
+    const uint32_t k_addr = sm90::smem_u32(blk.sK) + wg * 64 * 128;
+    const uint32_t v_addr = sm90::smem_u32(blk.sV) + wg * 64 * 128;
+    // S^T = K.Q^T and dP^T = V.dO^T, 64 k rows x BQ q columns.
+    auto scores = [&](auto& st, auto& dpt, uint32_t q_addr, uint32_t o_addr,
+                      int) {
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DT / 16; ++kk) {
@@ -720,96 +893,17 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
       sm90::wgmma_wait<0>();
       sm90::fence_regs(st);
       sm90::fence_regs(dpt);
-
-      // P^T = exp(scale * S^T - lse) and dS^T = P^T (dP^T - delta) scale.
-      const float* rows = sRows + s * 2 * BQ;
-      const bool need_mask =
-          q0 + BQ > a.Sq ||
-          (a.causal && (q0 < kw0 + 63 ||
-                        (a.window > 0 && q0 + BQ - 1 - kw0 >= a.window)));
-#pragma unroll
-      for (int i = 0; i < BQ / 2; ++i) {
-        const int c = 8 * (i >> 2) + cq + (i & 1);
-        float pv = sm90::ex2(fmaf(st[i], a.scale_log2, -rows[c]));
-        if (need_mask) {
-          const int qpos = q0 + c;
-          const int kpos = kr + 8 * ((i >> 1) & 1);
-          if (qpos >= a.Sq ||
-              (a.causal && (qpos < kpos ||
-                            (a.window > 0 && qpos - kpos >= a.window)))) {
-            pv = 0.f;
-          }
-        }
-        st[i] = pv;
-        dpt[i] = pv * (dpt[i] - rows[BQ + c]) * a.scale;
-      }
-
-      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-      sm90::to_a_frags(st, pa);
-      sm90::to_a_frags(dpt, da);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        sm90::wgmma_rs(dv, pa[kk],
-                       sm90::desc_sw128(o_addr + kk * 2048, BQ * 128, 1024));
-      }
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        sm90::wgmma_rs(dk, da[kk],
-                       sm90::desc_sw128(q_addr + kk * 2048, BQ * 128, 1024));
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(dv);
-      sm90::fence_regs(dk);
-      sm90::fence_regs(pa);
-      sm90::fence_regs(da);
-      sm90::mbar_arrive(&empty[s]);
-    }
-
-    const int q_first = first_no_key_row(a.causal, a.window, a.Sq, a.Sk);
-    if (q_first < a.Sq) {  // rows that see no key: dV += their dO / Sk
-      if (threadIdx.x < a.D) {
-        sU[threadIdx.x] =
-            no_key_dv(a.dout, a.do_sb, a.do_ss, a.do_sh, b, hk * group,
-                      group, q_first, a.Sq, a.Sk, threadIdx.x);
-      }
-      sm90::bar_sync<1, 256>();  // the consumers only
-#pragma unroll
-      for (int j = 0; j < DT / 8; ++j) {
-        const int col = 8 * j + cq;
-        if (col < a.D) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dv[4 * j + i] += sU[col + (i & 1)];
-        }
-      }
-    }
-
-    // dK/dV are contiguous (B, Sk, Hkv, D).
-    __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk);
-    __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kpos = kr + 8 * r;
-      if (kpos >= a.Sk) continue;
-      const long long row = (((long long)b * a.Sk + kpos) * a.Hkv + hk) * a.D;
-#pragma unroll
-      for (int j = 0; j < DT / 8; ++j) {
-        const int col = 8 * j + cq;
-        if (col < a.D) {
-          *reinterpret_cast<__nv_bfloat162*>(dkg + row + col) =
-              __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dvg + row + col) =
-              __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-        }
-      }
-    }
+    };
+    dkv_consume<Tile, DT>(a, blk, blk.k0 + wg * 64, 0, scores);
   }
 }
 
-template <int DT>
-cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
-  using Tile = DkvTile<DT>;
+// Launches a bf16 dK/dV `kernel` whose tiles (Tile::kBK k rows, Tile::kBQ
+// q rows) and shared memory Tile describes, one block per (batch*kv head,
+// k tile).
+template <typename Tile, typename Kernel>
+cudaError_t launch_dkv_tiles(const Params& p, Kernel kernel,
+                             cudaStream_t stream) {
   DkvArgs a;
   if (!sm90_host::bf16_bshd_map(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
                                 p.q_ss, p.q_sh, Tile::kBQ) ||
@@ -838,7 +932,6 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   a.window = p.window;
   a.scale = p.scale;
   a.scale_log2 = p.scale * kLog2e;
-  auto kernel = flash_dkv_bf16_kernel<DT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile::kSmem);
@@ -846,6 +939,71 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
   dim3 grid(p.B * p.Hkv, (p.Sk + Tile::kBK - 1) / Tile::kBK);
   kernel<<<grid, kWgThreads, Tile::kSmem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
+  return launch_dkv_tiles<DkvTile<DT>>(p, flash_dkv_bf16_kernel<DT>, stream);
+}
+
+// ------------------- dK/dV, bf16, tensor cores, head dim split (D = 256) --
+
+// dK/dV for 128 < D <= 256: the two consumer warpgroups split the head dim,
+// not the rows. Warpgroup w keeps dK and dV columns [128w, 128w + 128) of
+// all 64 k rows (64 + 64 f32 a thread). Both need the whole S^T and dP^T of
+// the 64 rows (m64n32 SS-wgmma over all of D): warpgroup 0 forms S^T and
+// warpgroup 1 dP^T, and they swap them through shared memory behind a
+// named barrier (8 * D FLOP issued a pair, where forming both in each
+// warpgroup issues 12 * D and measured 2-4 % slower, PERF.md).
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dkv_bf16_dsplit_kernel(const __grid_constant__ DkvArgs a) {
+  using Tile = DkvSplitTile;
+  constexpr int BK = Tile::kBK, BQ = Tile::kBQ, D = Tile::kD;
+
+  extern __shared__ uint8_t smem_raw[];
+  const DkvBlock<Tile> blk(a, smem_raw);
+  float* sX = blk.sU + D;  // the swap buffers, one per step parity
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: warp 8 loads
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x < 288) dkv_produce(a, blk);
+  } else {  // consumer warpgroups: all 64 k rows, half of D each
+    sm90::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x >> 7;
+    const int t = threadIdx.x & 127;
+    const uint32_t a_addr = sm90::smem_u32(wg ? blk.sV : blk.sK);
+    auto scores = [&](auto& st, auto& dpt, uint32_t q_addr, uint32_t o_addr,
+                      int it) {
+      // Warpgroup 0: S^T = K.Q^T; warpgroup 1: dP^T = V.dO^T. Then each
+      // reads the other's from the same fragment slots.
+      float mine[BQ / 2];
+      const uint32_t b_addr = wg ? o_addr : q_addr;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        sm90::wgmma_ss(
+            mine,
+            sm90::desc_sw128(a_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
+            sm90::desc_sw128(b_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(mine);
+      float* x = sX + (it & 1) * 2 * (BQ / 2) * 128;
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) x[(wg * (BQ / 2) + i) * 128 + t] = mine[i];
+      sm90::bar_sync<2, 256>();
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const float other = x[((1 - wg) * (BQ / 2) + i) * 128 + t];
+        st[i] = wg ? other : mine[i];
+        dpt[i] = wg ? mine[i] : other;
+      }
+    };
+    dkv_consume<Tile, D / 2>(a, blk, blk.k0, wg * (D / 2), scores);
+  }
 }
 
 // ---------------------------------------------- dQ, bf16, tensor cores ----
@@ -865,7 +1023,9 @@ struct DqArgs {
 template <int DT>
 struct DqTile {
   static constexpr int kBQ = 128;  // q rows: 2 consumer warpgroups x 64
-  static constexpr int kBK = 64;   // keys a step
+  // Keys a step. At D = 256, Q and dO take 128 KiB, so a K/V stage of 64
+  // keys (64 KiB) leaves room for one stage only; 32 keys fit three.
+  static constexpr int kBK = DT <= 128 ? 64 : 32;
   // The pipelined consumers hold two stages at a time (K_it and K_(it-1)),
   // so a third lets the next load run ahead.
   static constexpr int kStages = 3;
@@ -874,6 +1034,7 @@ struct DqTile {
   static constexpr int kTiles = 2 * kQBytes + kStages * 2 * kKVBytes;
   static constexpr size_t kSmem =  // alignment slack, tiles, barriers
       1024 + kTiles + 8 * (2 * kStages + 1);
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
 template <int DT>
@@ -1123,27 +1284,29 @@ cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles by head dim. Shared memory per block (bytes): the CUDA-core dQ
-// 85 K / 151 K / 138 K and dK/dV 104 K / 170 K / 145 K for D <= 64 / 128 /
-// 256; the tensor-core dQ 81 K / 161 K and dK/dV 68 K / 134 K for
-// D <= 64 / 128. All under the 227 KB a block may use.
+// Tiles by head dim. Shared memory per block (bytes): the CUDA-core (f32)
+// dQ 85 K / 151 K / 138 K and dK/dV 104 K / 170 K / 145 K for D <= 64 /
+// 128 / 256; the tensor-core (bf16) dQ 81 K / 161 K / 225 K and dK/dV 68 K
+// / 134 K / 195 K for D <= 64 / 128 / 256. All under the 227 KB a block
+// may use.
 template <typename T>
 cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
   if (which == 0) {
-    if constexpr (sizeof(T) == 2) {  // bf16 dQ: tensor cores to D = 128
+    if constexpr (sizeof(T) == 2) {  // bf16 dQ: tensor cores
       if (p.D <= 64) return launch_dq_bf16<64>(p, s);
       if (p.D <= 128) return launch_dq_bf16<128>(p, s);
-      return launch_dq<T, 256, 32, 32>(p, s);  // CUDA cores (see the note)
+      return launch_dq_bf16<256>(p, s);
     } else {
       if (p.D <= 64) return launch_dq<T, 64, 64, 64>(p, s);
       if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
       return launch_dq<T, 256, 32, 32>(p, s);
     }
   }
-  if constexpr (sizeof(T) == 2) {  // bf16 dK/dV: tensor cores to D = 128
+  if constexpr (sizeof(T) == 2) {  // bf16 dK/dV: tensor cores
     if (p.D <= 64) return launch_dkv_bf16<64>(p, s);
     if (p.D <= 128) return launch_dkv_bf16<128>(p, s);
-    return launch_dkv<T, 256, 32, 32>(p, s);  // CUDA cores (see the note)
+    return launch_dkv_tiles<DkvSplitTile>(p, flash_dkv_bf16_dsplit_kernel,
+                                          s);
   } else {
     if (p.D <= 64) return launch_dkv<T, 64, 64, 64>(p, s);
     if (p.D <= 128) return launch_dkv<T, 128, 64, 64>(p, s);

@@ -7,11 +7,11 @@ counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
 _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 (``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
 it runs the plain PyTorch versions beside them. There is no fallback from
-one to the other. In bf16 the forward and, for head dims up to 128, the
-dQ and dK/dV kernels run on the tensor cores and load their tiles by TMA,
-so bf16 inputs to any of them need 16-byte aligned data and strides,
-whatever the head dim (a misaligned input is refused, never copied or sent
-to the CUDA-core kernels); f32 runs on the CUDA cores.
+one to the other. In bf16 the forward, dQ and dK/dV kernels run on the
+tensor cores at every head dim (8..256) and load their tiles by TMA, so
+bf16 inputs to any of them need 16-byte aligned data and strides (a
+misaligned input is refused, never copied or sent to another kernel); f32
+runs on the CUDA cores.
 
 Rows that see no key (causal with a window, qpos >= Sk + window - 1, only
 when Sq > Sk) get the JAX reference's answer everywhere: o is the mean of V
