@@ -1,14 +1,16 @@
-"""Compare the flash-attention backward kernels of this checkout with those
-of another checkout, on one NVIDIA GPU.
+"""Compare the flash-attention kernels of this checkout with those of another
+checkout, on one NVIDIA GPU.
 
     python3 chip_compare.py OTHER_CHECKOUT
 
-Builds OTHER_CHECKOUT/tpunet_torch/csrc/flash_bwd.cu beside this
-checkout's kernels and runs both builds' dQ and dK/dV entry points through
-this checkout's wrappers on the same bf16 causal inputs: the training shape
-(B4 S2048 H16 D128), GQA-4 at B1 S2048 D128, and head dim 256 at B2 S2048
-H16 and B1 S1024 GQA-4. Each side's device time (the mean of 20
-launches) is taken ten times, in pairs that alternate which side runs
+Builds OTHER_CHECKOUT/tpunet_torch/csrc/flash_fwd.cu and flash_bwd.cu
+beside this checkout's kernels and runs both builds' entry points through
+this checkout's wrappers on the same causal inputs (both C interfaces take
+the same arguments): in bf16 the forward, dQ and dK/dV at the training
+shape (B4 S2048 H16 D128) and at head dim 256 (B2 S2048 H16), and dQ and
+dK/dV at B1 S2048 GQA-4 D128 and B1 S1024 GQA-4 D256; in f32 the forward,
+dQ and dK/dV at the training shape. Each side's device time (the mean of
+20 launches) is taken ten times, in pairs that alternate which side runs
 first. For each case and kernel it prints one JSON line: whether the two
 builds' outputs are bitwise equal, each side's median and quartiles, and
 in how many pairs this checkout was faster. Exits non-zero without a GPU.
@@ -28,24 +30,29 @@ from pathlib import Path
 
 import torch
 
-CASES = [  # b, s, h, hk, d
-    (4, 2048, 16, 16, 128),
-    (1, 2048, 16, 4, 128),
-    (2, 2048, 16, 16, 256),
-    (1, 1024, 16, 4, 256),
+BF16, F32 = torch.bfloat16, torch.float32
+CASES = [  # kernels, dtype, b, s, h, hk, d
+    (("flash_fwd", "flash_dq", "flash_dkv"), BF16, 4, 2048, 16, 16, 128),
+    (("flash_dq", "flash_dkv"), BF16, 1, 2048, 16, 4, 128),
+    (("flash_fwd", "flash_dq", "flash_dkv"), BF16, 2, 2048, 16, 16, 256),
+    (("flash_dq", "flash_dkv"), BF16, 1, 1024, 16, 4, 256),
+    (("flash_fwd", "flash_dq", "flash_dkv"), F32, 4, 2048, 16, 16, 128),
 ]
 PAIRS = 10  # timings of each side, alternating which runs first
-ENTRIES = {"flash_dq": "tpunet_flash_bwd_dq",
+ENTRIES = {"flash_fwd": "tpunet_flash_fwd",
+           "flash_dq": "tpunet_flash_bwd_dq",
            "flash_dkv": "tpunet_flash_bwd_dkv"}
+LIBS = {"flash_fwd": "flash_fwd", "flash_dq": "flash_bwd",
+        "flash_dkv": "flash_bwd"}
 
 
-def _build_other(checkout: Path, out_dir: Path) -> ctypes.CDLL:
-    """nvcc of the other checkout's flash_bwd.cu, with the flags of this
+def _build_other(checkout: Path, out_dir: Path, name: str) -> ctypes.CDLL:
+    """nvcc of the other checkout's csrc/<name>.cu, with the flags of this
     checkout's build."""
     from tpunet_torch.ops import _build
 
-    src = checkout / "tpunet_torch" / "csrc" / "flash_bwd.cu"
-    lib = out_dir / "libflash_bwd_other.so"
+    src = checkout / "tpunet_torch" / "csrc" / f"{name}.cu"
+    lib = out_dir / f"lib{name}_other.so"
     res = subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17",
                           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
                           str(lib), str(src)], capture_output=True, text=True)
@@ -65,6 +72,33 @@ def _entry(fa, name: str, fn):
         fa._fns[name] = mine
 
 
+def _compare(fa, chip_smoke, kernel, entry, other_fn, run) -> dict:
+    """Bitwise equality of the two builds' outputs and their timings in
+    alternating pairs."""
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    this_out = as_tuple(run())
+    with _entry(fa, entry, other_fn):
+        other_out = as_tuple(run())
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(this_out, other_out))
+    ms = {"other": [], "this": []}
+    for pair in range(PAIRS):
+        order = ("other", "this") if pair % 2 == 0 else ("this", "other")
+        for side in order:
+            ctx = (_entry(fa, entry, other_fn) if side == "other"
+                   else contextlib.nullcontext())
+            with ctx:
+                ms[side].append(chip_smoke.cuda_ms(run, 20))
+    wins = sum(t < o for t, o in zip(ms["this"], ms["other"]))
+    return {"kernel": kernel, "bitwise_equal": equal,
+            "median_ms": {k: statistics.median(x) for k, x in ms.items()},
+            "quartiles_ms": {k: statistics.quantiles(x, n=4)[::2]
+                             for k, x in ms.items()},
+            "this_faster_pairs": [wins, PAIRS]}
+
+
 def main() -> int:
     if len(sys.argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -74,54 +108,37 @@ def main() -> int:
         return 1
     import chip_smoke
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     fa = importlib.import_module("tpunet_torch.ops.flash_attention")
-    other_fns = {}
     with tempfile.TemporaryDirectory() as tmp:
-        other = _build_other(Path(sys.argv[1]).resolve(), Path(tmp))
-        for entry in ENTRIES.values():
+        libs = {name: _build_other(Path(sys.argv[1]).resolve(), Path(tmp),
+                                   name) for name in set(LIBS.values())}
+        other_fns = {}
+        for kernel, entry in ENTRIES.items():
             mine = fa._bind(entry)
-            fn = getattr(other, entry)
+            fn = getattr(libs[LIBS[kernel]], entry)
             fn.argtypes, fn.restype = mine.argtypes, mine.restype
             other_fns[entry] = fn
-        launch = {"flash_dq": fa._launch_dq, "flash_dkv": fa._launch_dkv}
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
-        for b, s, h, hk, d in CASES:
+        for kernels, dt, b, s, h, hk, d in CASES:
             q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
-                     .bfloat16() for _ in range(2))
+                     .to(dt) for _ in range(2))
             k, v = (torch.randn((b, s, hk, d), generator=gen, device="cuda")
-                    .bfloat16() for _ in range(2))
+                    .to(dt) for _ in range(2))
             o, lse = fa.flash_attention_fwd(q, k, v, True, None)
             args = (q, k, v, do, lse, fa.attention_delta(o, do), True, None)
-            for kernel, entry in ENTRIES.items():
-                run = launch[kernel]
-                this_out = run(*args)
-                with _entry(fa, entry, other_fns[entry]):
-                    other_out = run(*args)
-                torch.cuda.synchronize()
-                outs = [x if isinstance(x, tuple) else (x,)
-                        for x in (this_out, other_out)]
-                equal = all(torch.equal(x, y) for x, y in zip(*outs))
-                ms = {"other": [], "this": []}
-                for pair in range(PAIRS):
-                    order = ("other", "this") if pair % 2 == 0 else (
-                        "this", "other")
-                    for side in order:
-                        ctx = (_entry(fa, entry, other_fns[entry])
-                               if side == "other"
-                               else contextlib.nullcontext())
-                        with ctx:
-                            ms[side].append(chip_smoke.cuda_ms(
-                                lambda: run(*args), 20))
-                wins = sum(t < o for t, o in zip(ms["this"], ms["other"]))
-                print(json.dumps({
-                    "kernel": kernel, "b": b, "s": s, "h": h, "hk": hk,
-                    "d": d, "causal": True, "bitwise_equal": equal,
-                    "median_ms": {k_: statistics.median(x)
-                                  for k_, x in ms.items()},
-                    "quartiles_ms": {k_: statistics.quantiles(x, n=4)[::2]
-                                     for k_, x in ms.items()},
-                    "this_faster_pairs": [wins, PAIRS]}), flush=True)
+            runs = {"flash_fwd": lambda: fa._launch(q, k, v, True, None),
+                    "flash_dq": lambda: fa._launch_dq(*args),
+                    "flash_dkv": lambda: fa._launch_dkv(*args)}
+            for kernel in kernels:
+                entry = ENTRIES[kernel]
+                row = _compare(fa, chip_smoke, kernel, entry,
+                               other_fns[entry], runs[kernel])
+                print(json.dumps({**row, "dtype": str(dt).replace(
+                    "torch.", ""), "b": b, "s": s, "h": h, "hk": hk,
+                    "d": d, "causal": True}), flush=True)
+            del q, do, k, v, o, lse, args
     return 0
 
 

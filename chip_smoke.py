@@ -9,34 +9,42 @@ Phases (each raises on failure; the script then exits non-zero):
            rebuilt), in parallel from the sources of this checkout;
            ptxas's registers and spills per kernel function, and the count
            of tensor-core instructions (HGMMA, HMMA) per function from
-           cuobjdump -sass. Fails if a bf16 flash_fwd, flash_dq or
-           flash_dkv function (every head dim, D = 256 included) has no
-           HGMMA, no ptxas report or spills, or if a bf16 instantiation of
-           the CUDA-core flash_dq_kernel or flash_dkv_kernel exists
+           cuobjdump -sass. Fails if a bf16 or f16 flash_fwd, flash_dq or
+           flash_dkv function (every head dim; the D = 256 ones and every
+           f16 one must exist) has no HGMMA, no ptxas report or spills, if
+           an f32 flash_fwd_f32_kernel or flash_dkv_f32_kernel is missing
+           or spills, or if a 16-bit instantiation of the CUDA-core
+           flash_dq_kernel, or the replaced flash_dkv_kernel, exists
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
-           bf16 and f32), the training shape (B=4, S=2048, 16 kv heads,
-           bf16), a ragged length (401), a window (128), non-causal
-           Sq != Sk, bf16 head dims 64, 96 and 256 with GQA-8 and ragged
-           Sq != Sk, D=256 at the training shape's work (B=2, S=2048, 16
-           kv heads), and rows that see no key (Sq 517, Sk 401, window 16,
-           bf16 and f32); each also bitwise equal on a second launch;
+           bf16 and f32), the training shape (B=4, S=2048, 16 kv heads;
+           bf16, f32 and f16), a ragged length (401), a window (128),
+           non-causal Sq != Sk, head dims 12 and 100 (zero-padded by the
+           wrapper) and B*H = 65,552 (B=4097, S=64, D=8) in bf16 and f32,
+           bf16 head dims 64, 96 and 256 with GQA-8 and ragged Sq != Sk,
+           D=256 at the training shape's work (B=2, S=2048, 16 kv heads),
+           f16 GQA-8 ragged and D=256, rows that see no key (Sq 517, Sk
+           401, window 16; bf16, f32 and f16), and a bf16 q sliced from a
+           wider buffer at an odd offset, which the wrapper must copy
+           (input_copies); each also bitwise equal on a second launch;
            then the backward kernels flash_dq and flash_dkv against theirs
-           at the training shape (bf16 and f32), GQA (4 kv heads), a
+           at the training shape (bf16, f32 and f16), GQA (4 kv heads), a
            ragged length (401), a window (128), non-causal Sq 384 / Sk 512,
-           bf16 D=64 with GQA-8, bf16 D=256 (B=1 S=1024 GQA-4; B=2 S=2048
-           MHA, the training shape's work; GQA-8 ragged Sq != Sk; the
-           no-key rows) and the no-key rows at D=128 in bf16 and f32.
-           Each output is held to a limit
-           on its largest error and to one on every row's error relative
-           to that row's norm, and must be finite; each bf16 dQ and dK/dV
-           row also shows that the row check sees two planted faults (dQ:
-           a k tile or the right kv head left out; dK/dV: a q tile or a GQA
-           head left out). Errors, kernel time, bound, plain time and the
-           time of scaled_dot_product_attention (its backward alone for
-           the backward kernels; with an explicit boolean mask where there
-           is a window), the rate in TFLOP/s, and the time of
-           attention_delta at the training shape
+           bf16 D=64 with GQA-8, f16 GQA-8, bf16 D=256 (B=1 S=1024 GQA-4;
+           B=2 S=2048 MHA, the training shape's work; GQA-8 ragged
+           Sq != Sk; the no-key rows), f16 D=256 GQA-8, the no-key rows at
+           D=128 in bf16, f32 and f16, head dims 12 and 100 and B*H =
+           65,552 in bf16 and f32, and the misaligned bf16 q. Each output
+           is held to a limit on its largest error and to one on every
+           row's error relative to that row's norm, and must be finite;
+           each dQ and dK/dV row also shows that the row check sees two
+           planted faults (dQ: a k tile or the right kv head left out;
+           dK/dV: a q tile or a GQA head left out). Errors, input copies,
+           kernel time, bound, plain time and the time of
+           scaled_dot_product_attention (its backward alone for the
+           backward kernels; with an explicit boolean mask where there is
+           a window) with the backend it ran, the rate in TFLOP/s, and
+           the time of attention_delta at the training shape
   model    the 735M GQA Transformer (d2048, 12 layers, 16 heads, 4 kv
            heads, ff 8192, vocab 32000) on a 512-token prompt, flash impl
            against reference impl, in f32 and bf16
@@ -59,7 +67,8 @@ Phases (each raises on failure; the script then exits non-zero):
            process that applies the mean of the two half-batch gradients,
            and the loss must be finite and falling. One more step on a
            bf16-wire communicator with grad_compression="bf16" must leave
-           the ranks bitwise equal, with a codec wire ratio of 0.5.
+           the ranks bitwise equal, with a codec wire ratio of 0.5. The
+           serve and train runs must copy no flash input (input_copies 0).
 Then one JSON line describing each kernel (launches from the train phase,
 tensor-core instructions of the function the bf16 D=128 path runs) and,
 last, the device line.
@@ -99,12 +108,17 @@ MODEL_TRAIN = dict(vocab=32000, d_model=2048, n_layers=12, n_heads=16,
                    d_ff=8192, mlp_impl="gelu")
 TRAIN_RANKS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4, 2048, 4, 3e-4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense bf16 tensor cores
-              torch.float32: 67e12}     # f32 outside the tensor cores
-TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+PEAK_FLOPS = {BF16: 989e12, F16: 989e12,   # dense 16-bit tensor cores
+              F32: 67e12}                  # f32 outside the tensor cores
+# The forward's largest error, absolute: tests/test_ops.py's f32 and bf16
+# limits; f16 rounds o and P to 11 significant bits where bf16 keeps 8, so
+# its limit is a third of bf16's (1 ulp of f16 is <= 3.9e-3 below |o| = 8).
+TOL = {BF16: 3e-2, F16: 1e-2, F32: 2e-5}
 # Backward tolerances of tests/test_ops.py's gradient tests, relative to
-# max(1, max|reference|).
-BWD_TOL = {torch.bfloat16: 1e-1, torch.float32: 5e-5}
+# max(1, max|reference|); f16 a tenth of bf16's (its P and dS keep 3 more
+# bits; sound f16 lines read <= 8e-4).
+BWD_TOL = {BF16: 1e-1, F16: 1e-2, F32: 5e-5}
 # A second check that scales with each output row (one position of one head,
 # over D): the row's error norm over the reference row's norm. The limits
 # sit between the largest reading of sound runs and the smallest reading of
@@ -112,74 +126,116 @@ BWD_TOL = {torch.bfloat16: 1e-1, torch.float32: 5e-5}
 # gives both. A row of (near) zero reference norm is held to ROW_FLOOR of
 # the largest row instead of its own norm: a dQ row that sees one key is 0
 # exactly (dP = delta there), and the cancellation leaves noise of up to
-# 7e-7 of the largest row in bf16 on the tensor cores (PERF.md).
-ROW_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
-ROW_FLOOR = {torch.bfloat16: 1e-4, torch.float32: 1e-6}
+# 7e-7 of the largest row in bf16 on the tensor cores (PERF.md). f16 keeps
+# bf16's row limit and floor: its dQ rows of near-zero norm carry the same
+# order of cancellation noise (up to 1.45e-2 of the floor on the H100,
+# PERF.md), though its other rows read 10x lower.
+ROW_TOL = {BF16: 5e-2, F16: 5e-2, F32: 1e-4}
+ROW_FLOOR = {BF16: 1e-4, F16: 1e-4, F32: 1e-6}
 
 
-def _dkv_tile(d: int) -> tuple:
-    """The bf16 dK/dV kernel's k rows a block and q rows a step at head dim
-    d: flash_dkv_bf16_kernel to 128, flash_dkv_bf16_dsplit_kernel above."""
+def _dkv_tile(d: int, dt) -> tuple:
+    """The dK/dV kernel's k rows a block and q rows a step at head dim d:
+    16-bit flash_dkv_bf16_kernel to 128, flash_dkv_bf16_dsplit_kernel
+    above; f32 flash_dkv_f32_kernel."""
+    if dt == F32:
+        return (64, 128) if d <= 128 else (32, 128)
     return (128, 64) if d <= 128 else (64, 32)
 
 
-def _dq_tile(d: int) -> tuple:
-    """flash_dq_bf16_kernel's q rows a block and keys a step at head dim d."""
+def _dq_tile(d: int, dt) -> tuple:
+    """The dQ kernel's q rows a block and keys a step at head dim d:
+    flash_dq_bf16_kernel (16-bit), flash_dq_kernel (f32)."""
+    if dt == F32:
+        return (64, 64) if d <= 128 else (32, 32)
     return (128, 64) if d <= 128 else (128, 32)
 
 
 COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
             "flash_dkv": "flash_dkv_launches"}
-# Kernel functions that must issue wgmma (every bf16 forward, dQ and dK/dV),
-# the ones that must exist among them (the D = 256 backward), and the
-# function each kernel runs on the bf16 D = 128 main path, by the _short
-# names of csrc/*.cu's instantiations. No bf16 instantiation of the
-# CUDA-core backward kernels may exist.
+# Kernel functions that must issue wgmma (every 16-bit forward, dQ and
+# dK/dV), the ones that must exist among them (the D = 256 backward, every
+# f16 function), the f32 CUDA-core functions that must exist without a
+# spill, and the function each kernel runs on the bf16 D = 128 main path, by
+# the _short names of csrc/*.cu's instantiations. No 16-bit instantiation of
+# the CUDA-core dQ kernel, and no function of the replaced CUDA-core dK/dV
+# kernel, may exist.
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel<", "flash_dq_bf16_kernel<",
                        "flash_dkv_bf16_kernel<",
-                       "flash_dkv_bf16_dsplit_kernel")
-D256_FUNCTIONS = ("flash_dq_bf16_kernel<256>", "flash_dkv_bf16_dsplit_kernel")
-CUDA_CORE_BF16 = ("flash_dq_kernel<bf16", "flash_dkv_kernel<bf16")
-MAIN_PATH_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<128,128>",
-                       "flash_dq": "flash_dq_bf16_kernel<128>",
-                       "flash_dkv": "flash_dkv_bf16_kernel<128>"}
+                       "flash_dkv_bf16_dsplit_kernel<")
+D256_FUNCTIONS = ("flash_dq_bf16_kernel<bf16,256>",
+                  "flash_dkv_bf16_dsplit_kernel<bf16>")
+F16_FUNCTIONS = tuple(
+    [f"flash_fwd_bf16_kernel<f16,{dt},{bk}>"
+     for dt, bk in ((64, 128), (128, 128), (256, 64))]
+    + [f"flash_dq_bf16_kernel<f16,{dt}>" for dt in (64, 128, 256)]
+    + [f"flash_dkv_bf16_kernel<f16,{dt}>" for dt in (64, 128)]
+    + ["flash_dkv_bf16_dsplit_kernel<f16>"])
+F32_FUNCTIONS = tuple(f"flash_{k}_f32_kernel<{dt}>" for k in ("fwd", "dkv")
+                      for dt in (64, 128, 256))
+CUDA_CORE_16 = ("flash_dq_kernel<bf16", "flash_dq_kernel<f16",
+                "flash_dkv_kernel<")
+MAIN_PATH_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<bf16,128,128>",
+                       "flash_dq": "flash_dq_bf16_kernel<bf16,128>",
+                       "flash_dkv": "flash_dkv_bf16_kernel<bf16,128>"}
 SASS: dict = {}  # the build phase's tensor-core census, by _short name
-BF16, F32 = torch.bfloat16, torch.float32
 # Kernel cases, (b, sq, sk, hk, causal, window, dtype, d) with 16 q heads;
 # the first of each list is the training shape, which the kernels line
 # reports. Rows that see no key: Sq 517, Sk 401, window 16 (qpos >= 416).
+# Head dims 12 and 100 run zero-padded to 16 and 104; B 4097 x 16 heads =
+# 65,552 is above grid.y's 65,535 blocks.
 FWD_CASES = (
-    [(4, 2048, 2048, 16, True, None, BF16, 128)]
+    [(4, 2048, 2048, 16, True, None, BF16, 128),
+     (4, 2048, 2048, 16, True, None, F32, 128),   # the f32 training shape
+     (4, 2048, 2048, 16, True, None, F16, 128)]
     + [c for dt in (BF16, F32) for c in (
         (1, 512, 512, 4, True, None, dt, 128),   # serving
         (8, 512, 512, 4, True, None, dt, 128),
         (1, 401, 401, 4, True, None, dt, 128),   # ragged
         (1, 512, 512, 4, True, 128, dt, 128),    # window
-        (2, 384, 512, 4, False, None, dt, 128))]
+        (2, 384, 512, 4, False, None, dt, 128),
+        (2, 401, 401, 4, True, None, dt, 12),    # head dims off the 8s
+        (1, 517, 300, 2, True, 64, dt, 100),
+        (4097, 64, 64, 16, True, None, dt, 8))]  # B*H = 65,552
     # The tensor-core kernel's other head dims, GQA-8 and ragged Sq != Sk.
     + [(2, 401, 517, 2, True, None, BF16, 64),
        (2, 137, 300, 2, True, 64, BF16, 96),
        (1, 300, 401, 2, False, None, BF16, 256),
        (1, 517, 401, 2, True, None, BF16, 256),
        (2, 2048, 2048, 16, True, None, BF16, 256)]
-    + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32)])
+    # f16: GQA-8 ragged, head dim 256.
+    + [(2, 401, 517, 2, True, None, F16, 128),
+       (1, 517, 401, 2, True, None, F16, 256)]
+    + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32, F16)])
 BWD_CASES = [
     (4, 2048, 2048, 16, True, None, BF16, 128),
     (4, 2048, 2048, 16, True, None, F32, 128),
+    (4, 2048, 2048, 16, True, None, F16, 128),
     (1, 2048, 2048, 4, True, None, BF16, 128),
     (1, 401, 401, 4, True, None, BF16, 128),
     (1, 1024, 1024, 16, True, 128, BF16, 128),
     (2, 384, 512, 4, False, None, BF16, 128),
     (2, 384, 512, 4, False, None, F32, 128),
     (2, 401, 300, 2, True, None, BF16, 64),
+    (2, 401, 300, 2, True, None, F16, 128),
     (1, 517, 401, 4, True, 16, BF16, 128),
     (1, 517, 401, 4, True, 16, F32, 128),
+    (1, 517, 401, 4, True, 16, F16, 128),
     # D = 256: B1 S1024 GQA-4, the training shape's work, GQA-8 ragged, no
     # key.
     (1, 1024, 1024, 4, True, None, BF16, 256),
     (2, 2048, 2048, 16, True, None, BF16, 256),
     (2, 401, 300, 2, True, None, BF16, 256),
-    (1, 517, 401, 4, True, 16, BF16, 256)]
+    (2, 401, 300, 2, True, None, F16, 256),
+    (1, 517, 401, 4, True, 16, BF16, 256)] + [
+    c for dt in (BF16, F32) for c in (
+        (2, 401, 401, 4, True, None, dt, 12),    # head dims off the 8s
+        (1, 517, 300, 2, True, 64, dt, 100),
+        (4097, 64, 64, 16, True, None, dt, 8))]  # B*H = 65,552
+# A bf16 q that TMA cannot read as it is: sliced from a wider buffer at an
+# odd element offset (b, sq, sk, hk, causal, window, d): the wrapper copies
+# it (input_copies) and runs the same kernels.
+MISALIGNED_CASE = (2, 401, 401, 4, True, None, 128)
 
 
 def log(phase: str, **fields) -> None:
@@ -238,32 +294,39 @@ def phase_build() -> None:
     ptxas = _ptxas_report(_build.build_logs)
     SASS.update(_tensor_core_census(_build))
     log("build", seconds=times, ptxas=ptxas, tensor_core_instrs=SASS)
+    log("build", f16_functions={f: dict(**SASS.get(f, {}),
+                                         **ptxas.get(f, {}))
+                                  for f in F16_FUNCTIONS},
+        f32_functions={f: ptxas.get(f) for f in F32_FUNCTIONS})
     tc = [f for f in SASS if f.startswith(TENSOR_CORE_KERNELS)]
     missing = [f for f in tc if SASS[f]["HGMMA"] == 0]
-    missing += [f for f in D256_FUNCTIONS if f not in SASS]
-    unreported = [f for f in tc if f not in ptxas]
-    spills = [f for f in tc if f in ptxas and ptxas[f]["spill_bytes"]]
-    cuda_core_bf16 = [f for f in SASS if f.startswith(CUDA_CORE_BF16)]
-    if not tc or missing or unreported or spills or cuda_core_bf16:
-        raise AssertionError(f"tensor-core kernels missing or without HGMMA "
-                             f"{missing}, without a ptxas report "
-                             f"{unreported} or with register spills "
-                             f"{spills}; bf16 CUDA-core backward kernels "
-                             f"{cuda_core_bf16}")
+    missing += [f for f in D256_FUNCTIONS + F16_FUNCTIONS + F32_FUNCTIONS
+                if f not in SASS]
+    unreported = [f for f in tc + list(F32_FUNCTIONS) if f not in ptxas]
+    spills = [f for f in tc + list(F32_FUNCTIONS)
+              if f in ptxas and ptxas[f]["spill_bytes"]]
+    cuda_core_16 = [f for f in SASS if f.startswith(CUDA_CORE_16)]
+    if not tc or missing or unreported or spills or cuda_core_16:
+        raise AssertionError(f"kernels missing or tensor-core kernels "
+                             f"without HGMMA {missing}, without a ptxas "
+                             f"report {unreported} or with register spills "
+                             f"{spills}; 16-bit CUDA-core dQ or old dK/dV "
+                             f"kernels {cuda_core_16}")
 
 
 def _short(fn: str) -> str:
     """A mangled kernel function as name<args>, e.g.
-    flash_fwd_bf16_kernel<128,128>, flash_dq_kernel<bf16,128,64,64>, or as
-    its name where it is no template (flash_dkv_bf16_dsplit_kernel)."""
+    flash_fwd_bf16_kernel<f16,128,128>, flash_dq_kernel<f32,128,64,64>,
+    flash_dkv_bf16_dsplit_kernel<bf16>."""
     m = re.search(r"(?<=\d)(flash_\w+?_kernel)(?:I(.+?)EEv)?", fn)
     if not m:
         return fn
     if m.group(2) is None:
         return m.group(1)
-    args = m.group(2).replace("13__nv_bfloat16", "bf16,").replace("Li", "")
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = args.replace("6__half", "f16,").replace("Li", "")
     args = args.replace("E", ",").strip(",")
-    if args.startswith("f"):
+    if args.startswith("f") and not args.startswith("f16"):
         args = "f32," + args[1:]
     return f"{m.group(1)}<{args}>"
 
@@ -392,21 +455,25 @@ def _planted_dkv_faults(q, k, v, do, lse, delta, causal, window, got,
     check's (_row_err) and the max-error check's (largest error over
     max(1, max|ref|), which BWD_TOL bounds). The faults:
       q_tile_start: every k tile after the first skips its first q tile
-                    (a causal loop start one tile late; tiles of 128 k
-                    rows and 64 q rows, 64 and 32 at D > 128);
-      gqa_head:     the last q head of each GQA group is left out."""
+                    (a causal loop start one tile late; the kernel's tiles,
+                    _dkv_tile);
+      gqa_head:     the last q head of each GQA group is left out;
+      grid_limit:   (B*Hkv > 65,535) the blocks past grid.y's 65,535
+                    compute nothing, so those heads' dK and dV stay 0.
+    A fault that cannot happen at this shape (one k tile; no GQA) is not
+    planted."""
     from tpunet_torch.ops.flash_attention import _bwd_plain_parts
 
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     group = h // hk
     p, ds, _ = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
-    bk, bq = _dkv_tile(d)
+    bk, bq = _dkv_tile(d, q.dtype)
     tile = torch.zeros((sq, sk), device=q.device)
     for k0 in range(bk, sk, bk):
         q0 = (k0 // bq) * bq if causal else 0
         tile[q0:q0 + bq, k0:k0 + bk] = 1
-    masks = {"q_tile_start": tile[None, None]}
+    masks = {"q_tile_start": tile[None, None]} if sk > bk else {}
     if group > 1:
         heads = (torch.arange(h, device=q.device) % group) == group - 1
         masks["gqa_head"] = heads.float()[None, :, None, None]
@@ -421,7 +488,25 @@ def _planted_dkv_faults(q, k, v, do, lse, delta, causal, window, got,
             max_err = max(max_err, float((bad - w).abs().max())
                           / max(1.0, float(w.abs().max())))
         out[name] = dict(row_err=row_err, max_err=max_err)
+    if b * hk > 65535:
+        out["grid_limit"] = _grid_limit_fault(got, want)
     return out
+
+
+def _grid_limit_fault(got, want) -> dict:
+    """The row check's and max-error check's readings of outputs (B, S,
+    heads, D) whose (batch, head) blocks past 65,535, the grid.y limit,
+    computed nothing."""
+    row_err, max_err = 0.0, 0.0
+    for g, w in zip(got, want):
+        b, _, h, _ = g.shape
+        dead = (torch.arange(b * h, device=g.device) >= 65535).reshape(
+            b, 1, h, 1)
+        bad = g.float().masked_fill(dead, 0.0)
+        row_err = max(row_err, _row_err(bad, w))
+        max_err = max(max_err, float((bad - w.float()).abs().max())
+                      / max(1.0, float(w.float().abs().max())))
+    return dict(row_err=row_err, max_err=max_err)
 
 
 def _planted_dq_faults(q, k, v, do, lse, delta, causal, window, got,
@@ -429,20 +514,22 @@ def _planted_dq_faults(q, k, v, do, lse, delta, causal, window, got,
     """Readings of two dQ faults, planted in the kernel's own output as
     _planted_dkv_faults does: the row check's and the max-error check's.
     The faults:
-      last_k_tile: every 128-row q tile leaves out the last key tile its
-                   loop visits (64 keys; 32 at D > 128), a causal loop end
+      last_k_tile: every q tile leaves out the last key tile its loop
+                   visits (the kernel's tiles, _dq_tile), a causal loop end
                    one tile early: the exact f32 dS.K of that tile is taken
                    away;
       kv_head:     every q head reads the next kv head's K and V
                    ((h // group + 1) % Hkv): the exact f32 change of dQ that
-                   this makes is added.
+                   this makes is added;
+      grid_limit:  (B*H > 65,535) the blocks past grid.y's 65,535 compute
+                   nothing, so those heads' dQ stays 0.
     got and want are 1-tuples (dQ), as the row loop holds them."""
     from tpunet_torch.ops.flash_attention import _bwd_plain_parts
 
     (got,), (want,) = got, want
     sq, sk = q.shape[1], k.shape[1]
     _, ds, k_full = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
-    bq, bk = _dq_tile(q.shape[3])
+    bq, bk = _dq_tile(q.shape[3], q.dtype)
     n_kt = -(-sk // bk)
     tile = torch.zeros((sq, sk), device=q.device)
     for q0 in range(0, sq, bq):
@@ -461,9 +548,12 @@ def _planted_dq_faults(q, k, v, do, lse, delta, causal, window, got,
         del ds_w, k_w
     w = want.float()
     scale = max(1.0, float(w.abs().max()))
-    return {name: dict(row_err=_row_err(x, want),
-                       max_err=float((x - w).abs().max()) / scale)
-            for name, x in bad.items()}
+    out = {name: dict(row_err=_row_err(x, want),
+                      max_err=float((x - w).abs().max()) / scale)
+           for name, x in bad.items()}
+    if q.shape[0] * q.shape[2] > 65535:
+        out["grid_limit"] = _grid_limit_fault((got,), (want,))
+    return out
 
 
 def _sdpa_inputs(q, k, v, causal, window):
@@ -483,6 +573,51 @@ def _sdpa_inputs(q, k, v, causal, window):
     return (*(x.transpose(1, 2) for x in (q, k, v)), kw)
 
 
+SDPA_OPS = (("_cudnn_attention", "cudnn"), ("_flash_attention", "flash"),
+            ("_efficient_attention", "efficient"), ("_math", "math"))
+
+
+def _sdpa_backend(fn) -> str:
+    """The backend scaled_dot_product_attention picked for fn's call, by the
+    name of the ATen op that the profiler saw on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = [e.key for e in prof.key_averages()]
+    for op, backend in SDPA_OPS:
+        if any(op in n for n in names):
+            return backend
+    return "unknown"
+
+
+def _library(q, k, v, causal, window, do=None) -> dict:
+    """scaled_dot_product_attention on the same inputs: the forward's time
+    or, given the cotangent do, its backward's alone (dQ, dK and dV
+    together), and the backend it ran. A call SDPA refuses (its own limits,
+    e.g. on the batch) gives library_ms None and the reason."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, kw = _sdpa_inputs(q, k, v, causal, window)
+    try:
+        if do is None:
+            def call():
+                return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+            backend = _sdpa_backend(call)
+            return dict(library_ms=cuda_ms(call), library_backend=backend)
+        qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        backend = _sdpa_backend(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+        out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        dot = do.transpose(1, 2)
+        return dict(library_ms=cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True)),
+            library_backend=backend)
+    except RuntimeError as e:
+        return dict(library_ms=None, library_backend=None,
+                    library_error=str(e).splitlines()[0][:200])
+
+
 def _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=1):
     """Random q (and n_q - 1 more q-shaped tensors), k, v on the card."""
     qs = [torch.randn((b, sq, h, d), generator=gen, device=DEVICE).to(dt)
@@ -492,55 +627,76 @@ def _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=1):
     return (*qs, k, v)
 
 
+def _misaligned(x):
+    """x's values in a view TMA cannot read as it is: sliced from a buffer
+    with 3 more elements in each row, at an odd element offset."""
+    b, s, h, d = x.shape
+    buf = torch.zeros((b, s, h, d + 3), dtype=x.dtype, device=x.device)
+    view = buf[..., 1:d + 1]
+    view.copy_(x)
+    return view
+
+
 def _case(b, sq, sk, hk, causal, window, dt) -> dict:
     return dict(b=b, sq=sq, sk=sk, h=16, hk=hk, causal=causal, window=window,
                 dtype=str(dt).replace("torch.", ""))
 
 
-def phase_kernels(seed: int) -> dict:
-    """flash_fwd's rows; returns the training shape's row."""
-    import torch.nn.functional as F
-
-    from tpunet_torch.ops.flash_attention import (flash_attention_fwd,
+def _fwd_row(q, k, v, causal, window, d, layout="contiguous") -> dict:
+    """flash_fwd against its plain version on one input: errors, row error,
+    determinism, input copies, times, bound and SDPA's time and backend."""
+    from tpunet_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_fwd,
                                                   flash_attention_plain)
 
+    b, sq, h, _ = q.shape
+    sk, hk, dt = k.shape[1], k.shape[2], q.dtype
+    copies = flash_attention.input_copies
+    o, lse = flash_attention_fwd(q, k, v, causal, window)
+    copies = flash_attention.input_copies - copies
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, window)
+    again = flash_attention_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    deterministic = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    err_o = float((o.float() - o_ref.float()).abs().max())
+    err_lse = float((lse - lse_ref).abs().max())
+    row_err = _row_err(o, o_ref)
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    ok = (err_o <= TOL[dt] and err_lse <= TOL[dt]
+          and row_err <= ROW_TOL[dt] and deterministic and finite)
+    work = _attention_work("flash_fwd", b, sq, sk, h, hk, d, causal, window,
+                           dt)
+    row = dict(kernel="flash_fwd", **_case(b, sq, sk, hk, causal, window, dt),
+               d=d, layout=layout, err_o=err_o, err_lse=err_lse,
+               tol=TOL[dt], row_err=row_err, row_tol=ROW_TOL[dt],
+               deterministic=deterministic, finite=finite,
+               input_copies=copies, ok=ok,
+               ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal,
+                                                      window)),
+               plain_ms=cuda_ms(lambda: flash_attention_plain(
+                   q, k, v, causal, window)),
+               **_bound(*work, dt), **_library(q, k, v, causal, window))
+    row["tflops"] = work[0] / row["ms"] / 1e9
+    log("kernels", **row)
+    return row
+
+
+def phase_kernels(seed: int) -> dict:
+    """flash_fwd's rows; returns the training shape's row."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     h = 16
     rows = []
     for b, sq, sk, hk, causal, window, dt, d in FWD_CASES:
         q, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt)
-        o, lse = flash_attention_fwd(q, k, v, causal, window)
-        o_ref, lse_ref = flash_attention_plain(q, k, v, causal, window)
-        again = flash_attention_fwd(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        deterministic = torch.equal(o, again[0]) and torch.equal(lse, again[1])
-        err_o = float((o.float() - o_ref.float()).abs().max())
-        err_lse = float((lse - lse_ref).abs().max())
-        row_err = _row_err(o, o_ref)
-        finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
-        ok = (err_o <= TOL[dt] and err_lse <= TOL[dt]
-              and row_err <= ROW_TOL[dt] and deterministic and finite)
-        work = _attention_work("flash_fwd", b, sq, sk, h, hk, d, causal,
-                               window, dt)
-        row = dict(kernel="flash_fwd",
-                   **_case(b, sq, sk, hk, causal, window, dt), d=d,
-                   err_o=err_o, err_lse=err_lse, tol=TOL[dt],
-                   row_err=row_err, row_tol=ROW_TOL[dt],
-                   deterministic=deterministic, finite=finite, ok=ok,
-                   ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal,
-                                                          window)),
-                   plain_ms=cuda_ms(lambda: flash_attention_plain(
-                       q, k, v, causal, window)),
-                   **_bound(*work, dt))
-        row["tflops"] = work[0] / row["ms"] / 1e9
-        qt, kt, vt, kw = _sdpa_inputs(q, k, v, causal, window)
-        row["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
-        del qt, kt, vt, kw
-        rows.append(row)
-        log("kernels", **row)
-        del q, k, v, o, lse, o_ref, lse_ref, again
+        rows.append(_fwd_row(q, k, v, causal, window, d))
+        del q, k, v
+    b, sq, sk, hk, causal, window, d = MISALIGNED_CASE
+    q, k, v = _qkv(gen, b, sq, sk, h, hk, d, BF16)
+    row = _fwd_row(_misaligned(q), k, v, causal, window, d, "misaligned q")
+    row["ok"] &= row["input_copies"] == 1
+    rows.append(row)
+    del q, k, v
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
@@ -548,92 +704,104 @@ def phase_kernels(seed: int) -> dict:
     return rows[0]  # the training shape: B=4, S=2048, MHA, bf16, causal
 
 
-def _sdpa_backward_ms(q, k, v, do, causal, window) -> float:
-    """Time of scaled_dot_product_attention's backward alone (dQ, dK and dV
-    together) on the same inputs and cotangent."""
-    import torch.nn.functional as F
-
-    qt, kt, vt, kw = _sdpa_inputs(q, k, v, causal, window)
-    qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
-    dot = do.transpose(1, 2)
-    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                               retain_graph=True))
-
-
-def phase_bwd_kernels(seed: int) -> dict:
-    """flash_dq's and flash_dkv's rows; returns {kernel: training-shape
-    row}."""
+def _bwd_rows(q, k, v, do, causal, window, d, layout="contiguous") -> list:
+    """flash_dq's and flash_dkv's rows on one input: errors, row errors,
+    the planted faults' readings, determinism, input copies, times, bounds
+    and SDPA's backward time and backend."""
     from tpunet_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
                                                   attention_delta,
+                                                  flash_attention,
                                                   flash_attention_dkv_plain,
                                                   flash_attention_dq_plain,
                                                   flash_attention_fwd)
 
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(seed + 1)
-    h = 16
-    rows, main = [], {}
+    b, sq, h, _ = q.shape
+    sk, hk, dt = k.shape[1], k.shape[2], q.dtype
     launch = {"flash_dq": _launch_dq, "flash_dkv": _launch_dkv}
     plain = {"flash_dq": flash_attention_dq_plain,
              "flash_dkv": flash_attention_dkv_plain}
     # The check must see these faults, or it proves nothing.
     planters = {"flash_dq": _planted_dq_faults,
                 "flash_dkv": _planted_dkv_faults}
+    o, lse = flash_attention_fwd(q, k, v, causal, window)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal, window)
+    got, copies = {}, {}
+    for name in launch:
+        before = flash_attention.input_copies
+        out = launch[name](*args)
+        copies[name] = flash_attention.input_copies - before
+        got[name] = out if isinstance(out, tuple) else (out,)
+    want = {"flash_dq": (flash_attention_dq_plain(*args),),
+            "flash_dkv": flash_attention_dkv_plain(*args)}
+    torch.cuda.synchronize()
+    library = _library(q, k, v, causal, window, do)
+    rows = []
+    for name in ("flash_dq", "flash_dkv"):
+        err, scale, row_err, tight = 0.0, 1.0, 0.0, 0.0
+        for g, w in zip(got[name], want[name]):
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            scale = max(scale, float(w.float().abs().max()))
+            row_err = max(row_err, _row_err(g, w))
+            # Reported, not held: the f32 floor shows the cancellation
+            # noise of rows that are exactly 0 (ROW_FLOOR's note).
+            tight = max(tight, _row_err(g, w, ROW_FLOOR[F32]))
+        finite = all(bool(torch.isfinite(g).all()) for g in got[name])
+        again = launch[name](*args)
+        deterministic = all(torch.equal(x, y) for x, y in zip(
+            got[name], again if isinstance(again, tuple) else (again,)))
+        del again
+        planted = planters[name](*args, got[name], want[name])
+        ok = (err <= BWD_TOL[dt] * scale and row_err <= ROW_TOL[dt]
+              and all(x["row_err"] > ROW_TOL[dt] for x in planted.values())
+              and deterministic and finite)
+        work = _attention_work(name, b, sq, sk, h, hk, d, causal, window, dt)
+        row = dict(kernel=name, **_case(b, sq, sk, hk, causal, window, dt),
+                   d=d, layout=layout, max_abs_err=err, ref_scale=scale,
+                   tol=BWD_TOL[dt] * scale, row_err=row_err,
+                   row_tol=ROW_TOL[dt], row_err_f32_floor=tight,
+                   planted_fault_row_err=planted, ok=ok,
+                   deterministic=deterministic, finite=finite,
+                   input_copies=copies[name],
+                   ms=cuda_ms(lambda: launch[name](*args)),
+                   plain_ms=cuda_ms(lambda: plain[name](*args)),
+                   **_bound(*work, dt), **library)
+        row["tflops"] = work[0] / row["ms"] / 1e9
+        rows.append(row)
+        log("kernels", **row)
+    return rows
+
+
+def phase_bwd_kernels(seed: int) -> dict:
+    """flash_dq's and flash_dkv's rows; returns {kernel: training-shape
+    row}."""
+    from tpunet_torch.ops.flash_attention import (attention_delta,
+                                                  flash_attention_fwd)
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    h = 16
+    rows, main = [], {}
     for b, sq, sk, hk, causal, window, dt, d in BWD_CASES:
         q, do, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=2)
-        o, lse = flash_attention_fwd(q, k, v, causal, window)
-        delta = attention_delta(o, do)
         if not rows:  # delta = rowsum(dO * O), a plain reduction
+            o, _ = flash_attention_fwd(q, k, v, causal, window)
             item = q.element_size()
             log("delta", **_case(b, sq, sk, hk, causal, window, dt), d=d,
                 ms=cuda_ms(lambda: attention_delta(o, do)),
                 **_bound(2 * b * h * sq * d, 2 * b * sq * h * d * item
                          + b * h * sq * 4, torch.float32))
-        args = (q, k, v, do, lse, delta, causal, window)
-        got = {"flash_dq": (_launch_dq(*args),),
-               "flash_dkv": _launch_dkv(*args)}
-        want = {"flash_dq": (flash_attention_dq_plain(*args),),
-                "flash_dkv": flash_attention_dkv_plain(*args)}
-        torch.cuda.synchronize()
-        library = _sdpa_backward_ms(q, k, v, do, causal, window)
-        for name in ("flash_dq", "flash_dkv"):
-            err, scale, row_err, tight = 0.0, 1.0, 0.0, 0.0
-            for g, w in zip(got[name], want[name]):
-                err = max(err, float((g.float() - w.float()).abs().max()))
-                scale = max(scale, float(w.float().abs().max()))
-                row_err = max(row_err, _row_err(g, w))
-                # Reported, not held: the f32 floor shows the cancellation
-                # noise of rows that are exactly 0 (ROW_FLOOR's note).
-                tight = max(tight, _row_err(g, w, ROW_FLOOR[torch.float32]))
-            finite = all(bool(torch.isfinite(g).all()) for g in got[name])
-            again = launch[name](*args)
-            deterministic = all(torch.equal(x, y) for x, y in zip(
-                got[name], again if isinstance(again, tuple) else (again,)))
-            del again
-            planted = {}
-            if dt == torch.bfloat16:
-                planted = planters[name](*args, got[name], want[name])
-            ok = (err <= BWD_TOL[dt] * scale and row_err <= ROW_TOL[dt]
-                  and all(x["row_err"] > ROW_TOL[dt]
-                          for x in planted.values())
-                  and deterministic and finite)
-            work = _attention_work(name, b, sq, sk, h, hk, d, causal, window,
-                                   dt)
-            row = dict(kernel=name, **_case(b, sq, sk, hk, causal, window, dt),
-                       d=d, max_abs_err=err, ref_scale=scale,
-                       tol=BWD_TOL[dt] * scale, row_err=row_err,
-                       row_tol=ROW_TOL[dt], row_err_f32_floor=tight,
-                       planted_fault_row_err=planted,
-                       ok=ok, deterministic=deterministic, finite=finite,
-                       ms=cuda_ms(lambda: launch[name](*args)),
-                       plain_ms=cuda_ms(lambda: plain[name](*args)),
-                       **_bound(*work, dt), library_ms=library)
-            row["tflops"] = work[0] / row["ms"] / 1e9
+            del o
+        for row in _bwd_rows(q, k, v, do, causal, window, d):
             rows.append(row)
-            log("kernels", **row)
-            main.setdefault(name, row)
-        del q, do, k, v, o, lse, delta, args, got, want
+            main.setdefault(row["kernel"], row)
+        del q, do, k, v
+    b, sq, sk, hk, causal, window, d = MISALIGNED_CASE
+    q, do, k, v = _qkv(gen, b, sq, sk, h, hk, d, BF16, n_q=2)
+    for row in _bwd_rows(_misaligned(q), k, v, do, causal, window, d,
+                         "misaligned q"):
+        row["ok"] &= row["input_copies"] == 1
+        rows.append(row)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"a backward kernel disagrees with its plain "
@@ -768,8 +936,10 @@ def phase_serve(seed: int, params_bf16) -> int:
     def count(event):
         if event == "start":
             flash_attention.kernel_launches = 0
+            flash_attention.input_copies = 0
         else:
             counts["flash_fwd"] = flash_attention.kernel_launches
+            counts["input_copies"] = flash_attention.input_copies
 
     telemetry.reset()
     tier, router, wall = _serve_tier(model, params_bf16, prompts, max_new,
@@ -779,6 +949,7 @@ def phase_serve(seed: int, params_bf16) -> int:
     log("serve", kv_codec="f32", prompt_lens=[len(p) for p in prompts],
         max_new=max_new, bitwise_equal_single_host=same,
         flash_fwd_launches=counts["flash_fwd"],
+        input_copies=counts["input_copies"],
         **_latency(router, ntok, wall), single_host_wall_s=single_wall,
         single_host_tokens_per_s=ntok / single_wall, router=router.stats)
     if not same or any(len(t) != max_new for t in tier):
@@ -786,6 +957,9 @@ def phase_serve(seed: int, params_bf16) -> int:
                              "single-host BatchServer's")
     if counts["flash_fwd"] <= 0:
         raise AssertionError("the serving path never launched flash_fwd")
+    if counts["input_copies"] != 0:
+        raise AssertionError(f"the serving path copied "
+                             f"{counts['input_copies']} flash inputs")
 
     telemetry.reset()
     tier8, router8, wall8 = _serve_tier(model, params_bf16, prompts, max_new,
@@ -873,7 +1047,7 @@ def _train_rank_body(rank: int, ports, path: str, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     interop.dcn_reduce_stats_reset()
-    for attr in COUNTERS.values():
+    for attr in (*COUNTERS.values(), "input_copies"):
         setattr(flash_attention, attr, 0)
     t0 = time.perf_counter()
     state = fit(state, step, _train_batches(path, rank, seed),
@@ -882,10 +1056,12 @@ def _train_rank_body(rank: int, ports, path: str, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: getattr(flash_attention, a) for n, a in COUNTERS.items()}
+    copies = flash_attention.input_copies
     out = dict(rank=rank, params=sum(t.numel() for t in state.params.values()),
                losses=[m["loss"] for m in logs],
                step_s=[1.0 / m["steps_per_s"] for m in logs], fit_wall_s=wall,
-               launches=launches, all_reduce=interop.dcn_reduce_stats(),
+               launches=launches, input_copies=copies,
+               all_reduce=interop.dcn_reduce_stats(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                crc=_params_crc(state.params))
     distributed.finalize()
@@ -1010,6 +1186,7 @@ def phase_train(seed: int) -> dict:
                                for r in ranks],
         fit_wall_s=[r["fit_wall_s"] for r in ranks], ranks_wall_s=ranks_wall,
         launches=[r["launches"] for r in ranks],
+        input_copies=[r["input_copies"] for r in ranks],
         crc=[r["crc"] for r in ranks], reference_crc=ref_crc,
         bf16_wire_ratio=[r["bf16_wire_ratio"] for r in ranks],
         bf16_crc=[r["bf16_crc"] for r in ranks],
@@ -1033,6 +1210,9 @@ def phase_train(seed: int) -> dict:
     if launches != want:
         raise AssertionError(f"kernel launches on the train path {launches}, "
                              f"expected {want}")
+    if any(summary["input_copies"]):
+        raise AssertionError(f"the train path copied flash inputs: "
+                             f"{summary['input_copies']}")
     return launches
 
 
@@ -1042,6 +1222,7 @@ def _kernel_entry(name, source, replaces, launches, row, err_key) -> dict:
             "max_abs_err": row[err_key], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_backend": row["library_backend"],
             "tensor_core_instrs": _tensor_core_instrs(name)}
 
 

@@ -4,11 +4,13 @@ On the CPU the port's `flash_attention` runs its plain version; the JAX
 `flash_attention` runs its Pallas kernel in interpret mode with 8-row tiles
 (or its reference einsum where the JAX wrapper falls back: ragged lengths,
 causal Sq != Sk). Tolerances are those of tests/test_ops.py: 2e-5 in f32,
-3e-2 in bf16. The CUDA kernel itself is held against the plain version on
+3e-2 in bf16; and 5e-3 in f16 (F16_TOL's note). The CUDA kernel itself is held against the plain version on
 the card by tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import pytest
@@ -146,3 +148,84 @@ def test_cpu_path_never_counts_a_launch():
     flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
                         torch.from_numpy(v), False)
     assert flash_attention.kernel_launches == before == 0
+
+
+# float16: the JAX kernel rounds P to f16 before P.V (Precision.DEFAULT),
+# the port's plain version keeps f32 and rounds only its output, so the two
+# differ by output rounding: f16 keeps 11 significant bits, one unit in the
+# last place is <= 3.9e-3 below |x| = 8, hence 5e-3 (bf16's 3e-2 / 1e-1
+# hold 8 bits).
+F16_TOL = 5e-3
+
+
+@pytest.mark.parametrize("causal,group,window", [(True, 2, None),
+                                                 (True, 1, 3),
+                                                 (False, 4, None)])
+def test_flash_f16_matches_jax(causal, group, window):
+    q, k, v = _inputs(21 + group, 2, 32, 32, 4, 4 // group, 16)
+    jq, jk, jv = (jnp.asarray(x, jnp.float16) for x in (q, k, v))
+    want = jax_flash(jq, jk, jv, causal, 8, 8, window=window)
+    tq, tk, tv = (torch.from_numpy(x).half() for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal, window=window)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=F16_TOL, rtol=F16_TOL)
+
+
+@pytest.mark.parametrize("d", [12, 20])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
+                                           (False, None)])
+def test_flash_odd_head_dims_match_jax(d, causal, window):
+    """Head dims that are not a multiple of 8 (the kernels run them
+    zero-padded to 16 and 24), f32, tests/test_ops.py's 2e-5."""
+    q, k, v = _inputs(d + 3, 2, 37, 37, 4, 2, d)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                     8, 8, window=window)
+    got, lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        lse.numpy(), _jax_scores_lse(q, k, causal, window, 2),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", [3, 12, 20, 8])
+def test_head_dim_padding_keeps_the_plain_result(d):
+    """`_with_head_dim_padded` zero-pads q, k, v to the next multiple of 8,
+    runs with 1/sqrt(D) of the true D and slices back: through the plain
+    version it gives the unpadded result (the zero columns add exact zeros;
+    1e-6 leaves room for f32 sums taken in another order), counts one input
+    copy per padded tensor, and leaves a multiple of 8 untouched."""
+    fa = sys.modules["tpunet_torch.ops.flash_attention"]
+    q, k, v = (torch.from_numpy(x) for x in _inputs(d, 2, 21, 21, 4, 2, d))
+    want, want_lse = fa.flash_attention_plain(q, k, v, True, 5)
+    before = flash_attention.input_copies
+    got, lse = fa._with_head_dim_padded(fa.flash_attention_plain, (q, k, v),
+                                        True, 5)
+    assert got.shape == want.shape and lse.shape == want_lse.shape
+    assert flash_attention.input_copies - before == (3 if d % 8 else 0)
+    flash_attention.input_copies = before
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse, want_lse, atol=1e-6, rtol=1e-6)
+
+
+def test_kernel_validation_refuses_head_dims_above_256_and_other_dtypes():
+    """What stays refused on the card, checked on CPU tensors (the
+    validation needs no CUDA tensor): a head dim above 256 and any dtype
+    other than float32, bfloat16 and float16. Everything else the JAX
+    wrapper takes passes."""
+    fa = sys.modules["tpunet_torch.ops.flash_attention"]
+    wide = torch.zeros((1, 4, 2, 264))
+    with pytest.raises(ValueError, match=r"head dims 1\.\.256, got 264"):
+        fa._check_kernel_inputs("flash_fwd", wide, wide, wide)
+    f64 = torch.zeros((1, 4, 2, 8), dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fa._check_kernel_inputs("flash_dq", f64, f64, f64)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (1, 12, 100, 256):
+            q = torch.zeros((4097, 2, 16, d), dtype=dt)
+            kv = torch.zeros((4097, 2, 4, d), dtype=dt)
+            assert fa._check_kernel_inputs("flash_dkv", q, kv, kv) == (
+                4097, 2, 16, d, 2, 4)

@@ -7,14 +7,16 @@ its `torch.autograd.Function`; the JAX side runs `jax.vjp` of its
 `flash_attention` with 8-row tiles, i.e. the Pallas `_flash_dq_kernel` and
 `_flash_dkv_kernel` in interpret mode (or its einsum fallback where the JAX
 wrapper takes it: ragged lengths). Tolerances are those of
-tests/test_ops.py's gradient tests: 5e-5 in f32, 1e-1 in bf16. The CUDA
-kernels themselves are held against the plain versions on the card by
-tests/test_torch_kernels_cuda.py and chip_smoke.py.
+tests/test_ops.py's gradient tests: 5e-5 in f32, 1e-1 in bf16; 5e-3 in
+f16 (the note at its test). The CUDA kernels themselves are held against
+the plain versions on the card by tests/test_torch_kernels_cuda.py and
+chip_smoke.py.
 """
 
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import pytest
@@ -146,3 +148,55 @@ def test_cpu_backward_never_counts_a_launch():
     torch.autograd.grad(flash_attention(*ts, True), ts, g)
     assert flash_attention.flash_dq_launches == 0
     assert flash_attention.flash_dkv_launches == 0
+
+
+# float16: outputs on both sides are rounded to f16 (11 significant bits),
+# one unit in the last place is <= 3.9e-3 below |x| = 8, and the JAX kernel
+# also rounds P and dS to f16 before its products; hence 5e-3 (bf16's 1e-1
+# holds 8 bits).
+@pytest.mark.parametrize("causal,group,window", [(True, 2, None),
+                                                 (True, 1, 3),
+                                                 (False, 4, None)])
+def test_flash_grads_f16_match_jax(causal, group, window):
+    q, k, v, g = _inputs(31 + group, 2, 32, 32, 4, 4 // group, 16)
+    want, got = _grads_both(q, k, v, g, causal, window, jnp.float16,
+                            torch.float16)
+    for w, x in zip(want, got):
+        np.testing.assert_allclose(x, w, atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.parametrize("d", [12, 20])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
+                                           (False, None)])
+def test_flash_grads_odd_head_dims_match_jax(d, causal, window):
+    """Head dims that are not a multiple of 8 (zero-padded to 16 and 24 on
+    the card), f32, tests/test_ops.py's 5e-5."""
+    q, k, v, g = _inputs(d + 7, 2, 37, 37, 4, 2, d)
+    want, got = _grads_both(q, k, v, g, causal, window, jnp.float32,
+                            torch.float32)
+    for w, x in zip(want, got):
+        np.testing.assert_allclose(x, w, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("d", [3, 12, 20])
+def test_head_dim_padding_keeps_the_plain_gradients(d):
+    """The backward's pad-and-slice (`_with_head_dim_padded` over q, k, v
+    and dO, with 1/sqrt(D) of the true D) through the plain dQ and dK/dV
+    versions gives the unpadded gradients (1e-6: f32 sums in another
+    order), sliced back to D columns."""
+    fa = sys.modules["tpunet_torch.ops.flash_attention"]
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(d, 2, 21, 21, 4, 2, d))
+    o, lse = flash_attention_fwd(q, k, v, True, 5)
+    delta = attention_delta(o, g)
+    before = flash_attention.input_copies
+    dq = fa._with_head_dim_padded(flash_attention_dq_plain, (q, k, v, g), lse,
+                                  delta, True, 5)
+    dk, dv = fa._with_head_dim_padded(flash_attention_dkv_plain,
+                                      (q, k, v, g), lse, delta, True, 5)
+    assert flash_attention.input_copies - before == 8
+    flash_attention.input_copies = before
+    want = (flash_attention_dq_plain(q, k, v, g, lse, delta, True, 5),
+            *flash_attention_dkv_plain(q, k, v, g, lse, delta, True, 5))
+    for got, w in zip((dq, dk, dv), want):
+        assert got.shape == w.shape
+        torch.testing.assert_close(got, w, atol=1e-6, rtol=1e-6)

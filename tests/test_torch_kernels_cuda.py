@@ -58,17 +58,21 @@ def _row_err(got, want) -> float:
 
 
 # chip_smoke.py's limits: the forward's largest error (absolute), and every
-# output's row error relative to the row's norm.
-FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-ROW_FLOOR = {torch.float32: 1e-6, torch.bfloat16: 1e-4}
+# output's row error relative to the row's norm. f16 keeps 11 significant
+# bits to bf16's 8, so its limits are bf16's or tighter (chip_smoke.py's
+# notes give the reasons).
+F16 = torch.float16
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, F16: 1e-2}
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, F16: 5e-2}
+ROW_FLOOR = {torch.float32: 1e-6, torch.bfloat16: 1e-4, F16: 1e-4}
 
 # (b, sq, sk, h, hk, d, causal, window, dtype). The f32 rows run the CUDA
-# cores; the bf16 rows run the tensor-core kernel (wgmma, TMA) at head dims
-# 64/96/128/256, and 8/40/200, which TMA's zero fill pads up to the
-# 64/128/256 tiles; GQA groups 1/4/8, ragged lengths off the 128-row tiles,
-# windows 16/128, causal with Sq < Sk and Sq > Sk (aligned at position 0),
-# and non-causal Sq != Sk.
+# cores; the bf16 and f16 rows run the tensor-core kernel (wgmma, TMA) at
+# head dims 64/96/128/256, and 8/40/200, which TMA's zero fill pads up to
+# the 64/128/256 tiles; GQA groups 1/4/8, ragged lengths off the 128-row
+# tiles, windows 16/128, causal with Sq < Sk and Sq > Sk (aligned at
+# position 0), and non-causal Sq != Sk. Head dims 12 and 100 (no multiple
+# of 8) run zero-padded to 16 and 104.
 FWD_CASES = [
     (2, 137, 137, 16, 4, 128, True, None, torch.float32),   # ragged GQA
     (2, 401, 401, 16, 4, 128, True, 128, torch.bfloat16),   # ragged window
@@ -90,6 +94,17 @@ FWD_CASES = [
     # such rows.
     (1, 517, 401, 16, 4, 128, True, 16, torch.bfloat16),
     (1, 517, 401, 16, 4, 128, True, 16, torch.float32),
+    # float16: GQA-8 ragged, the no-key rows, head dim 256, a window.
+    (2, 137, 401, 16, 2, 128, True, None, F16),
+    (1, 517, 401, 16, 4, 128, True, 16, F16),
+    (1, 401, 401, 8, 2, 256, True, 16, F16),
+    (2, 300, 300, 16, 4, 64, True, 128, F16),
+    # Head dims that are no multiple of 8.
+    (2, 137, 137, 16, 4, 12, True, None, torch.float32),
+    (1, 201, 300, 8, 2, 100, True, 64, torch.float32),
+    (2, 137, 137, 16, 4, 12, True, None, torch.bfloat16),
+    (1, 201, 300, 8, 2, 100, True, 64, torch.bfloat16),
+    (1, 300, 201, 8, 8, 100, False, None, F16),
 ]
 
 
@@ -134,9 +149,11 @@ def test_flash_model_on_card_matches_cpu_reference(card):
 # kernel that splits D between its warpgroups), GQA groups 1/4/8, windows
 # 16/64/128, causal Sq < Sk and Sq > Sk, non-causal Sq != Sk, lengths off
 # the 32/64/128-row tiles; the no-key rows (dQ 0, dV += dO/Sk) at Sq 517 /
-# Sk 401 / window 16 in bf16 (D 128, 136, 256) and f32. Tolerances are
-# those of tests/test_ops.py's gradient tests (5e-5 f32, 1e-1 bf16), taken
-# relative to max(1, max|reference|), and ROW_TOL on every row.
+# Sk 401 / window 16 in bf16 (D 128, 136, 256), f16 and f32; f16 at head
+# dims 64/128/256; head dims 12 and 100 in all three types. Tolerances are
+# those of tests/test_ops.py's gradient tests (5e-5 f32, 1e-1 bf16; f16
+# 1e-2, chip_smoke.py's), taken relative to max(1, max|reference|), and
+# ROW_TOL on every row.
 BWD_CASES = [
     (2, 137, 137, 16, 4, 128, True, None, torch.float32),
     (2, 128, 128, 8, 8, 64, True, None, torch.float32),
@@ -171,8 +188,20 @@ BWD_CASES = [
     (1, 401, 137, 4, 4, 256, False, None, torch.bfloat16),
     (1, 517, 401, 16, 4, 256, True, 16, torch.bfloat16),
     (1, 517, 401, 8, 1, 136, True, 16, torch.bfloat16),
+    # float16: GQA-8 ragged, the no-key rows, head dim 256, a window.
+    (2, 137, 401, 16, 2, 128, True, None, F16),
+    (1, 517, 401, 16, 4, 128, True, 16, F16),
+    (1, 300, 300, 16, 2, 256, True, 64, F16),
+    (2, 201, 137, 8, 1, 64, True, None, F16),
+    # Head dims that are no multiple of 8, and the f32 kernels at 256.
+    (2, 137, 137, 16, 4, 12, True, None, torch.float32),
+    (1, 201, 300, 8, 2, 100, True, 64, torch.float32),
+    (2, 137, 137, 16, 4, 12, True, None, torch.bfloat16),
+    (1, 201, 300, 8, 2, 100, True, 64, torch.bfloat16),
+    (1, 300, 201, 8, 8, 100, False, None, F16),
+    (1, 300, 300, 8, 2, 256, True, 64, torch.float32),
 ]
-BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-1}
+BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-1, F16: 1e-2}
 
 
 @pytest.mark.parametrize("b,sq,sk,h,hk,d,causal,window,dtype", BWD_CASES)
@@ -210,27 +239,95 @@ def test_flash_bwd_kernels_match_plain_versions(card, b, sq, sk, h, hk, d,
 @pytest.mark.parametrize("d", [32, 256])
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_flash_tensor_core_kernels_refuse_misaligned_strides(card, kernel, d):
-    """TMA takes only 16-byte aligned data and strides: a bf16 view whose
-    head stride is d + 4 elements (8 bytes off a 16-byte multiple) is
-    refused by each tensor-core kernel's wrapper, at a 64-wide and at the
-    256-wide tile, never quietly run another way (no copy, no CUDA-core
-    kernel, no plain version), and nothing is launched."""
-    from tpunet_torch.ops.flash_attention import _launch_dkv, _launch_dq
+    """TMA takes only 16-byte aligned data and strides: bf16 views whose
+    head stride is d + 4 elements (8 bytes off a 16-byte multiple) and
+    whose data start 8 bytes off are not given to the kernel as they are.
+    The wrapper copies each to a contiguous tensor (one input copy for each
+    such argument, counted in input_copies) and launches the same
+    tensor-core kernel once, whose output matches the plain version on the
+    views."""
+    from tpunet_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
+                                                  attention_delta)
 
     w = d + 4
-    base = torch.zeros((1, 64, 8, w), dtype=torch.bfloat16, device=card)
-    q = torch.as_strided(base, (1, 64, 2, d), (64 * 8 * w, 8 * w, w, 1),
-                         storage_offset=4)
-    lse = torch.zeros((2, 64), dtype=torch.float32, device=card)
-    calls = {"flash_fwd": lambda: flash_attention_fwd(q, q, q, True),
-             "flash_dq": lambda: _launch_dq(q, q, q, q, lse, lse, True, None),
-             "flash_dkv": lambda: _launch_dkv(q, q, q, q, lse, lse, True,
-                                              None)}
-    counters = ("kernel_launches", "flash_dq_launches", "flash_dkv_launches")
-    before = [getattr(flash_attention, c) for c in counters]
-    with pytest.raises(ValueError, match="16-byte"):
-        calls[kernel]()
-    assert [getattr(flash_attention, c) for c in counters] == before
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v, do = (torch.as_strided(
+        torch.randn((1, 64, 8, w), generator=gen, device=card).to(
+            torch.bfloat16), (1, 64, 2, d), (64 * 8 * w, 8 * w, w, 1),
+        storage_offset=4) for _ in range(4))
+    o, lse = flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), True)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, True, None)
+    calls = {"flash_fwd": lambda: flash_attention_fwd(q, k, v, True),
+             "flash_dq": lambda: _launch_dq(*args),
+             "flash_dkv": lambda: _launch_dkv(*args)}
+    plain = {"flash_fwd": lambda: flash_attention_plain(q, k, v, True),
+             "flash_dq": lambda: (flash_attention_dq_plain(*args),),
+             "flash_dkv": lambda: flash_attention_dkv_plain(*args)}
+    counter = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
+               "flash_dkv": "flash_dkv_launches"}[kernel]
+    copies = flash_attention.input_copies
+    launches = getattr(flash_attention, counter)
+    got = calls[kernel]()
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert flash_attention.input_copies - copies == (3 if kernel ==
+                                                     "flash_fwd" else 4)
+    assert getattr(flash_attention, counter) == launches + 1
+    for x, want in zip(got, plain[kernel]()):
+        if x.dim() == 4:
+            ref = want.float()
+            scale = max(1.0, float(ref.abs().max()))
+            assert float((x.float() - ref).abs().max()) <= 1e-1 * scale
+            assert _row_err(x, want) <= ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_batch_heads_above_65535(card, dtype):
+    """B*H = 65,552 (B 4097, H 16), above the 65,535 blocks of grid.y: the
+    forward, dQ and dK/dV kernels put B*H on grid.x and match their plain
+    versions."""
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (4097, 64, 16, 8)).astype(np.float32)).to(card, dtype)
+        for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, True)
+    want_o, want_lse = flash_attention_plain(q, k, v, True)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, True)
+    from tpunet_torch.ops.flash_attention import attention_delta
+
+    delta = attention_delta(o, do)
+    want = (flash_attention_dq_plain(q, k, v, do, lse, delta, True),
+            *flash_attention_dkv_plain(q, k, v, do, lse, delta, True))
+    torch.cuda.synchronize()
+    assert float((o.float() - want_o.float()).abs().max()) <= FWD_TOL[dtype]
+    assert float((lse - want_lse).abs().max()) <= FWD_TOL[dtype]
+    assert _row_err(o, want_o) <= ROW_TOL[dtype]
+    for got, w in zip((dq, dk, dv), want):
+        ref = w.float()
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got.float() - ref).abs().max()) <= BWD_TOL[dtype] * scale
+        assert _row_err(got, w) <= ROW_TOL[dtype]
+
+
+def test_f16_model_with_head_dim_12_on_card_matches_cpu(card):
+    """A tiny float16 Transformer with head dim 12 (the inputs the card once
+    refused): flash on the card against the reference impl on the CPU,
+    within 1e-2 (tests/test_torch_transformer.py's f16 limit)."""
+    cfg = dict(vocab=64, d_model=48, n_layers=2, n_heads=4, n_kv_heads=2,
+               d_ff=96, compute_dtype=F16)
+    params = init_params(Transformer(device="meta", **cfg), seed=0,
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 45)))
+    copies = flash_attention.input_copies
+    with torch.no_grad():
+        want = Transformer(attn_impl="reference", device="meta",
+                           **cfg).bind(params)(toks)
+        got = Transformer(attn_impl="flash", device="meta", **cfg).bind(
+            {k: t.to(card) for k, t in params.items()})(toks.to(card))
+    assert flash_attention.input_copies > copies  # the head dim was padded
+    assert float((got.float().cpu() - want.float()).abs().max()) <= 1e-2
 
 
 def test_flash_autograd_on_card_matches_cpu(card):

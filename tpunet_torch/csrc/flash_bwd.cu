@@ -2,13 +2,13 @@
 //
 // Two TPU kernels of tpunet/ops/flash_attention.py are replaced here:
 //   * _flash_dq_kernel (:136, launched by _flash_bwd at :438) by
-//     flash_dq_bf16_kernel (bf16) and flash_dq_kernel (f32):
+//     flash_dq_bf16_kernel (bf16, f16) and flash_dq_kernel (f32):
 //     dQ_i = sum_j dS_ij K_j, one block per
 //     (batch*head, q tile), K/V tiles streamed through shared memory with
 //     the forward's causal and sliding-window k-loop bounds;
 //   * _flash_dkv_kernel (:183, launched at :464) by flash_dkv_bf16_kernel
-//     (bf16, D <= 128), flash_dkv_bf16_dsplit_kernel (bf16, 128 < D <= 256)
-//     and flash_dkv_kernel (f32):
+//     (bf16, f16, D <= 128), flash_dkv_bf16_dsplit_kernel (bf16, f16,
+//     128 < D <= 256) and flash_dkv_f32_kernel (f32):
 //     dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
 //     (batch*kv head, k tile), looping over the GQA group's q heads and the
 //     q tiles (causal start k0 / BQ, window end
@@ -17,6 +17,7 @@
 //     the group and q loops run in a fixed order, so the result is bitwise
 //     deterministic run to run. Each dQ block owns its rows and walks its
 //     k tiles in order, so dQ is bitwise deterministic too.
+// Every grid puts batch * heads on grid.x (up to 2^31 - 1 blocks).
 // All recompute P = exp(scale * q.k - lse) from the forward's per-row lse
 // (B*H, Sq) f32, and take delta = rowsum(dO * O) (B*H, Sq) f32 from the
 // wrapper; dS = P * (dP - delta) * scale with dP = dO . V^T, exactly the TPU
@@ -41,15 +42,18 @@
 // input's dtype.
 //
 // Tensor cores (flash_dq_bf16_kernel, flash_dkv_bf16_kernel,
-// flash_dkv_bf16_dsplit_kernel), every bf16 head dim. For bf16
+// flash_dkv_bf16_dsplit_kernel), every 16-bit head dim, with the element
+// type T (__nv_bfloat16 or __half) a template parameter. For bf16
 // inputs the TPU kernels run Precision.DEFAULT (_dot_precision, :267-272):
 // one bf16 MXU pass, so P and dS enter their products rounded to bf16 and
-// every product accumulates in f32; here every product is a wgmma with bf16
-// operands and f32 accumulators, and P and dS are rounded to bf16 in
-// registers. Tiles arrive by TMA into the 128-byte swizzled layout wgmma
-// reads (sm90.cuh); one producer warp issues the copies, two consumer
-// warpgroups run the products, and setmaxnreg gives the
-// consumers 232 registers (the producer 40).
+// every product accumulates in f32; here every product is a wgmma with
+// 16-bit operands and f32 accumulators, and P and dS are rounded to T in
+// registers (f16's 11-bit significand keeps them closer to the JAX
+// reference's f32 arithmetic on f16 inputs than bf16 does). Tiles arrive
+// by TMA into the 128-byte swizzled layout wgmma reads (sm90.cuh); one
+// producer warp issues the copies, two consumer warpgroups run the
+// products, and setmaxnreg gives the consumers 232 registers (the
+// producer 40).
 //
 // flash_dq_bf16_kernel. What bounds it: at the training shape (B4 S2048 H16
 // D128 causal) dQ is 103 GFLOP (6*D per unmasked pair) against ~34 MB: the
@@ -116,14 +120,38 @@
 //     products, the no-key dV term and the store with flash_dkv_bf16_kernel
 //     (DkvBlock, dkv_produce, dkv_consume); only the score products differ.
 //
-// flash_dq_kernel and flash_dkv_kernel run f32 on the CUDA cores: inputs
-// stay f32 in shared memory and every product is an f32 FMA (no TF32), the
-// counterpart of Precision.HIGHEST for f32 inputs. 256-thread blocks (32
-// row groups x 8 column lanes) with register tiles of RPT rows x CPT score
-// columns and RPT x D/8 output columns per thread, so each shared-memory
-// load feeds several FMAs.
+// f32 runs on the CUDA cores, every product an exact f32 FMA (no TF32, no
+// 3xTF32), the counterpart of Precision.HIGHEST for f32 inputs.
+// flash_dq_kernel stages its inputs in shared memory with scalar loads:
+// 256-thread blocks (32 row groups x 8 column lanes) with register tiles
+// of RPT rows x CPT score columns and RPT x D/8 output columns per thread.
+//
+// flash_dkv_f32_kernel. What bounds it: at the training shape dK/dV is 137
+// GFLOP, 68.7 G FMA, against ~400 MB: the FMA pipe, 2.05 ms at 67
+// TFLOP/s. Shared memory delivers 128 bytes a clock to an SM whose 128
+// lanes issue 128 FMAs a clock, so the design is about operand reuse,
+// occupancy and overlap:
+//   * one 256-thread block (8 warps, one block an SM) per (batch*kv head,
+//     64-row k tile; 32 rows at D = 256), the heaviest causal tile first;
+//     K and V resident;
+//   * each thread keeps 4 x 8 tiles of S^T and dP^T (4 k rows x 8 q
+//     columns) and 4 x DT/16 tiles of dK and dV in registers; every operand
+//     is a 16-byte shared load: 4 K loads and 8 Q loads feed 128 FMAs of
+//     S^T = K.Q^T read along D from row-major tiles (dP^T = V.dO^T the
+//     same), 4 P^T loads and 8 dO loads feed 128 FMAs of dV += P^T.dO
+//     (dK += dS^T.Q the same); rows padded by 4 floats keep the loads free
+//     of bank conflicts, and nothing is transposed in shared memory;
+//   * each step's Q and dO (128 q rows of one head) stream as 8192-float
+//     chunks through a 2-stage cp.async ring, 16 bytes a copy: as 64-column
+//     d-chunks for S^T and dP^T, then as row chunks for dV and dK, so the
+//     next chunk loads while this one's FMAs run; zero-size copies fill
+//     ragged rows and columns past D. (Against 4 stages of 32 columns, the
+//     half as many block barriers took 10 % off at the training shape.)
+//   * P^T and dS^T go through shared memory to the threads that own their
+//     dK/dV columns; the masks are a select on every entry.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -157,6 +185,9 @@ struct Params {
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+__device__ __forceinline__ float load_f32(const __half* p) {
+  return __half2float(*p);
 }
 __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
 
@@ -223,8 +254,11 @@ flash_dq_kernel(const Params p) {
   const int tx = tid & 7;
   const int ty = tid >> 3;
   const int D = p.D;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  // B*H sits on grid.x (any count), yet the blocks still run each head's
+  // q tiles one after another, so a head's K and V stay in L2.
+  const long long lin = blockIdx.x + (long long)gridDim.x * blockIdx.y;
+  const int bh = (int)(lin / gridDim.y);
+  const int q0 = (int)(lin % gridDim.y) * BQ;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
@@ -349,202 +383,317 @@ flash_dq_kernel(const Params p) {
   }
 }
 
-// -------------------------------------------------------------- dK/dV ----
+// -------------------------------------------------------- dK/dV, f32 ----
 
-template <int DMAX, int BK, int BQ>
-struct DkvSmem {
-  static constexpr int kRowStride = DMAX + 1;  // sK / sV rows
-  static constexpr int kTStride = BQ + 1;      // sQt / sdOt rows (transposed)
-  static constexpr int kPStride = BQ + 8;      // sP / sdS rows
-  static constexpr int kK = BK * kRowStride;
-  static constexpr int kQt = DMAX * kTStride;
-  static constexpr int kP = BK * kPStride;
-  static constexpr size_t kBytes =  // ..., lse, delta, the no-key dV term
-      sizeof(float) * (2 * kK + 2 * kQt + 2 * kP + 2 * BQ + DMAX);
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kF32Threads = 256;  // 16 row groups x 16 column lanes
+constexpr int kF32BQ = 128;       // q rows a step
+
+// Tiles of flash_dkv_f32_kernel<DT>. K and V stay resident; each step's Q
+// and dO stream through a 2-stage ring of 128 x kCW-float chunks, twice:
+// as d-chunks (128 q rows x kCW columns, DT / kCW of each) for S^T and
+// dP^T, then as q-chunks (kQK rows x DT columns, 128 / kQK = DT / kCW of
+// each) for dV and dK. Rows are padded by 4 floats: 16-byte loads stay
+// aligned and 8 rows at one column fall in 8 different 4-bank groups.
+template <int DT>
+struct DkvF32Tile {
+  static constexpr int kBK = DT <= 128 ? 64 : 32;  // k rows a block
+  static constexpr int kRK = kBK / 16;             // k rows a thread
+  static constexpr int kCols = DT / 16;            // dK/dV columns a thread
+  static constexpr int kRowStride = DT + 4;        // sK, sV, q-chunk rows
+  static constexpr int kPStride = kF32BQ + 4;      // sPt, sdSt rows
+  static constexpr int kCW = 64;                   // d-chunk columns
+  static constexpr int kCStride = kCW + 4;         // d-chunk rows
+  static constexpr int kStages = 2;                // the cp.async ring
+  static constexpr int kStageFloats = kF32BQ * kCStride;
+  static constexpr int kQK = kF32BQ * kCW / DT;    // q rows a q-chunk
+  static constexpr int kNC = DT / kCW;             // chunks of each kind
+  static constexpr int kCopies = kF32BQ * kCW / 4 / kF32Threads;  // a thread's
+  static constexpr size_t kSmem =  // K, V, P^T, dS^T, the ring, dV term
+      sizeof(float) * (2 * kBK * kRowStride + 2 * kBK * kPStride +
+                       kStages * kStageFloats + DT);
+  static_assert(kQK * kRowStride <= kStageFloats, "q-chunk over its stage");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
-template <typename T, int DMAX, int BK, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const Params p) {
-  constexpr int RPT = BK / 32;   // k rows per thread
-  constexpr int CPT = BQ / 8;    // score (q) columns per thread
-  constexpr int DPT = DMAX / 8;  // dK/dV columns per thread
-  using S = DkvSmem<DMAX, BK, BQ>;
+// f32 dK/dV on the CUDA cores, exact f32 FMA. One 256-thread block per
+// (batch*kv head, kBK-row k tile), heaviest causal tile (the first) first.
+// Thread (ty, tx) owns k rows ty + 16i (i < kRK), the step's q columns
+// tx + 16j (j < 8) of S^T and dP^T, and dK/dV columns 64g + 4tx + e
+// (e < 4): kRK x 8 score tiles and kRK x DT/16 dK and dV tiles in
+// registers, every operand read as a 16-byte shared load.
+template <int DT>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_dkv_f32_kernel(const Params p) {
+  using Tile = DkvF32Tile<DT>;
+  constexpr int BK = Tile::kBK, RK = Tile::kRK, NCOL = Tile::kCols;
+  constexpr int RS = Tile::kRowStride, PS = Tile::kPStride, QK = Tile::kQK;
+  constexpr int NC = Tile::kNC, NS = Tile::kStages, CW = Tile::kCW;
+  constexpr int CS = Tile::kCStride;
 
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + S::kK;
-  float* sQt = sV + S::kK;
-  float* sdOt = sQt + S::kQt;
-  float* sP = sdOt + S::kQt;
-  float* sdS = sP + S::kP;
-  float* sLse = sdS + S::kP;
-  float* sDelta = sLse + BQ;
-  float* sU = sDelta + BQ;
+  float* sV = sK + BK * RS;
+  float* sPt = sV + BK * RS;
+  float* sdSt = sPt + BK * PS;
+  float* sRing = sdSt + BK * PS;
+  float* sU = sRing + NS * Tile::kStageFloats;  // the no-key dV term
 
   const int tid = threadIdx.x;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const int D = p.D;
-  const int k0 = blockIdx.x * BK;
-  const int bkv = blockIdx.y;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bkv = blockIdx.x;
   const int b = bkv / p.Hkv;
   const int hk = bkv % p.Hkv;
   const int group = p.H / p.Hkv;
+  const int k0 = blockIdx.y * BK;
+  const bool causal = p.causal != 0;
+  const bool windowed = causal && p.window > 0;
+  const float scale_log2 = p.scale * kLog2e;
 
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  for (int e = tid; e < BK * D; e += kThreads) {
-    const int c = e / D, d = e - c * D;
-    const int kpos = k0 + c;
-    const bool ok = kpos < p.Sk;
-    sK[c * S::kRowStride + d] = ok ? load_f32(kg + kpos * p.k_ss + d) : 0.f;
-    sV[c * S::kRowStride + d] = ok ? load_f32(vg + kpos * p.v_ss + d) : 0.f;
-  }
-
-  float dk[RPT][DPT], dv[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  // The TPU kernel's q-loop bounds: the first q tile holding a row that sees
-  // key k0 (causal), and the last one whose newest row still sees the
-  // tile's oldest key (window).
-  const int n_qt = (p.Sq + BQ - 1) / BQ;
-  const int it_start = p.causal ? k0 / BQ : 0;
+  // The TPU kernel's q-loop bounds: the first q tile holding a row that
+  // sees key k0 (causal), and the last one whose newest row still sees the
+  // tile's oldest key (window); walked once per q head of the GQA group.
+  const int n_qt = (p.Sq + kF32BQ - 1) / kF32BQ;
+  const int it_start = causal ? k0 / kF32BQ : 0;
   int it_end = n_qt;
-  if (p.causal && p.window > 0) {
-    it_end = min(n_qt, (k0 + BK - 1 + p.window + BQ - 1) / BQ);
+  if (windowed) {
+    it_end = min(n_qt, (k0 + BK - 1 + p.window + kF32BQ - 1) / kF32BQ);
+  }
+  const int n_q = max(it_end - it_start, 0);
+  const int total = group * n_q * 4 * NC;  // chunks
+
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  for (int e = tid; e < BK * DT / 4; e += kF32Threads) {
+    const int r = e / (DT / 4), col = 4 * (e % (DT / 4));
+    const int kpos = k0 + r;
+    const bool ok = kpos < p.Sk && col < p.D;
+    sm90::cp_async16(sK + r * RS + col, ok ? kg + kpos * p.k_ss + col : kg,
+                     ok ? 16 : 0);
+    sm90::cp_async16(sV + r * RS + col, ok ? vg + kpos * p.v_ss + col : vg,
+                     ok ? 16 : 0);
   }
 
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long bh = (long long)b * p.H + h;
-    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int it = it_start; it < it_end; ++it) {
-      const int q0 = it * BQ;
-      __syncthreads();  // previous tile's readers are done with sQt..sDelta
-      for (int e = tid; e < BQ * D; e += kThreads) {
-        const int r = e / D, d = e - r * D;
-        const int qpos = q0 + r;
+  // Chunk g of step g / (4 NC) (q head hk * group + step / n_q, q tile
+  // it_start + step % n_q): Q d-chunks, dO d-chunks, dO q-chunks, Q
+  // q-chunks. 16 bytes a copy; rows past Sq and columns past D arrive as
+  // zeros.
+  auto issue = [&](int g) {
+    float* st = sRing + (g % NS) * Tile::kStageFloats;
+    const int step = g / (4 * NC), part = g % (4 * NC);
+    const int h = hk * group + step / n_q;
+    const int q0 = (it_start + step % n_q) * kF32BQ;
+    const int kind = part / NC, c = part % NC;
+    const bool is_q = kind == 0 || kind == 3;
+    const float* src = static_cast<const float*>(is_q ? p.q : p.dout) + b *
+        (is_q ? p.q_sb : p.do_sb) + h * (is_q ? p.q_sh : p.do_sh);
+    const long long ss = is_q ? p.q_ss : p.do_ss;
+#pragma unroll
+    for (int u = 0; u < Tile::kCopies; ++u) {
+      const int e = tid + kF32Threads * u;
+      int r, col, dst;
+      if (kind < 2) {  // 128 rows x CW columns
+        r = e / (CW / 4);
+        dst = 4 * (e % (CW / 4));
+        col = CW * c + dst;
+        dst += r * CS;
+      } else {  // QK rows x DT columns
+        r = QK * c + e / (DT / 4);
+        col = 4 * (e % (DT / 4));
+        dst = (e / (DT / 4)) * RS + col;
+      }
+      const int qpos = q0 + r;
+      const bool ok = qpos < p.Sq && col < p.D;
+      sm90::cp_async16(st + dst, ok ? src + qpos * ss + col : src,
+                       ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < NS - 1; ++g) {  // K and V join the first group
+    if (g < total) issue(g);
+    sm90::cp_async_commit();
+  }
+
+  float st[RK][8], dpt[RK][8], dk[RK][NCOL], dv[RK][NCOL];
+  float lse2[8], dlt[8];  // the step's q columns: lse * log2(e), delta
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<NS - 2>();
+    __syncthreads();  // chunk g is in; every thread is done with chunk g-1
+    if (g + NS - 1 < total) issue(g + NS - 1);
+    sm90::cp_async_commit();
+    const float* sc = sRing + (g % NS) * Tile::kStageFloats;
+    const int step = g / (4 * NC), part = g % (4 * NC);
+    const int kind = part / NC, c = part % NC;
+    const int q0 = (it_start + step % n_q) * kF32BQ;
+    if (part == 0) {
+      const long long row0 =
+          ((long long)b * p.H + hk * group + step / n_q) * p.Sq;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qpos = q0 + tx + 16 * j;
         const bool ok = qpos < p.Sq;
-        sQt[d * S::kTStride + r] = ok ? load_f32(qg + qpos * p.q_ss + d) : 0.f;
-        sdOt[d * S::kTStride + r] =
-            ok ? load_f32(dog + qpos * p.do_ss + d) : 0.f;
-      }
-      for (int r = tid; r < BQ; r += kThreads) {
-        const int qpos = q0 + r;
-        const bool ok = qpos < p.Sq;
-        sLse[r] = ok ? p.lse[bh * p.Sq + qpos] : 0.f;
-        sDelta[r] = ok ? p.delta[bh * p.Sq + qpos] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this thread's RPT k rows.
-      float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-      for (int d = 0; d < D; ++d) {
-        float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          kv[i] = sK[(ty + 32 * i) * S::kRowStride + d];
-          vv[i] = sV[(ty + 32 * i) * S::kRowStride + d];
-        }
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          qv[j] = sQt[d * S::kTStride + tx + 8 * j];
-          ov[j] = sdOt[d * S::kTStride + tx + 8 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
-
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int c = ty + 32 * i;
-        const int kpos = k0 + c;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int r = tx + 8 * j;
-          const int qpos = q0 + r;
-          float pr = 0.f;
-          if (qpos < p.Sq && kpos < p.Sk && visible(p, qpos, kpos)) {
-            pr = expf(p.scale * s[i][j] - sLse[r]);
-          }
-          sP[c * S::kPStride + r] = pr;
-          sdS[c * S::kPStride + r] = pr * (dp[i][j] - sDelta[r]) * p.scale;
-        }
-      }
-      __syncthreads();
-
-      const int r_end = min(BQ, p.Sq - q0);
-#pragma unroll 2
-      for (int r = 0; r < r_end; ++r) {
-        float pr[RPT], ds[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pr[i] = sP[(ty + 32 * i) * S::kPStride + r];
-          ds[i] = sdS[(ty + 32 * i) * S::kPStride + r];
-        }
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const float ov = sdOt[(tx + 8 * j) * S::kTStride + r];
-          const float qv = sQt[(tx + 8 * j) * S::kTStride + r];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            dv[i][j] = fmaf(pr[i], ov, dv[i][j]);
-            dk[i][j] = fmaf(ds[i], qv, dk[i][j]);
-          }
-        }
+        lse2[j] = ok ? p.lse[row0 + qpos] * kLog2e : 0.f;
+        dlt[j] = ok ? p.delta[row0 + qpos] : 0.f;
       }
     }
+    // acc (+)= A[:, CW c ..] . chunk^T: S^T from K and a Q d-chunk, dP^T
+    // from V and a dO d-chunk.
+    auto score_chunk = [&](float (&acc)[RK][8], const float* a) {
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      }
+#pragma unroll 4
+      for (int d = 0; d < CW; d += 4) {
+        float4 qv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          qv[j] = sm90::lds4(sc + (tx + 16 * j) * CS + d);
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          const float4 kv = sm90::lds4(a + (ty + 16 * i) * RS + CW * c + d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(kv.x, qv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(kv.y, qv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(kv.z, qv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(kv.w, qv[j].w, acc[i][j]);
+          }
+        }
+      }
+    };
+    // acc += A[:, QK c ..] . chunk: dV from P^T and a dO q-chunk, dK from
+    // dS^T and a Q q-chunk.
+    auto product_chunk = [&](float (&acc)[RK][NCOL], const float* a) {
+#pragma unroll 2
+      for (int r = 0; r < QK; r += 4) {
+        float4 pr[RK];
+#pragma unroll
+        for (int i = 0; i < RK; ++i)
+          pr[i] = sm90::lds4(a + (ty + 16 * i) * PS + QK * c + r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 ov[NCOL / 4];
+#pragma unroll
+          for (int gg = 0; gg < NCOL / 4; ++gg)
+            ov[gg] = sm90::lds4(sc + (r + e) * RS + 64 * gg + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < RK; ++i) {
+            const float pe = e == 0 ? pr[i].x
+                             : e == 1 ? pr[i].y
+                             : e == 2 ? pr[i].z
+                                      : pr[i].w;
+#pragma unroll
+            for (int gg = 0; gg < NCOL / 4; ++gg) {
+              acc[i][4 * gg] = fmaf(pe, ov[gg].x, acc[i][4 * gg]);
+              acc[i][4 * gg + 1] = fmaf(pe, ov[gg].y, acc[i][4 * gg + 1]);
+              acc[i][4 * gg + 2] = fmaf(pe, ov[gg].z, acc[i][4 * gg + 2]);
+              acc[i][4 * gg + 3] = fmaf(pe, ov[gg].w, acc[i][4 * gg + 3]);
+            }
+          }
+        }
+      }
+    };
+    if (kind == 0) {
+      score_chunk(st, sK);
+    } else if (kind == 1) {
+      score_chunk(dpt, sV);
+      if (c == NC - 1) {
+        // P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T -
+        // delta) scale, both 0 where the causal, window or ragged-row mask
+        // holds: a select on every entry, never a branch (a no-key row's
+        // exponential is inf before the mask).
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          const int kpos = k0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int qpos = q0 + tx + 16 * j;
+            const bool masked =
+                (qpos >= p.Sq) |
+                (causal & ((qpos < kpos) |
+                           (windowed & (qpos - kpos >= p.window))));
+            float pv = sm90::ex2(fmaf(st[i][j], scale_log2, -lse2[j]));
+            pv = masked ? 0.f : pv;
+            sPt[(ty + 16 * i) * PS + tx + 16 * j] = pv;
+            sdSt[(ty + 16 * i) * PS + tx + 16 * j] =
+                pv * (dpt[i][j] - dlt[j]) * p.scale;
+          }
+        }
+      }
+    } else if (kind == 2) {
+      product_chunk(dv, sPt);
+    } else {
+      product_chunk(dk, sdSt);
+    }
   }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // K and V are in even when the block had no step
 
   const int q_first = first_no_key_row(p.causal, p.window, p.Sq, p.Sk);
   if (q_first < p.Sq) {  // rows that see no key: dV += their dO / Sk
-    for (int d = tid; d < D; d += kThreads) {
-      sU[d] = no_key_dv(static_cast<const T*>(p.dout), p.do_sb, p.do_ss,
+    for (int d = tid; d < p.D; d += kF32Threads) {
+      sU[d] = no_key_dv(static_cast<const float*>(p.dout), p.do_sb, p.do_ss,
                         p.do_sh, b, hk * group, group, q_first, p.Sq, p.Sk,
                         d);
     }
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+      const int col = 64 * gg + 4 * tx;
+      if (col < p.D) {
 #pragma unroll
-      for (int j = 0; j < DPT; ++j)
-        if (tx + 8 * j < D) dv[i][j] += sU[tx + 8 * j];
+        for (int i = 0; i < RK; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dv[i][4 * gg + e] += sU[col + e];
+      }
+    }
   }
 
   // dK/dV are contiguous (B, Sk, Hkv, D).
-  const long long base = ((long long)b * p.Sk * p.Hkv + hk) * D;
-  const long long kv_ss = (long long)p.Hkv * D;
-  T* dkg = static_cast<T*>(p.dk) + base;
-  T* dvg = static_cast<T*>(p.dv) + base;
+  float* dkg = static_cast<float*>(p.dk);
+  float* dvg = static_cast<float*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int kpos = k0 + ty + 32 * i;
+  for (int i = 0; i < RK; ++i) {
+    const int kpos = k0 + ty + 16 * i;
     if (kpos >= p.Sk) continue;
+    const long long row = (((long long)b * p.Sk + kpos) * p.Hkv + hk) * p.D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + 8 * j;
-      if (d < D) {
-        store_from_f32(dkg + kpos * kv_ss + d, dk[i][j]);
-        store_from_f32(dvg + kpos * kv_ss + d, dv[i][j]);
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+      const int col = 64 * gg + 4 * tx;
+      if (col < p.D) {
+        *reinterpret_cast<float4*>(dkg + row + col) =
+            make_float4(dk[i][4 * gg], dk[i][4 * gg + 1], dk[i][4 * gg + 2],
+                        dk[i][4 * gg + 3]);
+        *reinterpret_cast<float4*>(dvg + row + col) =
+            make_float4(dv[i][4 * gg], dv[i][4 * gg + 1], dv[i][4 * gg + 2],
+                        dv[i][4 * gg + 3]);
       }
     }
   }
 }
+
+template <int DT>
+cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
+  using Tile = DkvF32Tile<DT>;
+  auto kernel = flash_dkv_f32_kernel<DT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.B * p.Hkv, (p.Sk + Tile::kBK - 1) / Tile::kBK);
+  kernel<<<grid, kF32Threads, Tile::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 
 // ------------------------------------------------------------- launch ----
 
@@ -555,34 +704,20 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
+  dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
-
-template <typename T, int DMAX, int BK, int BQ>
-cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_dkv_kernel<T, DMAX, BK, BQ>;
-  const size_t bytes = DkvSmem<DMAX, BK, BQ>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.Sk + BK - 1) / BK, p.B * p.Hkv);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 
 // ------------------------------------------- dK/dV, bf16, tensor cores ----
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWgThreads = 384;  // 2 consumer warpgroups + 1 producer
 
 struct DkvArgs {
   CUtensorMap tq, tk, tv, tdo;
   const float* lse;
   const float* delta;
-  const __nv_bfloat16* dout;  // the no-key dV term reads it directly
+  const void* dout;  // the no-key dV term reads it directly
   long long do_sb, do_ss, do_sh;
   void* dk;
   void* dv;
@@ -740,7 +875,7 @@ __device__ __forceinline__ void dkv_produce(const DkvArgs& a,
 // fragments and dO and Q read MN-major through the transpose bit
 // (64-column blocks kBQ * 128 bytes apart, 2048 bytes a k16 step). Then
 // the no-key dV term and the bf16 store of the rows below Sk.
-template <typename Tile, int NCOL, typename Scores>
+template <typename T, typename Tile, int NCOL, typename Scores>
 __device__ __forceinline__ void dkv_consume(const DkvArgs& a,
                                             const DkvBlock<Tile>& blk,
                                             int kw0, int c0, Scores scores) {
@@ -787,17 +922,17 @@ __device__ __forceinline__ void dkv_consume(const DkvArgs& a,
     }
 
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-    sm90::to_a_frags(st, pa);
-    sm90::to_a_frags(dpt, da);
+    sm90::to_a_frags<T>(st, pa);
+    sm90::to_a_frags<T>(dpt, da);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      sm90::wgmma_rs(dv, pa[kk], sm90::desc_sw128(o_addr + cols + kk * 2048,
+      sm90::wgmma_rs<T>(dv, pa[kk], sm90::desc_sw128(o_addr + cols + kk * 2048,
                                                   BQ * 128, 1024));
     }
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      sm90::wgmma_rs(dk, da[kk], sm90::desc_sw128(q_addr + cols + kk * 2048,
+      sm90::wgmma_rs<T>(dk, da[kk], sm90::desc_sw128(q_addr + cols + kk * 2048,
                                                   BQ * 128, 1024));
     }
     sm90::wgmma_commit();
@@ -813,7 +948,8 @@ __device__ __forceinline__ void dkv_consume(const DkvArgs& a,
   if (q_first < a.Sq) {  // rows that see no key: dV += their dO / Sk
     if (threadIdx.x < a.D) {
       blk.sU[threadIdx.x] =
-          no_key_dv(a.dout, a.do_sb, a.do_ss, a.do_sh, blk.b,
+          no_key_dv(static_cast<const T*>(a.dout), a.do_sb, a.do_ss,
+                    a.do_sh, blk.b,
                     blk.hk * blk.group, blk.group, q_first, a.Sq, a.Sk,
                     threadIdx.x);
     }
@@ -829,8 +965,8 @@ __device__ __forceinline__ void dkv_consume(const DkvArgs& a,
   }
 
   // dK/dV are contiguous (B, Sk, Hkv, D).
-  __nv_bfloat16* dkg = static_cast<__nv_bfloat16*>(a.dk);
-  __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(a.dv);
+  T* dkg = static_cast<T*>(a.dk);
+  T* dvg = static_cast<T*>(a.dv);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kpos = kr + 8 * r;
@@ -841,10 +977,10 @@ __device__ __forceinline__ void dkv_consume(const DkvArgs& a,
     for (int j = 0; j < NCOL / 8; ++j) {
       const int col = c0 + 8 * j + cq;
       if (col < a.D) {
-        *reinterpret_cast<__nv_bfloat162*>(dkg + row + col) =
-            __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dvg + row + col) =
-            __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        sm90::store2<T>(dkg + row + col, dk[4 * j + 2 * r],
+                        dk[4 * j + 2 * r + 1]);
+        sm90::store2<T>(dvg + row + col, dv[4 * j + 2 * r],
+                        dv[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -852,7 +988,7 @@ __device__ __forceinline__ void dkv_consume(const DkvArgs& a,
 
 // dK/dV for D <= DT <= 128: each consumer warpgroup owns 64 of the block's
 // 128 k rows and all DT columns, and forms its rows' S^T and dP^T.
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
   using Tile = DkvTile<DT>;
@@ -876,7 +1012,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
 #pragma unroll
       for (int kk = 0; kk < DT / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
-        sm90::wgmma_ss(
+        sm90::wgmma_ss<T>(
             st, sm90::desc_sw128(k_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
             sm90::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
             kk > 0);
@@ -884,7 +1020,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
 #pragma unroll
       for (int kk = 0; kk < DT / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
-        sm90::wgmma_ss(
+        sm90::wgmma_ss<T>(
             dpt, sm90::desc_sw128(v_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
             sm90::desc_sw128(o_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
             kk > 0);
@@ -894,30 +1030,30 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
       sm90::fence_regs(st);
       sm90::fence_regs(dpt);
     };
-    dkv_consume<Tile, DT>(a, blk, blk.k0 + wg * 64, 0, scores);
+    dkv_consume<T, Tile, DT>(a, blk, blk.k0 + wg * 64, 0, scores);
   }
 }
 
 // Launches a bf16 dK/dV `kernel` whose tiles (Tile::kBK k rows, Tile::kBQ
 // q rows) and shared memory Tile describes, one block per (batch*kv head,
 // k tile).
-template <typename Tile, typename Kernel>
+template <typename T, typename Tile, typename Kernel>
 cudaError_t launch_dkv_tiles(const Params& p, Kernel kernel,
                              cudaStream_t stream) {
   DkvArgs a;
-  if (!sm90_host::bf16_bshd_map(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
-                                p.q_ss, p.q_sh, Tile::kBQ) ||
-      !sm90_host::bf16_bshd_map(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
-                                p.do_ss, p.do_sh, Tile::kBQ) ||
-      !sm90_host::bf16_bshd_map(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
-                                p.k_ss, p.k_sh, Tile::kBK) ||
-      !sm90_host::bf16_bshd_map(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
-                                p.v_ss, p.v_sh, Tile::kBK)) {
+  if (!sm90_host::bshd_map<T>(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
+                              p.q_ss, p.q_sh, Tile::kBQ) ||
+      !sm90_host::bshd_map<T>(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
+                              p.do_ss, p.do_sh, Tile::kBQ) ||
+      !sm90_host::bshd_map<T>(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
+                              p.k_ss, p.k_sh, Tile::kBK) ||
+      !sm90_host::bshd_map<T>(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
+                              p.v_ss, p.v_sh, Tile::kBK)) {
     return cudaErrorInvalidValue;
   }
   a.lse = p.lse;
   a.delta = p.delta;
-  a.dout = static_cast<const __nv_bfloat16*>(p.dout);
+  a.dout = p.dout;
   a.do_sb = p.do_sb;
   a.do_ss = p.do_ss;
   a.do_sh = p.do_sh;
@@ -941,9 +1077,10 @@ cudaError_t launch_dkv_tiles(const Params& p, Kernel kernel,
   return cudaGetLastError();
 }
 
-template <int DT>
+template <typename T, int DT>
 cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
-  return launch_dkv_tiles<DkvTile<DT>>(p, flash_dkv_bf16_kernel<DT>, stream);
+  return launch_dkv_tiles<T, DkvTile<DT>>(p, flash_dkv_bf16_kernel<T, DT>,
+                                          stream);
 }
 
 // ------------------- dK/dV, bf16, tensor cores, head dim split (D = 256) --
@@ -955,6 +1092,7 @@ cudaError_t launch_dkv_bf16(const Params& p, cudaStream_t stream) {
 // warpgroup 1 dP^T, and they swap them through shared memory behind a
 // named barrier (8 * D FLOP issued a pair, where forming both in each
 // warpgroup issues 12 * D and measured 2-4 % slower, PERF.md).
+template <typename T>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dkv_bf16_dsplit_kernel(const __grid_constant__ DkvArgs a) {
   using Tile = DkvSplitTile;
@@ -982,7 +1120,7 @@ flash_dkv_bf16_dsplit_kernel(const __grid_constant__ DkvArgs a) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
-        sm90::wgmma_ss(
+        sm90::wgmma_ss<T>(
             mine,
             sm90::desc_sw128(a_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
             sm90::desc_sw128(b_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
@@ -1002,7 +1140,7 @@ flash_dkv_bf16_dsplit_kernel(const __grid_constant__ DkvArgs a) {
         dpt[i] = wg ? mine[i] : other;
       }
     };
-    dkv_consume<Tile, D / 2>(a, blk, blk.k0, wg * (D / 2), scores);
+    dkv_consume<T, Tile, D / 2>(a, blk, blk.k0, wg * (D / 2), scores);
   }
 }
 
@@ -1037,7 +1175,7 @@ struct DqTile {
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
-template <int DT>
+template <typename T, int DT>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
   using Tile = DqTile<DT>;
@@ -1137,7 +1275,7 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
 #pragma unroll
       for (int kk = 0; kk < DT / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
-        sm90::wgmma_ss(
+        sm90::wgmma_ss<T>(
             st, sm90::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
             sm90::desc_sw128(k_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
             kk > 0);
@@ -1145,7 +1283,7 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
 #pragma unroll
       for (int kk = 0; kk < DT / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
-        sm90::wgmma_ss(
+        sm90::wgmma_ss<T>(
             dpt, sm90::desc_sw128(o_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
             sm90::desc_sw128(v_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
             kk > 0);
@@ -1181,7 +1319,7 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
       const uint32_t k_addr = kv_addr + s * 2 * Tile::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        sm90::wgmma_rs(dq, da[kk],
+        sm90::wgmma_rs<T>(dq, da[kk],
                        sm90::desc_sw128(k_addr + kk * 2048, BK * 128, 1024));
       }
     };
@@ -1196,7 +1334,7 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
       sm90::fence_regs(st);
       sm90::fence_regs(dpt);
       grads(0);
-      sm90::to_a_frags(dpt, da);
+      sm90::to_a_frags<T>(dpt, da);
     }
     // Software pipeline inside the warpgroup: S_it, dP_it and
     // dQ += dS_(it-1).K_(it-1) are issued together, and dS_it is formed
@@ -1218,7 +1356,7 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
       sm90::fence_regs(dq);
       sm90::fence_regs(da);
       sm90::mbar_arrive(&empty[sp]);
-      sm90::to_a_frags(dpt, da);
+      sm90::to_a_frags<T>(dpt, da);
     }
     if (n_it > 0) {
       sm90::wgmma_fence();
@@ -1230,7 +1368,7 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
     }
 
     // dQ is contiguous (B, Sq, H, D).
-    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.dq);
+    T* dqg = static_cast<T*>(a.dq);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = qr + 8 * r;
@@ -1240,26 +1378,26 @@ flash_dq_bf16_kernel(const __grid_constant__ DqArgs a) {
       for (int j = 0; j < DT / 8; ++j) {
         const int col = 8 * j + cq;
         if (col < a.D) {
-          *reinterpret_cast<__nv_bfloat162*>(dqg + row + col) =
-              __floats2bfloat162_rn(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+          sm90::store2<T>(dqg + row + col, dq[4 * j + 2 * r],
+                          dq[4 * j + 2 * r + 1]);
         }
       }
     }
   }
 }
 
-template <int DT>
+template <typename T, int DT>
 cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
   using Tile = DqTile<DT>;
   DqArgs a;
-  if (!sm90_host::bf16_bshd_map(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
-                                p.q_ss, p.q_sh, Tile::kBQ) ||
-      !sm90_host::bf16_bshd_map(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
-                                p.do_ss, p.do_sh, Tile::kBQ) ||
-      !sm90_host::bf16_bshd_map(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
-                                p.k_ss, p.k_sh, Tile::kBK) ||
-      !sm90_host::bf16_bshd_map(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
-                                p.v_ss, p.v_sh, Tile::kBK)) {
+  if (!sm90_host::bshd_map<T>(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
+                              p.q_ss, p.q_sh, Tile::kBQ) ||
+      !sm90_host::bshd_map<T>(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
+                              p.do_ss, p.do_sh, Tile::kBQ) ||
+      !sm90_host::bshd_map<T>(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
+                              p.k_ss, p.k_sh, Tile::kBK) ||
+      !sm90_host::bshd_map<T>(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
+                              p.v_ss, p.v_sh, Tile::kBK)) {
     return cudaErrorInvalidValue;
   }
   a.lse = p.lse;
@@ -1274,7 +1412,7 @@ cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
   a.window = p.window;
   a.scale = p.scale;
   a.scale_log2 = p.scale * kLog2e;
-  auto kernel = flash_dq_bf16_kernel<DT>;
+  auto kernel = flash_dq_bf16_kernel<T, DT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile::kSmem);
@@ -1285,32 +1423,32 @@ cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
 }
 
 // Tiles by head dim. Shared memory per block (bytes): the CUDA-core (f32)
-// dQ 85 K / 151 K / 138 K and dK/dV 104 K / 170 K / 145 K for D <= 64 /
-// 128 / 256; the tensor-core (bf16) dQ 81 K / 161 K / 225 K and dK/dV 68 K
-// / 134 K / 195 K for D <= 64 / 128 / 256. All under the 227 KB a block
-// may use.
+// dQ 85 K / 151 K / 138 K and dK/dV 168 K / 201 K / 167 K for D <= 64 /
+// 128 / 256; the tensor-core (bf16, f16) dQ 81 K / 161 K / 225 K and dK/dV
+// 68 K / 134 K / 195 K for D <= 64 / 128 / 256. All under the 227 KB a
+// block may use.
 template <typename T>
 cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
   if (which == 0) {
-    if constexpr (sizeof(T) == 2) {  // bf16 dQ: tensor cores
-      if (p.D <= 64) return launch_dq_bf16<64>(p, s);
-      if (p.D <= 128) return launch_dq_bf16<128>(p, s);
-      return launch_dq_bf16<256>(p, s);
+    if constexpr (sizeof(T) == 2) {  // bf16/f16 dQ: tensor cores
+      if (p.D <= 64) return launch_dq_bf16<T, 64>(p, s);
+      if (p.D <= 128) return launch_dq_bf16<T, 128>(p, s);
+      return launch_dq_bf16<T, 256>(p, s);
     } else {
       if (p.D <= 64) return launch_dq<T, 64, 64, 64>(p, s);
       if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
       return launch_dq<T, 256, 32, 32>(p, s);
     }
   }
-  if constexpr (sizeof(T) == 2) {  // bf16 dK/dV: tensor cores
-    if (p.D <= 64) return launch_dkv_bf16<64>(p, s);
-    if (p.D <= 128) return launch_dkv_bf16<128>(p, s);
-    return launch_dkv_tiles<DkvSplitTile>(p, flash_dkv_bf16_dsplit_kernel,
-                                          s);
+  if constexpr (sizeof(T) == 2) {  // bf16/f16 dK/dV: tensor cores
+    if (p.D <= 64) return launch_dkv_bf16<T, 64>(p, s);
+    if (p.D <= 128) return launch_dkv_bf16<T, 128>(p, s);
+    return launch_dkv_tiles<T, DkvSplitTile>(
+        p, flash_dkv_bf16_dsplit_kernel<T>, s);
   } else {
-    if (p.D <= 64) return launch_dkv<T, 64, 64, 64>(p, s);
-    if (p.D <= 128) return launch_dkv<T, 128, 64, 64>(p, s);
-    return launch_dkv<T, 256, 32, 32>(p, s);
+    if (p.D <= 64) return launch_dkv_f32<64>(p, s);
+    if (p.D <= 128) return launch_dkv_f32<128>(p, s);
+    return launch_dkv_f32<256>(p, s);
   }
 }
 
@@ -1332,13 +1470,15 @@ int run(int which, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(p, which, s);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(p, which, s);
+  if (dtype == 2) return (int)dispatch<__half>(p, which, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Each returns
-// the cudaError_t of its launch (0 = launched); the caller checks it.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides are in elements.
+// Each returns the cudaError_t of its launch (0 = launched); the caller
+// checks it.
 extern "C" int tpunet_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int H, int Hkv,

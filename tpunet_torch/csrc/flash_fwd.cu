@@ -22,21 +22,26 @@
 // exp(NEG_INF - m) is exactly 0). Blocks without such rows keep the TPU
 // kernel's bounds and do no extra work; l is never 0.
 //
-// bf16: flash_fwd_bf16_kernel, tensor cores. For bf16 inputs the TPU kernel
-// runs Precision.DEFAULT (_dot_precision, :267-272): one bf16 MXU pass, so
-// P enters the P.V product rounded to bf16 and every product accumulates in
-// f32. The same here: S = Q.K^T and O += P.V are wgmma products with bf16
-// operands and f32 accumulators, and P is rounded to bf16 in registers.
-// (The TPU rounds q * scale to bf16 before its pass; here the scale
-// multiplies the f32 scores, which is no less exact.)
+// bf16 and f16: flash_fwd_bf16_kernel<T, DT, BK>, tensor cores, with the
+// element type T (__nv_bfloat16 or __half) a template parameter; both
+// types run the same code, and wgmma's operand type follows T (sm90.cuh).
+// For bf16 inputs the TPU kernel runs Precision.DEFAULT (_dot_precision,
+// :267-272): one bf16 MXU pass, so P enters the P.V product rounded to
+// bf16 and every product accumulates in f32. The same here: S = Q.K^T and
+// O += P.V are wgmma products with 16-bit operands and f32 accumulators,
+// and P is rounded to T in registers. (The TPU rounds q * scale to bf16
+// before its pass; here the scale multiplies the f32 scores, which is no
+// less exact.) For f16 inputs P is rounded to f16: its 11-bit significand
+// keeps P closer to the JAX reference on the CPU (f32 arithmetic on f16
+// inputs) than bf16's 8 bits keep the bf16 kernel to its reference.
 // What bounds it: at the training shape (B4 S2048 H16 D128 causal) the
 // forward is 68.7 GFLOP against ~34 MB, so the tensor cores bound it:
-// 0.0695 ms at 989 TFLOP/s. The design, for that bound:
+// 0.0695 ms at 989 TFLOP/s (the same for f16). The design, for that bound:
 //   * one block per (batch*head, 128-row q tile), launched heaviest causal
 //     tile first; two consumer warpgroups own 64 q rows each (wgmma's M),
 //     one producer warp issues every global->shared copy;
 //   * Q (once) and a ring of K/V stages arrive by TMA into the 128-byte
-//     swizzled bf16 layout wgmma reads (sm90.cuh), completion counted on
+//     swizzled 16-bit layout wgmma reads (sm90.cuh), completion counted on
 //     mbarriers, so the next tiles' copies overlap this tile's products;
 //     TMA's zero fill supplies ragged tails and pads D up to the tile's D
 //     (64/128/256), whose extra output columns are never stored;
@@ -44,7 +49,7 @@
 //     runs on the accumulator fragments, rows reduced across the 4 threads
 //     that hold them, in the log2 domain (the scale folds into the
 //     exponent's FMA on tiles without a mask); O += P.V is an RS-wgmma with
-//     P converted to bf16 A fragments in registers and V read MN-major
+//     P converted to 16-bit A fragments in registers and V read MN-major
 //     through the transpose bit (no transposed copy);
 //   * each warpgroup pipelines its tiles: S_j = Q.K_j and O += P_(j-1).V_(j-1)
 //     are issued together and the softmax of S_j runs while the tensor
@@ -55,13 +60,32 @@
 // Tiles: 128 q rows; 128 keys and 3 stages for D <= 128, 64 keys and 2
 // stages for D = 256 (shared memory 225 / 193 KB a block; one block an SM).
 //
-// f32: flash_fwd_kernel, the CUDA cores, unchanged since it was first
-// ported: inputs staged in shared memory and every product an f32 FMA (no
-// TF32), the counterpart of Precision.HIGHEST for f32 inputs. One
-// 128-thread block per (batch*head, 64-row q tile) with a register tile of
-// RPT x 8 scores and RPT x D/8 outputs per thread.
+// f32: flash_fwd_f32_kernel<DT>, the CUDA cores. For f32 inputs the TPU
+// kernel runs Precision.HIGHEST, so every product here is an exact f32 FMA
+// (no TF32, no 3xTF32). What bounds it: at the training shape the forward
+// is 68.7 GFLOP, 34.4 G FMA, against ~270 MB: the FMA pipe, 1.03 ms at
+// 67 TFLOP/s. An FMA needs two operands, and shared memory delivers 128
+// bytes a clock to an SM whose 128 lanes issue 128 FMAs a clock, so the
+// design is about operand reuse, occupancy and overlap:
+//   * one 256-thread block (8 warps, one block an SM) per (batch*head,
+//     128-row q tile; 64 rows at D = 256), heaviest causal tile first;
+//   * each thread keeps an 8 x 8 score tile (8 q rows x 8 keys) and an 8 x
+//     DT/16 output tile in registers; every operand is a 16-byte shared
+//     load, so 8 Q loads and 8 K loads feed 256 FMAs (S, along D from
+//     row-major tiles) and 8 P loads and 8 V loads feed 256 (P.V, along
+//     the keys); rows padded by 4 floats keep the loads free of bank
+//     conflicts;
+//   * Q is resident; K and V stream as 8704-float chunks (K: 128 keys x 64
+//     columns; V: 8192/DT keys x DT columns) through a 2-stage cp.async
+//     ring, 16 bytes a copy, so the next chunk loads while this one's FMAs
+//     run; zero-size copies fill ragged rows and columns past D;
+//   * the online softmax runs in registers in the log2 domain (rows
+//     reduced by shuffles across the 16 lanes that hold them), and P goes
+//     through shared memory to the threads that own its output columns.
+// Shared memory: 168 / 200 / 166 KiB a block at DT = 64 / 128 / 256.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,10 +95,9 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF mask value
-constexpr int kThreads = 128;      // 16 row groups x 8 column lanes
-constexpr int kBK = 64;            // keys per tile
-constexpr int kKtStride = kBK + 1; // transposed-K row stride (bank spread)
-constexpr int kPStride = kBK + 8;  // probability-tile row stride
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInfL2 = kNegInf * kLog2e;  // NEG_INF in the log2 domain
 
 struct Params {
   const void* q;
@@ -92,9 +115,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-
 // True when one of the rows q0..q0+rows-1 (< Sq) sees no key. Such a row
 // is past Sk, so the causal k-loop end is already the last k tile.
 __device__ __forceinline__ bool holds_no_key_row(int causal, int window,
@@ -103,197 +123,307 @@ __device__ __forceinline__ bool holds_no_key_row(int causal, int window,
   return causal && window > 0 && min(q0 + rows, Sq) - 1 >= Sk + window - 1;
 }
 
-template <int DMAX, int BQ>
-struct Smem {
-  static constexpr int kQStride = DMAX + 1;
-  static constexpr int kQ = BQ * kQStride;      // sQ[BQ][DMAX+1], scaled q
-  static constexpr int kKt = DMAX * kKtStride;  // sKt[DMAX][BK+1], k^T
-  static constexpr int kV = kBK * DMAX;         // sV[BK][DMAX]
-  static constexpr int kP = BQ * kPStride;      // sP[BQ][BK+8]
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kKt + kV + kP);
+// The TPU kernel's k-loop bounds for the q rows q0..q0+rows-1: causal stops
+// at the tile holding the last row's own position; a window starts at the
+// tile holding the FIRST row's oldest visible key (elementwise masks trim
+// the rest); a block holding a row that sees no key starts at tile 0.
+struct KRange {
+  int start, end;
 };
 
-template <typename T, int DMAX, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  constexpr int RPT = BQ / 16;   // q rows per thread
-  constexpr int CPT = kBK / 8;   // score columns per thread
-  constexpr int DPT = DMAX / 8;  // output columns per thread
-  using S = Smem<DMAX, BQ>;
+__device__ __forceinline__ KRange k_range(int causal, int window, int q0,
+                                          int rows, int Sq, int Sk, int bk) {
+  const int n_kt = (Sk + bk - 1) / bk;
+  KRange r{0, n_kt};
+  if (causal) r.end = min(n_kt, (q0 + rows + bk - 1) / bk);
+  if (causal && window > 0) r.start = max(q0 - (window - 1), 0) / bk;
+  if (holds_no_key_row(causal, window, q0, rows, Sq, Sk)) r.start = 0;
+  return r;
+}
+
+// True when some entry of the (rows x bk) score tile at (q0, k0) is masked:
+// past Sk, above the causal diagonal or outside the window.
+__device__ __forceinline__ bool tile_needs_mask(int causal, int window,
+                                                int q0, int rows, int k0,
+                                                int bk, int Sk) {
+  return k0 + bk > Sk ||
+         (causal && (k0 + bk - 1 > q0 ||
+                     (window > 0 && q0 + rows - 1 - k0 >= window)));
+}
+
+// ------------------------------------------------------ f32, CUDA cores --
+
+constexpr int kF32BK = 128;  // keys a tile
+
+// Tiles of flash_fwd_f32_kernel<DT>. K and V stream through one ring of
+// kStages chunks of 128 x kCW floats: K as 128 keys x kCW head-dim columns
+// (DT / kCW chunks a tile), V as kVK keys x DT columns (128 / kVK = DT /
+// kCW chunks a tile). Rows are padded by 4 floats: 16-byte loads stay
+// aligned and 8 rows at one column fall in 8 different 4-bank groups.
+template <int DT>
+struct F32Tile {
+  static constexpr int kThreads = 256;              // 16 row groups x 16 lanes
+  static constexpr int kRG = kThreads / 16;         // row groups
+  static constexpr int kBQ = DT <= 128 ? 128 : 64;  // q rows a block
+  static constexpr int kRPT = kBQ / kRG;            // q rows a thread
+  static constexpr int kCols = DT / 16;             // output columns a thread
+  static constexpr int kCW = 64;                    // K chunk columns
+  static constexpr int kStages = 2;                 // the cp.async ring
+  static constexpr int kKStride = kCW + 4;          // K chunk rows
+  static constexpr int kStageFloats = kF32BK * kKStride;
+  static constexpr int kQStride = DT + 4;           // sQ and V chunk rows
+  static constexpr int kPStride = kF32BK + 4;       // sP rows
+  static constexpr int kVK = kF32BK * kCW / DT;     // keys a V chunk
+  static constexpr int kNC = DT / kCW;              // K (or V) chunks a tile
+  static constexpr int kCopies = kF32BK * kCW / 4 / kThreads;  // a thread's
+  static constexpr size_t kSmem =
+      sizeof(float) * (kBQ * kQStride + kBQ * kPStride +
+                       kStages * kStageFloats);
+  static_assert(kVK * kQStride <= kStageFloats, "V chunk over its stage");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// f32 forward on the CUDA cores, exact f32 FMA. One block per (batch*head,
+// kBQ-row q tile), heaviest causal tile first. Thread (ty, tx) owns q rows
+// ty + RG i, the tile's keys tx + 16j (j < 8) and output columns
+// 64g + 4tx + e (e < 4): an RPT x 8 score tile and an RPT x DT/16 output
+// tile in registers, every operand read as a 16-byte shared load.
+template <int DT>
+__global__ void __launch_bounds__(F32Tile<DT>::kThreads, 1)
+flash_fwd_f32_kernel(const Params p) {
+  using Tile = F32Tile<DT>;
+  constexpr int BQ = Tile::kBQ, RPT = Tile::kRPT, NCOL = Tile::kCols;
+  constexpr int QS = Tile::kQStride, PS = Tile::kPStride, VK = Tile::kVK;
+  constexpr int NC = Tile::kNC, NS = Tile::kStages, CW = Tile::kCW;
+  constexpr int KS = Tile::kKStride, RG = Tile::kRG, NT = Tile::kThreads;
 
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sKt = sQ + S::kQ;
-  float* sV = sKt + S::kKt;
-  float* sP = sV + S::kV;
+  float* sP = sQ + BQ * QS;
+  float* sRing = sP + BQ * PS;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 7;   // column lane: score cols tx+8j, out cols tx+8j
-  const int ty = tid >> 3;  // row group: rows ty + 16*i
-  const int D = p.D;
-  const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tile first
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  // Stage the q tile once, pre-scaled like the TPU kernel (q * scale).
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
+  const KRange kr = k_range(p.causal, p.window, q0, BQ, p.Sq, p.Sk, kF32BK);
+  const int total = max(kr.end - kr.start, 0) * 2 * NC;  // chunks
+
+  // Chunk g: tile kr.start + g / (2 NC); its K columns CW c.. (c < NC),
+  // then its V keys VK c.. . 16 bytes a copy; rows past Sk and columns past
+  // D arrive as zeros.
+  auto issue = [&](int g) {
+    float* st = sRing + (g % NS) * Tile::kStageFloats;
+    const int k0 = (kr.start + g / (2 * NC)) * kF32BK;
+    const int part = g % (2 * NC);
+#pragma unroll
+    for (int u = 0; u < Tile::kCopies; ++u) {
+      const int e = tid + NT * u;
+      if (part < NC) {
+        const int r = e / (CW / 4), f = 4 * (e % (CW / 4));
+        const int col = CW * part + f, kpos = k0 + r;
+        const bool ok = kpos < p.Sk && col < p.D;
+        sm90::cp_async16(st + r * KS + f,
+                         ok ? kg + kpos * p.k_ss + col : kg, ok ? 16 : 0);
+      } else {
+        const int r = e / (DT / 4), col = 4 * (e % (DT / 4));
+        const int kpos = k0 + (part - NC) * VK + r;
+        const bool ok = kpos < p.Sk && col < p.D;
+        sm90::cp_async16(st + r * QS + col,
+                         ok ? vg + kpos * p.v_ss + col : vg, ok ? 16 : 0);
+      }
+    }
+  };
+
+  // The q tile, unscaled (the scale folds into the exponent), with chunk 0.
+  for (int e = tid; e < BQ * DT / 4; e += NT) {
+    const int r = e / (DT / 4), col = 4 * (e % (DT / 4));
     const int qpos = q0 + r;
-    sQ[r * S::kQStride + d] =
-        qpos < p.Sq ? load_f32(qg + qpos * p.q_ss + d) * p.scale : 0.f;
+    const bool ok = qpos < p.Sq && col < p.D;
+    sm90::cp_async16(sQ + r * QS + col, ok ? qg + qpos * p.q_ss + col : qg,
+                     ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int g = 0; g < NS - 1; ++g) {
+    if (g < total) issue(g);
+    sm90::cp_async_commit();
   }
 
-  float acc[RPT][DPT];
-  float m[RPT], l[RPT];
+  float s[RPT][8], o[RPT][NCOL], m[RPT], l[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    m[i] = kNegInfL2;
+    l[i] = 0.f;  // this thread's partial row sum
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < NCOL; ++c) o[i][c] = 0.f;
   }
+  const float scale_log2 = p.scale * kLog2e;
 
-  // The TPU kernel's loop bounds: causal stops at the tile holding the
-  // tile's last row's own position; a window starts at the tile holding
-  // the FIRST row's oldest visible key (elementwise masks trim the rest).
-  const int n_kt = (p.Sk + kBK - 1) / kBK;
-  int kt_end = n_kt;
-  if (p.causal) kt_end = min(n_kt, (q0 + BQ + kBK - 1) / kBK);
-  int kt_start = 0;
-  if (p.causal && p.window > 0) kt_start = max(q0 - (p.window - 1), 0) / kBK;
-  if (holds_no_key_row(p.causal, p.window, q0, BQ, p.Sq, p.Sk)) kt_start = 0;
-
-  for (int kt = kt_start; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's readers are done with sKt/sV/sP
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int c = e / D, d = e - c * D;
-      const int kpos = k0 + c;
-      const bool ok = kpos < p.Sk;
-      sKt[d * kKtStride + c] = ok ? load_f32(kg + kpos * p.k_ss + d) : 0.f;
-      sV[c * DMAX + d] = ok ? load_f32(vg + kpos * p.v_ss + d) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT];
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<NS - 2>();
+    __syncthreads();  // chunk g is in; every thread is done with chunk g-1
+    if (g + NS - 1 < total) issue(g + NS - 1);
+    sm90::cp_async_commit();
+    const float* st = sRing + (g % NS) * Tile::kStageFloats;
+    const int part = g % (2 * NC);
+    if (part < NC) {  // S += Q[:, CW part ..] . K_chunk^T
+      if (part == 0) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+        for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
+          for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      }
+#pragma unroll 1
+      for (int d = 0; d < CW; d += 4) {
+        float4 kv[8];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = sQ[(ty + 16 * i) * S::kQStride + d];
+        for (int j = 0; j < 8; ++j)
+          kv[j] = sm90::lds4(st + (tx + 16 * j) * KS + d);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = sKt[d * kKtStride + tx + 8 * j];
+        for (int i = 0; i < RPT; ++i) {
+          const float4 qv = sm90::lds4(sQ + (ty + RG * i) * QS + CW * part + d);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty + 16 * i;
-      const int qpos = q0 + r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        float x = s[i][j];
-        if (kpos >= p.Sk) {
-          x = -INFINITY;  // ragged tail: contributes exactly 0
-        } else if (p.causal) {
-          bool keep = qpos >= kpos;
-          if (p.window > 0) keep = keep && (qpos - kpos) < p.window;
-          if (!keep) x = kNegInf;
+          for (int j = 0; j < 8; ++j) {
+            s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+          }
         }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
       }
-      // The 8 column lanes of a row are adjacent lanes of one warp.
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
+      if (part == NC - 1) {
+        // Online softmax of the tile in the log2 domain; P into sP. Masked
+        // scores become NEG_INF (-inf past Sk) before the max, as on the
+        // TPU; without a mask the scale folds into the exponent's FMA.
+        const int k0 = (kr.start + g / (2 * NC)) * kF32BK;
+        const bool mask = tile_needs_mask(p.causal, p.window, q0, BQ, k0,
+                                          kF32BK, p.Sk);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float pv = expf(s[i][j] - m_new);
-        rs += pv;
-        sP[r * kPStride + tx + 8 * j] = pv;
+        for (int i = 0; i < RPT; ++i) {
+          const int qpos = q0 + ty + RG * i;
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float x = s[i][j];
+            if (mask) {
+              const int kpos = k0 + tx + 16 * j;
+              const bool hidden =
+                  p.causal && (qpos < kpos ||
+                               (p.window > 0 && qpos - kpos >= p.window));
+              x = kpos >= p.Sk ? -INFINITY
+                               : (hidden ? kNegInfL2 : x * scale_log2);
+              s[i][j] = x;
+            }
+            mx = fmaxf(mx, x);
+          }
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mask ? mx : mx * scale_log2);
+          const float alpha = sm90::ex2(m[i] - m_new);
+          m[i] = m_new;
+          l[i] *= alpha;
+#pragma unroll
+          for (int c = 0; c < NCOL; ++c) o[i][c] *= alpha;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float pv = mask ? sm90::ex2(s[i][j] - m_new)
+                                  : sm90::ex2(fmaf(s[i][j], scale_log2,
+                                                   -m_new));
+            l[i] += pv;
+            sP[(ty + RG * i) * PS + tx + 16 * j] = pv;
+          }
+        }
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    const int c_end = min(kBK, p.Sk - k0);
+    } else {  // O += P[:, VK c ..] . V_chunk
+      const float* pp = sP + (part - NC) * VK;
 #pragma unroll 2
-    for (int c = 0; c < c_end; ++c) {
-      float pr[RPT];
+      for (int c = 0; c < VK; c += 4) {
+        float4 pr[RPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) pr[i] = sP[(ty + 16 * i) * kPStride + c];
+        for (int i = 0; i < RPT; ++i)
+          pr[i] = sm90::lds4(pp + (ty + RG * i) * PS + c);
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float vv = sV[c * DMAX + tx + 8 * j];
+        for (int e = 0; e < 4; ++e) {
+          float4 vv[NCOL / 4];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+          for (int gg = 0; gg < NCOL / 4; ++gg)
+            vv[gg] = sm90::lds4(st + (c + e) * QS + 64 * gg + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const float pe = e == 0 ? pr[i].x
+                             : e == 1 ? pr[i].y
+                             : e == 2 ? pr[i].z
+                                      : pr[i].w;
+#pragma unroll
+            for (int gg = 0; gg < NCOL / 4; ++gg) {
+              o[i][4 * gg] = fmaf(pe, vv[gg].x, o[i][4 * gg]);
+              o[i][4 * gg + 1] = fmaf(pe, vv[gg].y, o[i][4 * gg + 1]);
+              o[i][4 * gg + 2] = fmaf(pe, vv[gg].z, o[i][4 * gg + 2]);
+              o[i][4 * gg + 3] = fmaf(pe, vv[gg].w, o[i][4 * gg + 3]);
+            }
+          }
+        }
       }
     }
   }
+  sm90::cp_async_wait<0>();
 
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int qpos = q0 + ty + RG * i;
     if (qpos >= p.Sq) continue;
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + 8 * j;
-      if (d < D) store_from_f32(og + qpos * p.o_ss + d, acc[i][j] * inv);
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+      const int col = 64 * gg + 4 * tx;
+      if (col < p.D) {
+        *reinterpret_cast<float4*>(og + qpos * p.o_ss + col) =
+            make_float4(o[i][4 * gg] * inv, o[i][4 * gg + 1] * inv,
+                        o[i][4 * gg + 2] * inv, o[i][4 * gg + 3] * inv);
+      }
     }
-    if (tx == 0) p.lse[(long long)bh * p.Sq + qpos] = m[i] + logf(l[i]);
+    if (tx == 0) {  // a row without a key: NEG_INF, exactly
+      p.lse[(long long)bh * p.Sq + qpos] =
+          m[i] == kNegInfL2 ? kNegInf : m[i] * kLn2 + logf(l[i]);
+    }
   }
 }
 
-template <typename T, int DMAX, int BQ>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, DMAX, BQ>;
-  const size_t bytes = Smem<DMAX, BQ>::kBytes;
+template <int DT>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  using Tile = F32Tile<DT>;
+  auto kernel = flash_fwd_f32_kernel<DT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  dim3 grid(p.B * p.H, (p.Sq + Tile::kBQ - 1) / Tile::kBQ);
+  kernel<<<grid, Tile::kThreads, Tile::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch<float, 64, 64>(p, stream);
-  if (p.D <= 128) return launch<float, 128, 64>(p, stream);
-  return launch<float, 256, 32>(p, stream);
+  if (p.D <= 64) return launch_f32<64>(p, stream);
+  if (p.D <= 128) return launch_f32<128>(p, stream);
+  return launch_f32<256>(p, stream);
 }
 
-// ---------------------------------------------------- bf16, tensor cores --
+// ------------------------------------------ bf16 and f16, tensor cores --
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNegInfL2 = kNegInf * kLog2e;  // NEG_INF in the log2 domain
 constexpr int kWgThreads = 384;  // 2 consumer warpgroups + 1 producer
 
 struct Bf16Args {
@@ -321,27 +451,27 @@ struct Bf16Tile {
 };
 
 // S = Q.K^T for one warpgroup: 64 q rows x BK keys, contraction over DT.
-template <int DT, int BK, int BQ>
+template <typename T, int DT, int BK, int BQ>
 __device__ __forceinline__ void qk_product(float (&sc)[BK / 2],
                                            uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int kk = 0; kk < DT / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;
-    sm90::wgmma_ss(
+    sm90::wgmma_ss<T>(
         sc, sm90::desc_sw128(q_addr + (kk >> 2) * BQ * 128 + off, 16, 1024),
         sm90::desc_sw128(k_addr + (kk >> 2) * BK * 128 + off, 16, 1024),
         kk > 0);
   }
 }
 
-// O += P.V, P as bf16 register fragments, V (BK keys x DT) MN-major.
-template <int DT, int BK>
+// O += P.V, P as 16-bit register fragments, V (BK keys x DT) MN-major.
+template <typename T, int DT, int BK>
 __device__ __forceinline__ void pv_product(float (&o)[DT / 2],
                                            const uint32_t (&pa)[BK / 16][4],
                                            uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    sm90::wgmma_rs(o, pa[kk],
+    sm90::wgmma_rs<T>(o, pa[kk],
                    sm90::desc_sw128(v_addr + kk * 2048, BK * 128, 1024));
   }
 }
@@ -394,7 +524,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[N], float (&m)[2],
   }
 }
 
-template <int DT, int BK>
+template <typename T, int DT, int BK>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
   using Tile = Bf16Tile<DT, BK>;
@@ -415,13 +545,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
   const int hk = h / (a.H / a.Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tile first
 
-  const int n_kt = (a.Sk + BK - 1) / BK;
-  int kt_end = n_kt;
-  if (a.causal) kt_end = min(n_kt, (q0 + BQ + BK - 1) / BK);
-  int kt_start = 0;
-  if (a.causal && a.window > 0) kt_start = max(q0 - (a.window - 1), 0) / BK;
-  if (holds_no_key_row(a.causal, a.window, q0, BQ, a.Sq, a.Sk)) kt_start = 0;
-  const int n_it = max(kt_end - kt_start, 0);
+  const KRange kr = k_range(a.causal, a.window, q0, BQ, a.Sq, a.Sk, BK);
+  const int kt_start = kr.start;
+  const int n_it = max(kr.end - kr.start, 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NS; ++s) {
@@ -478,11 +604,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
     // the row rescale alpha, and m, l updated.
     auto softmax = [&](int it) {
       const int k0 = (kt_start + it) * BK;
-      const bool need_mask =
-          k0 + BK > a.Sk ||
-          (a.causal && (k0 + BK - 1 > wq0 ||
-                        (a.window > 0 && wq0 + 63 - k0 >= a.window)));
-      if (need_mask) {
+      if (tile_needs_mask(a.causal, a.window, wq0, 64, k0, BK, a.Sk)) {
         online_softmax<BK / 2, true>(sc, m, l, alpha, a, k0, qr, cq);
       } else {
         online_softmax<BK / 2, false>(sc, m, l, alpha, a, k0, qr, cq);
@@ -493,12 +615,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
     if (n_it > 0) {
       sm90::mbar_wait(&full[0], 0);
       sm90::wgmma_fence();
-      qk_product<DT, BK, BQ>(sc, q_addr, kv_addr);
+      qk_product<T, DT, BK, BQ>(sc, q_addr, kv_addr);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
       softmax(0);
-      sm90::to_a_frags(sc, pa);
+      sm90::to_a_frags<T>(sc, pa);
     }
     // Software pipeline inside the warpgroup: S_it = Q.K_it and
     // O += P_(it-1).V_(it-1) are issued together, and the softmax of S_it
@@ -510,9 +632,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
       for (int i = 0; i < DT / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       sm90::mbar_wait(&full[s], (it / NS) & 1);
       sm90::wgmma_fence();
-      qk_product<DT, BK, BQ>(sc, q_addr, kv_addr + s * 2 * Tile::kKVBytes);
+      qk_product<T, DT, BK, BQ>(sc, q_addr, kv_addr + s * 2 * Tile::kKVBytes);
       sm90::wgmma_commit();
-      pv_product<DT, BK>(o, pa,
+      pv_product<T, DT, BK>(o, pa,
                          kv_addr + sp * 2 * Tile::kKVBytes + Tile::kKVBytes);
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // S_it is ready; P.V may still run
@@ -522,14 +644,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
       sm90::fence_regs(o);
       sm90::fence_regs(pa);
       sm90::mbar_arrive(&empty[sp]);
-      sm90::to_a_frags(sc, pa);
+      sm90::to_a_frags<T>(sc, pa);
     }
     if (n_it > 0) {
       const int sp = (n_it - 1) % NS;
 #pragma unroll
       for (int i = 0; i < DT / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       sm90::wgmma_fence();
-      pv_product<DT, BK>(o, pa,
+      pv_product<T, DT, BK>(o, pa,
                          kv_addr + sp * 2 * Tile::kKVBytes + Tile::kKVBytes);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -537,8 +659,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
       sm90::fence_regs(pa);
     }
 
-    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
-                        h * a.o_sh;
+    T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -550,9 +671,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
       for (int j = 0; j < DT / 8; ++j) {
         const int col = 8 * j + cq;
         if (col < a.D) {
-          *reinterpret_cast<__nv_bfloat162*>(og + qpos * a.o_ss + col) =
-              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
-                                    o[4 * j + 2 * r + 1] * inv);
+          sm90::store2<T>(og + qpos * a.o_ss + col, o[4 * j + 2 * r] * inv,
+                          o[4 * j + 2 * r + 1] * inv);
         }
       }
       if ((lane & 3) == 0) {  // a row without a key: NEG_INF, exactly
@@ -563,19 +683,19 @@ flash_fwd_bf16_kernel(const __grid_constant__ Bf16Args a) {
   }
 }
 
-template <int DT, int BK>
-cudaError_t launch_bf16(Bf16Args& a, int B, const Params& p,
-                        cudaStream_t stream) {
+template <typename T, int DT, int BK>
+cudaError_t launch_16(Bf16Args& a, int B, const Params& p,
+                      cudaStream_t stream) {
   using Tile = Bf16Tile<DT, BK>;
-  if (!sm90_host::bf16_bshd_map(&a.tq, p.q, B, p.Sq, p.H, p.D, p.q_sb,
-                                p.q_ss, p.q_sh, Tile::kBQ) ||
-      !sm90_host::bf16_bshd_map(&a.tk, p.k, B, p.Sk, p.Hkv, p.D, p.k_sb,
-                                p.k_ss, p.k_sh, BK) ||
-      !sm90_host::bf16_bshd_map(&a.tv, p.v, B, p.Sk, p.Hkv, p.D, p.v_sb,
-                                p.v_ss, p.v_sh, BK)) {
+  if (!sm90_host::bshd_map<T>(&a.tq, p.q, B, p.Sq, p.H, p.D, p.q_sb, p.q_ss,
+                              p.q_sh, Tile::kBQ) ||
+      !sm90_host::bshd_map<T>(&a.tk, p.k, B, p.Sk, p.Hkv, p.D, p.k_sb,
+                              p.k_ss, p.k_sh, BK) ||
+      !sm90_host::bshd_map<T>(&a.tv, p.v, B, p.Sk, p.Hkv, p.D, p.v_sb,
+                              p.v_ss, p.v_sh, BK)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = flash_fwd_bf16_kernel<DT, BK>;
+  auto kernel = flash_fwd_bf16_kernel<T, DT, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile::kSmem);
@@ -585,7 +705,8 @@ cudaError_t launch_bf16(Bf16Args& a, int B, const Params& p,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
+template <typename T>
+cudaError_t dispatch_16(const Params& p, cudaStream_t stream) {
   Bf16Args a;
   a.o = p.o;
   a.lse = p.lse;
@@ -600,15 +721,16 @@ cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
   a.causal = p.causal;
   a.window = p.window;
   a.scale_log2 = p.scale * kLog2e;
-  if (p.D <= 64) return launch_bf16<64, 128>(a, p.B, p, stream);
-  if (p.D <= 128) return launch_bf16<128, 128>(a, p.B, p, stream);
-  return launch_bf16<256, 64>(a, p.B, p, stream);
+  if (p.D <= 64) return launch_16<T, 64, 128>(a, p.B, p, stream);
+  if (p.D <= 128) return launch_16<T, 128, 128>(a, p.B, p, stream);
+  return launch_16<T, 256, 64>(a, p.B, p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 = launched); the caller checks it.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides are in elements.
+// Returns the cudaError_t of the launch (0 = launched); the caller checks
+// it.
 extern "C" int tpunet_flash_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int B, int H, int Hkv, int Sq, int Sk, int D,
@@ -627,6 +749,7 @@ extern "C" int tpunet_flash_fwd(
            window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_f32(p, s);
-  if (dtype == 1) return (int)dispatch_bf16(p, s);
+  if (dtype == 1) return (int)dispatch_16<__nv_bfloat16>(p, s);
+  if (dtype == 2) return (int)dispatch_16<__half>(p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,11 +7,18 @@ counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
 _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 (``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
 it runs the plain PyTorch versions beside them. There is no fallback from
-one to the other. In bf16 the forward, dQ and dK/dV kernels run on the
-tensor cores at every head dim (8..256) and load their tiles by TMA, so
-bf16 inputs to any of them need 16-byte aligned data and strides (a
-misaligned input is refused, never copied or sent to another kernel); f32
-runs on the CUDA cores.
+one to the other. bf16 and f16 run on the tensor cores (wgmma, tiles loaded
+by TMA), f32 on the CUDA cores (exact f32 FMA), at every head dim from 1 to
+256 and any batch * heads.
+
+What the kernels need, the wrapper makes (each copy adds one to
+`flash_attention.input_copies`; the model's own calls make none):
+  * a head dim that is not a multiple of 8 is zero-padded to the next one
+    (q, k, v and, in the backward, dO), run with the scale of the true
+    head dim, and the outputs are sliced back (`_with_head_dim_padded`);
+  * an input whose head dim is not contiguous, or whose data or strides
+    are not 16-byte aligned (TMA and 16-byte cp.async take no other), is
+    copied to a contiguous tensor and run by the same kernel.
 
 Rows that see no key (causal with a window, qpos >= Sk + window - 1, only
 when Sq > Sk) get the JAX reference's answer everywhere: o is the mean of V
@@ -22,17 +29,22 @@ The gradient is a `torch.autograd.Function`: its forward saves
 (q, k, v, o, lse), its backward computes delta = rowsum(dO * O) as a plain
 reduction (the TPU wrapper leaves it to XLA too) and runs dQ, then dK/dV.
 
-Differences from the TPU wrapper, all layout rules of the TPU that the card
-does not have:
+Differences from the TPU wrapper:
   * no (8, 128) tile legality: `block_q`/`block_k` are accepted for config
     parity and the kernels pick their own tiles; `interpret` is ignored;
   * ragged lengths, causal with Sq != Sk (positions aligned at 0) and any
     block ratio run in the kernels themselves instead of falling back to
     the einsum, so prompts of any length (137, 401, ...) reach them;
-  * lse and delta are (B*H, Sq) f32, without the TPU's replicated sublanes.
+  * lse and delta are (B*H, Sq) f32, without the TPU's replicated sublanes;
+  * on the card two inputs that the TPU wrapper computes (through its
+    einsum fallback) are refused by `_check_kernel_inputs` before any
+    launch: a head dim above 256 (ValueError: a 64-row bf16 Q tile is then
+    64 KiB, which needs a kernel design of its own) and a dtype other than
+    float32, bfloat16 and float16 (TypeError). The CPU path takes both.
 
-Launch counters: `flash_attention.kernel_launches` (forward),
-`flash_attention.flash_dq_launches` and `flash_attention.flash_dkv_launches`.
+Counters: `flash_attention.kernel_launches` (forward),
+`flash_attention.flash_dq_launches`, `flash_attention.flash_dkv_launches`
+and `flash_attention.input_copies`.
 """
 
 from __future__ import annotations
@@ -44,8 +56,9 @@ import threading
 import torch
 
 NEG_INF = -1e30
+MAX_HEAD_DIM = 256
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns: dict = {}  # bound C entry points, set at their first launch
 _count_lock = threading.Lock()  # serving tiers launch from several threads
 
@@ -63,23 +76,25 @@ def _keep(sq: int, sk: int, causal: bool, window: int | None, device):
     return keep
 
 
-def _masked_scores(q, k, causal: bool, window: int | None):
-    """f32 (B, H, Sq, Sk) scores of q·kᵀ/sqrt(D) with the causal/window
-    mask applied as NEG_INF; k carries q's head count."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _masked_scores(q, k, causal: bool, window: int | None, scale=None):
+    """f32 (B, H, Sq, Sk) scores of q·kᵀ·scale (by default 1/sqrt(D)) with
+    the causal/window mask applied as NEG_INF; k carries q's head count."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     keep = _keep(s.shape[-2], s.shape[-1], causal, window, s.device)
     return s if keep is None else s.masked_fill(~keep, NEG_INF)
 
 
 def attention_reference(q, k, v, causal: bool = False,
-                        window: int | None = None):
+                        window: int | None = None, scale=None):
     """Plain softmax attention, f32 internally. Shapes (B, S, H, D), k/v
     with q's head count. window (requires causal): each query attends only
-    the `window` most recent positions including itself."""
+    the `window` most recent positions including itself. scale: of the
+    scores, 1/sqrt(D) by default."""
     if window is not None and not causal:
         raise ValueError("window requires causal=True")
-    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
+    p = torch.softmax(_masked_scores(q, k, causal, window, scale), dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype)
 
@@ -117,56 +132,84 @@ def _bind(name: str = "tpunet_flash_fwd"):
 
 
 def _check_kernel_inputs(name, q, k, v):
-    """Validation shared by the three kernels' wrappers; returns the
-    (b, sq, h, d, sk, hk) shape."""
+    """The shape and dtype validation of the three kernels' wrappers, on
+    tensors of any device; returns the (b, sq, h, d, sk, hk) shape. Raises
+    TypeError for a dtype other than float32, bfloat16 and float16 (or
+    mixed dtypes), and ValueError for a head dim above MAX_HEAD_DIM or k/v
+    shapes that do not match q."""
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
-        raise ValueError("q, k and v must lie on one CUDA device")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 q/k/v "
+                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if d % 8 or not 8 <= d <= 256:
-        raise ValueError(f"{name} supports head dims 8..256 in multiples "
-                         f"of 8, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} exceeds the kernel's grid")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} supports head dims 1..{MAX_HEAD_DIM}, got "
+                         f"{d}: above {MAX_HEAD_DIM} a 64-row bf16 Q tile "
+                         f"alone is 64 KiB, which needs a kernel of its own")
     return b, sq, h, d, sk, hk
 
 
-def _unit_stride(*ts):
-    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+def _check_device(*ts) -> None:
+    if not all(t.is_cuda and t.device == ts[0].device for t in ts):
+        raise ValueError("q, k and v must lie on one CUDA device")
 
 
-def _check_tma(name, *ts):
-    """The bf16 tensor-core kernels load tiles by TMA, which takes only
-    16-byte aligned base pointers and strides (8 bf16 elements); raise on
-    anything else. A dim of extent 1 is never stepped, so its stride is
-    free. (Unrolled: this runs on every serving-size call.)"""
-    for t in ts:
-        (b, s, h, _), st = t.shape, t.stride()
-        if (t.data_ptr() % 16 or (b > 1 and st[0] % 8)
-                or (s > 1 and st[1] % 8) or (h > 1 and st[2] % 8)):
-            raise ValueError(
-                f"{name}: bf16 tensors need 16-byte aligned data and "
-                f"strides for TMA, got strides {t.stride()} at "
-                f"0x{t.data_ptr():x}")
-
-
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _count_lock:
-        setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+        setattr(flash_attention, name, getattr(flash_attention, name) + n)
+
+
+def _aligned(*ts):
+    """The inputs as the kernels load them (TMA for bf16/f16, 16-byte
+    cp.async for f32): unit stride in D and 16-byte aligned data and
+    strides. Any other tensor is copied to a contiguous one, counted in
+    input_copies. A dim of extent 1 is never stepped, so its stride is
+    free. (Unrolled: this runs on every serving-size call.)"""
+    out = []
+    for t in ts:
+        (b, s, h, _), st, unit = t.shape, t.stride(), 16 // t.element_size()
+        if (st[3] != 1 or t.data_ptr() % 16 or (b > 1 and st[0] % unit)
+                or (s > 1 and st[1] % unit) or (h > 1 and st[2] % unit)):
+            t = t.clone(memory_format=torch.contiguous_format)
+            _count("input_copies")
+        out.append(t)
+    return out
+
+
+def _with_head_dim_padded(fn, ts, *args):
+    """fn(*ts, *args, scale=1/sqrt(D)) with the (B, S, H, D) tensors `ts`
+    zero-padded in D to the next multiple of 8 (one copy each, counted in
+    input_copies) and every 4-d output sliced back to its first D columns.
+    Zero columns add nothing to q·kᵀ and give zero output, dQ, dK and dV
+    columns, which are dropped; the scale stays that of the true D. A D
+    that is a multiple of 8 passes through untouched."""
+    d = ts[0].shape[-1]
+    pad = -d % 8
+    if pad:
+        ts = [torch.nn.functional.pad(t, (0, pad)) for t in ts]
+        _count("input_copies", len(ts))
+    out = fn(*ts, *args, scale=1.0 / math.sqrt(d))
+    if not pad:
+        return out
+    if isinstance(out, tuple):
+        return tuple(x[..., :d] if x.dim() == 4 else x for x in out)
+    return out[..., :d]
 
 
 def _launch(q, k, v, causal: bool, window: int | None):
     """Run the CUDA forward kernel; returns (o, lse)."""
-    b, sq, h, d, sk, hk = _check_kernel_inputs("flash_fwd", q, k, v)
-    q, k, v = _unit_stride(q, k, v)
-    if q.dtype == torch.bfloat16:
-        _check_tma("flash_fwd", q, k, v)
+    _check_kernel_inputs("flash_fwd", q, k, v)
+    _check_device(q, k, v)
+    return _with_head_dim_padded(_launch_fwd, (q, k, v), causal, window)
+
+
+def _launch_fwd(q, k, v, causal, window, scale):
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    q, k, v = _aligned(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     rc = _bind()(
@@ -176,7 +219,7 @@ def _launch(q, k, v, causal: bool, window: int | None):
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         o.stride(0), o.stride(1), o.stride(2),
-        int(causal), int(window or 0), 1.0 / math.sqrt(d),
+        int(causal), int(window or 0), scale,
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed with cudaError {rc}")
@@ -184,7 +227,7 @@ def _launch(q, k, v, causal: bool, window: int | None):
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal, window):
+def _bwd_args(q, k, v, do, causal, window, scale):
     """The arguments the two backward entry points share, after their
     output pointers: shapes, the four input tensors' strides, mask, scale,
     dtype code and stream."""
@@ -192,22 +235,25 @@ def _bwd_args(q, k, v, do, lse, delta, causal, window):
     sk, hk = k.shape[1], k.shape[2]
     return ([b, h, hk, sq, sk, d]
             + [t.stride(i) for t in (q, k, v, do) for i in range(3)]
-            + [int(causal), int(window or 0), 1.0 / math.sqrt(d),
-               _DTYPE_CODES[q.dtype],
+            + [int(causal), int(window or 0), scale, _DTYPE_CODES[q.dtype],
                torch.cuda.current_stream(q.device).cuda_stream])
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal: bool, window: int | None):
     """Run the dQ kernel; returns dQ (B, Sq, H, D) in q's dtype."""
     _check_kernel_inputs("flash_dq", q, k, v)
-    q, k, v, do = _unit_stride(q, k, v, do)
-    if q.dtype == torch.bfloat16:
-        _check_tma("flash_dq", q, k, v, do)
+    _check_device(q, k, v, do)
+    return _with_head_dim_padded(_launch_dq_kernel, (q, k, v, do), lse,
+                                 delta, causal, window)
+
+
+def _launch_dq_kernel(q, k, v, do, lse, delta, causal, window, scale):
+    q, k, v, do = _aligned(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rc = _bind("tpunet_flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_bwd_args(q, k, v, do, lse, delta, causal, window))
+        *_bwd_args(q, k, v, do, causal, window, scale))
     if rc != 0:
         raise RuntimeError(f"flash_dq launch failed with cudaError {rc}")
     _count("flash_dq_launches")
@@ -218,15 +264,19 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, window: int | None):
     """Run the dK/dV kernel; returns (dK, dV), (B, Sk, Hkv, D) in k's and
     v's dtype, each kv head summed over its GQA group inside the kernel."""
     _check_kernel_inputs("flash_dkv", q, k, v)
-    q, k, v, do = _unit_stride(q, k, v, do)
-    if q.dtype == torch.bfloat16:
-        _check_tma("flash_dkv", q, k, v, do)
+    _check_device(q, k, v, do)
+    return _with_head_dim_padded(_launch_dkv_kernel, (q, k, v, do), lse,
+                                 delta, causal, window)
+
+
+def _launch_dkv_kernel(q, k, v, do, lse, delta, causal, window, scale):
+    q, k, v, do = _aligned(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     rc = _bind("tpunet_flash_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_bwd_args(q, k, v, do, lse, delta, causal, window))
+        *_bwd_args(q, k, v, do, causal, window, scale))
     if rc != 0:
         raise RuntimeError(f"flash_dkv launch failed with cudaError {rc}")
     _count("flash_dkv_launches")
@@ -234,18 +284,20 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool, window: int | None):
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
-                          window: int | None = None):
+                          window: int | None = None, scale=None):
     """The kernel's plain PyTorch version on any device: (o, lse) from
     `attention_reference` over the group-repeated K/V, lse being the
-    logsumexp of the masked scores, (B*H, Sq) f32."""
+    logsumexp of the masked scores, (B*H, Sq) f32. scale: of the scores,
+    1/sqrt(D) by default."""
     group = _gqa_group(q, k)
     k_full, v_full = _repeat_kv(k, group), _repeat_kv(v, group)
-    o = attention_reference(q, k_full, v_full, causal, window)
-    lse = torch.logsumexp(_masked_scores(q, k_full, causal, window), dim=-1)
+    o = attention_reference(q, k_full, v_full, causal, window, scale)
+    lse = torch.logsumexp(_masked_scores(q, k_full, causal, window, scale),
+                          dim=-1)
     return o, lse.reshape(-1, q.shape[1])
 
 
-def _bwd_plain_parts(q, k, v, do, lse, delta, causal, window):
+def _bwd_plain_parts(q, k, v, do, lse, delta, causal, window, scale=None):
     """f32 (p, ds, k_full) over the group-repeated K/V, (B, H, Sq, Sk):
     P = exp(S - lse) and dS = P * (dP - delta) * scale with dP = dO . V^T,
     dS = 0 on every masked entry (the mask blocks the gradient, as
@@ -253,15 +305,18 @@ def _bwd_plain_parts(q, k, v, do, lse, delta, causal, window):
     with a window, qpos >= Sk + window - 1) has the softmax of Sk equal
     NEG_INF scores: P = 1/Sk on every key, so o is the mean of V, dV_k
     gains dO/Sk, and dQ and dK get nothing from it. (exp(S - lse) would
-    give 1 there: in f32, lse = NEG_INF + log(Sk) rounds to NEG_INF.)"""
+    give 1 there: in f32, lse = NEG_INF + log(Sk) rounds to NEG_INF.)
+    scale: of the scores, 1/sqrt(D) by default."""
     group = _gqa_group(q, k)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     k_full, v_full = _repeat_kv(k, group), _repeat_kv(v, group)
-    s = _masked_scores(q, k_full, causal, window)
+    s = _masked_scores(q, k_full, causal, window, scale)
     p = torch.exp(s - lse.reshape(b, h, sq, 1))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v_full.float())
-    ds = p * (dp - delta.reshape(b, h, sq, 1)) / math.sqrt(d)
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
     keep = _keep(sq, sk, causal, window, q.device)
     if keep is not None:
         no_key = ~keep.any(-1, keepdim=True)
@@ -271,19 +326,22 @@ def _bwd_plain_parts(q, k, v, do, lse, delta, causal, window):
 
 
 def flash_attention_dq_plain(q, k, v, do, lse, delta, causal: bool = False,
-                             window: int | None = None):
+                             window: int | None = None, scale=None):
     """The dQ kernel's plain PyTorch version on any device: dQ = dS . K in
-    q's dtype. lse and delta are (B*H, Sq) f32."""
-    _, ds, k_full = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
+    q's dtype. lse and delta are (B*H, Sq) f32; scale as in
+    `_bwd_plain_parts`."""
+    _, ds, k_full = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window,
+                                     scale)
     return torch.einsum("bhqk,bkhd->bqhd", ds, k_full.float()).to(q.dtype)
 
 
 def flash_attention_dkv_plain(q, k, v, do, lse, delta, causal: bool = False,
-                              window: int | None = None):
+                              window: int | None = None, scale=None):
     """The dK/dV kernel's plain PyTorch version on any device:
     dV = P^T . dO and dK = dS^T . Q, summed over each kv head's GQA group,
-    in k's and v's dtype."""
-    p, ds, _ = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window)
+    in k's and v's dtype; scale as in `_bwd_plain_parts`."""
+    p, ds, _ = _bwd_plain_parts(q, k, v, do, lse, delta, causal, window,
+                                scale)
     b, sk, hk, d = k.shape
     group = q.shape[2] // hk
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
@@ -378,3 +436,4 @@ def flash_attention(q, k, v, causal: bool = False, block_q: int = 128,
 flash_attention.kernel_launches = 0
 flash_attention.flash_dq_launches = 0
 flash_attention.flash_dkv_launches = 0
+flash_attention.input_copies = 0
