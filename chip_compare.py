@@ -9,11 +9,15 @@ this checkout's wrappers on the same causal inputs (both C interfaces take
 the same arguments): in bf16 the forward, dQ and dK/dV at the training
 shape (B4 S2048 H16 D128) and at head dim 256 (B2 S2048 H16), and dQ and
 dK/dV at B1 S2048 GQA-4 D128 and B1 S1024 GQA-4 D256; in f32 the forward,
-dQ and dK/dV at the training shape. Each side's device time (the mean of
-20 launches) is taken ten times, in pairs that alternate which side runs
-first. For each case and kernel it prints one JSON line: whether the two
-builds' outputs are bitwise equal, each side's median and quartiles, and
-in how many pairs this checkout was faster. Exits non-zero without a GPU.
+dQ and dK/dV at the training shape, and dQ at D64 (B4 S2048) and D256 (B2
+S2048). Each side's device time (the mean of 20 launches) is taken ten
+times, in pairs that alternate which side runs first. For each case and
+kernel it prints one JSON line: whether the two builds' outputs are
+bitwise equal, each side's median and quartiles, and in how many pairs
+this checkout was faster; and for each case one line with the time of
+scaled_dot_product_attention on the same inputs (its forward, and its
+whole backward alone) and the backend it ran. Exits non-zero without a
+GPU.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ CASES = [  # kernels, dtype, b, s, h, hk, d
     (("flash_fwd", "flash_dq", "flash_dkv"), BF16, 2, 2048, 16, 16, 256),
     (("flash_dq", "flash_dkv"), BF16, 1, 1024, 16, 4, 256),
     (("flash_fwd", "flash_dq", "flash_dkv"), F32, 4, 2048, 16, 16, 128),
+    (("flash_dq",), F32, 4, 2048, 16, 16, 64),
+    (("flash_dq",), F32, 2, 2048, 16, 16, 256),
 ]
 PAIRS = 10  # timings of each side, alternating which runs first
 ENTRIES = {"flash_fwd": "tpunet_flash_fwd",
@@ -131,13 +137,18 @@ def main() -> int:
             runs = {"flash_fwd": lambda: fa._launch(q, k, v, True, None),
                     "flash_dq": lambda: fa._launch_dq(*args),
                     "flash_dkv": lambda: fa._launch_dkv(*args)}
+            case = {"dtype": str(dt).replace("torch.", ""), "b": b, "s": s,
+                    "h": h, "hk": hk, "d": d, "causal": True}
             for kernel in kernels:
                 entry = ENTRIES[kernel]
                 row = _compare(fa, chip_smoke, kernel, entry,
                                other_fns[entry], runs[kernel])
-                print(json.dumps({**row, "dtype": str(dt).replace(
-                    "torch.", ""), "b": b, "s": s, "h": h, "hk": hk,
-                    "d": d, "causal": True}), flush=True)
+                print(json.dumps({**row, **case}), flush=True)
+            print(json.dumps({
+                "kernel": "sdpa", **case,
+                "forward": chip_smoke._library(q, k, v, True, None),
+                "backward": chip_smoke._library(q, k, v, True, None, do)}),
+                flush=True)
             del q, do, k, v, o, lse, args
     return 0
 

@@ -12,9 +12,10 @@ Phases (each raises on failure; the script then exits non-zero):
            cuobjdump -sass. Fails if a bf16 or f16 flash_fwd, flash_dq or
            flash_dkv function (every head dim; the D = 256 ones and every
            f16 one must exist) has no HGMMA, no ptxas report or spills, if
-           an f32 flash_fwd_f32_kernel or flash_dkv_f32_kernel is missing
-           or spills, or if a 16-bit instantiation of the CUDA-core
-           flash_dq_kernel, or the replaced flash_dkv_kernel, exists
+           an f32 flash_{fwd,dq,dkv}_f32_kernel<64/128/256> or a wide
+           flash_{fwd,dq,dkv}_wide_kernel<f32/bf16/f16> (head dims above
+           256) is missing or spills, or if a function of the replaced
+           CUDA-core flash_dq_kernel or flash_dkv_kernel exists
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
            bf16 and f32), the training shape (B=4, S=2048, 16 kv heads;
@@ -24,7 +25,10 @@ Phases (each raises on failure; the script then exits non-zero):
            bf16 head dims 64, 96 and 256 with GQA-8 and ragged Sq != Sk,
            D=256 at the training shape's work (B=2, S=2048, 16 kv heads),
            f16 GQA-8 ragged and D=256, rows that see no key (Sq 517, Sk
-           401, window 16; bf16, f32 and f16), and a bf16 q sliced from a
+           401, window 16; bf16, f32 and f16), the wide kernels at the
+           wide path's shape (B2 S1024, 4 heads, 1 kv head, D=320), at
+           D=320 (B1 S1024 GQA-4) and at D=512 (Sq 517, Sk 401, window 16:
+           no-key rows) in bf16, f16 and f32, and a bf16 q sliced from a
            wider buffer at an odd offset, which the wrapper must copy
            (input_copies); each also bitwise equal on a second launch;
            then the backward kernels flash_dq and flash_dkv against theirs
@@ -34,7 +38,9 @@ Phases (each raises on failure; the script then exits non-zero):
            B=2 S=2048 MHA, the training shape's work; GQA-8 ragged
            Sq != Sk; the no-key rows), f16 D=256 GQA-8, the no-key rows at
            D=128 in bf16, f32 and f16, head dims 12 and 100 and B*H =
-           65,552 in bf16 and f32, and the misaligned bf16 q. Each output
+           65,552 in bf16 and f32, f32 at D=64 (B4 S2048) and D=256 (B2
+           S2048), the wide cases above, and the misaligned bf16 q. Each
+           output
            is held to a limit on its largest error and to one on every
            row's error relative to that row's norm, and must be finite;
            each dQ and dK/dV row also shows that the row check sees two
@@ -54,6 +60,19 @@ Phases (each raises on failure; the script then exits non-zero):
            path; flash_fwd's launches are counted over exactly this run)
            the tokens must equal a single-host BatchServer's; on the int8
            wire the codec's wire ratio is read over a reset() window.
+  paths    the wide and f32 routes as users run them: 2 adamw steps
+           (create_train_state, make_train_step) of a bf16 GQA-4 model of
+           head dim 320 (d1280, 4 heads, 1 kv head, 2 layers, 2 x 1024
+           tokens; the wide kernels) and of an f32 model of the training
+           widths (d2048, 16 heads, 2 layers, 4 x 2048 tokens; the f32
+           kernels), each held to the same steps with the reference
+           attention (loss within 2e-2 bf16 / 1e-4 f32), and run once
+           more with a planted dQ fault (each head given the next head's
+           dQ), which must read above that limit; each kernel's launches
+           are counted over its path's flash run and must be 4. The
+           kernel phases hold the wide kernels at this path's attention
+           shape (B2 S1024, 4 heads, 1 kv head, D320) in every dtype, and
+           the f32 kernels at the f32 path's (the f32 training shape)
   train    the training path: the 735M MHA Transformer (d2048, 12 layers,
            16 heads, ff 8192, vocab 32000; bf16 compute, f32 master
            weights, flash attention, remat), adamw 3e-4, global batch
@@ -69,9 +88,12 @@ Phases (each raises on failure; the script then exits non-zero):
            bf16-wire communicator with grad_compression="bf16" must leave
            the ranks bitwise equal, with a codec wire ratio of 0.5. The
            serve and train runs must copy no flash input (input_copies 0).
-Then one JSON line describing each kernel (launches from the train phase,
-tensor-core instructions of the function the bf16 D=128 path runs) and,
-last, the device line.
+Then one JSON line describing each kernel: flash_fwd, flash_dq and
+flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
+_wide routes (launches from the paths phase; times from the kernel case
+at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
+heads 1 kv head D320), with the tensor-core instructions of the function
+each runs; and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are False), so f32 references are true f32.
@@ -81,6 +103,8 @@ Weights are random, drawn from --seed at the flax initialisers' scales.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import itertools
 import json
 import os
@@ -137,7 +161,9 @@ ROW_FLOOR = {BF16: 1e-4, F16: 1e-4, F32: 1e-6}
 def _dkv_tile(d: int, dt) -> tuple:
     """The dK/dV kernel's k rows a block and q rows a step at head dim d:
     16-bit flash_dkv_bf16_kernel to 128, flash_dkv_bf16_dsplit_kernel
-    above; f32 flash_dkv_f32_kernel."""
+    to 256; f32 flash_dkv_f32_kernel; flash_dkv_wide_kernel above 256."""
+    if d > 256:
+        return (64, 64)
     if dt == F32:
         return (64, 128) if d <= 128 else (32, 128)
     return (128, 64) if d <= 128 else (64, 32)
@@ -145,9 +171,12 @@ def _dkv_tile(d: int, dt) -> tuple:
 
 def _dq_tile(d: int, dt) -> tuple:
     """The dQ kernel's q rows a block and keys a step at head dim d:
-    flash_dq_bf16_kernel (16-bit), flash_dq_kernel (f32)."""
+    flash_dq_bf16_kernel (16-bit) and flash_dq_f32_kernel (f32) to 256,
+    flash_dq_wide_kernel above."""
+    if d > 256:
+        return (64, 64)
     if dt == F32:
-        return (64, 64) if d <= 128 else (32, 32)
+        return (64, 128) if d <= 128 else (32, 128)
     return (128, 64) if d <= 128 else (128, 32)
 
 
@@ -155,11 +184,11 @@ COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
             "flash_dkv": "flash_dkv_launches"}
 # Kernel functions that must issue wgmma (every 16-bit forward, dQ and
 # dK/dV), the ones that must exist among them (the D = 256 backward, every
-# f16 function), the f32 CUDA-core functions that must exist without a
-# spill, and the function each kernel runs on the bf16 D = 128 main path, by
-# the _short names of csrc/*.cu's instantiations. No 16-bit instantiation of
-# the CUDA-core dQ kernel, and no function of the replaced CUDA-core dK/dV
-# kernel, may exist.
+# f16 function), the f32 and wide (D > 256, every dtype) CUDA-core
+# functions that must exist without a spill, and the function each entry
+# of the kernels line runs (the bf16 D = 128 main path, the f32 and the
+# wide paths), by the _short names of csrc/*.cu's instantiations. No
+# function of the replaced CUDA-core dQ and dK/dV kernels may exist.
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel<", "flash_dq_bf16_kernel<",
                        "flash_dkv_bf16_kernel<",
                        "flash_dkv_bf16_dsplit_kernel<")
@@ -171,19 +200,34 @@ F16_FUNCTIONS = tuple(
     + [f"flash_dq_bf16_kernel<f16,{dt}>" for dt in (64, 128, 256)]
     + [f"flash_dkv_bf16_kernel<f16,{dt}>" for dt in (64, 128)]
     + ["flash_dkv_bf16_dsplit_kernel<f16>"])
-F32_FUNCTIONS = tuple(f"flash_{k}_f32_kernel<{dt}>" for k in ("fwd", "dkv")
-                      for dt in (64, 128, 256))
-CUDA_CORE_16 = ("flash_dq_kernel<bf16", "flash_dq_kernel<f16",
-                "flash_dkv_kernel<")
-MAIN_PATH_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<bf16,128,128>",
-                       "flash_dq": "flash_dq_bf16_kernel<bf16,128>",
-                       "flash_dkv": "flash_dkv_bf16_kernel<bf16,128>"}
+F32_FUNCTIONS = tuple(f"flash_{k}_f32_kernel<{dt}>"
+                      for k in ("fwd", "dq", "dkv") for dt in (64, 128, 256))
+WIDE_FUNCTIONS = tuple(f"flash_{k}_wide_kernel<{t}>"
+                       for k in ("fwd", "dq", "dkv")
+                       for t in ("f32", "bf16", "f16"))
+REPLACED = ("flash_dq_kernel<", "flash_dkv_kernel<")
+ENTRY_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<bf16,128,128>",
+                   "flash_dq": "flash_dq_bf16_kernel<bf16,128>",
+                   "flash_dkv": "flash_dkv_bf16_kernel<bf16,128>",
+                   "flash_fwd_f32": "flash_fwd_f32_kernel<128>",
+                   "flash_dq_f32": "flash_dq_f32_kernel<128>",
+                   "flash_dkv_f32": "flash_dkv_f32_kernel<128>",
+                   "flash_fwd_wide": "flash_fwd_wide_kernel<bf16>",
+                   "flash_dq_wide": "flash_dq_wide_kernel<bf16>",
+                   "flash_dkv_wide": "flash_dkv_wide_kernel<bf16>"}
 SASS: dict = {}  # the build phase's tensor-core census, by _short name
 # Kernel cases, (b, sq, sk, hk, causal, window, dtype, d) with 16 q heads;
-# the first of each list is the training shape, which the kernels line
-# reports. Rows that see no key: Sq 517, Sk 401, window 16 (qpos >= 416).
-# Head dims 12 and 100 run zero-padded to 16 and 104; B 4097 x 16 heads =
-# 65,552 is above grid.y's 65,535 blocks.
+# the kernel phases run PATH_CASES (the wide path's own shape, 4 q heads)
+# before them (_kernel_cases). The kernels line reports the first case of
+# each entry: the training shape for the bf16 entries, the f32 training
+# shape (which the f32 path runs) for the f32 entries, the wide path's
+# bf16 shape for the wide entries. Rows that see no key: Sq 517, Sk 401,
+# window 16 (qpos >= 416). Head dims 12 and 100 run zero-padded to 16 and
+# 104; B 4097 x 16 heads = 65,552 is above grid.y's 65,535 blocks. Head
+# dims 320 and 512 run the wide kernels in every dtype.
+WIDE_CASES = [c for dt in (BF16, F16, F32) for c in (
+    (1, 1024, 1024, 4, True, None, dt, 320),
+    (1, 517, 401, 4, True, 16, dt, 512))]
 FWD_CASES = (
     [(4, 2048, 2048, 16, True, None, BF16, 128),
      (4, 2048, 2048, 16, True, None, F32, 128),   # the f32 training shape
@@ -206,7 +250,8 @@ FWD_CASES = (
     # f16: GQA-8 ragged, head dim 256.
     + [(2, 401, 517, 2, True, None, F16, 128),
        (1, 517, 401, 2, True, None, F16, 256)]
-    + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32, F16)])
+    + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32, F16)]
+    + WIDE_CASES)
 BWD_CASES = [
     (4, 2048, 2048, 16, True, None, BF16, 128),
     (4, 2048, 2048, 16, True, None, F32, 128),
@@ -231,7 +276,11 @@ BWD_CASES = [
     c for dt in (BF16, F32) for c in (
         (2, 401, 401, 4, True, None, dt, 12),    # head dims off the 8s
         (1, 517, 300, 2, True, 64, dt, 100),
-        (4097, 64, 64, 16, True, None, dt, 8))]  # B*H = 65,552
+        (4097, 64, 64, 16, True, None, dt, 8))] + [  # B*H = 65,552
+    # flash_dq_f32_kernel's other tiles: D = 64, and D = 256 at the
+    # training shape's work.
+    (4, 2048, 2048, 16, True, None, F32, 64),
+    (2, 2048, 2048, 16, True, None, F32, 256)] + WIDE_CASES
 # A bf16 q that TMA cannot read as it is: sliced from a wider buffer at an
 # odd element offset (b, sq, sk, hk, causal, window, d): the wrapper copies
 # it (input_copies) and runs the same kernels.
@@ -297,27 +346,29 @@ def phase_build() -> None:
     log("build", f16_functions={f: dict(**SASS.get(f, {}),
                                          **ptxas.get(f, {}))
                                   for f in F16_FUNCTIONS},
-        f32_functions={f: ptxas.get(f) for f in F32_FUNCTIONS})
+        f32_functions={f: ptxas.get(f) for f in F32_FUNCTIONS},
+        wide_functions={f: ptxas.get(f) for f in WIDE_FUNCTIONS})
     tc = [f for f in SASS if f.startswith(TENSOR_CORE_KERNELS)]
+    cuda_core = list(F32_FUNCTIONS + WIDE_FUNCTIONS)
     missing = [f for f in tc if SASS[f]["HGMMA"] == 0]
-    missing += [f for f in D256_FUNCTIONS + F16_FUNCTIONS + F32_FUNCTIONS
+    missing += [f for f in D256_FUNCTIONS + F16_FUNCTIONS + tuple(cuda_core)
                 if f not in SASS]
-    unreported = [f for f in tc + list(F32_FUNCTIONS) if f not in ptxas]
-    spills = [f for f in tc + list(F32_FUNCTIONS)
+    unreported = [f for f in tc + cuda_core if f not in ptxas]
+    spills = [f for f in tc + cuda_core
               if f in ptxas and ptxas[f]["spill_bytes"]]
-    cuda_core_16 = [f for f in SASS if f.startswith(CUDA_CORE_16)]
-    if not tc or missing or unreported or spills or cuda_core_16:
+    replaced = [f for f in SASS if f.startswith(REPLACED)]
+    if not tc or missing or unreported or spills or replaced:
         raise AssertionError(f"kernels missing or tensor-core kernels "
                              f"without HGMMA {missing}, without a ptxas "
                              f"report {unreported} or with register spills "
-                             f"{spills}; 16-bit CUDA-core dQ or old dK/dV "
-                             f"kernels {cuda_core_16}")
+                             f"{spills}; replaced CUDA-core dQ or dK/dV "
+                             f"kernels {replaced}")
 
 
 def _short(fn: str) -> str:
     """A mangled kernel function as name<args>, e.g.
-    flash_fwd_bf16_kernel<f16,128,128>, flash_dq_kernel<f32,128,64,64>,
-    flash_dkv_bf16_dsplit_kernel<bf16>."""
+    flash_fwd_bf16_kernel<f16,128,128>, flash_dq_f32_kernel<128>,
+    flash_dkv_bf16_dsplit_kernel<bf16>, flash_fwd_wide_kernel<f32>."""
     m = re.search(r"(?<=\d)(flash_\w+?_kernel)(?:I(.+?)EEv)?", fn)
     if not m:
         return fn
@@ -327,7 +378,7 @@ def _short(fn: str) -> str:
     args = args.replace("6__half", "f16,").replace("Li", "")
     args = args.replace("E", ",").strip(",")
     if args.startswith("f") and not args.startswith("f16"):
-        args = "f32," + args[1:]
+        args = ("f32," + args[1:]).strip(",")
     return f"{m.group(1)}<{args}>"
 
 
@@ -392,10 +443,10 @@ def _tensor_core_census(build) -> dict:
     return census
 
 
-def _tensor_core_instrs(kernel: str) -> int:
-    """HGMMA + HMMA instructions of the instantiation that the main path
-    runs (bf16, D = 128)."""
-    c = SASS[MAIN_PATH_FUNCTIONS[kernel]]
+def _tensor_core_instrs(entry: str) -> int:
+    """HGMMA + HMMA instructions of the instantiation that an entry of the
+    kernels line runs (ENTRY_FUNCTIONS)."""
+    c = SASS[ENTRY_FUNCTIONS[entry]]
     return c["HGMMA"] + c["HMMA"]
 
 
@@ -637,8 +688,8 @@ def _misaligned(x):
     return view
 
 
-def _case(b, sq, sk, hk, causal, window, dt) -> dict:
-    return dict(b=b, sq=sq, sk=sk, h=16, hk=hk, causal=causal, window=window,
+def _case(b, sq, sk, h, hk, causal, window, dt) -> dict:
+    return dict(b=b, sq=sq, sk=sk, h=h, hk=hk, causal=causal, window=window,
                 dtype=str(dt).replace("torch.", ""))
 
 
@@ -666,7 +717,8 @@ def _fwd_row(q, k, v, causal, window, d, layout="contiguous") -> dict:
           and row_err <= ROW_TOL[dt] and deterministic and finite)
     work = _attention_work("flash_fwd", b, sq, sk, h, hk, d, causal, window,
                            dt)
-    row = dict(kernel="flash_fwd", **_case(b, sq, sk, hk, causal, window, dt),
+    row = dict(kernel="flash_fwd",
+               **_case(b, sq, sk, h, hk, causal, window, dt),
                d=d, layout=layout, err_o=err_o, err_lse=err_lse,
                tol=TOL[dt], row_err=row_err, row_tol=ROW_TOL[dt],
                deterministic=deterministic, finite=finite,
@@ -681,18 +733,26 @@ def _fwd_row(q, k, v, causal, window, d, layout="contiguous") -> dict:
     return row
 
 
+def _entry(kernel: str, dt, d: int) -> str:
+    """The kernels-line entry a row of `kernel` at dtype dt, head dim d
+    reports under: the kernel itself (bf16/f16 to head dim 256), its f32
+    or its wide (above 256) route."""
+    return kernel + ("_wide" if d > 256 else "_f32" if dt == F32 else "")
+
+
 def phase_kernels(seed: int) -> dict:
-    """flash_fwd's rows; returns the training shape's row."""
+    """flash_fwd's rows; returns {entry: the first row of that entry}, the
+    training shape's for flash_fwd."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    h = 16
-    rows = []
-    for b, sq, sk, hk, causal, window, dt, d in FWD_CASES:
+    rows, first = [], {}
+    for b, sq, sk, h, hk, causal, window, dt, d in _kernel_cases(FWD_CASES):
         q, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt)
         rows.append(_fwd_row(q, k, v, causal, window, d))
+        first.setdefault(_entry("flash_fwd", dt, d), rows[-1])
         del q, k, v
     b, sq, sk, hk, causal, window, d = MISALIGNED_CASE
-    q, k, v = _qkv(gen, b, sq, sk, h, hk, d, BF16)
+    q, k, v = _qkv(gen, b, sq, sk, 16, hk, d, BF16)
     row = _fwd_row(_misaligned(q), k, v, causal, window, d, "misaligned q")
     row["ok"] &= row["input_copies"] == 1
     rows.append(row)
@@ -701,7 +761,7 @@ def phase_kernels(seed: int) -> dict:
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
                              f"{bad}")
-    return rows[0]  # the training shape: B=4, S=2048, MHA, bf16, causal
+    return first
 
 
 def _bwd_rows(q, k, v, do, causal, window, d, layout="contiguous") -> list:
@@ -756,7 +816,8 @@ def _bwd_rows(q, k, v, do, causal, window, d, layout="contiguous") -> list:
               and all(x["row_err"] > ROW_TOL[dt] for x in planted.values())
               and deterministic and finite)
         work = _attention_work(name, b, sq, sk, h, hk, d, causal, window, dt)
-        row = dict(kernel=name, **_case(b, sq, sk, hk, causal, window, dt),
+        row = dict(kernel=name,
+                   **_case(b, sq, sk, h, hk, causal, window, dt),
                    d=d, layout=layout, max_abs_err=err, ref_scale=scale,
                    tol=BWD_TOL[dt] * scale, row_err=row_err,
                    row_tol=ROW_TOL[dt], row_err_f32_floor=tight,
@@ -773,31 +834,32 @@ def _bwd_rows(q, k, v, do, causal, window, d, layout="contiguous") -> list:
 
 
 def phase_bwd_kernels(seed: int) -> dict:
-    """flash_dq's and flash_dkv's rows; returns {kernel: training-shape
-    row}."""
+    """flash_dq's and flash_dkv's rows; returns {entry: the first row of
+    that entry}, the training shape's for flash_dq and flash_dkv."""
     from tpunet_torch.ops.flash_attention import (attention_delta,
                                                   flash_attention_fwd)
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 1)
-    h = 16
     rows, main = [], {}
-    for b, sq, sk, hk, causal, window, dt, d in BWD_CASES:
+    for b, sq, sk, h, hk, causal, window, dt, d in _kernel_cases(BWD_CASES):
         q, do, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt, n_q=2)
-        if not rows:  # delta = rowsum(dO * O), a plain reduction
+        if (b, sq, sk, hk, causal, window, dt, d) == BWD_CASES[0]:
+            # delta = rowsum(dO * O) at the training shape, a plain
+            # reduction
             o, _ = flash_attention_fwd(q, k, v, causal, window)
             item = q.element_size()
-            log("delta", **_case(b, sq, sk, hk, causal, window, dt), d=d,
+            log("delta", **_case(b, sq, sk, h, hk, causal, window, dt), d=d,
                 ms=cuda_ms(lambda: attention_delta(o, do)),
                 **_bound(2 * b * h * sq * d, 2 * b * sq * h * d * item
                          + b * h * sq * 4, torch.float32))
             del o
         for row in _bwd_rows(q, k, v, do, causal, window, d):
             rows.append(row)
-            main.setdefault(row["kernel"], row)
+            main.setdefault(_entry(row["kernel"], dt, d), row)
         del q, do, k, v
     b, sq, sk, hk, causal, window, d = MISALIGNED_CASE
-    q, do, k, v = _qkv(gen, b, sq, sk, h, hk, d, BF16, n_q=2)
+    q, do, k, v = _qkv(gen, b, sq, sk, 16, hk, d, BF16, n_q=2)
     for row in _bwd_rows(_misaligned(q), k, v, do, causal, window, d,
                          "misaligned q"):
         row["ok"] &= row["input_copies"] == 1
@@ -1216,6 +1278,114 @@ def phase_train(seed: int) -> dict:
     return launches
 
 
+# The paths of the other kernel routes, each a user's training run through
+# the trainer's entry points (create_train_state, make_train_step; adamw,
+# no remat) for PATH_STEPS steps on one batch of random tokens, held to the
+# same steps with the reference attention: "wide" is a bf16 GQA-4 model of
+# head dim 320 (the wide kernels), "f32" an f32 model of the training
+# configuration's widths at one training rank's batch (head dim 128, the
+# f32 CUDA-core kernels: the f32 training-shape kernel case). Depth cut to
+# 2 layers. Every launch on a path runs that path's route, so the entry
+# points' counters, zeroed just before it, count the route. (model, dtype,
+# batch x seq.)
+MODEL_WIDE = dict(vocab=32000, d_model=1280, n_layers=2, n_heads=4,
+                  n_kv_heads=1, d_ff=5120, mlp_impl="gelu")
+PATHS = {"wide": (MODEL_WIDE, BF16, (2, 1024)),
+         "f32": (dict(MODEL_TRAIN, n_layers=2), F32,
+                 (TRAIN_BATCH, TRAIN_SEQ))}
+PATH_STEPS = 2
+# The largest difference of a step's loss between the flash and the
+# reference attention: bf16 attention rounds P and dS (and the reference
+# its own operands) at 8 bits; f32 differs by summation order only. Each
+# path also runs once with a planted fault (_planted_path_fault), whose
+# loss difference must read above the limit.
+PATH_LOSS_TOL = {BF16: 2e-2, F32: 1e-4}
+# The wide path's attention shape as kernel cases, in each dtype, with its
+# head count: (b, sq, sk, h, hk, causal, window, dtype, d).
+PATH_CASES = [(b, s, s, MODEL_WIDE["n_heads"], MODEL_WIDE["n_kv_heads"],
+               True, None, dt, MODEL_WIDE["d_model"] // MODEL_WIDE["n_heads"])
+              for b, s in [PATHS["wide"][2]] for dt in (BF16, F16, F32)]
+
+
+def _kernel_cases(cases) -> list:
+    """PATH_CASES, then `cases` with their 16 q heads, as (b, sq, sk, h,
+    hk, causal, window, dtype, d)."""
+    return PATH_CASES + [(b, sq, sk, 16, *rest) for b, sq, sk, *rest in cases]
+
+
+def _path_losses(cfg, dt, shape, impl, seed) -> list:
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.train import adamw, create_train_state, make_train_step
+
+    model = Transformer(compute_dtype=dt, attn_impl=impl, device="meta",
+                        **cfg)
+    state, _ = create_train_state(model, seed, None, adamw(TRAIN_LR),
+                                  device=DEVICE)
+    step = make_train_step(model)
+    x = np.random.default_rng(seed).integers(0, cfg["vocab"], shape)
+    y = np.roll(x, -1, axis=1)
+    losses = []
+    for i in range(PATH_STEPS):
+        state, loss = step(state, x, y, i)
+        losses.append(float(loss))
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+@contextlib.contextmanager
+def _planted_path_fault():
+    """The flash backward with a planted dQ fault: every q head gets the
+    next q head's dQ (a head index off by one), so the loss check of a
+    path must see it."""
+    fa = importlib.import_module("tpunet_torch.ops.flash_attention")
+    launch = fa._launch_dq
+    fa._launch_dq = lambda *a: launch(*a).roll(1, dims=2)
+    try:
+        yield
+    finally:
+        fa._launch_dq = launch
+
+
+def phase_paths(seed: int) -> dict:
+    """The wide and f32 paths; returns {entry: launches}, counted over each
+    path's flash run (every counter zeroed just before it, read just
+    after)."""
+    from tpunet_torch.ops.flash_attention import flash_attention
+
+    launches = {}
+    for name, (cfg, dt, shape) in PATHS.items():
+        ref = _path_losses(cfg, dt, shape, "reference", seed)
+        for attr in (*COUNTERS.values(), "input_copies"):
+            setattr(flash_attention, attr, 0)
+        got = _path_losses(cfg, dt, shape, "flash", seed)
+        torch.cuda.synchronize()
+        counts = {f"{e}_{name}": getattr(flash_attention, c)
+                  for e, c in COUNTERS.items()}
+        copies = flash_attention.input_copies
+        with _planted_path_fault():
+            bad = _path_losses(cfg, dt, shape, "flash", seed)
+        err = max(abs(a - b) for a, b in zip(got, ref))
+        fault = max(abs(a - b) for a, b in zip(bad, ref))
+        log("paths", path=name, model=cfg, dtype=str(dt), batch_seq=shape,
+            head_dim=cfg["d_model"] // cfg["n_heads"], steps=PATH_STEPS,
+            losses=got, reference_losses=ref, max_loss_err=err,
+            tol=PATH_LOSS_TOL[dt], planted_dq_fault_loss_err=fault,
+            launches=counts, input_copies=copies)
+        want = PATH_STEPS * cfg["n_layers"]
+        if not (np.isfinite(got).all() and err <= PATH_LOSS_TOL[dt]):
+            raise AssertionError(f"{name} path: losses {got} differ from "
+                                 f"the reference attention's {ref}")
+        if not fault > PATH_LOSS_TOL[dt]:
+            raise AssertionError(f"{name} path: the loss check cannot see "
+                                 f"a planted dQ fault ({fault})")
+        if any(n != want for n in counts.values()) or copies:
+            raise AssertionError(f"{name} path: launches {counts} (want "
+                                 f"{want} each), input copies {copies}")
+        launches.update(counts)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, row, err_key) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1239,26 +1409,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
     phase_build()
-    fwd_row = phase_kernels(args.seed)
+    fwd_rows = phase_kernels(args.seed)
     bwd_rows = phase_bwd_kernels(args.seed)
     params = phase_model(args.seed)
     phase_serve(args.seed, params)
     del params
     torch.cuda.empty_cache()
-    launches = phase_train(args.seed)
+    launches = phase_paths(args.seed)
+    launches.update(phase_train(args.seed))
     src = "tpunet_torch/csrc/"
-    print(json.dumps({"kernels": [
-        _kernel_entry("flash_fwd", src + "flash_fwd.cu",
-                      "tpunet/ops/flash_attention.py:73",
-                      launches["flash_fwd"], fwd_row, "err_o"),
-        _kernel_entry("flash_dq", src + "flash_bwd.cu",
-                      "tpunet/ops/flash_attention.py:136",
-                      launches["flash_dq"], bwd_rows["flash_dq"],
-                      "max_abs_err"),
-        _kernel_entry("flash_dkv", src + "flash_bwd.cu",
-                      "tpunet/ops/flash_attention.py:183",
-                      launches["flash_dkv"], bwd_rows["flash_dkv"],
-                      "max_abs_err")]}), flush=True)
+    rows = {**fwd_rows, **bwd_rows}
+    kernels = []
+    for route in ("", "_f32", "_wide"):
+        for kernel, source, line, err_key in (
+                ("flash_fwd", "flash_fwd.cu", 73, "err_o"),
+                ("flash_dq", "flash_bwd.cu", 136, "max_abs_err"),
+                ("flash_dkv", "flash_bwd.cu", 183, "max_abs_err")):
+            name = kernel + route
+            kernels.append(_kernel_entry(
+                name, src + source, f"tpunet/ops/flash_attention.py:{line}",
+                launches[name], rows[name], err_key))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

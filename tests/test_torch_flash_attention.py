@@ -191,7 +191,7 @@ def test_flash_odd_head_dims_match_jax(d, causal, window):
         atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("d", [3, 12, 20, 8])
+@pytest.mark.parametrize("d", [3, 12, 20, 8, 300])
 def test_head_dim_padding_keeps_the_plain_result(d):
     """`_with_head_dim_padded` zero-pads q, k, v to the next multiple of 8,
     runs with 1/sqrt(D) of the true D and slices back: through the plain
@@ -213,19 +213,50 @@ def test_head_dim_padding_keeps_the_plain_result(d):
 
 def test_kernel_validation_refuses_head_dims_above_256_and_other_dtypes():
     """What stays refused on the card, checked on CPU tensors (the
-    validation needs no CUDA tensor): a head dim above 256 and any dtype
-    other than float32, bfloat16 and float16. Everything else the JAX
-    wrapper takes passes."""
+    validation needs no CUDA tensor): any dtype other than float32, bfloat16
+    and float16, as the TPU kernels take no other. Head dims above 256 are
+    no longer refused (the wide kernels run them): 264, 512 and 1000 pass
+    with every other input the JAX wrapper takes."""
     fa = sys.modules["tpunet_torch.ops.flash_attention"]
-    wide = torch.zeros((1, 4, 2, 264))
-    with pytest.raises(ValueError, match=r"head dims 1\.\.256, got 264"):
-        fa._check_kernel_inputs("flash_fwd", wide, wide, wide)
     f64 = torch.zeros((1, 4, 2, 8), dtype=torch.float64)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         fa._check_kernel_inputs("flash_dq", f64, f64, f64)
+    wide64 = torch.zeros((1, 4, 2, 264), dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fa._check_kernel_inputs("flash_fwd", wide64, wide64, wide64)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
-        for d in (1, 12, 100, 256):
+        for d in (1, 12, 100, 256, 264, 512, 1000):
             q = torch.zeros((4097, 2, 16, d), dtype=dt)
             kv = torch.zeros((4097, 2, 4, d), dtype=dt)
             assert fa._check_kernel_inputs("flash_dkv", q, kv, kv) == (
                 4097, 2, 16, d, 2, 4)
+
+
+# Head dims above 256, where the card runs its wide kernels (300 is padded
+# to 304 there), against the JAX package, which runs its Pallas kernel at
+# every head dim (its einsum where it falls back: causal Sq != Sk).
+# (d, dtype, causal, group, window, sq, sk); tolerances as above: 2e-5 f32,
+# 3e-2 bf16, F16_TOL f16.
+WIDE_CASES = [
+    pytest.param(d, dt, causal, group, window, sq, sk,
+                 id=f"d{d}-{dt}-{tag}")
+    for d in (264, 300) for dt in ("float32", "bfloat16", "float16")
+    for causal, group, window, sq, sk, tag in (
+        (True, 2, 3, 16, 16, "gqa2-w3"),
+        (True, 4, None, 24, 16, "gqa4-sq24-sk16"))]
+WIDE_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": F16_TOL}
+
+
+@pytest.mark.parametrize("d,dtype,causal,group,window,sq,sk", WIDE_CASES)
+def test_flash_wide_head_dims_match_jax(d, dtype, causal, group, window, sq,
+                                        sk):
+    q, k, v = _inputs(d + sq, 1, sq, sk, 4, 4 // group, d)
+    jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
+    want = jax_flash(jq, jk, jv, causal, 8, 8, window=window)
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=WIDE_TOL[dtype], rtol=WIDE_TOL[dtype])

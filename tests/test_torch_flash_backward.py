@@ -178,7 +178,7 @@ def test_flash_grads_odd_head_dims_match_jax(d, causal, window):
         np.testing.assert_allclose(x, w, atol=5e-5, rtol=5e-5)
 
 
-@pytest.mark.parametrize("d", [3, 12, 20])
+@pytest.mark.parametrize("d", [3, 12, 20, 300])
 def test_head_dim_padding_keeps_the_plain_gradients(d):
     """The backward's pad-and-slice (`_with_head_dim_padded` over q, k, v
     and dO, with 1/sqrt(D) of the true D) through the plain dQ and dK/dV
@@ -200,3 +200,31 @@ def test_head_dim_padding_keeps_the_plain_gradients(d):
     for got, w in zip((dq, dk, dv), want):
         assert got.shape == w.shape
         torch.testing.assert_close(got, w, atol=1e-6, rtol=1e-6)
+
+
+# Head dims above 256, where the card runs its wide kernels (300 is padded
+# to 304 there): o, dQ, dK and dV against jax.vjp of the JAX package, whose
+# Pallas kernels run at every head dim (its einsum where it falls back:
+# causal Sq != Sk). (d, dtype, causal, group, window, sq, sk); tolerances
+# as above: 5e-5 f32, bf16 test_flash_grads_bf16_match_jax's 1e-1, f16
+# 5e-3.
+WIDE_CASES = [
+    pytest.param(d, dt, causal, group, window, sq, sk,
+                 id=f"d{d}-{dt}-{tag}")
+    for d in (264, 300) for dt in ("float32", "bfloat16", "float16")
+    for causal, group, window, sq, sk, tag in (
+        (True, 2, 3, 16, 16, "gqa2-w3"),
+        (True, 4, None, 24, 16, "gqa4-sq24-sk16"))]
+WIDE_TOLS = {"float32": 5e-5, "bfloat16": 1e-1, "float16": 5e-3}
+
+
+@pytest.mark.parametrize("d,dtype,causal,group,window,sq,sk", WIDE_CASES)
+def test_flash_grads_wide_head_dims_match_jax(d, dtype, causal, group,
+                                              window, sq, sk):
+    q, k, v, g = _inputs(d + sq, 1, sq, sk, 4, 4 // group, d)
+    want, got = _grads_both(q, k, v, g, causal, window, getattr(jnp, dtype),
+                            getattr(torch, dtype))
+    for w, x in zip(want, got):
+        assert x.shape == w.shape
+        np.testing.assert_allclose(x, w, atol=WIDE_TOLS[dtype],
+                                   rtol=WIDE_TOLS[dtype])

@@ -66,6 +66,27 @@ FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, F16: 1e-2}
 ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, F16: 5e-2}
 ROW_FLOOR = {torch.float32: 1e-6, torch.bfloat16: 1e-4, F16: 1e-4}
 
+# Head dims above 256 (the wide kernels, every dtype on the CUDA cores; 300
+# runs zero-padded to 304) at 264, 320 and 512 in all three dtypes: GQA-8
+# with ragged Sq != Sk, the no-key rows (Sq 517, Sk 401, window 16), a
+# window, non-causal Sq != Sk; batches of 2 in every dtype, among them the
+# head layout of chip_smoke.py's wide path (4 heads, 1 kv head, D 320).
+# Both the forward and the backward tests run them.
+WIDE_CASES = [
+    (2, 401, 401, 4, 1, 320, True, None, torch.float32),
+    (2, 300, 137, 8, 2, 512, False, None, torch.float32),
+    (1, 137, 201, 8, 1, 264, True, None, torch.float32),
+    (1, 517, 401, 8, 2, 320, True, 16, torch.float32),
+    (1, 300, 201, 4, 4, 512, False, None, torch.float32),
+    (1, 201, 201, 4, 2, 300, True, None, torch.float32),
+    (1, 517, 401, 4, 1, 264, True, 16, torch.bfloat16),
+    (2, 401, 137, 8, 1, 320, True, None, torch.bfloat16),
+    (1, 300, 300, 4, 2, 512, True, 64, torch.bfloat16),
+    (2, 201, 201, 8, 2, 264, True, 128, F16),
+    (1, 137, 401, 8, 1, 320, True, None, F16),
+    (1, 517, 401, 8, 2, 512, True, 16, F16),
+]
+
 # (b, sq, sk, h, hk, d, causal, window, dtype). The f32 rows run the CUDA
 # cores; the bf16 and f16 rows run the tensor-core kernel (wgmma, TMA) at
 # head dims 64/96/128/256, and 8/40/200, which TMA's zero fill pads up to
@@ -105,7 +126,7 @@ FWD_CASES = [
     (2, 137, 137, 16, 4, 12, True, None, torch.bfloat16),
     (1, 201, 300, 8, 2, 100, True, 64, torch.bfloat16),
     (1, 300, 201, 8, 8, 100, False, None, F16),
-]
+] + WIDE_CASES
 
 
 @pytest.mark.parametrize("b,sq,sk,h,hk,d,causal,window,dtype", FWD_CASES)
@@ -200,7 +221,7 @@ BWD_CASES = [
     (1, 201, 300, 8, 2, 100, True, 64, torch.bfloat16),
     (1, 300, 201, 8, 8, 100, False, None, F16),
     (1, 300, 300, 8, 2, 256, True, 64, torch.float32),
-]
+] + WIDE_CASES
 BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-1, F16: 1e-2}
 
 
@@ -234,6 +255,40 @@ def test_flash_bwd_kernels_match_plain_versions(card, b, sq, sk, h, hk, d,
     again = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
     for x, y in zip((dq, dk, dv), again):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,sq,sk,h,hk,causal,window", [
+    (2, 401, 401, 8, 2, True, None),    # several 128-key steps, GQA-4
+    (1, 517, 401, 8, 4, True, 16),      # the no-key rows: dQ 0
+    (2, 137, 300, 8, 8, False, None),   # non-causal Sq != Sk, ragged
+])
+def test_f32_dq_kernel_matches_plain_version(card, d, b, sq, sk, h, hk,
+                                             causal, window):
+    """flash_dq_f32_kernel (64/128/256-wide tiles) against the plain dQ on
+    the same inputs: tests/test_ops.py's 5e-5 relative to max(1, max|ref|),
+    ROW_TOL on every row, bitwise equal on a second launch, one launch of
+    the dQ entry point."""
+    from tpunet_torch.ops.flash_attention import _launch_dq
+
+    rng = np.random.default_rng(d + sq)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(card) for s in (
+        (b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d), (b, sq, h, d)))
+    o, lse = flash_attention_fwd(q, k, v, causal, window)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal, window)
+    before = flash_attention.flash_dq_launches
+    got = _launch_dq(*args)
+    want = flash_attention_dq_plain(*args)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_dq_launches == before + 1
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 5e-5 * scale
+    assert _row_err(got, want) <= ROW_TOL[torch.float32]
+    if window is not None:  # rows that see no key get dQ 0, exactly
+        assert not got[:, sk + window - 1:].any()
+    assert torch.equal(got, _launch_dq(*args))
 
 
 @pytest.mark.parametrize("d", [32, 256])

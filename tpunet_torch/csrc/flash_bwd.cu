@@ -2,7 +2,7 @@
 //
 // Two TPU kernels of tpunet/ops/flash_attention.py are replaced here:
 //   * _flash_dq_kernel (:136, launched by _flash_bwd at :438) by
-//     flash_dq_bf16_kernel (bf16, f16) and flash_dq_kernel (f32):
+//     flash_dq_bf16_kernel (bf16, f16) and flash_dq_f32_kernel (f32):
 //     dQ_i = sum_j dS_ij K_j, one block per
 //     (batch*head, q tile), K/V tiles streamed through shared memory with
 //     the forward's causal and sliding-window k-loop bounds;
@@ -17,6 +17,8 @@
 //     the group and q loops run in a fixed order, so the result is bitwise
 //     deterministic run to run. Each dQ block owns its rows and walks its
 //     k tiles in order, so dQ is bitwise deterministic too.
+// Head dims above 256 run flash_dq_wide_kernel and flash_dkv_wide_kernel
+// in every dtype (at the end of this file; flash_wide.cuh).
 // Every grid puts batch * heads on grid.x (up to 2^31 - 1 blocks).
 // All recompute P = exp(scale * q.k - lse) from the forward's per-row lse
 // (B*H, Sq) f32, and take delta = rowsum(dO * O) (B*H, Sq) f32 from the
@@ -122,9 +124,6 @@
 //
 // f32 runs on the CUDA cores, every product an exact f32 FMA (no TF32, no
 // 3xTF32), the counterpart of Precision.HIGHEST for f32 inputs.
-// flash_dq_kernel stages its inputs in shared memory with scalar loads:
-// 256-thread blocks (32 row groups x 8 column lanes) with register tiles
-// of RPT rows x CPT score columns and RPT x D/8 output columns per thread.
 //
 // flash_dkv_f32_kernel. What bounds it: at the training shape dK/dV is 137
 // GFLOP, 68.7 G FMA, against ~400 MB: the FMA pipe, 2.05 ms at 67
@@ -149,6 +148,24 @@
 //     half as many block barriers took 10 % off at the training shape.)
 //   * P^T and dS^T go through shared memory to the threads that own their
 //     dK/dV columns; the masks are a select on every entry.
+//
+// flash_dq_f32_kernel. What bounds it: at the training shape dQ is 103
+// GFLOP, 51.5 G FMA, against ~340 MB: the FMA pipe, 1.54 ms at 67
+// TFLOP/s. The design is flash_dkv_f32_kernel's with the roles of q and k
+// swapped, and shares its inner loops:
+//   * one 256-thread block per (batch*head, 64-row q tile; 32 rows at
+//     D = 256), each head's tiles one after another, heaviest first; Q and
+//     dO resident;
+//   * each thread keeps 4 x 8 tiles of S and dP (4 q rows x 8 keys) and a
+//     4 x DT/16 tile of dQ in registers; 4 Q loads and 8 K loads feed 128
+//     FMAs of S = Q.K^T along D (dP = dO.V^T the same), 4 dS loads and 8 K
+//     loads feed 128 FMAs of dQ += dS.K;
+//   * each step's K and V (128 keys) stream through the 2-stage cp.async
+//     ring: as 64-column d-chunks for S and dP, then K again as row chunks
+//     for dQ, read along D from row-major K: no transposed copy, and the
+//     next chunk loads while this one's FMAs run;
+//   * dS goes through a padded shared tile to the threads that own its dQ
+//     columns; the masks are a select on every entry.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -156,11 +173,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wide.cuh"
 #include "sm90.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // 32 row groups x 8 column lanes
 
 struct Params {
   const void* q;
@@ -189,15 +205,6 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 __device__ __forceinline__ float load_f32(const __half* p) {
   return __half2float(*p);
 }
-__device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-
-// True when query qpos attends key kpos (both in range).
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  if (!p.causal) return true;
-  bool keep = qpos >= kpos;
-  if (p.window > 0) keep = keep && (qpos - kpos) < p.window;
-  return keep;
-}
 
 // The first query position that sees no key (causal with a window), or Sq
 // when every row sees one.
@@ -222,197 +229,38 @@ __device__ float no_key_dv(const T* dout, long long sb, long long ss,
   return u / Sk;
 }
 
-// ---------------------------------------------------------------- dQ ----
-
-template <int DMAX, int BQ, int BK>
-struct DqSmem {
-  static constexpr int kRowStride = DMAX + 1;  // sQ / sdO rows
-  static constexpr int kTStride = BK + 1;      // sKt / sVt rows (transposed)
-  static constexpr int kSStride = BK + 8;      // sdS rows
-  static constexpr int kQ = BQ * kRowStride;
-  static constexpr int kKt = DMAX * kTStride;
-  static constexpr int kS = BQ * kSStride;
-  static constexpr size_t kBytes = sizeof(float) * (2 * kQ + 2 * kKt + kS);
-};
-
-template <typename T, int DMAX, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const Params p) {
-  constexpr int RPT = BQ / 32;   // q rows per thread
-  constexpr int CPT = BK / 8;    // score columns per thread
-  constexpr int DPT = DMAX / 8;  // dQ columns per thread
-  using S = DqSmem<DMAX, BQ, BK>;
-
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + S::kQ;
-  float* sKt = sdO + S::kQ;
-  float* sVt = sKt + S::kKt;
-  float* sdS = sVt + S::kKt;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const int D = p.D;
-  // B*H sits on grid.x (any count), yet the blocks still run each head's
-  // q tiles one after another, so a head's K and V stay in L2.
-  const long long lin = blockIdx.x + (long long)gridDim.x * blockIdx.y;
-  const int bh = (int)(lin / gridDim.y);
-  const int q0 = (int)(lin % gridDim.y) * BQ;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int hk = h / (p.H / p.Hkv);
-
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    const int qpos = q0 + r;
-    const bool ok = qpos < p.Sq;
-    sQ[r * S::kRowStride + d] = ok ? load_f32(qg + qpos * p.q_ss + d) : 0.f;
-    sdO[r * S::kRowStride + d] = ok ? load_f32(dog + qpos * p.do_ss + d) : 0.f;
-  }
-  float lse[RPT], delta[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qpos = q0 + ty + 32 * i;
-    const bool ok = qpos < p.Sq;
-    lse[i] = ok ? p.lse[(long long)bh * p.Sq + qpos] : 0.f;
-    delta[i] = ok ? p.delta[(long long)bh * p.Sq + qpos] : 0.f;
-  }
-
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  // The forward's k-loop bounds.
-  const int n_kt = (p.Sk + BK - 1) / BK;
-  int kt_end = n_kt;
-  if (p.causal) kt_end = min(n_kt, (q0 + BQ + BK - 1) / BK);
-  int kt_start = 0;
-  if (p.causal && p.window > 0) kt_start = max(q0 - (p.window - 1), 0) / BK;
-
-  for (int kt = kt_start; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's readers are done with sKt/sVt/sdS
-    for (int e = tid; e < BK * D; e += kThreads) {
-      const int c = e / D, d = e - c * D;
-      const int kpos = k0 + c;
-      const bool ok = kpos < p.Sk;
-      sKt[d * S::kTStride + c] = ok ? load_f32(kg + kpos * p.k_ss + d) : 0.f;
-      sVt[d * S::kTStride + c] = ok ? load_f32(vg + kpos * p.v_ss + d) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = sQ[(ty + 32 * i) * S::kRowStride + d];
-        ov[i] = sdO[(ty + 32 * i) * S::kRowStride + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = sKt[d * S::kTStride + tx + 8 * j];
-        vv[j] = sVt[d * S::kTStride + tx + 8 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty + 32 * i;
-      const int qpos = q0 + r;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 8 * j;
-        const int kpos = k0 + c;
-        float pr = 0.f;
-        if (qpos < p.Sq && kpos < p.Sk && visible(p, qpos, kpos)) {
-          pr = expf(p.scale * s[i][j] - lse[i]);
-        }
-        sdS[r * S::kSStride + c] = pr * (dp[i][j] - delta[i]) * p.scale;
-      }
-    }
-    __syncthreads();
-
-    const int c_end = min(BK, p.Sk - k0);
-#pragma unroll 2
-    for (int c = 0; c < c_end; ++c) {
-      float ds[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) ds[i] = sdS[(ty + 32 * i) * S::kSStride + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float kv = sKt[(tx + 8 * j) * S::kTStride + c];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
-      }
-    }
-  }
-
-  // dQ is contiguous (B, Sq, H, D).
-  T* dqg = static_cast<T*>(p.dq) + ((long long)b * p.Sq * p.H + h) * D;
-  const long long dq_ss = (long long)p.H * D;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qpos = q0 + ty + 32 * i;
-    if (qpos >= p.Sq) continue;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + 8 * j;
-      if (d < D) store_from_f32(dqg + qpos * dq_ss + d, acc[i][j]);
-    }
-  }
-}
-
-// -------------------------------------------------------- dK/dV, f32 ----
+// ------------------------------------------------- f32, CUDA cores ----
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kF32Threads = 256;  // 16 row groups x 16 column lanes
-constexpr int kF32BQ = 128;       // q rows a step
+constexpr int kF32Step = 128;     // q rows (dK/dV) or keys (dQ) a step
+constexpr int kF32CW = 64;        // d-chunk columns
+constexpr int kF32CS = kF32CW + 4;  // d-chunk rows
+constexpr int kF32Stages = 2;     // the cp.async ring
+constexpr int kF32StageFloats = kF32Step * kF32CS;
+// 16-byte copies of one ring stage a thread issues.
+constexpr int kF32Copies = kF32Step * kF32CW / 4 / kF32Threads;
+constexpr int kF32PS = kF32Step + 4;  // P^T, dS^T and dS rows
 
 // Tiles of flash_dkv_f32_kernel<DT>. K and V stay resident; each step's Q
-// and dO stream through a 2-stage ring of 128 x kCW-float chunks, twice:
-// as d-chunks (128 q rows x kCW columns, DT / kCW of each) for S^T and
-// dP^T, then as q-chunks (kQK rows x DT columns, 128 / kQK = DT / kCW of
-// each) for dV and dK. Rows are padded by 4 floats: 16-byte loads stay
-// aligned and 8 rows at one column fall in 8 different 4-bank groups.
+// and dO stream through a 2-stage ring of 128 x kF32CW-float chunks, twice:
+// as d-chunks (128 q rows x kF32CW columns, DT / kF32CW of each) for S^T
+// and dP^T, then as q-chunks (kQK rows x DT columns, 128 / kQK =
+// DT / kF32CW of each) for dV and dK. Rows are padded by 4 floats: 16-byte
+// loads stay aligned and 8 rows at one column fall in 8 different 4-bank
+// groups.
 template <int DT>
 struct DkvF32Tile {
   static constexpr int kBK = DT <= 128 ? 64 : 32;  // k rows a block
   static constexpr int kRK = kBK / 16;             // k rows a thread
   static constexpr int kCols = DT / 16;            // dK/dV columns a thread
   static constexpr int kRowStride = DT + 4;        // sK, sV, q-chunk rows
-  static constexpr int kPStride = kF32BQ + 4;      // sPt, sdSt rows
-  static constexpr int kCW = 64;                   // d-chunk columns
-  static constexpr int kCStride = kCW + 4;         // d-chunk rows
-  static constexpr int kStages = 2;                // the cp.async ring
-  static constexpr int kStageFloats = kF32BQ * kCStride;
-  static constexpr int kQK = kF32BQ * kCW / DT;    // q rows a q-chunk
-  static constexpr int kNC = DT / kCW;             // chunks of each kind
-  static constexpr int kCopies = kF32BQ * kCW / 4 / kF32Threads;  // a thread's
+  static constexpr int kQK = kF32Step * kF32CW / DT;  // q rows a q-chunk
+  static constexpr int kNC = DT / kF32CW;          // chunks of each kind
   static constexpr size_t kSmem =  // K, V, P^T, dS^T, the ring, dV term
-      sizeof(float) * (2 * kBK * kRowStride + 2 * kBK * kPStride +
-                       kStages * kStageFloats + DT);
-  static_assert(kQK * kRowStride <= kStageFloats, "q-chunk over its stage");
+      sizeof(float) * (2 * kBK * kRowStride + 2 * kBK * kF32PS +
+                       kF32Stages * kF32StageFloats + DT);
+  static_assert(kQK * kRowStride <= kF32StageFloats, "q-chunk over its stage");
   static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
@@ -427,9 +275,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 flash_dkv_f32_kernel(const Params p) {
   using Tile = DkvF32Tile<DT>;
   constexpr int BK = Tile::kBK, RK = Tile::kRK, NCOL = Tile::kCols;
-  constexpr int RS = Tile::kRowStride, PS = Tile::kPStride, QK = Tile::kQK;
-  constexpr int NC = Tile::kNC, NS = Tile::kStages, CW = Tile::kCW;
-  constexpr int CS = Tile::kCStride;
+  constexpr int RS = Tile::kRowStride, PS = kF32PS, QK = Tile::kQK;
+  constexpr int NC = Tile::kNC, NS = kF32Stages;
 
   extern __shared__ float smem[];
   float* sK = smem;
@@ -437,7 +284,7 @@ flash_dkv_f32_kernel(const Params p) {
   float* sPt = sV + BK * RS;
   float* sdSt = sPt + BK * PS;
   float* sRing = sdSt + BK * PS;
-  float* sU = sRing + NS * Tile::kStageFloats;  // the no-key dV term
+  float* sU = sRing + NS * kF32StageFloats;  // the no-key dV term
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -454,11 +301,11 @@ flash_dkv_f32_kernel(const Params p) {
   // The TPU kernel's q-loop bounds: the first q tile holding a row that
   // sees key k0 (causal), and the last one whose newest row still sees the
   // tile's oldest key (window); walked once per q head of the GQA group.
-  const int n_qt = (p.Sq + kF32BQ - 1) / kF32BQ;
-  const int it_start = causal ? k0 / kF32BQ : 0;
+  const int n_qt = (p.Sq + kF32Step - 1) / kF32Step;
+  const int it_start = causal ? k0 / kF32Step : 0;
   int it_end = n_qt;
   if (windowed) {
-    it_end = min(n_qt, (k0 + BK - 1 + p.window + kF32BQ - 1) / kF32BQ);
+    it_end = min(n_qt, (k0 + BK - 1 + p.window + kF32Step - 1) / kF32Step);
   }
   const int n_q = max(it_end - it_start, 0);
   const int total = group * n_q * 4 * NC;  // chunks
@@ -478,26 +325,27 @@ flash_dkv_f32_kernel(const Params p) {
   // Chunk g of step g / (4 NC) (q head hk * group + step / n_q, q tile
   // it_start + step % n_q): Q d-chunks, dO d-chunks, dO q-chunks, Q
   // q-chunks. 16 bytes a copy; rows past Sq and columns past D arrive as
-  // zeros.
+  // zeros. (Written out in each kernel: the same copies through a shared
+  // function made this kernel 4 % slower on an H100.)
   auto issue = [&](int g) {
-    float* st = sRing + (g % NS) * Tile::kStageFloats;
+    float* st = sRing + (g % NS) * kF32StageFloats;
     const int step = g / (4 * NC), part = g % (4 * NC);
     const int h = hk * group + step / n_q;
-    const int q0 = (it_start + step % n_q) * kF32BQ;
+    const int q0 = (it_start + step % n_q) * kF32Step;
     const int kind = part / NC, c = part % NC;
     const bool is_q = kind == 0 || kind == 3;
     const float* src = static_cast<const float*>(is_q ? p.q : p.dout) + b *
         (is_q ? p.q_sb : p.do_sb) + h * (is_q ? p.q_sh : p.do_sh);
     const long long ss = is_q ? p.q_ss : p.do_ss;
 #pragma unroll
-    for (int u = 0; u < Tile::kCopies; ++u) {
+    for (int u = 0; u < kF32Copies; ++u) {
       const int e = tid + kF32Threads * u;
       int r, col, dst;
       if (kind < 2) {  // 128 rows x CW columns
-        r = e / (CW / 4);
-        dst = 4 * (e % (CW / 4));
-        col = CW * c + dst;
-        dst += r * CS;
+        r = e / (kF32CW / 4);
+        dst = 4 * (e % (kF32CW / 4));
+        col = kF32CW * c + dst;
+        dst += r * kF32CS;
       } else {  // QK rows x DT columns
         r = QK * c + e / (DT / 4);
         col = 4 * (e % (DT / 4));
@@ -527,10 +375,10 @@ flash_dkv_f32_kernel(const Params p) {
     __syncthreads();  // chunk g is in; every thread is done with chunk g-1
     if (g + NS - 1 < total) issue(g + NS - 1);
     sm90::cp_async_commit();
-    const float* sc = sRing + (g % NS) * Tile::kStageFloats;
+    const float* sc = sRing + (g % NS) * kF32StageFloats;
     const int step = g / (4 * NC), part = g % (4 * NC);
     const int kind = part / NC, c = part % NC;
-    const int q0 = (it_start + step % n_q) * kF32BQ;
+    const int q0 = (it_start + step % n_q) * kF32Step;
     if (part == 0) {
       const long long row0 =
           ((long long)b * p.H + hk * group + step / n_q) * p.Sq;
@@ -542,70 +390,12 @@ flash_dkv_f32_kernel(const Params p) {
         dlt[j] = ok ? p.delta[row0 + qpos] : 0.f;
       }
     }
-    // acc (+)= A[:, CW c ..] . chunk^T: S^T from K and a Q d-chunk, dP^T
-    // from V and a dO d-chunk.
-    auto score_chunk = [&](float (&acc)[RK][8], const float* a) {
-      if (c == 0) {
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      }
-#pragma unroll 4
-      for (int d = 0; d < CW; d += 4) {
-        float4 qv[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          qv[j] = sm90::lds4(sc + (tx + 16 * j) * CS + d);
-#pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          const float4 kv = sm90::lds4(a + (ty + 16 * i) * RS + CW * c + d);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[i][j] = fmaf(kv.x, qv[j].x, acc[i][j]);
-            acc[i][j] = fmaf(kv.y, qv[j].y, acc[i][j]);
-            acc[i][j] = fmaf(kv.z, qv[j].z, acc[i][j]);
-            acc[i][j] = fmaf(kv.w, qv[j].w, acc[i][j]);
-          }
-        }
-      }
-    };
-    // acc += A[:, QK c ..] . chunk: dV from P^T and a dO q-chunk, dK from
-    // dS^T and a Q q-chunk.
-    auto product_chunk = [&](float (&acc)[RK][NCOL], const float* a) {
-#pragma unroll 2
-      for (int r = 0; r < QK; r += 4) {
-        float4 pr[RK];
-#pragma unroll
-        for (int i = 0; i < RK; ++i)
-          pr[i] = sm90::lds4(a + (ty + 16 * i) * PS + QK * c + r);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float4 ov[NCOL / 4];
-#pragma unroll
-          for (int gg = 0; gg < NCOL / 4; ++gg)
-            ov[gg] = sm90::lds4(sc + (r + e) * RS + 64 * gg + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < RK; ++i) {
-            const float pe = e == 0 ? pr[i].x
-                             : e == 1 ? pr[i].y
-                             : e == 2 ? pr[i].z
-                                      : pr[i].w;
-#pragma unroll
-            for (int gg = 0; gg < NCOL / 4; ++gg) {
-              acc[i][4 * gg] = fmaf(pe, ov[gg].x, acc[i][4 * gg]);
-              acc[i][4 * gg + 1] = fmaf(pe, ov[gg].y, acc[i][4 * gg + 1]);
-              acc[i][4 * gg + 2] = fmaf(pe, ov[gg].z, acc[i][4 * gg + 2]);
-              acc[i][4 * gg + 3] = fmaf(pe, ov[gg].w, acc[i][4 * gg + 3]);
-            }
-          }
-        }
-      }
-    };
     if (kind == 0) {
-      score_chunk(st, sK);
+      f32_score_chunk<RK, 8, kF32CW, RS, kF32CS>(st, sK + kF32CW * c, sc,
+                                                 tx, ty, c == 0);
     } else if (kind == 1) {
-      score_chunk(dpt, sV);
+      f32_score_chunk<RK, 8, kF32CW, RS, kF32CS>(dpt, sV + kF32CW * c, sc,
+                                                 tx, ty, c == 0);
       if (c == NC - 1) {
         // P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T -
         // delta) scale, both 0 where the causal, window or ragged-row mask
@@ -630,9 +420,9 @@ flash_dkv_f32_kernel(const Params p) {
         }
       }
     } else if (kind == 2) {
-      product_chunk(dv, sPt);
+      f32_product_chunk<RK, NCOL, QK, PS, RS>(dv, sPt + QK * c, sc, tx, ty);
     } else {
-      product_chunk(dk, sdSt);
+      f32_product_chunk<RK, NCOL, QK, PS, RS>(dk, sdSt + QK * c, sc, tx, ty);
     }
   }
   sm90::cp_async_wait<0>();
@@ -694,18 +484,206 @@ cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Tiles of flash_dq_f32_kernel<DT>, flash_dkv_f32_kernel's with the roles
+// of q and k swapped. Q and dO stay resident; each step's K and V (128
+// keys) stream through the 2-stage ring: as d-chunks (128 keys x kF32CW
+// columns, DT / kF32CW of each) for S and dP, then K again as k-chunks
+// (kKC keys x DT columns, DT / kF32CW of them) for dQ.
+template <int DT>
+struct DqF32Tile {
+  static constexpr int kBQ = DT <= 128 ? 64 : 32;  // q rows a block
+  static constexpr int kRQ = kBQ / 16;             // q rows a thread
+  static constexpr int kCols = DT / 16;            // dQ columns a thread
+  static constexpr int kRowStride = DT + 4;        // sQ, sdO, k-chunk rows
+  static constexpr int kKC = kF32Step * kF32CW / DT;  // keys a k-chunk
+  static constexpr int kNC = DT / kF32CW;          // chunks of each kind
+  static constexpr size_t kSmem =  // Q, dO, dS, the ring
+      sizeof(float) * (2 * kBQ * kRowStride + kBQ * kF32PS +
+                       kF32Stages * kF32StageFloats);
+  static_assert(kKC * kRowStride <= kF32StageFloats, "k-chunk over its stage");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
 
-// ------------------------------------------------------------- launch ----
+// f32 dQ on the CUDA cores, exact f32 FMA. One 256-thread block per
+// (batch*head, kBQ-row q tile). B*H sits on grid.x (any count), yet a
+// linear block index runs each head's q tiles one after another, heaviest
+// causal tile first, so a head's K and V stay in L2. Thread (ty, tx) owns
+// q rows ty + 16i (i < kRQ), the step's keys tx + 16j (j < 8) of S and dP,
+// and dQ columns 64g + 4tx + e (e < 4): kRQ x 8 score tiles and a
+// kRQ x DT/16 dQ tile in registers, every operand read as a 16-byte shared
+// load. dS goes through shared memory to the threads that own its dQ
+// columns; the masks are a select on every entry.
+template <int DT>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_dq_f32_kernel(const Params p) {
+  using Tile = DqF32Tile<DT>;
+  constexpr int BQ = Tile::kBQ, RQ = Tile::kRQ, NCOL = Tile::kCols;
+  constexpr int RS = Tile::kRowStride, PS = kF32PS, KC = Tile::kKC;
+  constexpr int NC = Tile::kNC, NS = kF32Stages;
 
-template <typename T, int DMAX, int BQ, int BK>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_dq_kernel<T, DMAX, BQ, BK>;
-  const size_t bytes = DqSmem<DMAX, BQ, BK>::kBytes;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQ * RS;
+  float* sdS = sdO + BQ * RS;
+  float* sRing = sdS + BQ * PS;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const long long lin = blockIdx.x + (long long)gridDim.x * blockIdx.y;
+  const int bh = (int)(lin / gridDim.y);
+  const int q0 = (gridDim.y - 1 - (int)(lin % gridDim.y)) * BQ;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const bool causal = p.causal != 0;
+  const bool windowed = causal && p.window > 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  // The TPU kernel's k-loop bounds: causal stops at the tile holding the
+  // last row's own position, a window starts at the tile holding the first
+  // row's oldest visible key.
+  const int n_kt = (p.Sk + kF32Step - 1) / kF32Step;
+  const int kt_end = causal ? min(n_kt, (q0 + BQ + kF32Step - 1) / kF32Step)
+                            : n_kt;
+  const int kt_start = windowed ? max(q0 - (p.window - 1), 0) / kF32Step : 0;
+  const int total = max(kt_end - kt_start, 0) * 3 * NC;  // chunks
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dog =
+      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  for (int e = tid; e < BQ * DT / 4; e += kF32Threads) {
+    const int r = e / (DT / 4), col = 4 * (e % (DT / 4));
+    const int qpos = q0 + r;
+    const bool ok = qpos < p.Sq && col < p.D;
+    sm90::cp_async16(sQ + r * RS + col, ok ? qg + qpos * p.q_ss + col : qg,
+                     ok ? 16 : 0);
+    sm90::cp_async16(sdO + r * RS + col,
+                     ok ? dog + qpos * p.do_ss + col : dog, ok ? 16 : 0);
+  }
+
+  // Chunk g of step g / (3 NC) (k tile kt_start + step): K d-chunks, V
+  // d-chunks, K k-chunks. 16 bytes a copy; rows past Sk and columns past D
+  // arrive as zeros.
+  auto issue = [&](int g) {
+    float* st = sRing + (g % NS) * kF32StageFloats;
+    const int step = g / (3 * NC), part = g % (3 * NC);
+    const int k0 = (kt_start + step) * kF32Step;
+    const int kind = part / NC, c = part % NC;
+    const float* src = kind == 1 ? vg : kg;
+    const long long ss = kind == 1 ? p.v_ss : p.k_ss;
+#pragma unroll
+    for (int u = 0; u < kF32Copies; ++u) {
+      const int e = tid + kF32Threads * u;
+      int r, col, dst;
+      if (kind < 2) {  // 128 keys x CW columns
+        r = e / (kF32CW / 4);
+        dst = 4 * (e % (kF32CW / 4));
+        col = kF32CW * c + dst;
+        dst += r * kF32CS;
+      } else {  // KC keys x DT columns
+        r = KC * c + e / (DT / 4);
+        col = 4 * (e % (DT / 4));
+        dst = (e / (DT / 4)) * RS + col;
+      }
+      const int kpos = k0 + r;
+      const bool ok = kpos < p.Sk && col < p.D;
+      sm90::cp_async16(st + dst, ok ? src + kpos * ss + col : src,
+                       ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < NS - 1; ++g) {  // Q and dO join the first group
+    if (g < total) issue(g);
+    sm90::cp_async_commit();
+  }
+
+  float s[RQ][8], dp[RQ][8], dq[RQ][NCOL];
+  float lse2[RQ], dlt[RQ];  // the rows' lse * log2(e) and delta
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    const bool ok = qpos < p.Sq;
+    lse2[i] = ok ? p.lse[(long long)bh * p.Sq + qpos] * kLog2e : 0.f;
+    dlt[i] = ok ? p.delta[(long long)bh * p.Sq + qpos] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) dq[i][c] = 0.f;
+  }
+
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<NS - 2>();
+    __syncthreads();  // chunk g is in; every thread is done with chunk g-1
+    if (g + NS - 1 < total) issue(g + NS - 1);
+    sm90::cp_async_commit();
+    const float* sc = sRing + (g % NS) * kF32StageFloats;
+    const int step = g / (3 * NC), part = g % (3 * NC);
+    const int kind = part / NC, c = part % NC;
+    if (kind == 0) {
+      f32_score_chunk<RQ, 8, kF32CW, RS, kF32CS>(s, sQ + kF32CW * c, sc, tx,
+                                                 ty, c == 0);
+    } else if (kind == 1) {
+      f32_score_chunk<RQ, 8, kF32CW, RS, kF32CS>(dp, sdO + kF32CW * c, sc,
+                                                 tx, ty, c == 0);
+      if (c == NC - 1) {
+        // dS = P (dP - delta) scale with P = exp2(S scale log2e - lse
+        // log2e), 0 where the causal, window or ragged-key mask holds: a
+        // select on every entry (a no-key row's exponential is inf before
+        // the mask, and all of its entries are masked).
+        const int k0 = (kt_start + step) * kF32Step;
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int kpos = k0 + tx + 16 * j;
+            const bool masked =
+                (kpos >= p.Sk) |
+                (causal & ((qpos < kpos) |
+                           (windowed & (qpos - kpos >= p.window))));
+            float pv = sm90::ex2(fmaf(s[i][j], scale_log2, -lse2[i]));
+            pv = masked ? 0.f : pv;
+            sdS[(ty + 16 * i) * PS + tx + 16 * j] =
+                pv * (dp[i][j] - dlt[i]) * p.scale;
+          }
+        }
+      }
+    } else {
+      f32_product_chunk<RQ, NCOL, KC, PS, RS>(dq, sdS + KC * c, sc, tx, ty);
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  // dQ is contiguous (B, Sq, H, D); ragged rows are never written.
+  float* dqg = static_cast<float*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= p.Sq) continue;
+    const long long row = (((long long)b * p.Sq + qpos) * p.H + h) * p.D;
+#pragma unroll
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+      const int col = 64 * gg + 4 * tx;
+      if (col < p.D) {
+        *reinterpret_cast<float4*>(dqg + row + col) =
+            make_float4(dq[i][4 * gg], dq[i][4 * gg + 1], dq[i][4 * gg + 2],
+                        dq[i][4 * gg + 3]);
+      }
+    }
+  }
+}
+
+template <int DT>
+cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
+  using Tile = DqF32Tile<DT>;
+  auto kernel = flash_dq_f32_kernel<DT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile::kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
-  kernel<<<grid, kThreads, bytes, stream>>>(p);
+  dim3 grid(p.B * p.H, (p.Sq + Tile::kBQ - 1) / Tile::kBQ);
+  kernel<<<grid, kF32Threads, Tile::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1422,22 +1400,267 @@ cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Tiles by head dim. Shared memory per block (bytes): the CUDA-core (f32)
-// dQ 85 K / 151 K / 138 K and dK/dV 168 K / 201 K / 167 K for D <= 64 /
-// 128 / 256; the tensor-core (bf16, f16) dQ 81 K / 161 K / 225 K and dK/dV
-// 68 K / 134 K / 195 K for D <= 64 / 128 / 256. All under the 227 KB a
-// block may use.
+// ------------------------------------- head dims above 256, every dtype --
+
+// dQ for D > 256, any element type T (flash_wide.cuh gives the design).
+// One block per (batch*head, 64-row q tile, 128-column slice of the head
+// dim), heaviest causal tile first, with the k-loop bounds of the other dQ
+// kernels (64-key steps). Each step: S = Q.K^T and dP = dO.V^T over the
+// whole head dim in 64-column chunks; dS = P (dP - delta) scale, 0 where
+// the mask holds (a select), rounded to T, into shared memory; then
+// dQ += dS.K over the block's slice of K. Rows that see no key have every
+// entry masked: dQ 0.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+flash_dq_wide_kernel(const Params p) {
+  using namespace wide;
+  extern __shared__ float smem[];
+  float* sQ = smem;  // chunks of Q, K, dO and V, then the K slice
+  float* sK = sQ + kChunk;
+  float* sdO = sK + kChunk;
+  float* sV = sdO + kChunk;
+  float* sKs = smem;
+  float* sdS = sV + kChunk;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  const int s0 = blockIdx.z * kSlice;
+  const bool causal = p.causal != 0;
+  const bool windowed = causal && p.window > 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int n_kt = (p.Sk + kRows - 1) / kRows;
+  const int kt_end = causal ? min(n_kt, (q0 + 2 * kRows - 1) / kRows) : n_kt;
+  const int kt_start = windowed ? max(q0 - (p.window - 1), 0) / kRows : 0;
+
+  float lse2[4], dlt[4], dq[4][8] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    const bool ok = qpos < p.Sq;
+    lse2[i] = ok ? p.lse[(long long)bh * p.Sq + qpos] * kLog2e : 0.f;
+    dlt[i] = ok ? p.delta[(long long)bh * p.Sq + qpos] : 0.f;
+  }
+
+  for (int kt = kt_start; kt < kt_end; ++kt) {
+    const int k0 = kt * kRows;
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c0 = 0; c0 < p.D; c0 += kCW) {
+      __syncthreads();  // every thread is done with the previous tiles
+      load_tile<kCW, kCS>(sQ, qg, p.q_ss, q0, p.Sq, c0, p.D);
+      load_tile<kCW, kCS>(sK, kg, p.k_ss, k0, p.Sk, c0, p.D);
+      load_tile<kCW, kCS>(sdO, dog, p.do_ss, q0, p.Sq, c0, p.D);
+      load_tile<kCW, kCS>(sV, vg, p.v_ss, k0, p.Sk, c0, p.D);
+      __syncthreads();
+      f32_score_chunk<4, 4, kCW, kCS, kCS>(s, sQ, sK, tx, ty);
+      f32_score_chunk<4, 4, kCW, kCS, kCS>(dp, sdO, sV, tx, ty);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool masked =
+            (kpos >= p.Sk) |
+            (causal & ((qpos < kpos) |
+                       (windowed & (qpos - kpos >= p.window))));
+        float pv = sm90::ex2(fmaf(s[i][j], scale_log2, -lse2[i]));
+        pv = masked ? 0.f : pv;
+        sdS[(ty + 16 * i) * kCS + tx + 16 * j] =
+            rounded<T>(pv * (dp[i][j] - dlt[i]) * p.scale);
+      }
+    }
+    __syncthreads();  // every thread is done with the chunks
+    load_tile<kSlice, kSS>(sKs, kg, p.k_ss, k0, p.Sk, s0, p.D);
+    __syncthreads();
+    f32_product_chunk<4, 8, kRows, kCS, kSS>(dq, sdS, sKs, tx, ty);
+  }
+
+  // dQ is contiguous (B, Sq, H, D); ragged rows are never written.
+  T* dqg = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= p.Sq) continue;
+    store_slice_row(dqg + (((long long)b * p.Sq + qpos) * p.H + h) * p.D,
+                    dq[i], 1.f, s0, p.D, tx);
+  }
+}
+
+// dK/dV for D > 256, any element type T (flash_wide.cuh gives the design).
+// One block per (batch*kv head, 64-row k tile, 128-column slice of the
+// head dim), with the q-loop bounds of the other dK/dV kernels (64-row q
+// steps), walked once per q head of the GQA group. Each step: S^T = K.Q^T
+// and dP^T = V.dO^T over the whole head dim in 64-column chunks; P^T and
+// dS^T = P^T (dP^T - delta) scale, 0 where the mask holds (a select),
+// rounded to T, into shared memory; then dV += P^T.dO and dK += dS^T.Q
+// over the block's slice of dO and Q. The group is summed in the block in
+// a fixed order (no atomics), and the rows that see no key add their dO/Sk
+// to every dV row before the store, as in the other dK/dV kernels.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+flash_dkv_wide_kernel(const Params p) {
+  using namespace wide;
+  extern __shared__ float smem[];
+  float* sK = smem;  // chunks of K, Q, V and dO, then the Q and dO slices
+  float* sQ = sK + kChunk;
+  float* sV = sQ + kChunk;
+  float* sdO = sV + kChunk;
+  float* sQs = smem;
+  float* sdOs = sQs + kSliceTile;
+  float* sPt = sdO + kChunk;
+  float* sdSt = sPt + kChunk;
+  float* sU = sdSt + kChunk;  // the no-key dV term of the slice
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bkv = blockIdx.x;
+  const int b = bkv / p.Hkv;
+  const int hk = bkv % p.Hkv;
+  const int group = p.H / p.Hkv;
+  const int k0 = blockIdx.y * kRows;  // the heaviest causal tile first
+  const int s0 = blockIdx.z * kSlice;
+  const bool causal = p.causal != 0;
+  const bool windowed = causal && p.window > 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const int n_qt = (p.Sq + kRows - 1) / kRows;
+  const int it_start = causal ? k0 / kRows : 0;
+  const int it_end =
+      windowed ? min(n_qt, (k0 + 2 * kRows - 2 + p.window) / kRows) : n_qt;
+
+  float dk[4][8] = {}, dv[4][8] = {};
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    const long long row0 = ((long long)b * p.H + h) * p.Sq;
+    for (int it = it_start; it < it_end; ++it) {
+      const int q0 = it * kRows;
+      float lse2[4], dlt[4];  // the step's q columns tx + 16j
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qpos = q0 + tx + 16 * j;
+        const bool ok = qpos < p.Sq;
+        lse2[j] = ok ? p.lse[row0 + qpos] * kLog2e : 0.f;
+        dlt[j] = ok ? p.delta[row0 + qpos] : 0.f;
+      }
+      float st[4][4] = {}, dpt[4][4] = {};
+      for (int c0 = 0; c0 < p.D; c0 += kCW) {
+        __syncthreads();  // every thread is done with the previous tiles
+        load_tile<kCW, kCS>(sK, kg, p.k_ss, k0, p.Sk, c0, p.D);
+        load_tile<kCW, kCS>(sQ, qg, p.q_ss, q0, p.Sq, c0, p.D);
+        load_tile<kCW, kCS>(sV, vg, p.v_ss, k0, p.Sk, c0, p.D);
+        load_tile<kCW, kCS>(sdO, dog, p.do_ss, q0, p.Sq, c0, p.D);
+        __syncthreads();
+        f32_score_chunk<4, 4, kCW, kCS, kCS>(st, sK, sQ, tx, ty);
+        f32_score_chunk<4, 4, kCW, kCS, kCS>(dpt, sV, sdO, tx, ty);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qpos = q0 + tx + 16 * j;
+          const bool masked =
+              (qpos >= p.Sq) |
+              (causal & ((qpos < kpos) |
+                         (windowed & (qpos - kpos >= p.window))));
+          float pv = sm90::ex2(fmaf(st[i][j], scale_log2, -lse2[j]));
+          pv = masked ? 0.f : pv;
+          sPt[(ty + 16 * i) * kCS + tx + 16 * j] = rounded<T>(pv);
+          sdSt[(ty + 16 * i) * kCS + tx + 16 * j] =
+              rounded<T>(pv * (dpt[i][j] - dlt[j]) * p.scale);
+        }
+      }
+      __syncthreads();  // every thread is done with the chunks
+      load_tile<kSlice, kSS>(sQs, qg, p.q_ss, q0, p.Sq, s0, p.D);
+      load_tile<kSlice, kSS>(sdOs, dog, p.do_ss, q0, p.Sq, s0, p.D);
+      __syncthreads();
+      f32_product_chunk<4, 8, kRows, kCS, kSS>(dv, sPt, sdOs, tx, ty);
+      f32_product_chunk<4, 8, kRows, kCS, kSS>(dk, sdSt, sQs, tx, ty);
+    }
+  }
+
+  const int q_first = first_no_key_row(p.causal, p.window, p.Sq, p.Sk);
+  if (q_first < p.Sq) {  // rows that see no key: dV += their dO / Sk
+    for (int d = tid; d < kSlice; d += kThreads) {
+      sU[d] = s0 + d < p.D
+                  ? no_key_dv(static_cast<const T*>(p.dout), p.do_sb,
+                              p.do_ss, p.do_sh, b, hk * group, group,
+                              q_first, p.Sq, p.Sk, s0 + d)
+                  : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        dv[i][c] += sU[64 * (c / 4) + 4 * tx + c % 4];
+  }
+
+  // dK/dV are contiguous (B, Sk, Hkv, D).
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= p.Sk) continue;
+    const long long row = (((long long)b * p.Sk + kpos) * p.Hkv + hk) * p.D;
+    store_slice_row(static_cast<T*>(p.dk) + row, dk[i], 1.f, s0, p.D, tx);
+    store_slice_row(static_cast<T*>(p.dv) + row, dv[i], 1.f, s0, p.D, tx);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Params& p, int which, cudaStream_t stream) {
+  using namespace wide;
+  static_assert(2 * kSliceTile <= 4 * kChunk, "the slices over the chunks");
+  const bool dq = which == 0;
+  auto kernel = dq ? flash_dq_wide_kernel<T> : flash_dkv_wide_kernel<T>;
+  const size_t smem =
+      sizeof(float) * (dq ? 5 * kChunk : 6 * kChunk + kSlice);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.B * (dq ? p.H : p.Hkv),
+            ((dq ? p.Sq : p.Sk) + kRows - 1) / kRows,
+            (p.D + kSlice - 1) / kSlice);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Tiles by head dim. Shared memory per block (KiB): the CUDA-core (f32)
+// dQ 135 / 167 / 150 and dK/dV 168 / 201 / 167 for D <= 64 / 128 / 256;
+// the tensor-core (bf16, f16) dQ 81 / 161 / 225 and dK/dV 68 / 134 / 195
+// for D <= 64 / 128 / 256; the wide kernels (D > 256, every dtype) dQ 85
+// and dK/dV 103. All under the 227 KiB a block may use.
 template <typename T>
 cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
+  if (p.D > 256) return launch_wide<T>(p, which, s);
   if (which == 0) {
     if constexpr (sizeof(T) == 2) {  // bf16/f16 dQ: tensor cores
       if (p.D <= 64) return launch_dq_bf16<T, 64>(p, s);
       if (p.D <= 128) return launch_dq_bf16<T, 128>(p, s);
       return launch_dq_bf16<T, 256>(p, s);
     } else {
-      if (p.D <= 64) return launch_dq<T, 64, 64, 64>(p, s);
-      if (p.D <= 128) return launch_dq<T, 128, 64, 64>(p, s);
-      return launch_dq<T, 256, 32, 32>(p, s);
+      if (p.D <= 64) return launch_dq_f32<64>(p, s);
+      if (p.D <= 128) return launch_dq_f32<128>(p, s);
+      return launch_dq_f32<256>(p, s);
     }
   }
   if constexpr (sizeof(T) == 2) {  // bf16/f16 dK/dV: tensor cores
@@ -1459,7 +1682,7 @@ int run(int which, const void* q, const void* k, const void* v,
         long long k_ss, long long k_sh, long long v_sb, long long v_ss,
         long long v_sh, long long do_sb, long long do_ss, long long do_sh,
         int causal, int window, float scale, int dtype, void* stream) {
-  if (D < 8 || D > 256 || D % 8 || Hkv <= 0 || H % Hkv) {
+  if (D < 8 || D % 8 || Hkv <= 0 || H % Hkv) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return (int)cudaSuccess;

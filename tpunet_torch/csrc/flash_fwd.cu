@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a), plain C ABI for ctypes.
 //
 // Replaces the TPU kernel tpunet/ops/flash_attention.py:_flash_kernel
-// (:73, launched by _flash_fwd_impl at :376). Both kernels here compute
+// (:73, launched by _flash_fwd_impl at :376). Every kernel here computes
 // exactly what it computes: softmax(q k^T * scale) v with an online softmax
 // over K/V tiles, f32 running state (m, l, acc), the causal k-loop upper
 // bound cdiv(q_end, BK), the sliding-window lower bound
@@ -83,6 +83,12 @@
 //     reduced by shuffles across the 16 lanes that hold them), and P goes
 //     through shared memory to the threads that own its output columns.
 // Shared memory: 168 / 200 / 166 KiB a block at DT = 64 / 128 / 256.
+//
+// Head dims above 256, every dtype: flash_fwd_wide_kernel<T> (T = float,
+// __nv_bfloat16, __half) on the CUDA cores, with one grid axis over
+// 128-column slices of the head dim (flash_wide.cuh). bf16 and f16 inputs
+// round P to T before P.V and accumulate in f32, as the tensor-core kernel
+// does; f32 runs exact f32 FMA. A simple design, right at any head dim.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -90,6 +96,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_wide.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -422,6 +429,132 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
   return launch_f32<256>(p, stream);
 }
 
+// ------------------------------------- head dims above 256, every dtype --
+
+// Forward for D > 256, any element type T (flash_wide.cuh gives the
+// design). One block per (batch*head, 64-row q tile, 128-column slice of
+// the head dim), heaviest causal tile first, with the k-loop bounds of the
+// other kernels (k_range, 64-key steps). Each step: S over the whole head
+// dim in 64-column chunks of Q and K; the online softmax of the tile in
+// registers, in the log2 domain (rows reduced across the 16 lanes that
+// hold them; l sums P unrounded), P rounded to T into shared memory; then
+// O += P.V over the block's slice of V. Slice 0 writes lse.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+flash_fwd_wide_kernel(const Params p) {
+  using namespace wide;
+  extern __shared__ float smem[];
+  float* sQ = smem;        // a Q chunk, then (with sK) the V slice
+  float* sK = sQ + kChunk;
+  float* sV = smem;
+  float* sP = sK + kChunk;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  const int s0 = blockIdx.z * kSlice;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const KRange kr = k_range(p.causal, p.window, q0, kRows, p.Sq, p.Sk, kRows);
+  const float scale_log2 = p.scale * kLog2e;
+
+  float o[4][8], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInfL2;
+    l[i] = 0.f;  // this thread's partial row sum
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+  }
+
+  for (int kt = kr.start; kt < kr.end; ++kt) {
+    const int k0 = kt * kRows;
+    float s[4][4] = {};
+    for (int c0 = 0; c0 < p.D; c0 += kCW) {
+      __syncthreads();  // every thread is done with the previous tiles
+      load_tile<kCW, kCS>(sQ, qg, p.q_ss, q0, p.Sq, c0, p.D);
+      load_tile<kCW, kCS>(sK, kg, p.k_ss, k0, p.Sk, c0, p.D);
+      __syncthreads();
+      f32_score_chunk<4, 4, kCW, kCS, kCS>(s, sQ, sK, tx, ty);
+    }
+    // Masked scores become NEG_INF (-inf past Sk) before the max, as on
+    // the TPU: a select on every entry.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool hidden =
+            p.causal && (qpos < kpos ||
+                         (p.window > 0 && qpos - kpos >= p.window));
+        const float x = kpos >= p.Sk ? -INFINITY
+                        : hidden     ? kNegInfL2
+                                     : s[i][j] * scale_log2;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = sm90::ex2(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pv = sm90::ex2(s[i][j] - m_new);
+        l[i] += pv;
+        sP[(ty + 16 * i) * kCS + tx + 16 * j] = rounded<T>(pv);
+      }
+    }
+    __syncthreads();  // every thread is done with the Q and K chunks
+    load_tile<kSlice, kSS>(sV, vg, p.v_ss, k0, p.Sk, s0, p.D);
+    __syncthreads();
+    f32_product_chunk<4, 8, kRows, kCS, kSS>(o, sP, sV, tx, ty);
+  }
+
+  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= p.Sq) continue;
+    store_slice_row(og + qpos * p.o_ss, o[i], 1.f / l[i], s0, p.D, tx);
+    if (blockIdx.z == 0 && tx == 0) {  // a row without a key: NEG_INF
+      p.lse[(long long)bh * p.Sq + qpos] =
+          m[i] == kNegInfL2 ? kNegInf : m[i] * kLn2 + logf(l[i]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
+  using namespace wide;
+  auto kernel = flash_fwd_wide_kernel<T>;
+  const size_t smem = sizeof(float) * 3 * kChunk;
+  static_assert(kSliceTile <= 2 * kChunk, "the V slice over Q and K");
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.B * p.H, (p.Sq + kRows - 1) / kRows,
+            (p.D + kSlice - 1) / kSlice);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------ bf16 and f16, tensor cores --
 
 constexpr int kWgThreads = 384;  // 2 consumer warpgroups + 1 producer
@@ -739,7 +872,7 @@ extern "C" int tpunet_flash_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float scale, int dtype, void* stream) {
-  if (D < 8 || D > 256 || D % 8 || Hkv <= 0 || H % Hkv) {
+  if (D < 8 || D % 8 || Hkv <= 0 || H % Hkv) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
@@ -748,6 +881,12 @@ extern "C" int tpunet_flash_fwd(
            k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal,
            window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 256) {
+    if (dtype == 0) return (int)launch_wide<float>(p, s);
+    if (dtype == 1) return (int)launch_wide<__nv_bfloat16>(p, s);
+    if (dtype == 2) return (int)launch_wide<__half>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0) return (int)dispatch_f32(p, s);
   if (dtype == 1) return (int)dispatch_16<__nv_bfloat16>(p, s);
   if (dtype == 2) return (int)dispatch_16<__half>(p, s);

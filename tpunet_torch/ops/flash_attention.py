@@ -7,9 +7,13 @@ counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
 _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 (``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
 it runs the plain PyTorch versions beside them. There is no fallback from
-one to the other. bf16 and f16 run on the tensor cores (wgmma, tiles loaded
-by TMA), f32 on the CUDA cores (exact f32 FMA), at every head dim from 1 to
-256 and any batch * heads.
+one to the other. Up to head dim 256, bf16 and f16 run on the tensor cores
+(wgmma, tiles loaded by TMA) and f32 on the CUDA cores (exact f32 FMA).
+Above 256 every dtype runs the wide kernels (`flash_fwd_wide_kernel`,
+`flash_dq_wide_kernel`, `flash_dkv_wide_kernel`) on the CUDA cores: a block
+owns one 128-column slice of the head dim and computes the scores over all
+of it, with P and dS rounded to bf16/f16 before their products as the
+tensor-core kernels round them. Any head dim and any batch * heads run.
 
 What the kernels need, the wrapper makes (each copy adds one to
 `flash_attention.input_copies`; the model's own calls make none):
@@ -35,12 +39,10 @@ Differences from the TPU wrapper:
   * ragged lengths, causal with Sq != Sk (positions aligned at 0) and any
     block ratio run in the kernels themselves instead of falling back to
     the einsum, so prompts of any length (137, 401, ...) reach them;
-  * lse and delta are (B*H, Sq) f32, without the TPU's replicated sublanes;
-  * on the card two inputs that the TPU wrapper computes (through its
-    einsum fallback) are refused by `_check_kernel_inputs` before any
-    launch: a head dim above 256 (ValueError: a 64-row bf16 Q tile is then
-    64 KiB, which needs a kernel design of its own) and a dtype other than
-    float32, bfloat16 and float16 (TypeError). The CPU path takes both.
+  * lse and delta are (B*H, Sq) f32, without the TPU's replicated sublanes.
+Like the TPU kernels, which take f32, bf16 and f16 only, the card refuses
+any other dtype (`_check_kernel_inputs`, TypeError) before a launch; the
+CPU path takes it.
 
 Counters: `flash_attention.kernel_launches` (forward),
 `flash_attention.flash_dq_launches`, `flash_attention.flash_dkv_launches`
@@ -56,7 +58,6 @@ import threading
 import torch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns: dict = {}  # bound C entry points, set at their first launch
@@ -135,8 +136,8 @@ def _check_kernel_inputs(name, q, k, v):
     """The shape and dtype validation of the three kernels' wrappers, on
     tensors of any device; returns the (b, sq, h, d, sk, hk) shape. Raises
     TypeError for a dtype other than float32, bfloat16 and float16 (or
-    mixed dtypes), and ValueError for a head dim above MAX_HEAD_DIM or k/v
-    shapes that do not match q."""
+    mixed dtypes), and ValueError for k/v shapes that do not match q or an
+    empty head dim. Every head dim from 1 up runs."""
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32, bfloat16 or float16 q/k/v "
                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -145,10 +146,8 @@ def _check_kernel_inputs(name, q, k, v):
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name} supports head dims 1..{MAX_HEAD_DIM}, got "
-                         f"{d}: above {MAX_HEAD_DIM} a 64-row bf16 Q tile "
-                         f"alone is 64 KiB, which needs a kernel of its own")
+    if d < 1:
+        raise ValueError(f"{name} needs a head dim of at least 1, got {d}")
     return b, sq, h, d, sk, hk
 
 
