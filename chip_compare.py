@@ -10,7 +10,9 @@ the same arguments): in bf16 the forward, dQ and dK/dV at the training
 shape (B4 S2048 H16 D128) and at head dim 256 (B2 S2048 H16), and dQ and
 dK/dV at B1 S2048 GQA-4 D128 and B1 S1024 GQA-4 D256; in f32 the forward,
 dQ and dK/dV at the training shape, and dQ at D64 (B4 S2048) and D256 (B2
-S2048). Each side's device time (the mean of 20 launches) is taken ten
+S2048); and at head dim 320 (the wide kernels) in bf16, f16 and f32 the
+forward, dQ and dK/dV at B1 S1024 H16 GQA-4 and dQ and dK/dV at the wide
+path's shape, B2 S1024 H4 with one kv head. Each side's device time (the mean of 20 launches) is taken ten
 times, in pairs that alternate which side runs first. For each case and
 kernel it prints one JSON line: whether the two builds' outputs are
 bitwise equal, each side's median and quartiles, and in how many pairs
@@ -34,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 CASES = [  # kernels, dtype, b, s, h, hk, d
     (("flash_fwd", "flash_dq", "flash_dkv"), BF16, 4, 2048, 16, 16, 128),
     (("flash_dq", "flash_dkv"), BF16, 1, 2048, 16, 4, 128),
@@ -43,7 +45,9 @@ CASES = [  # kernels, dtype, b, s, h, hk, d
     (("flash_fwd", "flash_dq", "flash_dkv"), F32, 4, 2048, 16, 16, 128),
     (("flash_dq",), F32, 4, 2048, 16, 16, 64),
     (("flash_dq",), F32, 2, 2048, 16, 16, 256),
-]
+] + [c for dt in (BF16, F16, F32) for c in (
+    (("flash_fwd", "flash_dq", "flash_dkv"), dt, 1, 1024, 16, 4, 320),
+    (("flash_dq", "flash_dkv"), dt, 2, 1024, 4, 1, 320))]
 PAIRS = 10  # timings of each side, alternating which runs first
 ENTRIES = {"flash_fwd": "tpunet_flash_fwd",
            "flash_dq": "tpunet_flash_bwd_dq",

@@ -10,12 +10,15 @@ Phases (each raises on failure; the script then exits non-zero):
            ptxas's registers and spills per kernel function, and the count
            of tensor-core instructions (HGMMA, HMMA) per function from
            cuobjdump -sass. Fails if a bf16 or f16 flash_fwd, flash_dq or
-           flash_dkv function (every head dim; the D = 256 ones and every
-           f16 one must exist) has no HGMMA, no ptxas report or spills, if
-           an f32 flash_{fwd,dq,dkv}_f32_kernel<64/128/256> or a wide
-           flash_{fwd,dq,dkv}_wide_kernel<f32/bf16/f16> (head dims above
-           256) is missing or spills, or if a function of the replaced
-           CUDA-core flash_dq_kernel or flash_dkv_kernel exists
+           flash_dkv function (every head dim; the D = 256 and the wide
+           (head dims above 256) backward ones and every f16 one must
+           exist) has no HGMMA, no ptxas report or spills, if an f32
+           flash_{fwd,dq,dkv}_f32_kernel<64/128/256>, a wide forward
+           flash_fwd_wide_kernel<f32/bf16/f16> or a wide f32 backward
+           flash_dq_wide_f32_kernel<2/4/8> or flash_dkv_wide_f32_kernel is
+           missing or spills, or if a
+           function of the replaced CUDA-core flash_dq_kernel,
+           flash_dkv_kernel or flash_{dq,dkv}_wide_kernel exists
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
            bf16 and f32), the training shape (B=4, S=2048, 16 kv heads;
@@ -39,8 +42,9 @@ Phases (each raises on failure; the script then exits non-zero):
            Sq != Sk; the no-key rows), f16 D=256 GQA-8, the no-key rows at
            D=128 in bf16, f32 and f16, head dims 12 and 100 and B*H =
            65,552 in bf16 and f32, f32 at D=64 (B4 S2048) and D=256 (B2
-           S2048), the wide cases above, and the misaligned bf16 q. Each
-           output
+           S2048), the wide cases above, bf16 D=576 (B1 S1024 GQA-4: three
+           spans of the 16-bit wide kernels), and the misaligned bf16 q.
+           Each output
            is held to a limit on its largest error and to one on every
            row's error relative to that row's norm, and must be finite;
            each dQ and dK/dV row also shows that the row check sees two
@@ -161,39 +165,46 @@ ROW_FLOOR = {BF16: 1e-4, F16: 1e-4, F32: 1e-6}
 def _dkv_tile(d: int, dt) -> tuple:
     """The dK/dV kernel's k rows a block and q rows a step at head dim d:
     16-bit flash_dkv_bf16_kernel to 128, flash_dkv_bf16_dsplit_kernel
-    to 256; f32 flash_dkv_f32_kernel; flash_dkv_wide_kernel above 256."""
-    if d > 256:
-        return (64, 64)
+    to 256, flash_dkv_wide_bf16_kernel above; f32 flash_dkv_f32_kernel,
+    flash_dkv_wide_f32_kernel above 256."""
     if dt == F32:
         return (64, 128) if d <= 128 else (32, 128)
+    if d > 256:
+        return (64, 64)
     return (128, 64) if d <= 128 else (64, 32)
 
 
 def _dq_tile(d: int, dt) -> tuple:
     """The dQ kernel's q rows a block and keys a step at head dim d:
     flash_dq_bf16_kernel (16-bit) and flash_dq_f32_kernel (f32) to 256,
-    flash_dq_wide_kernel above."""
+    flash_dq_wide_bf16_kernel and flash_dq_wide_f32_kernel above."""
+    if dt == F32:
+        return (64, 128) if d <= 128 or d > 256 else (32, 128)
     if d > 256:
         return (64, 64)
-    if dt == F32:
-        return (64, 128) if d <= 128 else (32, 128)
     return (128, 64) if d <= 128 else (128, 32)
 
 
 COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
             "flash_dkv": "flash_dkv_launches"}
 # Kernel functions that must issue wgmma (every 16-bit forward, dQ and
-# dK/dV), the ones that must exist among them (the D = 256 backward, every
-# f16 function), the f32 and wide (D > 256, every dtype) CUDA-core
+# dK/dV, the wide backward too), the ones that must exist among them (the
+# D = 256 and the wide backward, every f16 function), the f32 and wide
+# (D > 256: the forward in every dtype, the f32 backward) CUDA-core
 # functions that must exist without a spill, and the function each entry
 # of the kernels line runs (the bf16 D = 128 main path, the f32 and the
 # wide paths), by the _short names of csrc/*.cu's instantiations. No
-# function of the replaced CUDA-core dQ and dK/dV kernels may exist.
+# function of the replaced CUDA-core dQ and dK/dV kernels (and of the wide
+# backward's 16-bit CUDA-core kernels) may exist.
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel<", "flash_dq_bf16_kernel<",
                        "flash_dkv_bf16_kernel<",
-                       "flash_dkv_bf16_dsplit_kernel<")
+                       "flash_dkv_bf16_dsplit_kernel<",
+                       "flash_dq_wide_bf16_kernel<",
+                       "flash_dkv_wide_bf16_kernel<")
 D256_FUNCTIONS = ("flash_dq_bf16_kernel<bf16,256>",
-                  "flash_dkv_bf16_dsplit_kernel<bf16>")
+                  "flash_dkv_bf16_dsplit_kernel<bf16>") + tuple(
+    f"flash_{k}_wide_bf16_kernel<{t}>" for k in ("dq", "dkv")
+    for t in ("bf16", "f16"))
 F16_FUNCTIONS = tuple(
     [f"flash_fwd_bf16_kernel<f16,{dt},{bk}>"
      for dt, bk in ((64, 128), (128, 128), (256, 64))]
@@ -202,10 +213,12 @@ F16_FUNCTIONS = tuple(
     + ["flash_dkv_bf16_dsplit_kernel<f16>"])
 F32_FUNCTIONS = tuple(f"flash_{k}_f32_kernel<{dt}>"
                       for k in ("fwd", "dq", "dkv") for dt in (64, 128, 256))
-WIDE_FUNCTIONS = tuple(f"flash_{k}_wide_kernel<{t}>"
-                       for k in ("fwd", "dq", "dkv")
-                       for t in ("f32", "bf16", "f16"))
-REPLACED = ("flash_dq_kernel<", "flash_dkv_kernel<")
+WIDE_FUNCTIONS = tuple(f"flash_fwd_wide_kernel<{t}>"
+                       for t in ("f32", "bf16", "f16")) + tuple(
+    f"flash_dq_wide_f32_kernel<{n}>" for n in (2, 4, 8)) + (
+    "flash_dkv_wide_f32_kernel",)
+REPLACED = ("flash_dq_kernel<", "flash_dkv_kernel<", "flash_dq_wide_kernel<",
+            "flash_dkv_wide_kernel<")
 ENTRY_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<bf16,128,128>",
                    "flash_dq": "flash_dq_bf16_kernel<bf16,128>",
                    "flash_dkv": "flash_dkv_bf16_kernel<bf16,128>",
@@ -213,8 +226,8 @@ ENTRY_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<bf16,128,128>",
                    "flash_dq_f32": "flash_dq_f32_kernel<128>",
                    "flash_dkv_f32": "flash_dkv_f32_kernel<128>",
                    "flash_fwd_wide": "flash_fwd_wide_kernel<bf16>",
-                   "flash_dq_wide": "flash_dq_wide_kernel<bf16>",
-                   "flash_dkv_wide": "flash_dkv_wide_kernel<bf16>"}
+                   "flash_dq_wide": "flash_dq_wide_bf16_kernel<bf16>",
+                   "flash_dkv_wide": "flash_dkv_wide_bf16_kernel<bf16>"}
 SASS: dict = {}  # the build phase's tensor-core census, by _short name
 # Kernel cases, (b, sq, sk, hk, causal, window, dtype, d) with 16 q heads;
 # the kernel phases run PATH_CASES (the wide path's own shape, 4 q heads)
@@ -280,7 +293,13 @@ BWD_CASES = [
     # flash_dq_f32_kernel's other tiles: D = 64, and D = 256 at the
     # training shape's work.
     (4, 2048, 2048, 16, True, None, F32, 64),
-    (2, 2048, 2048, 16, True, None, F32, 256)] + WIDE_CASES
+    (2, 2048, 2048, 16, True, None, F32, 256)] + WIDE_CASES + [
+    # The wide tensor-core backward at three spans of three 64-column
+    # chunks (f32: five 128-column spans, the last one half empty; dQ four
+    # 192-column spans, the last one past D).
+    (1, 1024, 1024, 4, True, None, BF16, 576),
+    # f32 dQ in clusters of 8 (five 192-column spans and three past D).
+    (1, 300, 300, 4, True, None, F32, 800)]
 # A bf16 q that TMA cannot read as it is: sliced from a wider buffer at an
 # odd element offset (b, sq, sk, hk, causal, window, d): the wrapper copies
 # it (input_copies) and runs the same kernels.

@@ -203,15 +203,16 @@ def test_head_dim_padding_keeps_the_plain_gradients(d):
 
 
 # Head dims above 256, where the card runs its wide kernels (300 is padded
-# to 304 there): o, dQ, dK and dV against jax.vjp of the JAX package, whose
-# Pallas kernels run at every head dim (its einsum where it falls back:
-# causal Sq != Sk). (d, dtype, causal, group, window, sq, sk); tolerances
-# as above: 5e-5 f32, bf16 test_flash_grads_bf16_match_jax's 1e-1, f16
-# 5e-3.
+# to 304 there; 576 is three 192-column spans of the 16-bit backward and
+# five 128-column spans of the f32 one): o, dQ, dK and dV against jax.vjp
+# of the JAX package, whose Pallas kernels run at every head dim (its
+# einsum where it falls back: causal Sq != Sk). (d, dtype, causal, group,
+# window, sq, sk); tolerances as above: 5e-5 f32, bf16
+# test_flash_grads_bf16_match_jax's 1e-1, f16 5e-3.
 WIDE_CASES = [
     pytest.param(d, dt, causal, group, window, sq, sk,
                  id=f"d{d}-{dt}-{tag}")
-    for d in (264, 300) for dt in ("float32", "bfloat16", "float16")
+    for d in (264, 300, 576) for dt in ("float32", "bfloat16", "float16")
     for causal, group, window, sq, sk, tag in (
         (True, 2, 3, 16, 16, "gqa2-w3"),
         (True, 4, None, 24, 16, "gqa4-sq24-sk16"))]

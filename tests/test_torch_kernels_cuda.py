@@ -66,12 +66,16 @@ FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, F16: 1e-2}
 ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, F16: 5e-2}
 ROW_FLOOR = {torch.float32: 1e-6, torch.bfloat16: 1e-4, F16: 1e-4}
 
-# Head dims above 256 (the wide kernels, every dtype on the CUDA cores; 300
-# runs zero-padded to 304) at 264, 320 and 512 in all three dtypes: GQA-8
-# with ragged Sq != Sk, the no-key rows (Sq 517, Sk 401, window 16), a
-# window, non-causal Sq != Sk; batches of 2 in every dtype, among them the
-# head layout of chip_smoke.py's wide path (4 heads, 1 kv head, D 320).
-# Both the forward and the backward tests run them.
+# Head dims above 256 (the wide kernels: the forward on the CUDA cores in
+# every dtype, the bf16 and f16 backward on the tensor cores in spans of at
+# most four 64-column chunks, the f32 backward on the CUDA cores in
+# 128-column spans (dQ: 192-column spans in clusters of 2, 4 or 8); 300
+# runs zero-padded to 304) at 264, 320, 512 and 576 in all three dtypes
+# and 800 in f32: GQA-8 with ragged Sq != Sk, the no-key rows (Sq
+# 517, Sk 401, window 16), a window, non-causal Sq != Sk; batches of 2 in
+# every dtype, among them the head layout of chip_smoke.py's wide path (4
+# heads, 1 kv head, D 320). Both the forward and the backward tests run
+# them.
 WIDE_CASES = [
     (2, 401, 401, 4, 1, 320, True, None, torch.float32),
     (2, 300, 137, 8, 2, 512, False, None, torch.float32),
@@ -85,6 +89,10 @@ WIDE_CASES = [
     (2, 201, 201, 8, 2, 264, True, 128, F16),
     (1, 137, 401, 8, 1, 320, True, None, F16),
     (1, 517, 401, 8, 2, 512, True, 16, F16),
+    (1, 300, 201, 8, 2, 576, True, None, torch.float32),
+    (1, 201, 137, 4, 2, 800, True, None, torch.float32),
+    (2, 201, 300, 4, 1, 576, False, None, torch.bfloat16),
+    (1, 517, 401, 4, 2, 576, True, 16, F16),
 ]
 
 # (b, sq, sk, h, hk, d, causal, window, dtype). The f32 rows run the CUDA

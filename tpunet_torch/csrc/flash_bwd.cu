@@ -2,13 +2,16 @@
 //
 // Two TPU kernels of tpunet/ops/flash_attention.py are replaced here:
 //   * _flash_dq_kernel (:136, launched by _flash_bwd at :438) by
-//     flash_dq_bf16_kernel (bf16, f16) and flash_dq_f32_kernel (f32):
-//     dQ_i = sum_j dS_ij K_j, one block per
-//     (batch*head, q tile), K/V tiles streamed through shared memory with
-//     the forward's causal and sliding-window k-loop bounds;
+//     flash_dq_bf16_kernel (bf16, f16, D <= 256), flash_dq_wide_bf16_kernel
+//     (bf16, f16, D > 256), flash_dq_f32_kernel (f32, D <= 256) and
+//     flash_dq_wide_f32_kernel (f32, D > 256): dQ_i = sum_j dS_ij K_j, one
+//     block per (batch*head, q tile), K/V tiles streamed through shared
+//     memory with the forward's causal and sliding-window k-loop bounds;
 //   * _flash_dkv_kernel (:183, launched at :464) by flash_dkv_bf16_kernel
 //     (bf16, f16, D <= 128), flash_dkv_bf16_dsplit_kernel (bf16, f16,
-//     128 < D <= 256) and flash_dkv_f32_kernel (f32):
+//     128 < D <= 256), flash_dkv_wide_bf16_kernel (bf16, f16, D > 256),
+//     flash_dkv_f32_kernel (f32, D <= 256) and flash_dkv_wide_f32_kernel
+//     (f32, D > 256):
 //     dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i, one block per
 //     (batch*kv head, k tile), looping over the GQA group's q heads and the
 //     q tiles (causal start k0 / BQ, window end
@@ -17,8 +20,8 @@
 //     the group and q loops run in a fixed order, so the result is bitwise
 //     deterministic run to run. Each dQ block owns its rows and walks its
 //     k tiles in order, so dQ is bitwise deterministic too.
-// Head dims above 256 run flash_dq_wide_kernel and flash_dkv_wide_kernel
-// in every dtype (at the end of this file; flash_wide.cuh).
+// Head dims above 256 put a span of the output's columns on grid.z (the
+// notes below).
 // Every grid puts batch * heads on grid.x (up to 2^31 - 1 blocks).
 // All recompute P = exp(scale * q.k - lse) from the forward's per-row lse
 // (B*H, Sq) f32, and take delta = rowsum(dO * O) (B*H, Sq) f32 from the
@@ -166,14 +169,56 @@
 //     next chunk loads while this one's FMAs run;
 //   * dS goes through a padded shared tile to the threads that own its dQ
 //     columns; the masks are a select on every entry.
+//
+// Head dims above 256 (the wide route). What bounds it: at D320 B1 S1024
+// H16 Hkv4 causal dK/dV is 21.5 GFLOP and dQ 16.1 GFLOP against ~12 MB:
+// the tensor cores for bf16/f16 (0.022 / 0.016 ms), the FMA pipe for f32
+// (0.32 / 0.24 ms). No layout of the D <= 256 kernels fits: K and V for
+// 64 rows take 80 KiB at D = 320 and grow with D, and a 64 x D f32 dK plus
+// dV (or 128 x D dQ) does not fit in registers. What the design does:
+//   * a block owns a span of the output's columns, on grid.z, and needs
+//     the scores over the whole head dim;
+//   * bf16/f16 (flash_dq_wide_bf16_kernel, flash_dkv_wide_bf16_kernel, one
+//     function, wide_bwd_block): every span block forms the scores itself,
+//     so the work is the counted FLOPs times (nsp + 1) / 2 for dK/dV and
+//     (2 nsp + 1) / 3 for dQ with nsp spans (D = 320: two spans, 1.5x and
+//     1.67x, where the 128-column slices before this design gave 2x and
+//     2.33x). Spans of at most four 64-column chunks, the cdiv(D, 64)
+//     chunks split evenly (D = 320: 2 + 3 chunks; TMA zero-fills the last
+//     chunk past D, so every D that is a multiple of 8 runs). Nothing is
+//     resident: each step streams every operand through a 5-stage TMA
+//     ring, one 64-column chunk of all four 64-row tiles a stage, the
+//     span's chunks last, held for the products; so no head dim is too
+//     wide. Warpgroup 0 forms S^T (dK/dV) or S (dQ) and P, warpgroup 1 dP^T
+//     or dP and dS from warpgroup 0's P (f32 through shared memory), all
+//     products wgmma with P and dS rounded to T in registers; dK/dV:
+//     warpgroup 0 dV, warpgroup 1 dK over the span; dQ: warpgroup 1 dQ
+//     while warpgroup 0 starts the next step's scores;
+//   * f32 (flash_dkv_wide_f32_kernel, flash_dq_wide_f32_kernel<CN>): the
+//     f32 kernels' design on the CUDA cores (the FMA loops of f32_fma.cuh,
+//     a cp.async ring) with a span axis, nothing resident (the operand the
+//     D <= 256 kernels keep resident streams beside each d-chunk), and the
+//     scores formed once a cluster instead of once a span: the span blocks
+//     of a tile run as one thread-block cluster and share the scores
+//     through distributed shared memory. dK/dV (128-column spans, 64 k
+//     rows, a 3-stage ring) splits the d-chunks of S^T and dP^T over the
+//     cluster and adds the partial sums in rank order; dQ (192-column
+//     spans, 64 q rows, clusters of 2, 4 or 8) splits each step's keys, so
+//     that every dP entry stays one sequential chain of FMAs over D (the
+//     notes at own_chunks say why), and swaps dS. Up to D = 1024 (dK/dV)
+//     and 1536 (dQ) the work is the counted FLOPs plus the zero columns of
+//     a last span past D.
+// Both keep the other kernels' rules: no atomics, the GQA group summed in
+// the block in a fixed order, the no-key dV term, masks as a select.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_wide.cuh"
+#include "f32_fma.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -687,6 +732,550 @@ cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------ head dims above 256: f32, CUDA cores --
+
+constexpr int kWideStages = 3;     // flash_dkv_wide_f32_kernel's ring
+constexpr int kWideDkvSpan = 128;  // its dK/dV columns a block
+// Its stage: a d-chunk (128 q rows, then 64 k rows) or a q-chunk.
+constexpr int kWideDkvStage = (kF32Step + 64) * kF32CS;
+constexpr int kWideDqSpan = 192;            // flash_dq_wide_f32_kernel's
+constexpr int kWideDqKC = 64;               // dQ columns a block, keys a
+constexpr int kWideDqRS = kWideDqSpan + 4;  // k-chunk and its row stride
+
+// The f32 wide kernels (D > 256) put their spans on grid.z and launch the
+// span blocks of one tile as a thread-block cluster, so the scores are
+// formed once a cluster instead of once a span. dK/dV: each block forms
+// the partial S^T and dP^T over its share of the head dim's d-chunks
+// (own_chunks), and cluster_scores sums the cluster's partials in rank
+// order through distributed shared memory, so every block gets the same
+// bits; clusters are the largest divisor of the span count up to 8. dQ
+// (flash_dq_wide_f32_kernel) splits the keys instead: a row that sees one
+// key has dQ = dS K with dS = P (dP - delta) scale, a cancellation to the
+// last bits of dP, so each dP entry keeps the one sequential chain of FMAs
+// over D that the other kernels (and the plain version's matrix product)
+// use.
+
+// The d-chunks [x, x + y) of the head dim whose scores this block forms:
+// the cdiv(D, kF32CW) chunks split evenly over its cluster's blocks.
+__device__ __forceinline__ int2 own_chunks(int D) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int all = (D + kF32CW - 1) / kF32CW;
+  const int n = cl.num_blocks(), r = cl.block_rank();
+  const int first = r * all / n;
+  return make_int2(first, (r + 1) * all / n - first);
+}
+
+// The score tiles a and b made whole from each cluster block's partials,
+// this thread's entries (rows ty + 16i, columns tx + 16j): each block
+// stores its own in sa and sb (row stride kF32PS), then adds every block's
+// in rank order. sa and sb are free again on return.
+template <int R>
+__device__ __forceinline__ void cluster_scores(float (&a)[R][8],
+                                               float (&b)[R][8], float* sa,
+                                               float* sb, int tx, int ty) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sa[(ty + 16 * i) * kF32PS + tx + 16 * j] = a[i][j];
+      sb[(ty + 16 * i) * kF32PS + tx + 16 * j] = b[i][j];
+      a[i][j] = b[i][j] = 0.f;
+    }
+  cl.sync();  // every block's partials are stored
+  const uint32_t at = 4 * (ty * kF32PS + tx);
+#pragma unroll 1
+  for (unsigned r = 0; r < cl.num_blocks(); ++r) {
+    const uint32_t ra = sm90::cluster_addr(sm90::smem_u32(sa) + at, r);
+    const uint32_t rb = sm90::cluster_addr(sm90::smem_u32(sb) + at, r);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t off = 4 * (16 * i * kF32PS + 16 * j);
+        a[i][j] += sm90::ld_cluster(ra + off);
+        b[i][j] += sm90::ld_cluster(rb + off);
+      }
+  }
+  cl.sync();  // every block is done reading
+}
+
+// Launches an f32 wide kernel with grid.z in clusters of `cluster` blocks
+// (by default the largest divisor of gridDim.z up to 8).
+cudaError_t launch_clusters(void (*kernel)(const Params), dim3 grid,
+                            size_t smem, const Params& p, cudaStream_t stream,
+                            unsigned cluster = 0) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (cluster == 0) {
+    cluster = 8;
+    while (grid.z % cluster) --cluster;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = cluster;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// R rows pos0..pos0+R-1 of one head (src at the head, row stride ss),
+// head-dim columns c0..c0+kF32CW-1, into R rows of a ring stage (row
+// stride kF32CS): 16 bytes a copy, zeros past row lim or column D.
+template <int R>
+__device__ __forceinline__ void copy_chunk_rows(float* dst, const float* src,
+                                                long long ss, int pos0,
+                                                int lim, int c0, int D) {
+#pragma unroll
+  for (int u = 0; u < R * kF32CW / 4 / kF32Threads; ++u) {
+    const int e = threadIdx.x + kF32Threads * u;
+    const int r = e / (kF32CW / 4), cc = 4 * (e % (kF32CW / 4));
+    const int pos = pos0 + r, col = c0 + cc;
+    const bool ok = pos < lim && col < D;
+    sm90::cp_async16(dst + r * kF32CS + cc, ok ? src + pos * ss + col : src,
+                     ok ? 16 : 0);
+  }
+}
+
+// f32 dK/dV for D > 256, on the CUDA cores, exact f32 FMA: flash_dkv_f32
+// _kernel<128>'s design with a span axis. One 256-thread block per
+// (batch*kv head, 64-row k tile, 128-column span of dK/dV), the span blocks
+// of a k tile a cluster (the largest divisor of the span count up to 8).
+// Nothing is resident: each step's d-chunks (128 q rows of Q or dO and the
+// block's 64 rows of K or V, 64 columns) and q-chunks (64 q rows of dO or
+// Q, the span's columns) stream through a 3-stage cp.async ring. Block r
+// of the cluster forms the partial S^T and dP^T over its share of the
+// d-chunks (own_chunks), cluster_scores adds the cluster's shares, and
+// every block then forms P^T and dS^T and adds P^T.dO and dS^T.Q into its
+// span (the FMA loops of f32_fma.cuh, every mask a select).
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_dkv_wide_f32_kernel(const Params p) {
+  constexpr int DT = kWideDkvSpan, BK = 64, RK = BK / 16, NCOL = DT / 16;
+  constexpr int RS = DT + 4, PS = kF32PS, QK = kF32Step * kF32CW / DT;
+  constexpr int NC = DT / kF32CW, NS = kWideStages;
+  constexpr int SF = kWideDkvStage;
+
+  extern __shared__ float smem[];
+  float* sPt = smem;
+  float* sdSt = sPt + BK * PS;
+  float* sRing = sdSt + BK * PS;
+  float* sU = sRing + NS * SF;  // the no-key dV term
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int bkv = blockIdx.x;
+  const int b = bkv / p.Hkv;
+  const int hk = bkv % p.Hkv;
+  const int group = p.H / p.Hkv;
+  const int k0 = blockIdx.y * BK;
+  const int s0 = DT * blockIdx.z;  // the span's first column
+  const int2 own = own_chunks(p.D);
+  const int cd0 = own.x, ncd = own.y;  // the block's d-chunks of the scores
+  const int per = 2 * ncd + 2 * NC;    // chunks a step
+  const bool causal = p.causal != 0;
+  const bool windowed = causal && p.window > 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  const int n_qt = (p.Sq + kF32Step - 1) / kF32Step;
+  const int it_start = causal ? k0 / kF32Step : 0;
+  int it_end = n_qt;
+  if (windowed) {
+    it_end = min(n_qt, (k0 + BK - 1 + p.window + kF32Step - 1) / kF32Step);
+  }
+  const int n_q = max(it_end - it_start, 0);
+  const int total = group * n_q * per;  // chunks
+
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // Chunk `part` of a step: Q d-chunks (with K), dO d-chunks (with V), dO
+  // q-chunks, Q q-chunks.
+  auto kind_of = [&](int part, int& kind, int& c) {
+    const bool d_chunk = part < 2 * ncd;
+    kind = d_chunk ? part / ncd : 2 + (part - 2 * ncd) / NC;
+    c = d_chunk ? part % ncd : (part - 2 * ncd) % NC;
+  };
+  auto issue = [&](int g) {
+    float* st = sRing + (g % NS) * SF;
+    const int step = g / per, part = g % per;
+    const int h = hk * group + step / n_q;
+    const int q0 = (it_start + step % n_q) * kF32Step;
+    int kind, c;
+    kind_of(part, kind, c);
+    const bool is_q = kind == 0 || kind == 3;
+    const float* src = static_cast<const float*>(is_q ? p.q : p.dout) + b *
+        (is_q ? p.q_sb : p.do_sb) + h * (is_q ? p.q_sh : p.do_sh);
+    const long long ss = is_q ? p.q_ss : p.do_ss;
+    if (kind < 2) {
+      const int c0 = kF32CW * (cd0 + c);
+      copy_chunk_rows<kF32Step>(st, src, ss, q0, p.Sq, c0, p.D);
+      copy_chunk_rows<BK>(st + kF32Step * kF32CS, kind == 0 ? kg : vg,
+                          kind == 0 ? p.k_ss : p.v_ss, k0, p.Sk, c0, p.D);
+    } else {  // QK rows x the span's columns
+#pragma unroll
+      for (int u = 0; u < kF32Copies; ++u) {
+        const int e = tid + kF32Threads * u;
+        const int r = QK * c + e / (DT / 4), cc = 4 * (e % (DT / 4));
+        const int qpos = q0 + r, col = s0 + cc;
+        const bool ok = qpos < p.Sq && col < p.D;
+        sm90::cp_async16(st + (e / (DT / 4)) * RS + cc,
+                         ok ? src + qpos * ss + col : src, ok ? 16 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < NS - 1; ++g) {
+    if (g < total) issue(g);
+    sm90::cp_async_commit();
+  }
+
+  float st[RK][8], dpt[RK][8], dk[RK][NCOL], dv[RK][NCOL];
+  float lse2[8], dlt[8];  // the step's q columns: lse * log2(e), delta
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) dk[i][c] = dv[i][c] = 0.f;
+
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<NS - 2>();
+    __syncthreads();  // chunk g is in; every thread is done with chunk g-1
+    if (g + NS - 1 < total) issue(g + NS - 1);
+    sm90::cp_async_commit();
+    const float* sc = sRing + (g % NS) * SF;
+    const int step = g / per, part = g % per;
+    int kind, c;
+    kind_of(part, kind, c);
+    const int q0 = (it_start + step % n_q) * kF32Step;
+    if (kind == 0) {
+      f32_score_chunk<RK, 8, kF32CW, kF32CS, kF32CS>(
+          st, sc + kF32Step * kF32CS, sc, tx, ty, c == 0);
+    } else if (kind == 1) {
+      f32_score_chunk<RK, 8, kF32CW, kF32CS, kF32CS>(
+          dpt, sc + kF32Step * kF32CS, sc, tx, ty, c == 0);
+      if (c == ncd - 1) {
+        // The cluster's scores, then the step's rows' lse and delta
+        // (loaded here, where they are used, to spare registers).
+        cluster_scores(st, dpt, sPt, sdSt, tx, ty);
+        const long long row0 =
+            ((long long)b * p.H + hk * group + step / n_q) * p.Sq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int qpos = q0 + tx + 16 * j;
+          const bool ok = qpos < p.Sq;
+          lse2[j] = ok ? p.lse[row0 + qpos] * kLog2e : 0.f;
+          dlt[j] = ok ? p.delta[row0 + qpos] : 0.f;
+        }
+        // P^T and dS^T, 0 where the causal, window or ragged-row mask
+        // holds: a select on every entry.
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          const int kpos = k0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int qpos = q0 + tx + 16 * j;
+            const bool masked =
+                (qpos >= p.Sq) |
+                (causal & ((qpos < kpos) |
+                           (windowed & (qpos - kpos >= p.window))));
+            float pv = sm90::ex2(fmaf(st[i][j], scale_log2, -lse2[j]));
+            pv = masked ? 0.f : pv;
+            sPt[(ty + 16 * i) * PS + tx + 16 * j] = pv;
+            sdSt[(ty + 16 * i) * PS + tx + 16 * j] =
+                pv * (dpt[i][j] - dlt[j]) * p.scale;
+          }
+        }
+      }
+    } else if (kind == 2) {
+      f32_product_chunk<RK, NCOL, QK, PS, RS>(dv, sPt + QK * c, sc, tx, ty);
+    } else {
+      f32_product_chunk<RK, NCOL, QK, PS, RS>(dk, sdSt + QK * c, sc, tx, ty);
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  const int q_first = first_no_key_row(p.causal, p.window, p.Sq, p.Sk);
+  if (q_first < p.Sq) {  // rows that see no key: dV += their dO / Sk
+    for (int d = tid; d < DT; d += kF32Threads) {
+      sU[d] = s0 + d < p.D
+                  ? no_key_dv(static_cast<const float*>(p.dout), p.do_sb,
+                              p.do_ss, p.do_sh, b, hk * group, group,
+                              q_first, p.Sq, p.Sk, s0 + d)
+                  : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+#pragma unroll
+      for (int i = 0; i < RK; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv[i][4 * gg + e] += sU[64 * gg + 4 * tx + e];
+    }
+  }
+
+  // dK/dV are contiguous (B, Sk, Hkv, D).
+  float* dkg = static_cast<float*>(p.dk);
+  float* dvg = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int kpos = k0 + ty + 16 * i;
+    if (kpos >= p.Sk) continue;
+    const long long row =
+        (((long long)b * p.Sk + kpos) * p.Hkv + hk) * p.D + s0;
+#pragma unroll
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+      const int col = 64 * gg + 4 * tx;
+      if (s0 + col < p.D) {
+        *reinterpret_cast<float4*>(dkg + row + col) =
+            make_float4(dk[i][4 * gg], dk[i][4 * gg + 1], dk[i][4 * gg + 2],
+                        dk[i][4 * gg + 3]);
+        *reinterpret_cast<float4*>(dvg + row + col) =
+            make_float4(dv[i][4 * gg], dv[i][4 * gg + 1], dv[i][4 * gg + 2],
+                        dv[i][4 * gg + 3]);
+      }
+    }
+  }
+}
+
+cudaError_t launch_dkv_wide_f32(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * (2 * 64 * kF32PS +
+                                           kWideStages * kWideDkvStage +
+                                           kWideDkvSpan);
+  static_assert(smem <= 232448, "over the 227 KB a block may use");
+  dim3 grid(p.B * p.Hkv, (p.Sk + 63) / 64,
+            (p.D + kWideDkvSpan - 1) / kWideDkvSpan);
+  return launch_clusters(flash_dkv_wide_f32_kernel, grid, smem, p, stream);
+}
+
+// f32 dQ for D > 256, on the CUDA cores, exact f32 FMA. One 256-thread
+// block per (batch*head, 64-row q tile, 192-column span of dQ), the span
+// blocks of a q tile a cluster of CN (a power of two: the span count
+// rounded up, at most 8; a block whose span lies past D only helps with
+// the scores). Each 128-key step, block r of the cluster forms S and dP
+// for its 128 / CN keys, [16 NJ r, 16 NJ r + 16 NJ), over the whole head
+// dim in 64-column d-chunks (each stage: those keys' K and V columns and
+// the block's Q and dO columns), then dS for them into its dS tile; the
+// cluster swaps its dS columns through distributed shared memory, and each
+// block adds dS.K over all 128 keys into its span of dQ (K in 64-key
+// k-chunks of the span's columns). Thread (ty, tx) owns q rows ty + 16i
+// (i < 4), keys tx + 16 (NJ r + j) (j < NJ) and dQ columns 64g + 4tx + e
+// (g < 3, e < 4), every operand a 16-byte shared load (f32_fma.cuh). The
+// scores are formed once a cluster, each entry by one chain of FMAs over
+// D; every mask is a select.
+
+template <int CN>
+struct WideDqF32Tile {
+  static constexpr int kNJ = 8 / CN;       // key columns a thread forms
+  static constexpr int kKeys = 16 * kNJ;   // keys a block forms a step
+  // A d-chunk stage: K and V rows of the block's keys, then Q and dO rows.
+  static constexpr int kScoreFloats = (2 * kKeys + 2 * 64) * kF32CS;
+  static constexpr int kStageFloats =
+      kScoreFloats > kWideDqKC * kWideDqRS ? kScoreFloats
+                                           : kWideDqKC * kWideDqRS;
+  static constexpr size_t kSmem =  // dS, the ring
+      sizeof(float) * (64 * kF32PS + kF32Stages * kStageFloats);
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+template <int CN>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_dq_wide_f32_kernel(const Params p) {
+  namespace cg = cooperative_groups;
+  using Tile = WideDqF32Tile<CN>;
+  constexpr int NJ = Tile::kNJ, KEYS = Tile::kKeys, NS = kF32Stages;
+  constexpr int SF = Tile::kStageFloats, PS = kF32PS, RS = kWideDqRS;
+  constexpr int NCOL = kWideDqSpan / 16;
+
+  extern __shared__ float smem[];
+  float* sdS = smem;
+  float* sRing = sdS + 64 * PS;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const long long lin = blockIdx.x + (long long)gridDim.x * blockIdx.y;
+  const int bh = (int)(lin / gridDim.y);
+  const int q0 = (gridDim.y - 1 - (int)(lin % gridDim.y)) * 64;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int rank = blockIdx.z % CN;  // cluster dims (1, 1, CN)
+  const int kb = KEYS * rank;        // the block's keys in a step
+  const int s0 = kWideDqSpan * blockIdx.z;  // the span's first column
+  const bool has_span = s0 < p.D;
+  const int ncd = (p.D + kF32CW - 1) / kF32CW;  // d-chunks
+  const int per = ncd + (has_span ? 128 / kWideDqKC : 0);  // chunks a step
+  const bool causal = p.causal != 0;
+  const bool windowed = causal && p.window > 0;
+  const float scale_log2 = p.scale * kLog2e;
+
+  const int n_kt = (p.Sk + kF32Step - 1) / kF32Step;
+  const int kt_end =
+      causal ? min(n_kt, (q0 + 64 + kF32Step - 1) / kF32Step) : n_kt;
+  const int kt_start = windowed ? max(q0 - (p.window - 1), 0) / kF32Step : 0;
+  const int steps = max(kt_end - kt_start, 0);
+  const int total = steps * per;  // chunks
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dog =
+      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // Chunk g of step g / per: d-chunks c < ncd (the block's keys' K and V
+  // rows, the q tile's Q and dO rows, columns 64c..64c+63), then the span's
+  // k-chunks. 16 bytes a copy; rows past Sk (Sq) and columns past D arrive
+  // as zeros.
+  auto issue = [&](int g) {
+    float* st = sRing + (g % NS) * SF;
+    const int step = g / per, c = g % per;
+    const int k0 = (kt_start + step) * kF32Step;
+    if (c < ncd) {
+      const int c0 = kF32CW * c;
+      copy_chunk_rows<KEYS>(st, kg, p.k_ss, k0 + kb, p.Sk, c0, p.D);
+      copy_chunk_rows<KEYS>(st + KEYS * kF32CS, vg, p.v_ss, k0 + kb, p.Sk,
+                            c0, p.D);
+      copy_chunk_rows<64>(st + 2 * KEYS * kF32CS, qg, p.q_ss, q0, p.Sq, c0,
+                          p.D);
+      copy_chunk_rows<64>(st + (2 * KEYS + 64) * kF32CS, dog, p.do_ss, q0,
+                          p.Sq, c0, p.D);
+    } else {  // kWideDqKC keys x the span's columns
+#pragma unroll
+      for (int u = 0; u < kWideDqKC * kWideDqSpan / 4 / kF32Threads; ++u) {
+        const int e = tid + kF32Threads * u;
+        const int r = e / (kWideDqSpan / 4), cc = 4 * (e % (kWideDqSpan / 4));
+        const int kpos = k0 + kWideDqKC * (c - ncd) + r, col = s0 + cc;
+        const bool ok = kpos < p.Sk && col < p.D;
+        sm90::cp_async16(st + r * RS + cc, ok ? kg + kpos * p.k_ss + col : kg,
+                         ok ? 16 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < NS - 1; ++g) {
+    if (g < total) issue(g);
+    sm90::cp_async_commit();
+  }
+
+  float s[4][NJ], dp[4][NJ], dq[4][NCOL];
+  float lse2[4], dlt[4];  // the rows' lse * log2(e) and delta
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    const bool ok = qpos < p.Sq;
+    lse2[i] = ok ? p.lse[(long long)bh * p.Sq + qpos] * kLog2e : 0.f;
+    dlt[i] = ok ? p.delta[(long long)bh * p.Sq + qpos] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) dq[i][c] = 0.f;
+  }
+
+  cg::cluster_group cl = cg::this_cluster();
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<NS - 2>();
+    __syncthreads();  // chunk g is in; every thread is done with chunk g-1
+    if (g + NS - 1 < total) issue(g + NS - 1);
+    sm90::cp_async_commit();
+    const float* sc = sRing + (g % NS) * SF;
+    const int step = g / per, c = g % per;
+    if (c < ncd) {
+      f32_score_chunk<4, NJ, kF32CW, kF32CS, kF32CS>(
+          s, sc + 2 * KEYS * kF32CS, sc, tx, ty, c == 0);
+      f32_score_chunk<4, NJ, kF32CW, kF32CS, kF32CS>(
+          dp, sc + (2 * KEYS + 64) * kF32CS, sc + KEYS * kF32CS, tx, ty,
+          c == 0);
+      if (c == ncd - 1) {
+        // dS = P (dP - delta) scale with P = exp2(S scale log2e - lse
+        // log2e), 0 where the causal, window or ragged-key mask holds (a
+        // select), for the block's keys; then the cluster's other keys.
+        cl.sync();  // every block is done reading the last step's dS
+        const int k0 = (kt_start + step) * kF32Step;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = q0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int kpos = k0 + kb + tx + 16 * j;
+            const bool masked =
+                (kpos >= p.Sk) |
+                (causal & ((qpos < kpos) |
+                           (windowed & (qpos - kpos >= p.window))));
+            float pv = sm90::ex2(fmaf(s[i][j], scale_log2, -lse2[i]));
+            pv = masked ? 0.f : pv;
+            sdS[(ty + 16 * i) * PS + kb + tx + 16 * j] =
+                pv * (dp[i][j] - dlt[i]) * p.scale;
+          }
+        }
+        cl.sync();  // every block's dS columns are stored
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int owner = j / NJ;
+            if (owner != rank) {
+              const int at = (ty + 16 * i) * PS + tx + 16 * j;
+              sdS[at] = sm90::ld_cluster(
+                  sm90::cluster_addr(sm90::smem_u32(sdS + at), owner));
+            }
+          }
+      }
+    } else {
+      f32_product_chunk<4, NCOL, kWideDqKC, PS, RS>(
+          dq, sdS + kWideDqKC * (c - ncd), sc, tx, ty);
+    }
+  }
+  sm90::cp_async_wait<0>();
+  cl.sync();  // no block leaves while another may read its dS
+  if (!has_span) return;
+
+  // dQ is contiguous (B, Sq, H, D); ragged rows are never written.
+  float* dqg = static_cast<float*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= p.Sq) continue;
+    const long long row =
+        (((long long)b * p.Sq + qpos) * p.H + h) * p.D + s0;
+#pragma unroll
+    for (int gg = 0; gg < NCOL / 4; ++gg) {
+      const int col = 64 * gg + 4 * tx;
+      if (s0 + col < p.D) {
+        *reinterpret_cast<float4*>(dqg + row + col) =
+            make_float4(dq[i][4 * gg], dq[i][4 * gg + 1], dq[i][4 * gg + 2],
+                        dq[i][4 * gg + 3]);
+      }
+    }
+  }
+}
+
+// Launches flash_dq_wide_f32_kernel: cdiv(D, 192) spans rounded up to a
+// power of two (at most 8) a cluster, and to a multiple of 8 beyond.
+cudaError_t launch_dq_wide_f32(const Params& p, cudaStream_t stream) {
+  const int nsp = (p.D + kWideDqSpan - 1) / kWideDqSpan;
+  int cn = 2;
+  while (cn < nsp && cn < 8) cn *= 2;
+  void (*kernel)(const Params) = cn == 2   ? flash_dq_wide_f32_kernel<2>
+                                 : cn == 4 ? flash_dq_wide_f32_kernel<4>
+                                           : flash_dq_wide_f32_kernel<8>;
+  const size_t smem = cn == 2   ? WideDqF32Tile<2>::kSmem
+                      : cn == 4 ? WideDqF32Tile<4>::kSmem
+                                : WideDqF32Tile<8>::kSmem;
+  dim3 grid(p.B * p.H, (p.Sq + 63) / 64, (nsp + cn - 1) / cn * cn);
+  return launch_clusters(kernel, grid, smem, p, stream, cn);
+}
+
 // ------------------------------------------- dK/dV, bf16, tensor cores ----
 
 constexpr int kWgThreads = 384;  // 2 consumer warpgroups + 1 producer
@@ -1012,6 +1601,41 @@ flash_dkv_bf16_kernel(const __grid_constant__ DkvArgs a) {
   }
 }
 
+// The tensor-core dK/dV kernels' arguments (and the wide dQ kernel's),
+// the tensor maps' boxes bq rows of q and dO and bk rows of k and v; false
+// when the driver refuses a map (pointer or strides not 16-byte aligned).
+template <typename T>
+bool tc_args(const Params& p, int bq, int bk, DkvArgs* a) {
+  if (!sm90_host::bshd_map<T>(&a->tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
+                              p.q_ss, p.q_sh, bq) ||
+      !sm90_host::bshd_map<T>(&a->tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
+                              p.do_ss, p.do_sh, bq) ||
+      !sm90_host::bshd_map<T>(&a->tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
+                              p.k_ss, p.k_sh, bk) ||
+      !sm90_host::bshd_map<T>(&a->tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
+                              p.v_ss, p.v_sh, bk)) {
+    return false;
+  }
+  a->lse = p.lse;
+  a->delta = p.delta;
+  a->dout = p.dout;
+  a->do_sb = p.do_sb;
+  a->do_ss = p.do_ss;
+  a->do_sh = p.do_sh;
+  a->dk = p.dk;
+  a->dv = p.dv;
+  a->H = p.H;
+  a->Hkv = p.Hkv;
+  a->Sq = p.Sq;
+  a->Sk = p.Sk;
+  a->D = p.D;
+  a->causal = p.causal;
+  a->window = p.window;
+  a->scale = p.scale;
+  a->scale_log2 = p.scale * kLog2e;
+  return true;
+}
+
 // Launches a bf16 dK/dV `kernel` whose tiles (Tile::kBK k rows, Tile::kBQ
 // q rows) and shared memory Tile describes, one block per (batch*kv head,
 // k tile).
@@ -1019,33 +1643,7 @@ template <typename T, typename Tile, typename Kernel>
 cudaError_t launch_dkv_tiles(const Params& p, Kernel kernel,
                              cudaStream_t stream) {
   DkvArgs a;
-  if (!sm90_host::bshd_map<T>(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
-                              p.q_ss, p.q_sh, Tile::kBQ) ||
-      !sm90_host::bshd_map<T>(&a.tdo, p.dout, p.B, p.Sq, p.H, p.D, p.do_sb,
-                              p.do_ss, p.do_sh, Tile::kBQ) ||
-      !sm90_host::bshd_map<T>(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
-                              p.k_ss, p.k_sh, Tile::kBK) ||
-      !sm90_host::bshd_map<T>(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
-                              p.v_ss, p.v_sh, Tile::kBK)) {
-    return cudaErrorInvalidValue;
-  }
-  a.lse = p.lse;
-  a.delta = p.delta;
-  a.dout = p.dout;
-  a.do_sb = p.do_sb;
-  a.do_ss = p.do_ss;
-  a.do_sh = p.do_sh;
-  a.dk = p.dk;
-  a.dv = p.dv;
-  a.H = p.H;
-  a.Hkv = p.Hkv;
-  a.Sq = p.Sq;
-  a.Sk = p.Sk;
-  a.D = p.D;
-  a.causal = p.causal;
-  a.window = p.window;
-  a.scale = p.scale;
-  a.scale_log2 = p.scale * kLog2e;
+  if (!tc_args<T>(p, Tile::kBQ, Tile::kBK, &a)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile::kSmem);
@@ -1400,247 +1998,347 @@ cudaError_t launch_dq_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ------------------------------------- head dims above 256, every dtype --
+// ---------------------- head dims above 256: bf16 and f16, tensor cores --
 
-// dQ for D > 256, any element type T (flash_wide.cuh gives the design).
-// One block per (batch*head, 64-row q tile, 128-column slice of the head
-// dim), heaviest causal tile first, with the k-loop bounds of the other dQ
-// kernels (64-key steps). Each step: S = Q.K^T and dP = dO.V^T over the
-// whole head dim in 64-column chunks; dS = P (dP - delta) scale, 0 where
-// the mask holds (a select), rounded to T, into shared memory; then
-// dQ += dS.K over the block's slice of K. Rows that see no key have every
-// entry masked: dQ 0.
-template <typename T>
-__global__ void __launch_bounds__(wide::kThreads)
-flash_dq_wide_kernel(const Params p) {
-  using namespace wide;
-  extern __shared__ float smem[];
-  float* sQ = smem;  // chunks of Q, K, dO and V, then the K slice
-  float* sK = sQ + kChunk;
-  float* sdO = sK + kChunk;
-  float* sV = sdO + kChunk;
-  float* sKs = smem;
-  float* sdS = sV + kChunk;
+// The wide tensor-core kernels' arguments: DkvArgs, and dQ's output.
+struct WideArgs : DkvArgs {
+  void* dq;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int hk = h / (p.H / p.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  const int s0 = blockIdx.z * kSlice;
-  const bool causal = p.causal != 0;
-  const bool windowed = causal && p.window > 0;
-  const float scale_log2 = p.scale * kLog2e;
+// Shared memory of flash_dq_wide_bf16_kernel and flash_dkv_wide_bf16_kernel:
+// a ring of kStages stages, each one 64-column chunk of the head dim of four
+// 64-row tiles (M0, M1: the block's own rows; N0, N1: the step's rows), the
+// warpgroup-0 P fragments in f32 for two step parities, the barriers and
+// the no-key dV term of the span.
+struct WideTile {
+  static constexpr int kChunk = 64 * 128;  // one 64 x 64 16-bit tile, bytes
+  static constexpr int kStage = 4 * kChunk;
+  static constexpr int kStages = 5;  // > the 4 span chunks a step holds
+  static constexpr int kSwap = 2 * 32 * 128 * 4;
+  static constexpr int kSpan = 4;  // 64-column chunks of a span, at most
+  static constexpr size_t kSmem =  // slack, stages, P, barriers, dV term
+      1024 + kStages * kStage + kSwap + 8 * 2 * kStages + 4 * 64 * kSpan;
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+// One block of the wide tensor-core backward (kDkv: dK/dV, else dQ). The
+// block owns 64 rows of the output (k rows for dK/dV, q rows for dQ) and a
+// span of its 64-column chunks, [64 sb, 64 (sb + ns)), blockIdx.z's share
+// of the cdiv(D, 64) chunks split evenly between gridDim.z spans of at most
+// kSpan chunks. Its steps walk the other side's 64-row tiles with the other
+// kernels' loop bounds: for dK/dV the GQA group's q heads and their q tiles,
+// for dQ the k tiles. In the transposed form of dK/dV the block's rows are
+// M and the step's rows N: S^T = K.Q^T and dP^T = V.dO^T; for dQ S = Q.K^T
+// and dP = dO.V^T; M0/M1/N0/N1 are K/V/Q/dO for dK/dV and Q/dO/K/V for dQ.
+//
+// Each step streams the head dim: one stage per 64-column chunk with the
+// four tiles' columns, the span's chunks last. Warpgroup 0 forms the
+// scores M0.N0^T, warpgroup 1 M1.N1^T (m64n64 SS-wgmma, K-major as
+// stored), each stage released as soon as both are done with it, except
+// the span's, which the products read. Warpgroup 0 turns its scores into P
+// (exp2, every mask a select) and passes them to warpgroup 1 through
+// shared memory (f32 fragments, one buffer per step parity), which forms
+// dS = P (dP - delta) scale. Products (RS-wgmma, P and dS rounded to T in
+// registers, the N tile read MN-major through the transpose bit), over the
+// span's chunks: dK/dV, warpgroup 0 dV += P^T.dO and warpgroup 1
+// dK += dS^T.Q; dQ, warpgroup 1 dQ += dS.K while warpgroup 0 runs ahead
+// into the next step's scores. The accumulators (64 x 64 f32 per chunk, at
+// most kSpan) stay in registers and are stored once.
+template <typename T, bool kDkv>
+__device__ __forceinline__ void wide_bwd_block(const WideArgs& a) {
+  using W = WideTile;
+  constexpr int NS = W::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  float* sX = reinterpret_cast<float*>(base + NS * W::kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + NS * W::kStage +
+                                               W::kSwap);
+  uint64_t* empty = full + NS;
+  float* sU = reinterpret_cast<float*>(empty + NS);  // the no-key dV term
 
-  const int n_kt = (p.Sk + kRows - 1) / kRows;
-  const int kt_end = causal ? min(n_kt, (q0 + 2 * kRows - 1) / kRows) : n_kt;
-  const int kt_start = windowed ? max(q0 - (p.window - 1), 0) / kRows : 0;
+  const int heads = kDkv ? a.Hkv : a.H;  // of the block's own rows
+  const int b = blockIdx.x / heads;
+  const int hm = blockIdx.x % heads;
+  const int group = a.H / a.Hkv;
+  // Heaviest causal tile first: the first k tile, the last q tile.
+  const int m0 = (kDkv ? blockIdx.y : gridDim.y - 1 - blockIdx.y) * 64;
+  const int nch = (a.D + 63) / 64;
+  const int sb = blockIdx.z * nch / gridDim.z;
+  const int ns = (blockIdx.z + 1) * nch / gridDim.z - sb;
+  const bool causal = a.causal != 0;
+  const bool windowed = causal && a.window > 0;
 
-  float lse2[4], dlt[4], dq[4][8] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    const bool ok = qpos < p.Sq;
-    lse2[i] = ok ? p.lse[(long long)bh * p.Sq + qpos] * kLog2e : 0.f;
-    dlt[i] = ok ? p.delta[(long long)bh * p.Sq + qpos] : 0.f;
+  // The TPU kernels' loop bounds (64-row tiles on both sides).
+  int n_first, n_tiles, steps;
+  if constexpr (kDkv) {  // q tiles that see the block's keys, per q head
+    const int n_qt = (a.Sq + 63) / 64;
+    n_first = causal ? m0 / 64 : 0;
+    const int end =
+        windowed ? min(n_qt, (m0 + 126 + a.window) / 64) : n_qt;
+    n_tiles = max(end - n_first, 0);
+    steps = group * n_tiles;
+  } else {  // k tiles the block's q rows see
+    const int n_kt = (a.Sk + 63) / 64;
+    const int end = causal ? min(n_kt, (m0 + 127) / 64) : n_kt;
+    n_first = windowed ? max(m0 - (a.window - 1), 0) / 64 : 0;
+    n_tiles = max(end - n_first, 0);
+    steps = n_tiles;
   }
+  // Step t's N-side head and first row.
+  auto step_at = [&](int t, int& hn, int& n0) {
+    const int g = n_tiles > 0 ? t / n_tiles : 0;
+    hn = kDkv ? hm * group + g : hm / group;
+    n0 = (n_first + t - g * n_tiles) * 64;
+  };
 
-  for (int kt = kt_start; kt < kt_end; ++kt) {
-    const int k0 = kt * kRows;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int c0 = 0; c0 < p.D; c0 += kCW) {
-      __syncthreads();  // every thread is done with the previous tiles
-      load_tile<kCW, kCS>(sQ, qg, p.q_ss, q0, p.Sq, c0, p.D);
-      load_tile<kCW, kCS>(sK, kg, p.k_ss, k0, p.Sk, c0, p.D);
-      load_tile<kCW, kCS>(sdO, dog, p.do_ss, q0, p.Sq, c0, p.D);
-      load_tile<kCW, kCS>(sV, vg, p.v_ss, k0, p.Sk, c0, p.D);
-      __syncthreads();
-      f32_score_chunk<4, 4, kCW, kCS, kCS>(s, sQ, sK, tx, ty);
-      f32_score_chunk<4, 4, kCW, kCS, kCS>(dp, sdO, sV, tx, ty);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool masked =
-            (kpos >= p.Sk) |
-            (causal & ((qpos < kpos) |
-                       (windowed & (qpos - kpos >= p.window))));
-        float pv = sm90::ex2(fmaf(s[i][j], scale_log2, -lse2[i]));
-        pv = masked ? 0.f : pv;
-        sdS[(ty + 16 * i) * kCS + tx + 16 * j] =
-            rounded<T>(pv * (dp[i][j] - dlt[i]) * p.scale);
-      }
-    }
-    __syncthreads();  // every thread is done with the chunks
-    load_tile<kSlice, kSS>(sKs, kg, p.k_ss, k0, p.Sk, s0, p.D);
-    __syncthreads();
-    f32_product_chunk<4, 8, kRows, kCS, kSS>(dq, sdS, sKs, tx, ty);
+    sm90::mbar_fence_init();
   }
+  __syncthreads();
 
-  // dQ is contiguous (B, Sq, H, D); ragged rows are never written.
-  T* dqg = static_cast<T*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos >= p.Sq) continue;
-    store_slice_row(dqg + (((long long)b * p.Sq + qpos) * p.H + h) * p.D,
-                    dq[i], 1.f, s0, p.D, tx);
-  }
-}
-
-// dK/dV for D > 256, any element type T (flash_wide.cuh gives the design).
-// One block per (batch*kv head, 64-row k tile, 128-column slice of the
-// head dim), with the q-loop bounds of the other dK/dV kernels (64-row q
-// steps), walked once per q head of the GQA group. Each step: S^T = K.Q^T
-// and dP^T = V.dO^T over the whole head dim in 64-column chunks; P^T and
-// dS^T = P^T (dP^T - delta) scale, 0 where the mask holds (a select),
-// rounded to T, into shared memory; then dV += P^T.dO and dK += dS^T.Q
-// over the block's slice of dO and Q. The group is summed in the block in
-// a fixed order (no atomics), and the rows that see no key add their dO/Sk
-// to every dV row before the store, as in the other dK/dV kernels.
-template <typename T>
-__global__ void __launch_bounds__(wide::kThreads)
-flash_dkv_wide_kernel(const Params p) {
-  using namespace wide;
-  extern __shared__ float smem[];
-  float* sK = smem;  // chunks of K, Q, V and dO, then the Q and dO slices
-  float* sQ = sK + kChunk;
-  float* sV = sQ + kChunk;
-  float* sdO = sV + kChunk;
-  float* sQs = smem;
-  float* sdOs = sQs + kSliceTile;
-  float* sPt = sdO + kChunk;
-  float* sdSt = sPt + kChunk;
-  float* sU = sdSt + kChunk;  // the no-key dV term of the slice
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bkv = blockIdx.x;
-  const int b = bkv / p.Hkv;
-  const int hk = bkv % p.Hkv;
-  const int group = p.H / p.Hkv;
-  const int k0 = blockIdx.y * kRows;  // the heaviest causal tile first
-  const int s0 = blockIdx.z * kSlice;
-  const bool causal = p.causal != 0;
-  const bool windowed = causal && p.window > 0;
-  const float scale_log2 = p.scale * kLog2e;
-
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  const int n_qt = (p.Sq + kRows - 1) / kRows;
-  const int it_start = causal ? k0 / kRows : 0;
-  const int it_end =
-      windowed ? min(n_qt, (k0 + 2 * kRows - 2 + p.window) / kRows) : n_qt;
-
-  float dk[4][8] = {}, dv[4][8] = {};
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dog = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const long long row0 = ((long long)b * p.H + h) * p.Sq;
-    for (int it = it_start; it < it_end; ++it) {
-      const int q0 = it * kRows;
-      float lse2[4], dlt[4];  // the step's q columns tx + 16j
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qpos = q0 + tx + 16 * j;
-        const bool ok = qpos < p.Sq;
-        lse2[j] = ok ? p.lse[row0 + qpos] * kLog2e : 0.f;
-        dlt[j] = ok ? p.delta[row0 + qpos] : 0.f;
-      }
-      float st[4][4] = {}, dpt[4][4] = {};
-      for (int c0 = 0; c0 < p.D; c0 += kCW) {
-        __syncthreads();  // every thread is done with the previous tiles
-        load_tile<kCW, kCS>(sK, kg, p.k_ss, k0, p.Sk, c0, p.D);
-        load_tile<kCW, kCS>(sQ, qg, p.q_ss, q0, p.Sq, c0, p.D);
-        load_tile<kCW, kCS>(sV, vg, p.v_ss, k0, p.Sk, c0, p.D);
-        load_tile<kCW, kCS>(sdO, dog, p.do_ss, q0, p.Sq, c0, p.D);
-        __syncthreads();
-        f32_score_chunk<4, 4, kCW, kCS, kCS>(st, sK, sQ, tx, ty);
-        f32_score_chunk<4, 4, kCW, kCS, kCS>(dpt, sV, sdO, tx, ty);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qpos = q0 + tx + 16 * j;
-          const bool masked =
-              (qpos >= p.Sq) |
-              (causal & ((qpos < kpos) |
-                         (windowed & (qpos - kpos >= p.window))));
-          float pv = sm90::ex2(fmaf(st[i][j], scale_log2, -lse2[j]));
-          pv = masked ? 0.f : pv;
-          sPt[(ty + 16 * i) * kCS + tx + 16 * j] = rounded<T>(pv);
-          sdSt[(ty + 16 * i) * kCS + tx + 16 * j] =
-              rounded<T>(pv * (dpt[i][j] - dlt[j]) * p.scale);
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues TMA
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      const CUtensorMap* mmap0 = kDkv ? &a.tk : &a.tq;
+      const CUtensorMap* mmap1 = kDkv ? &a.tv : &a.tdo;
+      const CUtensorMap* nmap0 = kDkv ? &a.tq : &a.tk;
+      const CUtensorMap* nmap1 = kDkv ? &a.tdo : &a.tv;
+      int item = 0;
+      for (int t = 0; t < steps; ++t) {
+        int hn, n0;
+        step_at(t, hn, n0);
+        for (int i = 0; i < nch; ++i, ++item) {
+          const int c = 64 * ((sb + ns + i) % nch);  // the span's chunks last
+          const int s = item % NS;
+          sm90::mbar_wait(&empty[s], ((item / NS) & 1) ^ 1);
+          uint8_t* st = base + s * W::kStage;
+          uint64_t* bar = &full[s];
+          sm90::mbar_arrive_expect_tx(bar, W::kStage);
+          sm90::tma_load_4d(st, mmap0, bar, c, m0, hm, b);
+          sm90::tma_load_4d(st + W::kChunk, mmap1, bar, c, m0, hm, b);
+          sm90::tma_load_4d(st + 2 * W::kChunk, nmap0, bar, c, n0, hn, b);
+          sm90::tma_load_4d(st + 3 * W::kChunk, nmap1, bar, c, n0, hn, b);
         }
       }
-      __syncthreads();  // every thread is done with the chunks
-      load_tile<kSlice, kSS>(sQs, qg, p.q_ss, q0, p.Sq, s0, p.D);
-      load_tile<kSlice, kSS>(sdOs, dog, p.do_ss, q0, p.Sq, s0, p.D);
-      __syncthreads();
-      f32_product_chunk<4, 8, kRows, kCS, kSS>(dv, sPt, sdOs, tx, ty);
-      f32_product_chunk<4, 8, kRows, kCS, kSS>(dk, sdSt, sQs, tx, ty);
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7;
+  const int t128 = threadIdx.x & 127;
+  const int warp = t128 >> 5;
+  const int lane = t128 & 31;
+  const int mr = m0 + warp * 16 + (lane >> 2);  // rows mr, mr + 8
+  const int cq = 2 * (lane & 3);                // column in an 8-group
+  const bool prod = kDkv || wg == 1;            // holds a product
+  const uint32_t stage0 = sm90::smem_u32(base);
+
+  // dQ: the block's rows' lse * log2(e) (warpgroup 0) or delta (1).
+  float rstat[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = mr + 8 * r;
+    const long long at = (long long)blockIdx.x * a.Sq + qpos;
+    rstat[r] = (!kDkv && qpos < a.Sq)
+                   ? (wg == 0 ? a.lse[at] * kLog2e : a.delta[at])
+                   : 0.f;
+  }
+
+  float acc[W::kSpan][32];
+#pragma unroll
+  for (int j = 0; j < W::kSpan; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+
+  int item = 0;
+  for (int t = 0; t < steps; ++t, item += nch) {
+    int hn, n0;
+    step_at(t, hn, n0);
+    // dK/dV: the step's q columns' lse * log2(e) (warpgroup 0) or delta
+    // (1), columns n0 + 8j + cq + e.
+    float cstat[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qpos = n0 + 8 * j + cq + e;
+        const long long at = ((long long)b * a.H + hn) * a.Sq + qpos;
+        cstat[2 * j + e] = (kDkv && qpos < a.Sq)
+                               ? (wg == 0 ? a.lse[at] * kLog2e : a.delta[at])
+                               : 0.f;
+      }
+
+    // Scores over the head dim, chunk by chunk.
+    float sc[32];
+    for (int i = 0; i < nch; ++i) {
+      const int s = (item + i) % NS;
+      sm90::mbar_wait(&full[s], ((item + i) / NS) & 1);
+      const uint32_t am = stage0 + s * W::kStage + wg * W::kChunk;
+      const uint32_t bn = am + 2 * W::kChunk;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::wgmma_ss<T>(sc, sm90::desc_sw128(am + 32 * kk, 16, 1024),
+                          sm90::desc_sw128(bn + 32 * kk, 16, 1024),
+                          i > 0 || kk > 0);
+      }
+      sm90::wgmma_commit();
+      if (i > 0) {
+        sm90::wgmma_wait<1>();  // chunk i - 1 is done
+        if (i - 1 < nch - ns || !prod) {
+          sm90::mbar_arrive(&empty[(item + i - 1) % NS]);
+        }
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    if (!prod) sm90::mbar_arrive(&empty[(item + nch - 1) % NS]);
+
+    // P (warpgroup 0), then dS (warpgroup 1) on the fragments.
+    float* x = sX + (t & 1) * 32 * 128;
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = n0 + 8 * (i >> 2) + cq + (i & 1);
+        const int row = mr + 8 * ((i >> 1) & 1);
+        const int qpos = kDkv ? col : row, kpos = kDkv ? row : col;
+        const bool masked =
+            (kDkv ? qpos >= a.Sq : kpos >= a.Sk) |
+            (causal & ((qpos < kpos) | (windowed & (qpos - kpos >= a.window))));
+        const float l = kDkv ? cstat[2 * (i >> 2) + (i & 1)]
+                             : rstat[(i >> 1) & 1];
+        float pv = sm90::ex2(fmaf(sc[i], a.scale_log2, -l));
+        pv = masked ? 0.f : pv;
+        sc[i] = pv;
+        x[i * 128 + t128] = pv;
+      }
+    }
+    sm90::bar_sync<1, 256>();  // the consumers only
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float dl = kDkv ? cstat[2 * (i >> 2) + (i & 1)]
+                              : rstat[(i >> 1) & 1];
+        sc[i] = x[i * 128 + t128] * (sc[i] - dl) * a.scale;
+      }
+    }
+
+    // The span's products: dV += P^T.dO (warpgroup 0) and dK += dS^T.Q
+    // (1), or dQ += dS.K (1); the N tile MN-major, 16 rows a k16 step.
+    if (prod) {
+      uint32_t fr[4][4];
+      sm90::to_a_frags<T>(sc, fr);
+      const int tile = kDkv && wg == 0 ? 3 : 2;  // dO, else Q or K
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < W::kSpan; ++j) {
+        if (j < ns) {
+          const uint32_t bt = stage0 +
+                              ((item + nch - ns + j) % NS) * W::kStage +
+                              tile * W::kChunk;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            sm90::wgmma_rs<T>(acc[j], fr[kk],
+                              sm90::desc_sw128(bt + kk * 2048, 8192, 1024));
+          }
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < W::kSpan; ++j) sm90::fence_regs(acc[j]);
+      sm90::fence_regs(fr);
+      for (int j = 0; j < ns; ++j) {
+        sm90::mbar_arrive(&empty[(item + nch - ns + j) % NS]);
+      }
+    }
+  }
+  if (!prod) return;
+
+  const int rows = kDkv ? a.Sk : a.Sq;
+  if constexpr (kDkv) {
+    const int q_first = first_no_key_row(a.causal, a.window, a.Sq, a.Sk);
+    if (q_first < a.Sq && wg == 0) {  // rows that see no key: dV += dO / Sk
+      for (int d = t128; d < 64 * ns; d += 128) {
+        const int col = 64 * sb + d;
+        sU[d] = col < a.D ? no_key_dv(static_cast<const T*>(a.dout), a.do_sb,
+                                      a.do_ss, a.do_sh, b, hm * group, group,
+                                      q_first, a.Sq, a.Sk, col)
+                          : 0.f;
+      }
+      sm90::bar_sync<2, 128>();  // warpgroup 0 only
+#pragma unroll
+      for (int j = 0; j < W::kSpan; ++j) {
+        if (j < ns) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            acc[j][i] += sU[64 * j + 8 * (i >> 2) + cq + (i & 1)];
+          }
+        }
+      }
     }
   }
 
-  const int q_first = first_no_key_row(p.causal, p.window, p.Sq, p.Sk);
-  if (q_first < p.Sq) {  // rows that see no key: dV += their dO / Sk
-    for (int d = tid; d < kSlice; d += kThreads) {
-      sU[d] = s0 + d < p.D
-                  ? no_key_dv(static_cast<const T*>(p.dout), p.do_sb,
-                              p.do_ss, p.do_sh, b, hk * group, group,
-                              q_first, p.Sq, p.Sk, s0 + d)
-                  : 0.f;
+  // dQ (B, Sq, H, D), dK and dV (B, Sk, Hkv, D), contiguous.
+  T* out = static_cast<T*>(kDkv ? (wg == 0 ? a.dv : a.dk) : a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = mr + 8 * r;
+    if (row >= rows) continue;
+    T* o = out + (((long long)b * rows + row) * heads + hm) * a.D;
+#pragma unroll
+    for (int j = 0; j < W::kSpan; ++j) {
+      if (j < ns) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * (sb + j) + 8 * jj + cq;
+          if (col < a.D) {
+            sm90::store2<T>(o + col, acc[j][4 * jj + 2 * r],
+                            acc[j][4 * jj + 2 * r + 1]);
+          }
+        }
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        dv[i][c] += sU[64 * (c / 4) + 4 * tx + c % 4];
-  }
-
-  // dK/dV are contiguous (B, Sk, Hkv, D).
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty + 16 * i;
-    if (kpos >= p.Sk) continue;
-    const long long row = (((long long)b * p.Sk + kpos) * p.Hkv + hk) * p.D;
-    store_slice_row(static_cast<T*>(p.dk) + row, dk[i], 1.f, s0, p.D, tx);
-    store_slice_row(static_cast<T*>(p.dv) + row, dv[i], 1.f, s0, p.D, tx);
   }
 }
 
 template <typename T>
-cudaError_t launch_wide(const Params& p, int which, cudaStream_t stream) {
-  using namespace wide;
-  static_assert(2 * kSliceTile <= 4 * kChunk, "the slices over the chunks");
-  const bool dq = which == 0;
-  auto kernel = dq ? flash_dq_wide_kernel<T> : flash_dkv_wide_kernel<T>;
-  const size_t smem =
-      sizeof(float) * (dq ? 5 * kChunk : 6 * kChunk + kSlice);
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dq_wide_bf16_kernel(const __grid_constant__ WideArgs a) {
+  wide_bwd_block<T, false>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dkv_wide_bf16_kernel(const __grid_constant__ WideArgs a) {
+  wide_bwd_block<T, true>(a);
+}
+
+// which: 0 dQ, 1 dK/dV. One block per (batch * heads of the output, 64-row
+// tile, span), cdiv(cdiv(D, 64), kSpan) spans.
+template <typename T>
+cudaError_t launch_wide_bf16(const Params& p, int which,
+                             cudaStream_t stream) {
+  WideArgs a;
+  if (!tc_args<T>(p, 64, 64, &a)) return cudaErrorInvalidValue;
+  a.dq = p.dq;
+  auto kernel = which == 0 ? flash_dq_wide_bf16_kernel<T>
+                           : flash_dkv_wide_bf16_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WideTile::kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.B * (dq ? p.H : p.Hkv),
-            ((dq ? p.Sq : p.Sk) + kRows - 1) / kRows,
-            (p.D + kSlice - 1) / kSlice);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const int nch = (p.D + 63) / 64;
+  dim3 grid(p.B * (which == 0 ? p.H : p.Hkv),
+            ((which == 0 ? p.Sq : p.Sk) + 63) / 64,
+            (nch + WideTile::kSpan - 1) / WideTile::kSpan);
+  kernel<<<grid, kWgThreads, WideTile::kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1651,7 +2349,14 @@ cudaError_t launch_wide(const Params& p, int which, cudaStream_t stream) {
 // and dK/dV 103. All under the 227 KiB a block may use.
 template <typename T>
 cudaError_t dispatch(const Params& p, int which, cudaStream_t s) {
-  if (p.D > 256) return launch_wide<T>(p, which, s);
+  if (p.D > 256) {
+    if constexpr (sizeof(T) == 2) {  // bf16/f16: tensor cores
+      return launch_wide_bf16<T>(p, which, s);
+    } else {
+      return which == 0 ? launch_dq_wide_f32(p, s)
+                        : launch_dkv_wide_f32(p, s);
+    }
+  }
   if (which == 0) {
     if constexpr (sizeof(T) == 2) {  // bf16/f16 dQ: tensor cores
       if (p.D <= 64) return launch_dq_bf16<T, 64>(p, s);

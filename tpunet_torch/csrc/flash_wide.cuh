@@ -1,30 +1,30 @@
-// The pieces the three wide kernels share (flash_fwd_wide_kernel in
-// flash_fwd.cu, flash_dq_wide_kernel and flash_dkv_wide_kernel in
-// flash_bwd.cu): head dims above 256, where no tile of the other kernels
-// fits, in every dtype (float, __nv_bfloat16, __half) on the CUDA cores.
+// The tiles and helpers of flash_fwd_wide_kernel (flash_fwd.cu): the
+// forward at head dims above 256, where no tile of the other forward
+// kernels fits, in every dtype (float, __nv_bfloat16, __half) on the CUDA
+// cores. (The wide backward has its own designs in flash_bwd.cu: the
+// tensor cores for bf16 and f16, the f32 kernels with a span axis.)
 //
-// The design fits any head dim. A block owns 64 rows (q rows for the
-// forward and dQ, k rows for dK/dV) and one 128-column slice of the head
-// dim: grid.z walks the slices, and the block writes only its slice of o,
-// dQ, dK or dV. Every score product runs over the whole head dim in
+// The design fits any head dim. A block owns 64 q rows and one 128-column
+// slice of the head dim: grid.z walks the slices, and the block writes
+// only its slice of o. Every score product runs over the whole head dim in
 // 64-column chunks loaded into shared memory, so every slice block of a
 // tile computes the same scores in the same order: bit for bit the same
-// lse, P and dS, and one block (slice 0) writes lse. The slice products
-// (P.V, dS.K, P^T.dO, dS^T.Q) read 64 x 128 tiles of the slice's columns.
+// lse and P, and one block (slice 0) writes lse. The slice product P.V
+// reads 64 x 128 tiles of the slice's columns.
 //
 // Tiles hold f32 in shared memory: each element is converted once as it
 // is loaded (exact for bf16 and f16), and every product is an f32 FMA.
 // For bf16 and f16 the TPU kernels run Precision.DEFAULT, one 16-bit MXU
-// pass with f32 accumulation; so P and dS are rounded to T before the
-// products that consume them (`rounded`), as the tensor-core kernels do,
-// and the products of 16-bit inputs are exact in f32. For f32 nothing is
-// rounded: exact f32 FMA, the counterpart of Precision.HIGHEST.
+// pass with f32 accumulation; so P is rounded to T before P.V
+// (`rounded`), as the tensor-core kernels do, and the products of 16-bit
+// inputs are exact in f32. For f32 nothing is rounded: exact f32 FMA, the
+// counterpart of Precision.HIGHEST.
 //
 // 256 threads: thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16i
 // (i < 4) of every tile, score columns tx + 16j (j < 4) and slice columns
 // 64g + 4tx + e (g < 2, e < 4). Loads are synchronous, one barrier on each
-// side of a chunk: a simple design, right at every head dim; speed at
-// these head dims is later work.
+// side of a chunk: a simple design, right at every head dim; its speed is
+// ROADMAP B.9b's work.
 
 #pragma once
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
 // instructions themselves (the tensor-core kernels, bf16 or f16 by their
-// element type T), and cp.async (the f32 CUDA-core kernels), as inline PTX.
+// element type T), and cp.async and loads from a cluster block's shared
+// memory (the f32 CUDA-core kernels), as inline PTX.
 //
 // Shared-memory tiles use the canonical 128-byte-swizzled layout that TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and that wgmma's descriptors read:
@@ -365,6 +366,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 #undef SM90_D32
 #undef SM90_D64
 #undef SM90_D128
+
+// ------------------------------------------------- distributed shared --
+
+// The address of the same shared-memory location in block `rank` of this
+// block's cluster, and a 4-byte load from such an address.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t saddr,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(saddr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 // ------------------------------------------------------------ cp.async --
 

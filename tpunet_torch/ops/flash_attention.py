@@ -7,13 +7,15 @@ counterpart of the TPU kernel ``tpunet/ops/flash_attention.py:
 _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 (``_flash_dq_kernel`` and ``_flash_dkv_kernel``), or raises; on CPU tensors
 it runs the plain PyTorch versions beside them. There is no fallback from
-one to the other. Up to head dim 256, bf16 and f16 run on the tensor cores
-(wgmma, tiles loaded by TMA) and f32 on the CUDA cores (exact f32 FMA).
-Above 256 every dtype runs the wide kernels (`flash_fwd_wide_kernel`,
-`flash_dq_wide_kernel`, `flash_dkv_wide_kernel`) on the CUDA cores: a block
-owns one 128-column slice of the head dim and computes the scores over all
-of it, with P and dS rounded to bf16/f16 before their products as the
-tensor-core kernels round them. Any head dim and any batch * heads run.
+one to the other. bf16 and f16 run on the tensor cores (wgmma, tiles
+loaded by TMA) and f32 on the CUDA cores (exact f32 FMA), at every head
+dim, with one exception: the forward above head dim 256
+(`flash_fwd_wide_kernel`) runs every dtype on the CUDA cores, with P
+rounded to bf16/f16 before P.V as the tensor-core kernels round it. Above
+256 each backward block owns a span of the output's columns and computes
+the scores over the whole head dim (`flash_dq_wide_bf16_kernel`,
+`flash_dkv_wide_bf16_kernel`; f32: `flash_dq_wide_f32_kernel`,
+`flash_dkv_wide_f32_kernel`). Any head dim and any batch * heads run.
 
 What the kernels need, the wrapper makes (each copy adds one to
 `flash_attention.input_copies`; the model's own calls make none):
