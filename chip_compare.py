@@ -10,16 +10,18 @@ the same arguments): in bf16 the forward, dQ and dK/dV at the training
 shape (B4 S2048 H16 D128) and at head dim 256 (B2 S2048 H16), and dQ and
 dK/dV at B1 S2048 GQA-4 D128 and B1 S1024 GQA-4 D256; in f32 the forward,
 dQ and dK/dV at the training shape, and dQ at D64 (B4 S2048) and D256 (B2
-S2048); and at head dim 320 (the wide kernels) in bf16, f16 and f32 the
-forward, dQ and dK/dV at B1 S1024 H16 GQA-4 and dQ and dK/dV at the wide
-path's shape, B2 S1024 H4 with one kv head. Each side's device time (the mean of 20 launches) is taken ten
-times, in pairs that alternate which side runs first. For each case and
-kernel it prints one JSON line: whether the two builds' outputs are
-bitwise equal, each side's median and quartiles, and in how many pairs
-this checkout was faster; and for each case one line with the time of
-scaled_dot_product_attention on the same inputs (its forward, and its
-whole backward alone) and the backend it ran. Exits non-zero without a
-GPU.
+S2048); at head dim 320 (the wide kernels) in bf16, f16 and f32 the
+forward, dQ and dK/dV at B1 S1024 H16 GQA-4 and at the wide path's shape,
+B2 S1024 H4 with one kv head; and the wide forward alone in bf16, f16 and
+f32 at D512 (B1 Sq517 Sk401 H16 GQA-4, window 16: rows that see no key)
+and D576 (B1 S1024 H16 GQA-4). Each side's device time (the mean of 20
+launches) is taken ten times, in pairs that alternate which side runs
+first. For each case and kernel it prints one JSON line: whether the two
+builds' outputs are bitwise equal, each side's median and quartiles, and
+in how many pairs this checkout was faster; and for each case one line
+with the time of scaled_dot_product_attention on the same inputs (its
+forward, and where the case times dQ and dK/dV its whole backward alone)
+and the backend it ran. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -37,17 +39,20 @@ from pathlib import Path
 import torch
 
 BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
-CASES = [  # kernels, dtype, b, s, h, hk, d
-    (("flash_fwd", "flash_dq", "flash_dkv"), BF16, 4, 2048, 16, 16, 128),
-    (("flash_dq", "flash_dkv"), BF16, 1, 2048, 16, 4, 128),
-    (("flash_fwd", "flash_dq", "flash_dkv"), BF16, 2, 2048, 16, 16, 256),
-    (("flash_dq", "flash_dkv"), BF16, 1, 1024, 16, 4, 256),
-    (("flash_fwd", "flash_dq", "flash_dkv"), F32, 4, 2048, 16, 16, 128),
-    (("flash_dq",), F32, 4, 2048, 16, 16, 64),
-    (("flash_dq",), F32, 2, 2048, 16, 16, 256),
+ALL = ("flash_fwd", "flash_dq", "flash_dkv")
+CASES = [  # kernels, dtype, b, sq, sk, h, hk, d, window (all causal)
+    (ALL, BF16, 4, 2048, 2048, 16, 16, 128, None),
+    (("flash_dq", "flash_dkv"), BF16, 1, 2048, 2048, 16, 4, 128, None),
+    (ALL, BF16, 2, 2048, 2048, 16, 16, 256, None),
+    (("flash_dq", "flash_dkv"), BF16, 1, 1024, 1024, 16, 4, 256, None),
+    (ALL, F32, 4, 2048, 2048, 16, 16, 128, None),
+    (("flash_dq",), F32, 4, 2048, 2048, 16, 16, 64, None),
+    (("flash_dq",), F32, 2, 2048, 2048, 16, 16, 256, None),
 ] + [c for dt in (BF16, F16, F32) for c in (
-    (("flash_fwd", "flash_dq", "flash_dkv"), dt, 1, 1024, 16, 4, 320),
-    (("flash_dq", "flash_dkv"), dt, 2, 1024, 4, 1, 320))]
+    (ALL, dt, 1, 1024, 1024, 16, 4, 320, None),
+    (ALL, dt, 2, 1024, 1024, 4, 1, 320, None),
+    (("flash_fwd",), dt, 1, 517, 401, 16, 4, 512, 16),
+    (("flash_fwd",), dt, 1, 1024, 1024, 16, 4, 576, None))]
 PAIRS = 10  # timings of each side, alternating which runs first
 ENTRIES = {"flash_fwd": "tpunet_flash_fwd",
            "flash_dq": "tpunet_flash_bwd_dq",
@@ -131,18 +136,20 @@ def main() -> int:
             other_fns[entry] = fn
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
-        for kernels, dt, b, s, h, hk, d in CASES:
-            q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+        for kernels, dt, b, sq, sk, h, hk, d, window in CASES:
+            q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda")
                      .to(dt) for _ in range(2))
-            k, v = (torch.randn((b, s, hk, d), generator=gen, device="cuda")
+            k, v = (torch.randn((b, sk, hk, d), generator=gen, device="cuda")
                     .to(dt) for _ in range(2))
-            o, lse = fa.flash_attention_fwd(q, k, v, True, None)
-            args = (q, k, v, do, lse, fa.attention_delta(o, do), True, None)
-            runs = {"flash_fwd": lambda: fa._launch(q, k, v, True, None),
+            o, lse = fa.flash_attention_fwd(q, k, v, True, window)
+            args = (q, k, v, do, lse, fa.attention_delta(o, do), True,
+                    window)
+            runs = {"flash_fwd": lambda: fa._launch(q, k, v, True, window),
                     "flash_dq": lambda: fa._launch_dq(*args),
                     "flash_dkv": lambda: fa._launch_dkv(*args)}
-            case = {"dtype": str(dt).replace("torch.", ""), "b": b, "s": s,
-                    "h": h, "hk": hk, "d": d, "causal": True}
+            case = {"dtype": str(dt).replace("torch.", ""), "b": b,
+                    "sq": sq, "sk": sk, "h": h, "hk": hk, "d": d,
+                    "causal": True, "window": window}
             for kernel in kernels:
                 entry = ENTRIES[kernel]
                 row = _compare(fa, chip_smoke, kernel, entry,
@@ -150,8 +157,9 @@ def main() -> int:
                 print(json.dumps({**row, **case}), flush=True)
             print(json.dumps({
                 "kernel": "sdpa", **case,
-                "forward": chip_smoke._library(q, k, v, True, None),
-                "backward": chip_smoke._library(q, k, v, True, None, do)}),
+                "forward": chip_smoke._library(q, k, v, True, window),
+                "backward": (chip_smoke._library(q, k, v, True, window, do)
+                             if kernels != ("flash_fwd",) else None)}),
                 flush=True)
             del q, do, k, v, o, lse, args
     return 0

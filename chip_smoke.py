@@ -11,14 +11,13 @@ Phases (each raises on failure; the script then exits non-zero):
            of tensor-core instructions (HGMMA, HMMA) per function from
            cuobjdump -sass. Fails if a bf16 or f16 flash_fwd, flash_dq or
            flash_dkv function (every head dim; the D = 256 and the wide
-           (head dims above 256) backward ones and every f16 one must
-           exist) has no HGMMA, no ptxas report or spills, if an f32
-           flash_{fwd,dq,dkv}_f32_kernel<64/128/256>, a wide forward
-           flash_fwd_wide_kernel<f32/bf16/f16> or a wide f32 backward
-           flash_dq_wide_f32_kernel<2/4/8> or flash_dkv_wide_f32_kernel is
-           missing or spills, or if a
+           (head dims above 256) ones and every f16 one must exist) has no
+           HGMMA, no ptxas report or spills, if an f32
+           flash_{fwd,dq,dkv}_f32_kernel<64/128/256> or a wide f32
+           flash_fwd_wide_f32_kernel, flash_dq_wide_f32_kernel<2/4/8> or
+           flash_dkv_wide_f32_kernel is missing or spills, or if a
            function of the replaced CUDA-core flash_dq_kernel,
-           flash_dkv_kernel or flash_{dq,dkv}_wide_kernel exists
+           flash_dkv_kernel or flash_{fwd,dq,dkv}_wide_kernel exists
   kernels  flash_fwd against its plain version on the card at the serving
            shapes (B=1 and 8, S=512, 16 heads, 4 kv heads, D=128, causal,
            bf16 and f32), the training shape (B=4, S=2048, 16 kv heads;
@@ -31,9 +30,17 @@ Phases (each raises on failure; the script then exits non-zero):
            401, window 16; bf16, f32 and f16), the wide kernels at the
            wide path's shape (B2 S1024, 4 heads, 1 kv head, D=320), at
            D=320 (B1 S1024 GQA-4) and at D=512 (Sq 517, Sk 401, window 16:
-           no-key rows) in bf16, f16 and f32, and a bf16 q sliced from a
-           wider buffer at an odd offset, which the wrapper must copy
-           (input_copies); each also bitwise equal on a second launch;
+           no-key rows) in bf16, f16 and f32, D=576 (B1 S1024 GQA-4: two
+           chunk groups of the 16-bit wide forward, a cluster of 5 f32
+           span blocks) in every dtype, f32 D=800, 1024 and 1160 (B1
+           S300 GQA-4: clusters of 7 and 8 span blocks, and past the f32
+           layout's boundary two clusters of 8), and a bf16 q sliced
+           from a wider buffer at an odd offset, which the wrapper must
+           copy (input_copies); each also bitwise equal on a second
+           launch, and each shows that the row check sees two faults
+           planted in its output (the causal loop one k tile short; above
+           D=256 the last span on scores without the last 64-column
+           chunk);
            then the backward kernels flash_dq and flash_dkv against theirs
            at the training shape (bf16, f32 and f16), GQA (4 kv heads), a
            ragged length (401), a window (128), non-causal Sq 384 / Sk 512,
@@ -185,26 +192,58 @@ def _dq_tile(d: int, dt) -> tuple:
     return (128, 64) if d <= 128 else (128, 32)
 
 
+def _fwd_tile(d: int, dt) -> tuple:
+    """The forward kernel's q rows a block and keys a step at head dim d
+    (after the pad to a multiple of 8): 16-bit flash_fwd_bf16_kernel to
+    256, flash_fwd_wide_bf16_kernel above; f32 flash_fwd_f32_kernel to
+    256, flash_fwd_wide_f32_kernel above."""
+    d = -(-d // 8) * 8
+    if dt == F32:
+        return (128, 128) if d <= 128 else (64, 128)
+    if d > 256:
+        return (64, 64)
+    return (128, 128) if d <= 128 else (128, 64)
+
+
+def _fwd_spans(d: int, dt) -> list:
+    """The column spans [lo, hi) of O above head dim 256, as the wide
+    forward splits them: bf16/f16 one per consumer warpgroup (half of a
+    block's group of at most eight 64-column chunks), f32 one per cluster
+    block (128 columns)."""
+    if dt == F32:
+        return [(lo, min(lo + 128, d)) for lo in range(0, d, 128)]
+    nch = -(-d // 64)
+    nz = -(-nch // 8)
+    spans = []
+    for z in range(nz):
+        gb, ge = z * nch // nz, (z + 1) * nch // nz
+        mid = gb + (ge - gb) // 2
+        spans += [(64 * gb, 64 * mid), (64 * mid, min(64 * ge, d))]
+    return spans
+
+
 COUNTERS = {"flash_fwd": "kernel_launches", "flash_dq": "flash_dq_launches",
             "flash_dkv": "flash_dkv_launches"}
 # Kernel functions that must issue wgmma (every 16-bit forward, dQ and
-# dK/dV, the wide backward too), the ones that must exist among them (the
-# D = 256 and the wide backward, every f16 function), the f32 and wide
-# (D > 256: the forward in every dtype, the f32 backward) CUDA-core
-# functions that must exist without a spill, and the function each entry
-# of the kernels line runs (the bf16 D = 128 main path, the f32 and the
-# wide paths), by the _short names of csrc/*.cu's instantiations. No
-# function of the replaced CUDA-core dQ and dK/dV kernels (and of the wide
-# backward's 16-bit CUDA-core kernels) may exist.
+# dK/dV, the wide ones too), the ones that must exist among them (the
+# D = 256 and the wide ones, every f16 function), the f32 and wide f32
+# (D > 256) CUDA-core functions that must exist without a spill, and the
+# function each entry of the kernels line runs (the bf16 D = 128 main
+# path, the f32 and the wide paths), by the _short names of csrc/*.cu's
+# instantiations. No function of the replaced CUDA-core dQ and dK/dV
+# kernels, nor of the wide kernels that ran every dtype on the CUDA cores,
+# may exist.
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel<", "flash_dq_bf16_kernel<",
                        "flash_dkv_bf16_kernel<",
                        "flash_dkv_bf16_dsplit_kernel<",
+                       "flash_fwd_wide_bf16_kernel<",
                        "flash_dq_wide_bf16_kernel<",
                        "flash_dkv_wide_bf16_kernel<")
 D256_FUNCTIONS = ("flash_dq_bf16_kernel<bf16,256>",
                   "flash_dkv_bf16_dsplit_kernel<bf16>") + tuple(
     f"flash_{k}_wide_bf16_kernel<{t}>" for k in ("dq", "dkv")
-    for t in ("bf16", "f16"))
+    for t in ("bf16", "f16")) + tuple(
+    f"flash_fwd_wide_bf16_kernel<{t}>" for t in ("bf16", "f16"))
 F16_FUNCTIONS = tuple(
     [f"flash_fwd_bf16_kernel<f16,{dt},{bk}>"
      for dt, bk in ((64, 128), (128, 128), (256, 64))]
@@ -213,19 +252,18 @@ F16_FUNCTIONS = tuple(
     + ["flash_dkv_bf16_dsplit_kernel<f16>"])
 F32_FUNCTIONS = tuple(f"flash_{k}_f32_kernel<{dt}>"
                       for k in ("fwd", "dq", "dkv") for dt in (64, 128, 256))
-WIDE_FUNCTIONS = tuple(f"flash_fwd_wide_kernel<{t}>"
-                       for t in ("f32", "bf16", "f16")) + tuple(
+WIDE_FUNCTIONS = ("flash_fwd_wide_f32_kernel",) + tuple(
     f"flash_dq_wide_f32_kernel<{n}>" for n in (2, 4, 8)) + (
     "flash_dkv_wide_f32_kernel",)
-REPLACED = ("flash_dq_kernel<", "flash_dkv_kernel<", "flash_dq_wide_kernel<",
-            "flash_dkv_wide_kernel<")
+REPLACED = ("flash_dq_kernel<", "flash_dkv_kernel<", "flash_fwd_wide_kernel<",
+            "flash_dq_wide_kernel<", "flash_dkv_wide_kernel<")
 ENTRY_FUNCTIONS = {"flash_fwd": "flash_fwd_bf16_kernel<bf16,128,128>",
                    "flash_dq": "flash_dq_bf16_kernel<bf16,128>",
                    "flash_dkv": "flash_dkv_bf16_kernel<bf16,128>",
                    "flash_fwd_f32": "flash_fwd_f32_kernel<128>",
                    "flash_dq_f32": "flash_dq_f32_kernel<128>",
                    "flash_dkv_f32": "flash_dkv_f32_kernel<128>",
-                   "flash_fwd_wide": "flash_fwd_wide_kernel<bf16>",
+                   "flash_fwd_wide": "flash_fwd_wide_bf16_kernel<bf16>",
                    "flash_dq_wide": "flash_dq_wide_bf16_kernel<bf16>",
                    "flash_dkv_wide": "flash_dkv_wide_bf16_kernel<bf16>"}
 SASS: dict = {}  # the build phase's tensor-core census, by _short name
@@ -237,7 +275,12 @@ SASS: dict = {}  # the build phase's tensor-core census, by _short name
 # bf16 shape for the wide entries. Rows that see no key: Sq 517, Sk 401,
 # window 16 (qpos >= 416). Head dims 12 and 100 run zero-padded to 16 and
 # 104; B 4097 x 16 heads = 65,552 is above grid.y's 65,535 blocks. Head
-# dims 320 and 512 run the wide kernels in every dtype.
+# dims 320 and 512 run the wide kernels in every dtype; the forward also
+# runs D = 576 in every dtype (16-bit: two groups of chunks, each forming
+# its own scores, past the 512 columns one block covers; f32: 5 span
+# blocks a cluster) and f32 D = 800 (7 span blocks a cluster), 1024 (a
+# cluster of 8, the largest) and 1160 (past the f32 layout's boundary of
+# eight spans: two clusters of 8, the second's six blocks past D).
 WIDE_CASES = [c for dt in (BF16, F16, F32) for c in (
     (1, 1024, 1024, 4, True, None, dt, 320),
     (1, 517, 401, 4, True, 16, dt, 512))]
@@ -264,7 +307,9 @@ FWD_CASES = (
     + [(2, 401, 517, 2, True, None, F16, 128),
        (1, 517, 401, 2, True, None, F16, 256)]
     + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32, F16)]
-    + WIDE_CASES)
+    + WIDE_CASES
+    + [(1, 1024, 1024, 4, True, None, dt, 576) for dt in (BF16, F16, F32)]
+    + [(1, 300, 300, 4, True, None, F32, d) for d in (800, 1024, 1160)])
 BWD_CASES = [
     (4, 2048, 2048, 16, True, None, BF16, 128),
     (4, 2048, 2048, 16, True, None, F32, 128),
@@ -387,7 +432,7 @@ def phase_build() -> None:
 def _short(fn: str) -> str:
     """A mangled kernel function as name<args>, e.g.
     flash_fwd_bf16_kernel<f16,128,128>, flash_dq_f32_kernel<128>,
-    flash_dkv_bf16_dsplit_kernel<bf16>, flash_fwd_wide_kernel<f32>."""
+    flash_dkv_bf16_dsplit_kernel<bf16>, flash_fwd_wide_f32_kernel."""
     m = re.search(r"(?<=\d)(flash_\w+?_kernel)(?:I(.+?)EEv)?", fn)
     if not m:
         return fn
@@ -626,6 +671,56 @@ def _planted_dq_faults(q, k, v, do, lse, delta, causal, window, got,
     return out
 
 
+def _planted_fwd_faults(q, k, v, causal, window, got, want) -> dict:
+    """Readings of two forward faults, planted in the kernel's own output o
+    from the plain version's exact f32 parts: the row check's (_row_err)
+    and the max-error check's (largest absolute error, which TOL bounds).
+    The faults:
+      k_tile_end:  every q tile's loop stops one k tile early (the kernel's
+                   tiles, _fwd_tile): the exact P.V of the tile it leaves
+                   out is taken away and the rest renormalised (a row that
+                   keeps no key reads 0);
+      span_scores: (D > 256) the columns of the last span (_fwd_spans) are
+                   computed from scores that miss the head dim's last
+                   64-column chunk (the plain attention on those scores).
+    """
+    from tpunet_torch.ops.flash_attention import (_gqa_group,
+                                                  _masked_scores, _repeat_kv)
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    group = _gqa_group(q, k)
+    kf, vf = _repeat_kv(k, group), _repeat_kv(v, group)
+    p = torch.softmax(_masked_scores(q, kf, causal, window), dim=-1)
+    bq, bk = _fwd_tile(d, q.dtype)
+    n_kt = -(-sk // bk)
+    tile = torch.zeros((sq, sk), device=q.device)
+    for q0 in range(0, sq, bq):
+        kt_end = min(n_kt, -(-(q0 + bq) // bk)) if causal else n_kt
+        tile[q0:q0 + bq, (kt_end - 1) * bk:kt_end * bk] = 1
+    p *= tile
+    num = got.float() - torch.einsum("bhqk,bkhd->bqhd", p, vf.float())
+    den = (1.0 - p.sum(-1)).transpose(1, 2)[..., None]
+    del p, tile
+    bad = {"k_tile_end": torch.where(den > 1e-6, num / den.clamp_min(1e-6),
+                                     torch.zeros_like(num))}
+    del num, den
+    if d > 256:
+        lo, hi = _fwd_spans(d, q.dtype)[-1]
+        c = 64 * ((d - 1) // 64)
+        p = torch.softmax(_masked_scores(q[..., :c], kf[..., :c], causal,
+                                         window, 1.0 / d ** 0.5), dim=-1)
+        x = got.float().clone()
+        x[..., lo:hi] = torch.einsum("bhqk,bkhd->bqhd", p,
+                                     vf[..., lo:hi].float())
+        bad["span_scores"] = x
+        del p
+    w = want.float()
+    return {name: dict(row_err=_row_err(x, want),
+                       max_err=float((x - w).abs().max()))
+            for name, x in bad.items()}
+
+
 def _sdpa_inputs(q, k, v, causal, window):
     """(q, k, v, kwargs) for scaled_dot_product_attention in its (B, H, S,
     D) layout: is_causal and GQA where there is no window; with a window an
@@ -732,14 +827,18 @@ def _fwd_row(q, k, v, causal, window, d, layout="contiguous") -> dict:
     err_lse = float((lse - lse_ref).abs().max())
     row_err = _row_err(o, o_ref)
     finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    # The row check must see these faults, or it proves nothing.
+    planted = _planted_fwd_faults(q, k, v, causal, window, o, o_ref)
     ok = (err_o <= TOL[dt] and err_lse <= TOL[dt]
-          and row_err <= ROW_TOL[dt] and deterministic and finite)
+          and row_err <= ROW_TOL[dt] and deterministic and finite
+          and all(x["row_err"] > ROW_TOL[dt] for x in planted.values()))
     work = _attention_work("flash_fwd", b, sq, sk, h, hk, d, causal, window,
                            dt)
     row = dict(kernel="flash_fwd",
                **_case(b, sq, sk, h, hk, causal, window, dt),
                d=d, layout=layout, err_o=err_o, err_lse=err_lse,
                tol=TOL[dt], row_err=row_err, row_tol=ROW_TOL[dt],
+               planted_fault_row_err=planted,
                deterministic=deterministic, finite=finite,
                input_copies=copies, ok=ok,
                ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal,

@@ -233,14 +233,15 @@ def test_kernel_validation_refuses_head_dims_above_256_and_other_dtypes():
 
 
 # Head dims above 256, where the card runs its wide kernels (300 is padded
-# to 304 there), against the JAX package, which runs its Pallas kernel at
+# to 304 there; 576 is two groups of the 16-bit forward's chunks and five
+# f32 spans), against the JAX package, which runs its Pallas kernel at
 # every head dim (its einsum where it falls back: causal Sq != Sk).
 # (d, dtype, causal, group, window, sq, sk); tolerances as above: 2e-5 f32,
 # 3e-2 bf16, F16_TOL f16.
 WIDE_CASES = [
     pytest.param(d, dt, causal, group, window, sq, sk,
                  id=f"d{d}-{dt}-{tag}")
-    for d in (264, 300) for dt in ("float32", "bfloat16", "float16")
+    for d in (264, 300, 576) for dt in ("float32", "bfloat16", "float16")
     for causal, group, window, sq, sk, tag in (
         (True, 2, 3, 16, 16, "gqa2-w3"),
         (True, 4, None, 24, 16, "gqa4-sq24-sk16"))]

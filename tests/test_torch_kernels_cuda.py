@@ -66,12 +66,14 @@ FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, F16: 1e-2}
 ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2, F16: 5e-2}
 ROW_FLOOR = {torch.float32: 1e-6, torch.bfloat16: 1e-4, F16: 1e-4}
 
-# Head dims above 256 (the wide kernels: the forward on the CUDA cores in
-# every dtype, the bf16 and f16 backward on the tensor cores in spans of at
-# most four 64-column chunks, the f32 backward on the CUDA cores in
-# 128-column spans (dQ: 192-column spans in clusters of 2, 4 or 8); 300
+# Head dims above 256 (the wide kernels: bf16 and f16 on the tensor cores,
+# the forward's two warpgroups splitting up to eight 64-column chunks of a
+# block (264: 2 + 3, 512: 4 + 4, 576: two blocks of 4 and 5), the backward
+# in spans of at most four chunks; f32 on the CUDA cores in clusters of
+# span blocks (the forward's 128-column spans: 3 at 264 and 320, 4 at 512,
+# 5 at 576, 7 at 800; dQ's 192-column spans in clusters of 2, 4 or 8); 300
 # runs zero-padded to 304) at 264, 320, 512 and 576 in all three dtypes
-# and 800 in f32: GQA-8 with ragged Sq != Sk, the no-key rows (Sq
+# and 800 and 1160 in f32: GQA-8 with ragged Sq != Sk, the no-key rows (Sq
 # 517, Sk 401, window 16), a window, non-causal Sq != Sk; batches of 2 in
 # every dtype, among them the head layout of chip_smoke.py's wide path (4
 # heads, 1 kv head, D 320). Both the forward and the backward tests run
@@ -93,6 +95,16 @@ WIDE_CASES = [
     (1, 201, 137, 4, 2, 800, True, None, torch.float32),
     (2, 201, 300, 4, 1, 576, False, None, torch.bfloat16),
     (1, 517, 401, 4, 2, 576, True, 16, F16),
+    # f32 past the clusters' boundary of eight spans (f32_cluster.cuh):
+    # ten 128-column spans of the forward and dK/dV, a cluster of 8 and a
+    # second whose six blocks past D only help with the scores.
+    (1, 300, 201, 4, 1, 1160, True, 64, torch.float32),
+]
+
+# The 16-bit wide forward past its one-block width: bf16 D 1040 (17
+# chunks, three blocks of 5, 6 and 6).
+WIDE_FWD_CASES = [
+    (1, 201, 300, 4, 2, 1040, True, None, torch.bfloat16),
 ]
 
 # (b, sq, sk, h, hk, d, causal, window, dtype). The f32 rows run the CUDA
@@ -134,7 +146,7 @@ FWD_CASES = [
     (2, 137, 137, 16, 4, 12, True, None, torch.bfloat16),
     (1, 201, 300, 8, 2, 100, True, 64, torch.bfloat16),
     (1, 300, 201, 8, 8, 100, False, None, F16),
-] + WIDE_CASES
+] + WIDE_CASES + WIDE_FWD_CASES
 
 
 @pytest.mark.parametrize("b,sq,sk,h,hk,d,causal,window,dtype", FWD_CASES)

@@ -1,6 +1,6 @@
 // The register-tiled f32 FMA loops of the CUDA-core kernels: the f32 dQ
-// and dK/dV kernels, at every head dim (flash_bwd.cu), and the wide
-// forward of every dtype (flash_wide.cuh). A 256-thread block is 16 row groups x 16 column lanes:
+// and dK/dV kernels, at every head dim (flash_bwd.cu), and the f32 wide
+// forward (flash_fwd.cu). A 256-thread block is 16 row groups x 16 column lanes:
 // thread (ty, tx) owns rows ty + 16i of its accumulator and, by the loop,
 // columns tx + 16j (score products) or 64g + 4tx + e (row-chunk products).
 // Every operand is a 16-byte shared load; the tiles are f32 in shared
@@ -13,7 +13,7 @@
 // acc[i][j] += A[ty + 16i][0, W) . B[tx + 16j][0, W), A of row stride AS
 // and B of row stride BS; zero first sets acc to 0. The score products:
 // S and dP (dQ; A the resident or streamed Q or dO, B a K or V d-chunk),
-// S^T and dP^T (dK/dV), the wide forward's chunk products. NJ + NI 16-byte loads feed
+// S^T and dP^T (dK/dV), the f32 wide forward's S. NJ + NI 16-byte loads feed
 // 4 NI NJ FMAs.
 template <int NI, int NJ, int W, int AS, int BS>
 __device__ __forceinline__ void f32_score_chunk(float (&acc)[NI][NJ],

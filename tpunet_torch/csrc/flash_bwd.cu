@@ -205,9 +205,10 @@
 //     cluster and adds the partial sums in rank order; dQ (192-column
 //     spans, 64 q rows, clusters of 2, 4 or 8) splits each step's keys, so
 //     that every dP entry stays one sequential chain of FMAs over D (the
-//     notes at own_chunks say why), and swaps dS. Up to D = 1024 (dK/dV)
-//     and 1536 (dQ) the work is the counted FLOPs plus the zero columns of
-//     a last span past D.
+//     notes before cluster_scores say why), and swaps dS. Up to D = 1024
+//     (dK/dV) and 1536 (dQ) the work is the counted FLOPs plus the zero
+//     columns of a last span past D; beyond, each cluster of 8 forms the
+//     scores itself (f32_cluster.cuh).
 // Both keep the other kernels' rules: no atomics, the GQA group summed in
 // the block in a fixed order, the no-key dV term, masks as a select.
 
@@ -218,6 +219,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_cluster.cuh"
 #include "f32_fma.cuh"
 #include "sm90.cuh"
 
@@ -748,23 +750,12 @@ constexpr int kWideDqRS = kWideDqSpan + 4;  // k-chunk and its row stride
 // the partial S^T and dP^T over its share of the head dim's d-chunks
 // (own_chunks), and cluster_scores sums the cluster's partials in rank
 // order through distributed shared memory, so every block gets the same
-// bits; clusters are the largest divisor of the span count up to 8. dQ
+// bits; clusters follow f32_cluster.cuh's policy (min(spans, 8)). dQ
 // (flash_dq_wide_f32_kernel) splits the keys instead: a row that sees one
 // key has dQ = dS K with dS = P (dP - delta) scale, a cancellation to the
 // last bits of dP, so each dP entry keeps the one sequential chain of FMAs
 // over D that the other kernels (and the plain version's matrix product)
 // use.
-
-// The d-chunks [x, x + y) of the head dim whose scores this block forms:
-// the cdiv(D, kF32CW) chunks split evenly over its cluster's blocks.
-__device__ __forceinline__ int2 own_chunks(int D) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cl = cg::this_cluster();
-  const int all = (D + kF32CW - 1) / kF32CW;
-  const int n = cl.num_blocks(), r = cl.block_rank();
-  const int first = r * all / n;
-  return make_int2(first, (r + 1) * all / n - first);
-}
 
 // The score tiles a and b made whole from each cluster block's partials,
 // this thread's entries (rows ty + 16i, columns tx + 16j): each block
@@ -802,35 +793,6 @@ __device__ __forceinline__ void cluster_scores(float (&a)[R][8],
   cl.sync();  // every block is done reading
 }
 
-// Launches an f32 wide kernel with grid.z in clusters of `cluster` blocks
-// (by default the largest divisor of gridDim.z up to 8).
-cudaError_t launch_clusters(void (*kernel)(const Params), dim3 grid,
-                            size_t smem, const Params& p, cudaStream_t stream,
-                            unsigned cluster = 0) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (cluster == 0) {
-    cluster = 8;
-    while (grid.z % cluster) --cluster;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kF32Threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = cluster;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // R rows pos0..pos0+R-1 of one head (src at the head, row stride ss),
 // head-dim columns c0..c0+kF32CW-1, into R rows of a ring stage (row
 // stride kF32CS): 16 bytes a copy, zeros past row lim or column D.
@@ -852,7 +814,8 @@ __device__ __forceinline__ void copy_chunk_rows(float* dst, const float* src,
 // f32 dK/dV for D > 256, on the CUDA cores, exact f32 FMA: flash_dkv_f32
 // _kernel<128>'s design with a span axis. One 256-thread block per
 // (batch*kv head, 64-row k tile, 128-column span of dK/dV), the span blocks
-// of a k tile a cluster (the largest divisor of the span count up to 8).
+// of a k tile a cluster (f32_cluster.cuh: min(spans, 8), grid.z rounded up
+// to a multiple, a block past D only helping form the scores).
 // Nothing is resident: each step's d-chunks (128 q rows of Q or dO and the
 // block's 64 rows of K or V, 64 columns) and q-chunks (64 q rows of dO or
 // Q, the span's columns) stream through a 3-stage cp.async ring. Block r
@@ -882,7 +845,7 @@ flash_dkv_wide_f32_kernel(const Params p) {
   const int group = p.H / p.Hkv;
   const int k0 = blockIdx.y * BK;
   const int s0 = DT * blockIdx.z;  // the span's first column
-  const int2 own = own_chunks(p.D);
+  const int2 own = own_chunks<kF32CW>(p.D);
   const int cd0 = own.x, ncd = own.y;  // the block's d-chunks of the scores
   const int per = 2 * ncd + 2 * NC;    // chunks a step
   const bool causal = p.causal != 0;
@@ -1055,9 +1018,10 @@ cudaError_t launch_dkv_wide_f32(const Params& p, cudaStream_t stream) {
                                            kWideStages * kWideDkvStage +
                                            kWideDkvSpan);
   static_assert(smem <= 232448, "over the 227 KB a block may use");
-  dim3 grid(p.B * p.Hkv, (p.Sk + 63) / 64,
-            (p.D + kWideDkvSpan - 1) / kWideDkvSpan);
-  return launch_clusters(flash_dkv_wide_f32_kernel, grid, smem, p, stream);
+  const int nsp = (p.D + kWideDkvSpan - 1) / kWideDkvSpan;
+  const dim3 grid(p.B * p.Hkv, (p.Sk + 63) / 64, nsp);
+  return launch_clusters(flash_dkv_wide_f32_kernel, grid, kF32Threads, smem,
+                         p, stream, span_cluster(nsp));
 }
 
 // f32 dQ for D > 256, on the CUDA cores, exact f32 FMA. One 256-thread
@@ -1272,8 +1236,8 @@ cudaError_t launch_dq_wide_f32(const Params& p, cudaStream_t stream) {
   const size_t smem = cn == 2   ? WideDqF32Tile<2>::kSmem
                       : cn == 4 ? WideDqF32Tile<4>::kSmem
                                 : WideDqF32Tile<8>::kSmem;
-  dim3 grid(p.B * p.H, (p.Sq + 63) / 64, (nsp + cn - 1) / cn * cn);
-  return launch_clusters(kernel, grid, smem, p, stream, cn);
+  const dim3 grid(p.B * p.H, (p.Sq + 63) / 64, nsp);
+  return launch_clusters(kernel, grid, kF32Threads, smem, p, stream, cn);
 }
 
 // ------------------------------------------- dK/dV, bf16, tensor cores ----

@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), plain C ABI for ctypes.
+// Flash-attention forward for Hopper (sm_90a), plain C ABI for ctypes: one
+// entry point, four kernels by dtype and head dim (bf16/f16 on the tensor
+// cores, f32 on the CUDA cores; up to head dim 256 and above it).
 //
 // Replaces the TPU kernel tpunet/ops/flash_attention.py:_flash_kernel
 // (:73, launched by _flash_fwd_impl at :376). Every kernel here computes
@@ -84,19 +86,66 @@
 //     through shared memory to the threads that own its output columns.
 // Shared memory: 168 / 200 / 166 KiB a block at DT = 64 / 128 / 256.
 //
-// Head dims above 256, every dtype: flash_fwd_wide_kernel<T> (T = float,
-// __nv_bfloat16, __half) on the CUDA cores, with one grid axis over
-// 128-column slices of the head dim (flash_wide.cuh). bf16 and f16 inputs
-// round P to T before P.V and accumulate in f32, as the tensor-core kernel
-// does; f32 runs exact f32 FMA. A simple design, right at any head dim.
+// Head dims above 256 (the wide route). What bounds it: at D320 B1 S1024
+// H16 Hkv4 causal the forward is 10.7 GFLOP against ~10 MB: the tensor
+// cores for bf16/f16 (0.011 ms at 989 TFLOP/s), the FMA pipe for f32 (0.16
+// ms at 67 TFLOP/s). No tile of the kernels above fits: Q for 128 rows is
+// 80 KiB at D = 320 and grows with D, and a 64 x D f32 O is more than a
+// warpgroup's registers above D = 256. Both designs split O's columns into
+// spans and form the scores once for all of them:
+//   * bf16/f16, flash_fwd_wide_bf16_kernel<T> (wgmma + TMA): one block per
+//     (batch*head, 64-row q tile), heaviest causal tile first, 64-key
+//     steps with the other kernels' k-loop bounds. The two consumer
+//     warpgroups share the q tile: each forms the partial S over its half
+//     of the head dim's 64-column chunks (SS-wgmma, K-major as stored), they
+//     swap the partial sums through shared memory (s0 + s1 in both, so both
+//     hold the same bits), both run the same online softmax on the
+//     fragments, and each adds P.V into its own span of at most four
+//     64-column chunks (RS-wgmma, P rounded to T in registers, V read
+//     MN-major). So the scores are formed once a block, and a block covers
+//     up to eight chunks (D <= 512); above that, grid.z takes groups of at
+//     most eight chunks and each group's block forms the scores itself
+//     (D = 576: two groups, 1.5x the counted FLOPs). Nothing is resident:
+//     every 64 x 64 tile (Q and K chunks for the scores, V chunks for the
+//     products) streams through a 10-tile TMA ring per warpgroup, filled by
+//     one producer thread, so no head dim is too wide. Each warpgroup
+//     releases a score chunk as soon as its product is done and keeps one
+//     step of V; the P.V of step t - 1 is issued behind the scores of step
+//     t, so the exponentials of step t run while the tensor cores add it.
+//   * f32, flash_fwd_wide_f32_kernel (CUDA cores, exact f32 FMA, no TF32):
+//     flash_fwd_f32_kernel's design with a span axis: one 256-thread block
+//     per (batch*head, 64-row q tile, 128-column span of O), 128-key
+//     steps, 4 x 8 register tiles of S and O a thread, the FMA loops of
+//     f32_fma.cuh. The span blocks of a q tile run as one thread-block
+//     cluster (at most 8; grid.z padded to a multiple, a block past D only
+//     helps with the scores) and form the scores once a cluster: block r
+//     forms the partial S over its share of the d-chunks, each block sums
+//     its share of S's entries over the cluster's partials in rank order
+//     and the cluster gathers the sums through distributed shared memory,
+//     so every block holds the same bits and reads about two tiles a step
+//     whatever the cluster's size. (The backward's dQ splits the keys
+//     instead, because a dQ row that sees one key is a cancellation in
+//     dP; the forward has none: a partial sum per block moves S by an ulp,
+//     and every block sees the same S.) Nothing is resident: each step's
+//     own d-chunks of Q and K and the span's V chunks stream through a
+//     3-stage cp.async ring. Up to D = 1024 (eight spans, one cluster a
+//     tile) the work is the counted FLOPs plus the zero columns of a last
+//     span past D (D = 320: 1.1x). That is the layout's boundary: above it
+//     clusters stay at 8 (f32_cluster.cuh), grid.z is rounded up to a
+//     multiple of 8, and each cluster forms the scores itself, its blocks
+//     past D only helping (D = 1160: two clusters, 1.6x).
+// Both keep every rule above: lse (B*H, Sq) f32, rows without a key, masks
+// as a select, heaviest tile first, no atomics, bitwise deterministic.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_wide.cuh"
+#include "f32_cluster.cuh"
+#include "f32_fma.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -429,25 +478,117 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
   return launch_f32<256>(p, stream);
 }
 
-// ------------------------------------- head dims above 256, every dtype --
+// ----------------------------- head dims above 256: f32, CUDA cores --
 
-// Forward for D > 256, any element type T (flash_wide.cuh gives the
-// design). One block per (batch*head, 64-row q tile, 128-column slice of
-// the head dim), heaviest causal tile first, with the k-loop bounds of the
-// other kernels (k_range, 64-key steps). Each step: S over the whole head
-// dim in 64-column chunks of Q and K; the online softmax of the tile in
-// registers, in the log2 domain (rows reduced across the 16 lanes that
-// hold them; l sums P unrounded), P rounded to T into shared memory; then
-// O += P.V over the block's slice of V. Slice 0 writes lse.
-template <typename T>
-__global__ void __launch_bounds__(wide::kThreads)
-flash_fwd_wide_kernel(const Params p) {
-  using namespace wide;
+constexpr int kWideRows = 64;    // flash_fwd_wide_f32_kernel's q rows a block
+constexpr int kWideSpan = 128;   // its output columns a block
+constexpr int kWideCW = 64;      // d-chunk columns
+constexpr int kWideCS = kWideCW + 4;      // d-chunk rows (Q, then K)
+constexpr int kWidePS = kF32BK + 4;       // partial-score and P rows
+constexpr int kWideVK = 64;               // keys a V chunk
+constexpr int kWideVS = kWideSpan + 4;    // V chunk rows
+constexpr int kWideStages = 3;            // the cp.async ring
+// A stage: a d-chunk (64 q rows, then 128 keys, 64 columns) or a V chunk
+// (64 keys x the span's 128 columns).
+constexpr int kWideStage = (kWideRows + kF32BK) * kWideCS;
+static_assert(kWideVK * kWideVS <= kWideStage, "V chunk over its stage");
+constexpr size_t kWideSmem =  // partial scores (then P), sums, the ring
+    sizeof(float) * (2 * kWideRows * kWidePS + kWideStages * kWideStage);
+static_assert(kWideSmem <= 232448, "over the 227 KB a block may use");
+
+// The score tile s (kWideRows x 128, this thread's entries at rows
+// ty + 16i and keys tx + 16j) made whole from each cluster block's
+// partial: each block stores its own in sp, then sums its share of the
+// tile's entries (entry e = 128 row + key belongs to block e CN / 8192)
+// over every block's partial in rank order into ss, and after a second
+// cluster barrier reads each entry from its owner's ss. Every entry is one
+// sum in rank order, so every block holds the same bits, and a block
+// reads about two tiles through distributed shared memory whatever the
+// cluster's size. sp is free on return; ss is read by the cluster until
+// the next call's first barrier (and the kernel's last one).
+__device__ __forceinline__ void cluster_scores(float (&s)[4][8], float* sp,
+                                               float* ss, int tx, int ty) {
+  namespace cg = cooperative_groups;
+  constexpr int kEntries = kWideRows * kF32BK;
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned cn = cl.num_blocks(), rank = cl.block_rank();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sp[(ty + 16 * i) * kWidePS + tx + 16 * j] = s[i][j];
+  cl.sync();  // every block's partial is stored
+  // The block's entries [lo, hi), at most kPer a thread (clusters of 3 or
+  // more: D > 256 has at least 3 spans).
+  constexpr int kPer = (kEntries / 3 + 256) / 256;
+  const int lo = (rank * kEntries + cn - 1) / cn;
+  const int hi = ((rank + 1) * kEntries + cn - 1) / cn;
+  float sum[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) sum[u] = 0.f;
+#pragma unroll 1
+  for (unsigned r = 0; r < cn; ++r) {
+    const uint32_t base = sm90::cluster_addr(sm90::smem_u32(sp), r);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = lo + threadIdx.x + 256 * u;
+      if (e < hi) {
+        sum[u] += sm90::ld_cluster(base +
+                                   4 * ((e >> 7) * kWidePS + (e & 127)));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = lo + threadIdx.x + 256 * u;
+    if (e < hi) ss[(e >> 7) * kWidePS + (e & 127)] = sum[u];
+  }
+  cl.sync();  // every entry's sum is stored
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = ty + 16 * i, key = tx + 16 * j;
+      const unsigned owner = ((row * kF32BK + key) * cn) / kEntries;
+      s[i][j] = sm90::ld_cluster(sm90::cluster_addr(
+          sm90::smem_u32(ss + row * kWidePS + key), owner));
+    }
+}
+
+// R rows pos0..pos0+R-1 of one head (src at the head, row stride ss), W
+// head-dim columns from c0, into R rows of row stride LD: 16 bytes a copy,
+// zeros past row lim or column D.
+template <int R, int W, int LD>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long ss, int pos0, int lim,
+                                          int c0, int D) {
+#pragma unroll
+  for (int u = 0; u < R * W / 4 / 256; ++u) {
+    const int e = threadIdx.x + 256 * u;
+    const int r = e / (W / 4), cc = 4 * (e % (W / 4));
+    const int pos = pos0 + r, col = c0 + cc;
+    const bool ok = pos < lim && col < D;
+    sm90::cp_async16(dst + r * LD + cc, ok ? src + pos * ss + col : src,
+                     ok ? 16 : 0);
+  }
+}
+
+// f32 forward for D > 256 (the design notes at the top). Thread (ty, tx)
+// owns q rows ty + 16i (i < 4), the step's keys tx + 16j (j < 8) and the
+// span's columns 64g + 4tx + e (g < 2, e < 4). Each step: block r's
+// d-chunks of S (Q and K chunks), cluster_scores, the online softmax of
+// the tile in the log2 domain (rows reduced across the 16 lanes that hold
+// them, a select on every masked entry), P into the score tile, then
+// O += P.V over the span in two 64-key V chunks.
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_wide_f32_kernel(const Params p) {
+  constexpr int NS = kWideStages, SF = kWideStage, RQ = kWideRows;
+  constexpr int CS = kWideCS, PS = kWidePS, VS = kWideVS;
+
   extern __shared__ float smem[];
-  float* sQ = smem;        // a Q chunk, then (with sK) the V slice
-  float* sK = sQ + kChunk;
-  float* sV = smem;
-  float* sP = sK + kChunk;
+  float* sP = smem;  // the block's partial scores, then P
+  float* sS = sP + RQ * PS;  // the sums of the block's share of the scores
+  float* sRing = sS + RQ * PS;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -456,16 +597,43 @@ flash_fwd_wide_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
-  const int s0 = blockIdx.z * kSlice;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * RQ;  // heaviest tile first
+  const int s0 = kWideSpan * blockIdx.z;  // the span's first column
+  const bool has_span = s0 < p.D;
+  const int2 own = own_chunks<kWideCW>(p.D);
+  const int cd0 = own.x, ncd = own.y;
+  const int per = ncd + (has_span ? kF32BK / kWideVK : 0);  // chunks a step
+  const KRange kr = k_range(p.causal, p.window, q0, RQ, p.Sq, p.Sk, kF32BK);
+  const int total = max(kr.end - kr.start, 0) * per;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const KRange kr = k_range(p.causal, p.window, q0, kRows, p.Sq, p.Sk, kRows);
-  const float scale_log2 = p.scale * kLog2e;
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  float o[4][8], m[4], l[4];
+  // Chunk g of step g / per: the block's d-chunks (Q, then K), then the
+  // span's V chunks.
+  auto issue = [&](int g) {
+    float* st = sRing + (g % NS) * SF;
+    const int k0 = (kr.start + g / per) * kF32BK;
+    const int part = g % per;
+    if (part < ncd) {
+      const int c0 = kWideCW * (cd0 + part);
+      copy_rows<RQ, kWideCW, CS>(st, qg, p.q_ss, q0, p.Sq, c0, p.D);
+      copy_rows<kF32BK, kWideCW, CS>(st + RQ * CS, kg, p.k_ss, k0, p.Sk, c0,
+                                     p.D);
+    } else {
+      copy_rows<kWideVK, kWideSpan, VS>(st, vg, p.v_ss,
+                                        k0 + kWideVK * (part - ncd), p.Sk,
+                                        s0, p.D);
+    }
+  };
+#pragma unroll
+  for (int g = 0; g < NS - 1; ++g) {
+    if (g < total) issue(g);
+    sm90::cp_async_commit();
+  }
+
+  float s[4][8], o[4][8], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInfL2;
@@ -473,58 +641,73 @@ flash_fwd_wide_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
   }
+  const float scale_log2 = p.scale * kLog2e;
 
-  for (int kt = kr.start; kt < kr.end; ++kt) {
-    const int k0 = kt * kRows;
-    float s[4][4] = {};
-    for (int c0 = 0; c0 < p.D; c0 += kCW) {
-      __syncthreads();  // every thread is done with the previous tiles
-      load_tile<kCW, kCS>(sQ, qg, p.q_ss, q0, p.Sq, c0, p.D);
-      load_tile<kCW, kCS>(sK, kg, p.k_ss, k0, p.Sk, c0, p.D);
-      __syncthreads();
-      f32_score_chunk<4, 4, kCW, kCS, kCS>(s, sQ, sK, tx, ty);
-    }
-    // Masked scores become NEG_INF (-inf past Sk) before the max, as on
-    // the TPU: a select on every entry.
+  for (int g = 0; g < total; ++g) {
+    sm90::cp_async_wait<NS - 2>();
+    __syncthreads();  // chunk g is in; every thread is done with chunk g-1
+    if (g + NS - 1 < total) issue(g + NS - 1);
+    sm90::cp_async_commit();
+    const float* st = sRing + (g % NS) * SF;
+    const int part = g % per;
+    if (part < ncd) {
+      f32_score_chunk<4, 8, kWideCW, CS, CS>(s, st, st + RQ * CS, tx, ty,
+                                             part == 0);
+      if (part == ncd - 1) {
+        cluster_scores(s, sP, sS, tx, ty);
+        // Online softmax of the tile; masked scores become NEG_INF (-inf
+        // past Sk) before the max, as on the TPU; without a mask the scale
+        // folds into the exponent's FMA.
+        const int k0 = (kr.start + g / per) * kF32BK;
+        const bool mask = tile_needs_mask(p.causal, p.window, q0, RQ, k0,
+                                          kF32BK, p.Sk);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = q0 + ty + 16 * i;
+          float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool hidden =
-            p.causal && (qpos < kpos ||
-                         (p.window > 0 && qpos - kpos >= p.window));
-        const float x = kpos >= p.Sk ? -INFINITY
-                        : hidden     ? kNegInfL2
-                                     : s[i][j] * scale_log2;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+          for (int j = 0; j < 8; ++j) {
+            float x = s[i][j];
+            if (mask) {
+              const int kpos = k0 + tx + 16 * j;
+              const bool hidden =
+                  p.causal && (qpos < kpos ||
+                               (p.window > 0 && qpos - kpos >= p.window));
+              x = kpos >= p.Sk ? -INFINITY
+                               : (hidden ? kNegInfL2 : x * scale_log2);
+              s[i][j] = x;
+            }
+            mx = fmaxf(mx, x);
+          }
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mask ? mx : mx * scale_log2);
+          const float alpha = sm90::ex2(m[i] - m_new);
+          m[i] = m_new;
+          l[i] *= alpha;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float pv = mask ? sm90::ex2(s[i][j] - m_new)
+                                  : sm90::ex2(fmaf(s[i][j], scale_log2,
+                                                   -m_new));
+            l[i] += pv;
+            sP[(ty + 16 * i) * PS + tx + 16 * j] = pv;
+          }
+        }
       }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = sm90::ex2(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) o[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv = sm90::ex2(s[i][j] - m_new);
-        l[i] += pv;
-        sP[(ty + 16 * i) * kCS + tx + 16 * j] = rounded<T>(pv);
-      }
+    } else {  // O += P[:, 64 c ..] . V_chunk
+      f32_product_chunk<4, 8, kWideVK, PS, VS>(
+          o, sP + kWideVK * (part - ncd), st, tx, ty);
     }
-    __syncthreads();  // every thread is done with the Q and K chunks
-    load_tile<kSlice, kSS>(sV, vg, p.v_ss, k0, p.Sk, s0, p.D);
-    __syncthreads();
-    f32_product_chunk<4, 8, kRows, kCS, kSS>(o, sP, sV, tx, ty);
   }
+  sm90::cp_async_wait<0>();
+  cooperative_groups::this_cluster().sync();  // no block reads sS any more
+  if (!has_span) return;
 
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -532,7 +715,16 @@ flash_fwd_wide_kernel(const Params p) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= p.Sq) continue;
-    store_slice_row(og + qpos * p.o_ss, o[i], 1.f / l[i], s0, p.D, tx);
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int gg = 0; gg < 2; ++gg) {
+      const int col = s0 + 64 * gg + 4 * tx;
+      if (col < p.D) {
+        *reinterpret_cast<float4*>(og + qpos * p.o_ss + col) =
+            make_float4(o[i][4 * gg] * inv, o[i][4 * gg + 1] * inv,
+                        o[i][4 * gg + 2] * inv, o[i][4 * gg + 3] * inv);
+      }
+    }
     if (blockIdx.z == 0 && tx == 0) {  // a row without a key: NEG_INF
       p.lse[(long long)bh * p.Sq + qpos] =
           m[i] == kNegInfL2 ? kNegInf : m[i] * kLn2 + logf(l[i]);
@@ -540,19 +732,13 @@ flash_fwd_wide_kernel(const Params p) {
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(const Params& p, cudaStream_t stream) {
-  using namespace wide;
-  auto kernel = flash_fwd_wide_kernel<T>;
-  const size_t smem = sizeof(float) * 3 * kChunk;
-  static_assert(kSliceTile <= 2 * kChunk, "the V slice over Q and K");
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.B * p.H, (p.Sq + kRows - 1) / kRows,
-            (p.D + kSlice - 1) / kSlice);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+// Launches flash_fwd_wide_f32_kernel: cdiv(D, 128) spans, in clusters of
+// f32_cluster.cuh's policy.
+cudaError_t launch_wide_f32(const Params& p, cudaStream_t stream) {
+  const int nsp = (p.D + kWideSpan - 1) / kWideSpan;
+  const dim3 grid(p.B * p.H, (p.Sq + kWideRows - 1) / kWideRows, nsp);
+  return launch_clusters(flash_fwd_wide_f32_kernel, grid, 256, kWideSmem, p,
+                         stream, span_cluster(nsp));
 }
 
 // ------------------------------------------ bf16 and f16, tensor cores --
@@ -838,6 +1024,281 @@ cudaError_t launch_16(Bf16Args& a, int B, const Params& p,
   return cudaGetLastError();
 }
 
+// ------------------------ head dims above 256: bf16 and f16, tensor cores --
+
+// Shared memory of flash_fwd_wide_bf16_kernel: a ring of kItems 64 x 64
+// 16-bit tiles for each consumer warpgroup, the two warpgroups' partial
+// scores (f32 fragments) for two step parities, and each ring's barriers.
+struct WideFwdTile {
+  static constexpr int kItem = 64 * 128;  // one 64 x 64 16-bit tile, bytes
+  // A warpgroup holds at most one step's V (kSpan tiles) and two score
+  // chunks (Q and K each) at once; two more let the next chunk land.
+  static constexpr int kItems = 10;
+  static constexpr int kSpan = 4;  // 64-column chunks a warpgroup's span
+  static constexpr int kRings = 2 * kItems * kItem;
+  static constexpr int kSwap = 2 * 2 * 32 * 128 * 4;
+  static constexpr size_t kSmem =  // slack, rings, partial scores, barriers
+      1024 + kRings + kSwap + 8 * 2 * 2 * kItems;
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
+};
+
+// bf16/f16 forward for D > 256 (the design notes at the top). The block
+// owns q rows q0..q0+63 and the output chunks [gb, gb + gn), blockIdx.z's
+// share of the cdiv(D, 64) chunks split evenly over gridDim.z groups of at
+// most 2 kSpan; warpgroup 0 adds P.V into the first gn / 2 of them,
+// warpgroup 1 into the rest. Warpgroup 0 forms the partial scores over the
+// chunks [0, nch / 2), warpgroup 1 over the rest. The producer thread
+// puts into warpgroup w's ring, alternating between the rings, step 0's
+// score chunks (Q, then K), then for each later step t its score chunks
+// and step t - 1's V chunks, and last the last step's V: a warpgroup uses
+// step t - 1's V after step t's scores, and the ring is a FIFO, so this
+// order lets it hold one step's V and still stream any number of score
+// chunks.
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wide_bf16_kernel(const __grid_constant__ Bf16Args a) {
+  using W = WideFwdTile;
+  constexpr int NS = W::kItems;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  float* sX = reinterpret_cast<float*>(base + W::kRings);
+  uint64_t* full =  // ring w's slot s: full[w NS + s]
+      reinterpret_cast<uint64_t*>(base + W::kRings + W::kSwap);
+  uint64_t* empty = full + 2 * NS;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int hk = h / (a.H / a.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;  // heaviest tile first
+  const int nch = (a.D + 63) / 64;
+  const int nc0 = nch / 2, nc1 = nch - nc0;  // score chunks a warpgroup
+  const int gb = blockIdx.z * nch / gridDim.z;
+  const int gn = (blockIdx.z + 1) * nch / gridDim.z - gb;
+  const int ns0 = gn / 2, ns1 = gn - ns0;  // span chunks a warpgroup
+  const KRange kr = k_range(a.causal, a.window, q0, 64, a.Sq, a.Sk, 64);
+  const int n_it = max(kr.end - kr.start, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2 * NS; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread issues TMA
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int put0 = 0, put1 = 0;  // tiles put into each ring
+      auto put = [&](int w, int& n, const CUtensorMap* map, int c, int row,
+                     int head) {
+        const int s = w * NS + n % NS;
+        sm90::mbar_wait(&empty[s], ((n / NS) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], W::kItem);
+        sm90::tma_load_4d(base + s * W::kItem, map, &full[s], 64 * c, row,
+                          head, b);
+        ++n;
+      };
+      for (int t = 0; t <= n_it; ++t) {
+        const int k0 = (kr.start + t) * 64;
+        for (int i = 0; i < nc1 && t < n_it; ++i) {
+          if (i < nc0) {
+            put(0, put0, &a.tq, i, q0, h);
+            put(0, put0, &a.tk, i, k0, hk);
+          }
+          put(1, put1, &a.tq, nc0 + i, q0, h);
+          put(1, put1, &a.tk, nc0 + i, k0, hk);
+        }
+        for (int j = 0; j < ns1 && t > 0; ++j) {
+          if (j < ns0) put(0, put0, &a.tv, gb + j, k0 - 64, hk);
+          put(1, put1, &a.tv, gb + ns0 + j, k0 - 64, hk);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = threadIdx.x >> 7;
+  const int t128 = threadIdx.x & 127;
+  const int warp = t128 >> 5;
+  const int lane = t128 & 31;
+  const int qr = q0 + warp * 16 + (lane >> 2);  // rows qr, qr + 8
+  const int cq = 2 * (lane & 3);                // column in an 8-group
+  const int nc = wg ? nc1 : nc0;                // the warpgroup's
+  const int ns = wg ? ns1 : ns0;                // score and span chunks
+  const int sb = gb + (wg ? ns0 : 0);           // its span's first chunk
+  const int per = 2 * nc + ns;                  // its tiles a step
+  // The ring's tile numbers of step t's first score tile and first V tile.
+  auto s_tile = [&](int t) { return t > 0 ? (t - 1) * per + 2 * nc : 0; };
+  auto v_tile = [&](int t) {
+    return t * per + 2 * nc + (t + 1 < n_it ? 2 * nc : 0);
+  };
+  const uint32_t ring = sm90::smem_u32(base) + wg * NS * W::kItem;
+  uint64_t* fullw = full + wg * NS;
+  uint64_t* emptyw = empty + wg * NS;
+  auto tile = [&](int n) { return ring + (n % NS) * W::kItem; };
+  auto arrived = [&](int n) { sm90::mbar_wait(&fullw[n % NS], (n / NS) & 1); };
+  auto release = [&](int n) { sm90::mbar_arrive(&emptyw[n % NS]); };
+
+  float acc[W::kSpan][32];
+#pragma unroll
+  for (int j = 0; j < W::kSpan; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  float m[2] = {kNegInfL2, kNegInfL2};
+  float l[2] = {0.f, 0.f};  // this thread's partial row sums
+  float alpha[2];
+  float sc[32];
+  uint32_t pa[4][4];
+
+  // O = O alpha + P.V over the span, step t's V tiles, P in pa.
+  auto pv = [&](int t) {
+#pragma unroll
+    for (int j = 0; j < W::kSpan; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] *= alpha[(i >> 1) & 1];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < W::kSpan; ++j) {
+      if (j < ns) {
+        const int n = v_tile(t) + j;
+        arrived(n);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::wgmma_rs<T>(acc[j], pa[kk],
+                            sm90::desc_sw128(tile(n) + kk * 2048, 8192, 1024));
+        }
+      }
+    }
+    sm90::wgmma_commit();
+  };
+  auto pv_done = [&](int t) {
+#pragma unroll
+    for (int j = 0; j < W::kSpan; ++j) sm90::fence_regs(acc[j]);
+    sm90::fence_regs(pa);
+    for (int j = 0; j < ns; ++j) release(v_tile(t) + j);
+  };
+
+  for (int t = 0; t < n_it; ++t) {
+    const int n0 = s_tile(t);
+    // The partial scores over the warpgroup's chunks; each chunk's tiles
+    // go back to the producer once its product is done.
+    for (int i = 0; i < nc; ++i) {
+      arrived(n0 + 2 * i);
+      arrived(n0 + 2 * i + 1);
+      const uint32_t qa = tile(n0 + 2 * i), ka = tile(n0 + 2 * i + 1);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::wgmma_ss<T>(sc, sm90::desc_sw128(qa + 32 * kk, 16, 1024),
+                          sm90::desc_sw128(ka + 32 * kk, 16, 1024),
+                          i > 0 || kk > 0);
+      }
+      sm90::wgmma_commit();
+      if (i > 0) {
+        sm90::wgmma_wait<1>();  // chunk i - 1 is done
+        release(n0 + 2 * i - 2);
+        release(n0 + 2 * i - 1);
+      }
+    }
+    // The last step's P.V goes in behind the scores and runs on while the
+    // scores are swapped and their exponentials taken.
+    if (t > 0) {
+      pv(t - 1);
+      sm90::wgmma_wait<1>();
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(sc);
+    release(n0 + 2 * nc - 2);
+    release(n0 + 2 * nc - 1);
+
+    // S = the two warpgroups' partial sums, the same bits in both.
+    float* mine = sX + ((t & 1) * 2 + wg) * 32 * 128;
+    const float* theirs = sX + ((t & 1) * 2 + (wg ^ 1)) * 32 * 128;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mine[i * 128 + t128] = sc[i];
+    sm90::bar_sync<1, 256>();  // the consumers only
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] += theirs[i * 128 + t128];
+
+    const int k0 = (kr.start + t) * 64;
+    if (tile_needs_mask(a.causal, a.window, q0, 64, k0, 64, a.Sk)) {
+      online_softmax<32, true>(sc, m, l, alpha, a, k0, qr, cq);
+    } else {
+      online_softmax<32, false>(sc, m, l, alpha, a, k0, qr, cq);
+    }
+    if (t > 0) {
+      sm90::wgmma_wait<0>();
+      pv_done(t - 1);
+    }
+    sm90::to_a_frags<T>(sc, pa);
+  }
+  if (n_it > 0) {
+    pv(n_it - 1);
+    sm90::wgmma_wait<0>();
+    pv_done(n_it - 1);
+  }
+
+  T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = qr + 8 * r;
+    if (qpos >= a.Sq) continue;
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int j = 0; j < W::kSpan; ++j) {
+      if (j < ns) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * (sb + j) + 8 * jj + cq;
+          if (col < a.D) {
+            sm90::store2<T>(og + qpos * a.o_ss + col,
+                            acc[j][4 * jj + 2 * r] * inv,
+                            acc[j][4 * jj + 2 * r + 1] * inv);
+          }
+        }
+      }
+    }
+    if (wg == 0 && blockIdx.z == 0 && (lane & 3) == 0) {  // NEG_INF: no key
+      a.lse[(long long)bh * a.Sq + qpos] =
+          m[r] == kNegInfL2 ? kNegInf : m[r] * kLn2 + logf(l[r]);
+    }
+  }
+}
+
+// One block per (batch*head, 64-row q tile, group of at most 2 kSpan
+// chunks of the head dim).
+template <typename T>
+cudaError_t launch_wide_16(Bf16Args& a, const Params& p,
+                           cudaStream_t stream) {
+  using W = WideFwdTile;
+  if (!sm90_host::bshd_map<T>(&a.tq, p.q, p.B, p.Sq, p.H, p.D, p.q_sb,
+                              p.q_ss, p.q_sh, 64) ||
+      !sm90_host::bshd_map<T>(&a.tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb,
+                              p.k_ss, p.k_sh, 64) ||
+      !sm90_host::bshd_map<T>(&a.tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb,
+                              p.v_ss, p.v_sh, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_wide_bf16_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::kSmem);
+  if (err != cudaSuccess) return err;
+  const int nch = (p.D + 63) / 64;
+  dim3 grid(p.B * p.H, (p.Sq + 63) / 64,
+            (nch + 2 * W::kSpan - 1) / (2 * W::kSpan));
+  kernel<<<grid, kWgThreads, W::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_16(const Params& p, cudaStream_t stream) {
   Bf16Args a;
@@ -854,6 +1315,7 @@ cudaError_t dispatch_16(const Params& p, cudaStream_t stream) {
   a.causal = p.causal;
   a.window = p.window;
   a.scale_log2 = p.scale * kLog2e;
+  if (p.D > 256) return launch_wide_16<T>(a, p, stream);
   if (p.D <= 64) return launch_16<T, 64, 128>(a, p.B, p, stream);
   if (p.D <= 128) return launch_16<T, 128, 128>(a, p.B, p, stream);
   return launch_16<T, 256, 64>(a, p.B, p, stream);
@@ -881,13 +1343,9 @@ extern "C" int tpunet_flash_fwd(
            k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal,
            window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > 256) {
-    if (dtype == 0) return (int)launch_wide<float>(p, s);
-    if (dtype == 1) return (int)launch_wide<__nv_bfloat16>(p, s);
-    if (dtype == 2) return (int)launch_wide<__half>(p, s);
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    return (int)(D > 256 ? launch_wide_f32(p, s) : dispatch_f32(p, s));
   }
-  if (dtype == 0) return (int)dispatch_f32(p, s);
   if (dtype == 1) return (int)dispatch_16<__nv_bfloat16>(p, s);
   if (dtype == 2) return (int)dispatch_16<__half>(p, s);
   return (int)cudaErrorInvalidValue;

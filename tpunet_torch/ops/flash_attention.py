@@ -9,13 +9,14 @@ _flash_kernel``) and, in the backward, of ``csrc/flash_bwd.cu``
 it runs the plain PyTorch versions beside them. There is no fallback from
 one to the other. bf16 and f16 run on the tensor cores (wgmma, tiles
 loaded by TMA) and f32 on the CUDA cores (exact f32 FMA), at every head
-dim, with one exception: the forward above head dim 256
-(`flash_fwd_wide_kernel`) runs every dtype on the CUDA cores, with P
-rounded to bf16/f16 before P.V as the tensor-core kernels round it. Above
-256 each backward block owns a span of the output's columns and computes
-the scores over the whole head dim (`flash_dq_wide_bf16_kernel`,
-`flash_dkv_wide_bf16_kernel`; f32: `flash_dq_wide_f32_kernel`,
-`flash_dkv_wide_f32_kernel`). Any head dim and any batch * heads run.
+dim. Above head dim 256 the output's columns are split into spans and the
+scores are formed once for several of them: the forward's two consumer
+warpgroups share one q tile and swap their partial scores
+(`flash_fwd_wide_bf16_kernel`), the f32 span blocks of a tile run as a
+thread-block cluster (`flash_fwd_wide_f32_kernel`,
+`flash_dq_wide_f32_kernel`, `flash_dkv_wide_f32_kernel`), and each 16-bit
+backward span block forms them itself (`flash_dq_wide_bf16_kernel`,
+`flash_dkv_wide_bf16_kernel`). Any head dim and any batch * heads run.
 
 What the kernels need, the wrapper makes (each copy adds one to
 `flash_attention.input_copies`; the model's own calls make none):
