@@ -99,6 +99,26 @@ Phases (each raises on failure; the script then exits non-zero):
            bf16-wire communicator with grad_compression="bf16" must leave
            the ranks bitwise equal, with a codec wire ratio of 0.5. The
            serve and train runs must copy no flash input (input_copies 0).
+  zero     the train phase's run (same model, data, seed, ranks and
+           steps) with ZeRO-1: create_zero_train_state and
+           make_zero_train_step through fit(), the gradient
+           reduce-scattered, AdamW stepped on each rank's half of the flat
+           params, the halves all-gathered. The ranks' params must be
+           bitwise equal to each other and to the train phase's, the rank
+           losses equal to the train phase's, the optimizer state (AdamW's
+           moments) per rank at most half the train phase's (plus
+           padding), the peak memory per rank at least 2 GB below the
+           train phase's; one reduce-scatter and one all-gather a step (no
+           all-reduce), the same flash launches as the train phase, no
+           input copy. Reports the reduce-scatter's and all-gather's bytes
+           and seconds (staging to host, the collective, in all)
+  remat    benchmarks/mfu_sweep.py:29's configuration on this card in one
+           process: the train widths, global batch 8 x 2048, flash, bf16
+           compute, remat; 2 adamw steps for each remat_policy (None,
+           "dots", "dots_no_batch") from the same seed. The params must be
+           bitwise equal across the policies, the peak memory under None
+           below "dots" and "dots_no_batch" at most "dots"; the forward
+           launched twice a layer a step under every policy
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
@@ -142,6 +162,13 @@ MODEL_735M = dict(vocab=32000, d_model=2048, n_layers=12, n_heads=16,
 MODEL_TRAIN = dict(vocab=32000, d_model=2048, n_layers=12, n_heads=16,
                    d_ff=8192, mlp_impl="gelu")
 TRAIN_RANKS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4, 2048, 4, 3e-4
+# ZeRO-1 halves AdamW's two f32 moments at 2 ranks: 2.94 GB of 5.88 at
+# 735,102,976 params; the zero phase wants at least this much off the
+# replicated step's peak per rank.
+ZERO_MEM_SAVING_GB = 2.0
+# The remat phase: benchmarks/mfu_sweep.py:29's configuration (the train
+# widths, global batch 8 x 2048 on one card), every remat_policy.
+REMAT_POLICIES, REMAT_BATCH, REMAT_STEPS = (None, "dots", "dots_no_batch"), 8, 2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 PEAK_FLOPS = {BF16: 989e12, F16: 989e12,   # dense 16-bit tensor cores
@@ -1182,19 +1209,75 @@ def _ramp_data(seed: int) -> str:
     return path
 
 
-def _train_setup(seed: int):
+def _train_setup(seed: int, zero: bool = False, remat_policy=None):
     """(model, tx, state) of the headline training configuration; the f32
-    master weights come from `seed`, identically in every process."""
+    master weights come from `seed`, identically in every process. zero:
+    a ZeRO-1 state (create_zero_train_state; distributed initialized)."""
     from tpunet_torch.models import Transformer
-    from tpunet_torch.train import adamw, create_train_state
+    from tpunet_torch.train import (adamw, create_train_state,
+                                    create_zero_train_state)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = Transformer(compute_dtype=torch.bfloat16, attn_impl="flash",
-                        remat=True, device="meta", **MODEL_TRAIN)
+                        remat=True, remat_policy=remat_policy, device="meta",
+                        **MODEL_TRAIN)
     tx = adamw(TRAIN_LR)
-    state, _ = create_train_state(model, seed, None, tx, device=DEVICE)
+    create = create_zero_train_state if zero else create_train_state
+    state, _ = create(model, seed, None, tx, device=DEVICE)
     return model, tx, state
+
+
+def _opt_state_bytes(opt) -> int:
+    """Bytes of the optimizer's per-parameter state tensors (AdamW's two
+    moments), its step counts left out."""
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for k, v in st.items()
+               if k != "step" and isinstance(v, torch.Tensor))
+
+
+def _zero_counters() -> None:
+    from tpunet_torch.ops.flash_attention import flash_attention
+
+    for attr in (*COUNTERS.values(), "input_copies"):
+        setattr(flash_attention, attr, 0)
+
+
+def _read_counters() -> tuple[dict, int]:
+    """({kernel: launches}, input_copies) since _zero_counters."""
+    from tpunet_torch.ops.flash_attention import flash_attention
+
+    return ({n: getattr(flash_attention, a) for n, a in COUNTERS.items()},
+            flash_attention.input_copies)
+
+
+def _fit_measured(state, step, batches):
+    """fit() for TRAIN_STEPS steps with every kernel counter, the DCN
+    stats and the peak-memory mark reset just before it; returns (state,
+    measurements)."""
+    from tpunet_torch import interop
+    from tpunet_torch.train import fit
+
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    interop.dcn_reduce_stats_reset()
+    _zero_counters()
+    t0 = time.perf_counter()
+    state = fit(state, step, batches, steps=TRAIN_STEPS, log_every=1,
+                log_fn=logs.append, prefetch=2, prefetch_device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, copies = _read_counters()
+    return state, dict(
+        params=sum(t.numel() for t in state.params.values()),
+        losses=[m["loss"] for m in logs],
+        step_s=[1.0 / m["steps_per_s"] for m in logs], fit_wall_s=wall,
+        launches=launches, input_copies=copies,
+        all_reduce=interop.dcn_reduce_stats(),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        opt_state_bytes=_opt_state_bytes(state.opt_state),
+        crc=_params_crc(state.params))
 
 
 def _params_crc(params: dict) -> int:
@@ -1216,34 +1299,14 @@ def _train_batches(path: str, rank: int, seed: int):
 
 
 def _train_rank_body(rank: int, ports, path: str, seed: int) -> dict:
-    from tpunet_torch import distributed, interop, telemetry
-    from tpunet_torch.ops.flash_attention import flash_attention
-    from tpunet_torch.train import fit, make_train_step
+    from tpunet_torch import distributed, telemetry
+    from tpunet_torch.train import make_train_step
 
     distributed.initialize(f"127.0.0.1:{ports[0]}", rank, TRAIN_RANKS)
     model, tx, state = _train_setup(seed)
     step = make_train_step(model, tx, cross_host=True)
-    logs = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    interop.dcn_reduce_stats_reset()
-    for attr in (*COUNTERS.values(), "input_copies"):
-        setattr(flash_attention, attr, 0)
-    t0 = time.perf_counter()
-    state = fit(state, step, _train_batches(path, rank, seed),
-                steps=TRAIN_STEPS, log_every=1, log_fn=logs.append,
-                prefetch=2, prefetch_device=DEVICE)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {n: getattr(flash_attention, a) for n, a in COUNTERS.items()}
-    copies = flash_attention.input_copies
-    out = dict(rank=rank, params=sum(t.numel() for t in state.params.values()),
-               losses=[m["loss"] for m in logs],
-               step_s=[1.0 / m["steps_per_s"] for m in logs], fit_wall_s=wall,
-               launches=launches, input_copies=copies,
-               all_reduce=interop.dcn_reduce_stats(),
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-               crc=_params_crc(state.params))
+    state, out = _fit_measured(state, step, _train_batches(path, rank, seed))
+    out["rank"] = rank
     distributed.finalize()
 
     # One more step with bf16 on the wire: the trainer ships f32 and the
@@ -1263,12 +1326,60 @@ def _train_rank_body(rank: int, ports, path: str, seed: int) -> dict:
     return out
 
 
-def _train_rank(rank: int, ports, path: str, seed: int, q) -> None:
+def _zero_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    """The train phase's run with the ZeRO-1 state and step."""
+    from tpunet_torch import distributed
+    from tpunet_torch.train import make_zero_train_step
+
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, TRAIN_RANKS)
+    model, tx, state = _train_setup(seed, zero=True)
+    step = make_zero_train_step(model, tx)
+    state, out = _fit_measured(state, step, _train_batches(path, rank, seed))
+    out["rank"] = rank
+    distributed.finalize()
+    return out
+
+
+_RANK_BODIES = {"train": _train_rank_body, "zero": _zero_rank_body}
+
+
+def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
+                q) -> None:
     """Entry point of a spawned training rank; reports to `q`."""
     try:
-        q.put((rank, "OK", _train_rank_body(rank, ports, path, seed)))
+        q.put((rank, "OK", _RANK_BODIES[kind](rank, ports, path, seed)))
     except Exception:  # noqa: BLE001 — reported to the parent
         q.put((rank, "FAIL", traceback.format_exc()))
+
+
+def _spawn_ranks(kind: str, path: str, seed: int) -> tuple[list, float]:
+    """Run TRAIN_RANKS spawned ranks of `kind`; ([payload by rank], wall
+    seconds), raising if any rank failed."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    ports = (_free_port(), _free_port())
+    procs = [ctx.Process(target=_train_rank,
+                         args=(kind, r, ports, path, seed, q))
+             for r in range(TRAIN_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        for _ in procs:
+            rank, status, payload = q.get(timeout=900)
+            if status != "OK":
+                raise RuntimeError(f"{kind} rank {rank} failed:\n{payload}")
+            res[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [res[r] for r in range(TRAIN_RANKS)], time.perf_counter() - t0
 
 
 def _train_reference(path: str, seed: int):
@@ -1311,40 +1422,21 @@ def _mfu_flops_per_token(n_params: int) -> float:
     return 6 * n_matmul + 12 * cfg["n_layers"] * TRAIN_SEQ * cfg["d_model"]
 
 
-def phase_train(seed: int) -> dict:
-    """The training path on TRAIN_RANKS spawned ranks; returns the summed
-    kernel launch counts of the ranks' fit() runs."""
-    import multiprocessing as mp
+def _steady(ranks: list) -> float:
+    """Mean step time past the first step, over the ranks."""
+    return float(np.mean([np.mean(r["step_s"][1:]) for r in ranks]))
 
+
+def phase_train(seed: int) -> tuple[dict, dict]:
+    """The training path on TRAIN_RANKS spawned ranks; returns the summed
+    kernel launch counts of the ranks' fit() runs and the train line."""
     path = _ramp_data(seed)
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    ports = (_free_port(), _free_port())
-    procs = [ctx.Process(target=_train_rank, args=(r, ports, path, seed, q))
-             for r in range(TRAIN_RANKS)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    res = {}
-    try:
-        for _ in procs:
-            rank, status, payload = q.get(timeout=900)
-            if status != "OK":
-                raise RuntimeError(f"training rank {rank} failed:\n{payload}")
-            res[rank] = payload
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    ranks_wall = time.perf_counter() - t0
+    ranks, ranks_wall = _spawn_ranks("train", path, seed)
     ref_crc, ref_losses = _train_reference(path, seed)
     torch.cuda.empty_cache()
 
-    ranks = [res[r] for r in range(TRAIN_RANKS)]
     n_params = ranks[0]["params"]
-    steady = float(np.mean([np.mean(r["step_s"][1:]) for r in ranks]))
+    steady = _steady(ranks)
     tokens_per_rank = TRAIN_BATCH * TRAIN_SEQ / steady
     flops_tok = _mfu_flops_per_token(n_params)
     global_loss = [float(np.mean(x)) for x in zip(*(r["losses"]
@@ -1361,6 +1453,7 @@ def phase_train(seed: int) -> dict:
         mfu=tokens_per_rank * TRAIN_RANKS * flops_tok
         / PEAK_FLOPS[torch.bfloat16],
         peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        opt_state_bytes_per_rank=[r["opt_state_bytes"] for r in ranks],
         all_reduce=[r["all_reduce"] for r in ranks],
         all_reduce_s_per_step=[r["all_reduce"]["seconds"] / TRAIN_STEPS
                                for r in ranks],
@@ -1384,16 +1477,134 @@ def phase_train(seed: int) -> dict:
         raise AssertionError("bf16-wire step: ranks differ or wire ratio "
                              f"{summary['bf16_wire_ratio']} != 0.5")
     launches = {n: sum(r["launches"][n] for r in ranks) for n in COUNTERS}
-    layer_steps = TRAIN_RANKS * TRAIN_STEPS * MODEL_TRAIN["n_layers"]
-    want = {"flash_fwd": 2 * layer_steps, "flash_dq": layer_steps,
-            "flash_dkv": layer_steps}
+    want = _want_launches(TRAIN_RANKS, TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"kernel launches on the train path {launches}, "
                              f"expected {want}")
     if any(summary["input_copies"]):
         raise AssertionError(f"the train path copied flash inputs: "
                              f"{summary['input_copies']}")
-    return launches
+    return launches, summary
+
+
+def _want_launches(ranks: int, steps: int) -> dict:
+    """flash launches of `steps` remat steps on `ranks` ranks: the forward
+    twice a layer (once more in the recompute), dQ and dK/dV once."""
+    layer_steps = ranks * steps * MODEL_TRAIN["n_layers"]
+    return {"flash_fwd": 2 * layer_steps, "flash_dq": layer_steps,
+            "flash_dkv": layer_steps}
+
+
+def phase_zero(seed: int, train: dict) -> None:
+    """The train phase's run with ZeRO-1 (create_zero_train_state,
+    make_zero_train_step), held to the train line `train`: the same
+    params bitwise, the same rank losses, half the optimizer state, at
+    least ZERO_MEM_SAVING_GB less peak memory per rank."""
+    path = _ramp_data(seed)
+    ranks, ranks_wall = _spawn_ranks("zero", path, seed)
+    torch.cuda.empty_cache()
+    rank_losses = [list(x) for x in zip(*(r["losses"] for r in ranks))]
+    steady = _steady(ranks)
+    stats = [r["all_reduce"] for r in ranks]
+    coll = {k: [{f: s[k][f] for f in ("calls", "bytes", "to_host_seconds",
+                                      "collective_seconds", "seconds")}
+                for s in stats] for k in ("reduce_scatter", "all_gather")}
+    summary = dict(
+        params=ranks[0]["params"], ranks=TRAIN_RANKS,
+        batch_per_rank=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        losses=[float(np.mean(x)) for x in rank_losses],
+        rank_losses=rank_losses, train_rank_losses=train["rank_losses"],
+        step_s=[r["step_s"] for r in ranks], steady_step_s=steady,
+        train_steady_step_s=train["steady_step_s"],
+        tokens_per_s=TRAIN_RANKS * TRAIN_BATCH * TRAIN_SEQ / steady,
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        train_peak_mem_gb_per_rank=train["peak_mem_gb_per_rank"],
+        opt_state_bytes_per_rank=[r["opt_state_bytes"] for r in ranks],
+        train_opt_state_bytes_per_rank=train["opt_state_bytes_per_rank"],
+        reduce_scatter=coll["reduce_scatter"], all_gather=coll["all_gather"],
+        all_reduce_calls=[s["calls"] for s in stats],
+        fit_wall_s=[r["fit_wall_s"] for r in ranks], ranks_wall_s=ranks_wall,
+        launches=[r["launches"] for r in ranks],
+        input_copies=[r["input_copies"] for r in ranks],
+        crc=[r["crc"] for r in ranks], train_crc=train["crc"][0])
+    log("zero", **summary)
+    if len(set(summary["crc"])) != 1 or summary["crc"][0] != train["crc"][0]:
+        raise AssertionError(f"ZeRO params CRCs {summary['crc']} differ from "
+                             f"each other or the train phase's "
+                             f"{train['crc'][0]}")
+    if rank_losses != train["rank_losses"]:
+        raise AssertionError("the ZeRO rank losses differ from the train "
+                             "phase's")
+    pad = 2 * 4 * TRAIN_RANKS  # two f32 moments of < world padding elements
+    for got, full in zip(summary["opt_state_bytes_per_rank"],
+                         summary["train_opt_state_bytes_per_rank"]):
+        if got > full / TRAIN_RANKS + pad:
+            raise AssertionError(f"ZeRO optimizer state {got} B per rank, "
+                                 f"replicated {full} B")
+    for got, full in zip(summary["peak_mem_gb_per_rank"],
+                         summary["train_peak_mem_gb_per_rank"]):
+        if got > full - ZERO_MEM_SAVING_GB:
+            raise AssertionError(f"ZeRO peak memory {got:.3f} GB per rank, "
+                                 f"not {ZERO_MEM_SAVING_GB} GB below the "
+                                 f"train phase's {full:.3f} GB")
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in COUNTERS}
+    want = _want_launches(TRAIN_RANKS, TRAIN_STEPS)
+    if launches != want or any(summary["input_copies"]):
+        raise AssertionError(f"kernel launches on the zero path {launches}, "
+                             f"expected {want}; input copies "
+                             f"{summary['input_copies']}")
+    if any(s["calls"] for s in stats) or any(
+            c["calls"] != TRAIN_STEPS for k in coll.values() for c in k):
+        raise AssertionError("the ZeRO step must run one reduce-scatter and "
+                             "one all-gather a step and no all-reduce")
+
+
+def phase_remat(seed: int) -> None:
+    """benchmarks/mfu_sweep.py's selective-remat configuration in one
+    process: REMAT_STEPS adamw steps per remat_policy from the same seed,
+    held to bitwise the same params, with the policies' peak memory."""
+    from tpunet_torch.data import TokenDataset, token_batches
+    from tpunet_torch.train import make_train_step
+
+    path = _ramp_data(seed)
+    ds = TokenDataset(path, seq=TRAIN_SEQ, vocab=MODEL_TRAIN["vocab"])
+    rows = {}
+    for policy in REMAT_POLICIES:
+        model, tx, state = _train_setup(seed, remat_policy=policy)
+        step = make_train_step(model, tx)
+        batches = itertools.islice(
+            token_batches(ds, REMAT_BATCH, seed=seed), REMAT_STEPS)
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        for x, y in batches:
+            t0 = time.perf_counter()
+            state, loss = step(state, x, y, 0)
+            logs.append((float(loss), time.perf_counter() - t0))
+        launches, copies = _read_counters()
+        rows[str(policy)] = dict(
+            losses=[m[0] for m in logs], step_s=[m[1] for m in logs],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=launches, input_copies=copies,
+            crc=_params_crc(state.params))
+        del model, tx, state, step
+        torch.cuda.empty_cache()
+    log("remat", model=MODEL_TRAIN, batch=REMAT_BATCH, seq=TRAIN_SEQ,
+        steps=REMAT_STEPS, policies=rows)
+    crcs = {p: r["crc"] for p, r in rows.items()}
+    if len(set(crcs.values())) != 1:
+        raise AssertionError(f"remat policies changed the params: {crcs}")
+    mem = {p: r["peak_mem_gb"] for p, r in rows.items()}
+    if not mem["None"] < mem["dots"] or mem["dots_no_batch"] > mem["dots"]:
+        raise AssertionError(f"remat peak memory {mem}: want None < dots "
+                             f"and dots_no_batch <= dots")
+    want = _want_launches(1, REMAT_STEPS)
+    for p, r in rows.items():
+        if r["launches"] != want or r["input_copies"]:
+            raise AssertionError(f"remat_policy {p}: launches "
+                                 f"{r['launches']}, expected {want}; input "
+                                 f"copies {r['input_copies']}")
 
 
 # The paths of the other kernel routes, each a user's training run through
@@ -1469,18 +1680,14 @@ def phase_paths(seed: int) -> dict:
     """The wide and f32 paths; returns {entry: launches}, counted over each
     path's flash run (every counter zeroed just before it, read just
     after)."""
-    from tpunet_torch.ops.flash_attention import flash_attention
-
     launches = {}
     for name, (cfg, dt, shape) in PATHS.items():
         ref = _path_losses(cfg, dt, shape, "reference", seed)
-        for attr in (*COUNTERS.values(), "input_copies"):
-            setattr(flash_attention, attr, 0)
+        _zero_counters()
         got = _path_losses(cfg, dt, shape, "flash", seed)
         torch.cuda.synchronize()
-        counts = {f"{e}_{name}": getattr(flash_attention, c)
-                  for e, c in COUNTERS.items()}
-        copies = flash_attention.input_copies
+        counts, copies = _read_counters()
+        counts = {f"{e}_{name}": n for e, n in counts.items()}
         with _planted_path_fault():
             bad = _path_losses(cfg, dt, shape, "flash", seed)
         err = max(abs(a - b) for a, b in zip(got, ref))
@@ -1534,7 +1741,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     launches = phase_paths(args.seed)
-    launches.update(phase_train(args.seed))
+    train_launches, train = phase_train(args.seed)
+    launches.update(train_launches)
+    phase_zero(args.seed, train)
+    phase_remat(args.seed)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []

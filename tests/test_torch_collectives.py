@@ -82,6 +82,16 @@ def _collectives_worker(rank, world, q, port):
             "ag": comm.all_gather(i64),
             "bcast": comm.broadcast(f32 * (rank + 1), root=1),
         }
+        # Into caller-given buffers (interop passes pinned ones).
+        rs_out = torch.empty(10, 1000 // (world * 10))
+        assert comm.reduce_scatter(torch.from_numpy(
+            f32.reshape(world * 10, -1)), out=rs_out) is rs_out
+        out["rs_into"] = rs_out.numpy()
+        ag_out = torch.empty(world, 6, 5, dtype=torch.int64)
+        assert comm.all_gather(torch.from_numpy(i64), out=ag_out) is ag_out
+        out["ag_into"] = ag_out.numpy()
+        with pytest.raises(ValueError, match="out must be"):
+            comm.all_gather(i64, out=np.empty((world, 6, 5), np.int32))
         inplace = torch.from_numpy(f32.copy())
         assert comm.all_reduce(inplace, inplace=True) is inplace
         out["inplace"] = inplace.numpy()
@@ -100,6 +110,8 @@ def _collectives_worker(rank, world, q, port):
             torch.from_numpy(f32.reshape(world, -1))).numpy()
         out["dcn_bcast"] = interop.dcn_broadcast(
             torch.from_numpy(f32), root=0).numpy()
+        out["hpsum"] = interop.hierarchical_psum(torch.from_numpy(f32)).numpy()
+        out["stats"] = interop.dcn_reduce_stats()
         t = [interop.dcn_all_reduce_start(torch.from_numpy(f32 * k))
              for k in (1, 2)]
         out["max_in_flight"] = interop.dcn_async_stats()["max_in_flight"]
@@ -134,6 +146,8 @@ def test_collectives_match_numpy_2proc():
             got["rs"], f32_sum.reshape(world * 10, -1)[r * 10:(r + 1) * 10])
         np.testing.assert_array_equal(got["ag"],
                                       np.stack([data[0][1], data[1][1]]))
+        np.testing.assert_array_equal(got["rs_into"], got["rs"])
+        np.testing.assert_array_equal(got["ag_into"], got["ag"])
         np.testing.assert_array_equal(got["bcast"], data[1][0] * 2)
         for k, a in enumerate(got["async"], 1):
             np.testing.assert_array_equal(a, data[0][0] * k + data[1][0] * k)
@@ -146,6 +160,17 @@ def test_collectives_match_numpy_2proc():
         np.testing.assert_array_equal(got["dcn_rs"],
                                       f32_sum.reshape(world, -1)[r:r + 1])
         np.testing.assert_array_equal(got["dcn_bcast"], data[0][0])
+        np.testing.assert_array_equal(got["hpsum"], got["psum"])
+        # dcn_reduce_stats: the all-reduces (psum, its gradient, pmean,
+        # hierarchical_psum) apart from the reduce-scatter and all-gather.
+        stats = got["stats"]
+        assert stats["calls"] == 4 and stats["bytes"] == 4 * 4000
+        assert stats["reduce_scatter"]["calls"] == 1
+        assert stats["reduce_scatter"]["bytes"] == 4000
+        assert stats["all_gather"]["calls"] == 1
+        assert stats["all_gather"]["bytes"] == 30 * 8
+        for s in (stats, stats["reduce_scatter"], stats["all_gather"]):
+            assert s["seconds"] >= s["collective_seconds"] > 0
         assert got["max_in_flight"] == 2
         np.testing.assert_array_equal(got["ticket"][0], f32_sum)
         np.testing.assert_array_equal(got["ticket"][1],
@@ -170,6 +195,9 @@ def test_psum_requires_initialize():
     assert not distributed.is_initialized()
     with pytest.raises(RuntimeError, match="initialize"):
         interop.dcn_psum(torch.ones(3))
+    # Like JAX's: no silent "skip the DCN tier when uninitialized".
+    with pytest.raises(RuntimeError, match="initialize"):
+        interop.hierarchical_psum(torch.ones(3))
 
 
 @pytest.mark.parametrize("name,slice_", [
@@ -178,8 +206,13 @@ def test_psum_requires_initialize():
 def test_later_slice_collectives_raise(name, slice_):
     from tpunet_torch import interop
 
-    with pytest.raises(NotImplementedError, match=slice_):
-        getattr(interop, name)(torch.ones(2))
+    # hierarchical_psum's DCN tier is ported; its in-pod tier (a mesh
+    # axis) waits for the mesh of ROADMAP A.6.
+    kw = {"axis_name": "ici"} if name == "hierarchical_psum" else {}
+    with pytest.raises(NotImplementedError, match=slice_) as err:
+        getattr(interop, name)(torch.ones(2), **kw)
+    if kw:
+        assert "A.6" in str(err.value)
 
 
 # -- the cross-host train step ---------------------------------------------
@@ -289,6 +322,8 @@ def test_trainer_option_errors():
         make_train_step(model, tx, bucket_bytes=1024)
     with pytest.raises(RuntimeError, match="initialize"):
         make_train_step(model, tx, cross_host=True)
-    for fn in (create_zero_train_state, make_zero_train_step):
-        with pytest.raises(NotImplementedError, match="ZeRO"):
-            fn(model, tx)
+    with pytest.raises(ValueError, match="grad_compression"):
+        make_zero_train_step(model, tx, grad_compression="fp8")
+    with pytest.raises(RuntimeError, match="initialize"):
+        create_zero_train_state(model, 0, torch.zeros(1, 4, dtype=torch.long),
+                                tx, device="cpu")

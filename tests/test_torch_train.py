@@ -5,7 +5,10 @@
 - a 2-layer d64 Transformer takes 3 adamw steps through the port's
   ``make_train_step`` and the JAX ``make_train_step`` from the same flax
   init and batch: losses and ``to_flax`` params within 1e-5 relative, with
-  remat off and on, ``accum_steps=2``, z-loss and the fused cross-entropy;
+  remat off and on (every ``remat_policy``), ``accum_steps=2``, z-loss and
+  the fused cross-entropy; the remat policies leave the gradients bitwise
+  unchanged and differ in what they recompute;
+- the byte tokenizer equals the JAX package's;
 - checkpoints, ``fit`` (schedule, resume, cadence) and the data pipeline
   (``token_batches`` equals the JAX package's, ``prefetch_to_device`` on the
   CPU).
@@ -18,6 +21,7 @@ import itertools
 
 import numpy as np
 import pytest
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import free_port  # noqa: F401  (pins JAX_PLATFORMS=cpu first)
 
@@ -26,13 +30,14 @@ import jax.numpy as jnp
 import optax
 import torch
 
+from tpunet.data import ByteTokenizer as JaxByteTokenizer
 from tpunet.data import TokenDataset as JaxTokenDataset
 from tpunet.data import token_batches as jax_token_batches
 from tpunet.models import Transformer as JaxTransformer
 from tpunet.ops import blockwise_cross_entropy as jax_blockwise_xent
 from tpunet.train import create_train_state as jax_create_train_state
 from tpunet.train import make_train_step as jax_make_train_step
-from tpunet_torch.data import (TokenDataset, pack_documents,
+from tpunet_torch.data import (ByteTokenizer, TokenDataset, pack_documents,
                                prefetch_to_device, token_batches)
 from tpunet_torch.models import Transformer, from_flax, to_flax
 from tpunet_torch.ops import blockwise_cross_entropy
@@ -104,6 +109,8 @@ def _rel_err(a, b) -> float:
 TRAIN_CASES = {
     "default": dict(),
     "remat": dict(remat=True),
+    "remat_dots": dict(remat=True, remat_policy="dots"),
+    "remat_dots_no_batch": dict(remat=True, remat_policy="dots_no_batch"),
     "accum2": dict(accum_steps=2),
     "z_loss": dict(z_loss=1e-3),
     "fused_xent": dict(fused_xent_block=24),
@@ -115,18 +122,19 @@ TRAIN_CASES = {
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_train_steps_match_jax(case):
     kw = dict(TRAIN_CASES[case])
-    remat = kw.pop("remat", False)
+    remat = dict(remat=kw.pop("remat", False),
+                 remat_policy=kw.pop("remat_policy", None))
     rng = np.random.default_rng(0)
     toks = rng.integers(0, CFG["vocab"], (3, 4, 16)).astype(np.int32)
     labels = np.roll(toks, -1, axis=2)
 
-    jm = JaxTransformer(compute_dtype=jnp.float32, remat=remat, **CFG)
+    jm = JaxTransformer(compute_dtype=jnp.float32, **remat, **CFG)
     jtx = optax.adamw(3e-4)
     jstate, _ = jax_create_train_state(jm, jax.random.PRNGKey(0),
                                        jnp.asarray(toks[0]), jtx)
     jstep = jax_make_train_step(jm, jtx, donate=False, **kw)
 
-    tm = Transformer(compute_dtype=torch.float32, remat=remat,
+    tm = Transformer(compute_dtype=torch.float32, **remat,
                      attn_impl="flash", device="meta", **CFG)
     sd = from_flax(jax.tree.map(np.asarray, jstate.params),
                    Transformer(compute_dtype=torch.float32, device="cpu",
@@ -149,22 +157,70 @@ def test_train_steps_match_jax(case):
         assert _rel_err(g, w) <= 1e-5, jax.tree_util.keystr(path)
 
 
+REMATS = {"off": dict(remat=False), "none": dict(remat=True),
+          "dots": dict(remat=True, remat_policy="dots"),
+          "dots_no_batch": dict(remat=True, remat_policy="dots_no_batch")}
+
+
+class _CountDots(TorchDispatchMode):
+    """Counts the matrix products dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = self.bmm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        self.mm += name in ("mm", "addmm")
+        self.bmm += name in ("bmm", "baddbmm")
+        return func(*args, **(kwargs or {}))
+
+
+def _remat_grads(impl, how, toks):
+    m = Transformer(compute_dtype=torch.float32, attn_impl=impl,
+                    device="meta", **REMATS[how], **SMALL)
+    state, net = create_train_state(m, 5, toks, adamw(1e-3))
+    loss = net(toks, train=True).logsumexp(-1).mean()
+    counts = _CountDots()
+    with counts:
+        grads = torch.autograd.grad(loss, list(state.params.values()))
+    return grads, counts
+
+
 def test_remat_keeps_the_gradients_and_rejects_policies():
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, 64, (2, 12)))
-    grads = []
+    """Every remat policy gives bitwise the gradients of no remat, with
+    either attention impl; an unknown policy is refused even with remat
+    off, like the flax model."""
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 12)))
+    for impl in ("reference", "flash"):
+        want, _ = _remat_grads(impl, "off", toks)
+        for how in ("none", "dots", "dots_no_batch"):
+            got, _ = _remat_grads(impl, how, toks)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
     for remat in (False, True):
-        m = Transformer(compute_dtype=torch.float32, remat=remat,
-                        attn_impl="flash", device="meta", **SMALL)
-        state, net = create_train_state(m, 5, toks, adamw(1e-3))
-        loss = net(toks, train=True).logsumexp(-1).mean()
-        grads.append(torch.autograd.grad(loss, list(state.params.values())))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        Transformer(device="meta", remat=True, remat_policy="dots", **SMALL)
-    with pytest.raises(ValueError, match="remat_policy"):
-        Transformer(device="meta", remat_policy="bogus", **SMALL)
+        with pytest.raises(ValueError, match="remat_policy"):
+            Transformer(device="meta", remat=remat, remat_policy="bogus",
+                        **SMALL)
+
+
+def test_remat_policies_save_the_dots_they_name():
+    """What the backward recomputes: with the reference attention, no
+    policy recomputes every product, "dots_no_batch" the attention's
+    batched ones (bmm) but no dense layer (mm), "dots" none. So the saved
+    products rise None < "dots_no_batch" < "dots"."""
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 12)))
+    n = {how: _remat_grads("reference", how, toks)[1] for how in REMATS}
+    # The backward's own products, with everything saved (no remat).
+    assert n["dots"].mm == n["off"].mm and n["dots"].bmm == n["off"].bmm
+    assert n["dots_no_batch"].mm == n["off"].mm
+    assert n["dots_no_batch"].bmm > n["off"].bmm
+    assert n["none"].mm > n["off"].mm and n["none"].bmm > n["off"].bmm
+    assert n["none"].bmm == n["dots_no_batch"].bmm
+    recomputed = {h: c.mm + c.bmm - n["off"].mm - n["off"].bmm
+                  for h, c in n.items()}
+    assert recomputed["none"] > recomputed["dots_no_batch"] > (
+        recomputed["dots"]) == 0
 
 
 def test_adamw_keeps_optax_defaults_and_bind_trainable():
@@ -321,3 +377,34 @@ def test_prefetch_to_device_on_cpu():
         next(it)
     with pytest.raises(ValueError):
         next(prefetch_to_device(iter(src), size=0, device="cpu"))
+
+
+BYTE_TEXTS = ["", "plain ascii", "héllo wörld", "日本語のテキスト",
+              "emoji \U0001f600 and \u00e9", "\x00\x01 ctrl \x7f"]
+
+
+@pytest.mark.parametrize("add_bos", [False, True])
+def test_byte_tokenizer_matches_jax(add_bos):
+    tok, jtok = ByteTokenizer(add_bos=add_bos), JaxByteTokenizer(
+        add_bos=add_bos)
+    assert (tok.bos_id, tok.eos_id, tok.vocab) == (
+        jtok.bos_id, jtok.eos_id, jtok.vocab) == (256, 257, 258)
+    rng = np.random.default_rng(4)
+    raw = [rng.integers(0, 256, n).astype(np.uint8).tobytes()
+           for n in (0, 1, 17, 300)]
+    for text in BYTE_TEXTS + raw:
+        for eos in (False, True):
+            got = tok.encode(text, eos=eos)
+            want = jtok.encode(text, eos=eos)
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+            assert tok.decode(got) == jtok.decode(want)
+        if isinstance(text, str):
+            assert tok.decode(tok.encode(text, eos=True)) == text
+    # Out-of-range and special ids are dropped; invalid UTF-8 per `errors`.
+    ids = np.array([[104, 105, 256, 257, -1, 300, 0xC3], [0xA9, 33, 9999,
+                                                          32, 65, 66, 67]])
+    for errors in ("replace", "ignore"):
+        assert tok.decode(ids, errors=errors) == jtok.decode(ids,
+                                                             errors=errors)
+    assert tok.decode(torch.tensor([72, 256, 105]).numpy()) == "Hi"

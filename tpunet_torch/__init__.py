@@ -14,8 +14,9 @@ CUDA kernel where the JAX package has a Pallas kernel. Layers, bottom up:
   kernels and their plain versions; the blockwise fused cross-entropy;
 - ``models`` — the Transformer, the decode cache, ``generate`` and the
   continuous-batching ``BatchServer``;
-- ``data``   — token datasets and host->device prefetch;
-- ``train``  — the data-parallel train step, ``fit`` and checkpoints;
+- ``data``   — token datasets, host->device prefetch, the byte tokenizer;
+- ``train``  — the data-parallel train step (replicated or ZeRO-1),
+  ``fit`` and checkpoints;
 - ``serve``  — the disaggregated prefill/decode tier over the transport.
 
 Entry points run on the GPU unless given ``device="cpu"``.

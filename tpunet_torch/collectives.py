@@ -88,6 +88,19 @@ class _Buf:
         return _Buf(np.empty(shape, dtype=self.obj.dtype))
 
 
+def _out_buf(like: _Buf, shape: tuple, out: Any) -> _Buf:
+    """The output buffer of a collective: `out` itself, checked to be a
+    C-contiguous buffer of `shape` and `like`'s dtype, or a new one."""
+    if out is None:
+        return like.empty(shape)
+    buf = _Buf(out)
+    if buf.obj is not out or buf.shape != tuple(shape) or (
+            buf.code != like.code):
+        raise ValueError(f"out must be a C-contiguous buffer of shape "
+                         f"{tuple(shape)} and the input's dtype")
+    return buf
+
+
 class AsyncResult:
     """Handle for a nonblocking collective. Pins the send/recv buffers until
     `wait()`: the native layer reads and writes them from its worker
@@ -203,23 +216,27 @@ class Communicator:
             ctypes.byref(ticket)), "iall_reduce")
         return AsyncResult(self, ticket.value, buf.obj, out.obj)
 
-    def reduce_scatter(self, arr: Any, op: str = "sum"):
+    def reduce_scatter(self, arr: Any, op: str = "sum", out: Any = None):
         """arr: leading axis divisible by world_size; returns this rank's
-        reduced shard (shape[0] / world_size leading axis)."""
+        reduced shard (shape[0] / world_size leading axis), written into
+        `out` when given (a C-contiguous buffer of that shape and dtype)."""
         buf = _Buf(arr)
         if buf.shape[0] % self.world_size:
             raise ValueError(f"leading axis {buf.shape[0]} not divisible by "
                              f"world size {self.world_size}")
-        out = buf.empty((buf.shape[0] // self.world_size,) + buf.shape[1:])
+        out = _out_buf(buf, (buf.shape[0] // self.world_size,)
+                       + tuple(buf.shape[1:]), out)
         _native.check(self._lib.tpunet_comm_reduce_scatter(
             self._id, buf.ptr, out.ptr, out.size, buf.code, _OPS[op]),
             "reduce_scatter")
         return out.obj
 
-    def all_gather(self, arr: Any):
-        """Returns shape (world_size, *arr.shape), rank-ordered."""
+    def all_gather(self, arr: Any, out: Any = None):
+        """Returns shape (world_size, *arr.shape), rank-ordered, written
+        into `out` when given (a C-contiguous buffer of that shape and
+        dtype)."""
         buf = _Buf(arr)
-        out = buf.empty((self.world_size,) + tuple(buf.shape))
+        out = _out_buf(buf, (self.world_size,) + tuple(buf.shape), out)
         _native.check(self._lib.tpunet_comm_all_gather(
             self._id, buf.ptr, out.ptr, buf.nbytes), "all_gather")
         return out.obj

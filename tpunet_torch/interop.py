@@ -18,7 +18,12 @@ rank and the JAX package's ``after=`` ordering operands have no
 counterpart. ``dcn_all_reduce(sum)`` is differentiable: the gradient of a
 sum all-reduce is a sum all-reduce of the gradient. ``dcn_reduce_stats()``
 counts the blocking all-reduces and the host wall time they took: in all,
-in the device-to-host staging, and in the collective itself.
+in the device-to-host staging, and in the collective itself; and, under
+their own keys, the same for the reduce-scatters and all-gathers (ZeRO's
+two halves of the all-reduce).
+
+``hierarchical_psum`` ports the DCN tier only: the in-pod psum over a mesh
+axis waits for the port's mesh (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -59,33 +64,56 @@ def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 _ZERO_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "to_host_seconds": 0.0,
                "collective_seconds": 0.0}
 _reduce_stats = dict(_ZERO_STATS)
+_other_stats = {"reduce_scatter": dict(_ZERO_STATS),
+                "all_gather": dict(_ZERO_STATS)}
 
 
 def dcn_reduce_stats() -> dict:
-    """Blocking all-reduces since the last reset: calls, payload bytes and
-    host wall seconds: `seconds` in all (staging, the collective, queueing
-    the copy back), `to_host_seconds` staging the input to host memory
-    (finished), `collective_seconds` the native all-reduce."""
-    return dict(_reduce_stats)
+    """Blocking all-reduces since the last reset: calls, payload bytes
+    (the input's) and host wall seconds: `seconds` in all (staging, the
+    collective, queueing the copy back), `to_host_seconds` staging the
+    input to host memory (finished), `collective_seconds` the native
+    collective. The keys "reduce_scatter" and "all_gather" hold the same
+    five counts for dcn_reduce_scatter and dcn_all_gather."""
+    return dict(_reduce_stats,
+                **{k: dict(v) for k, v in _other_stats.items()})
 
 
 def dcn_reduce_stats_reset() -> None:
     _reduce_stats.update(_ZERO_STATS)
+    for v in _other_stats.values():
+        v.update(_ZERO_STATS)
+
+
+def _staged(stats: dict, x: torch.Tensor, collective,
+            out_shape: tuple | None = None) -> torch.Tensor:
+    """Stage `x` to the host, run collective(host, out) and bring the
+    result back to `x`'s device, counting the call and its times in
+    `stats`. For a CUDA `x`, `out` is a pinned host buffer of `out_shape`
+    (None: the collective allocates or works in place): the caching host
+    allocator hands the same warm pages back every step, where a fresh
+    pageable buffer would page-fault under the native collective's writes
+    and make the copy back synchronous."""
+    t0 = time.perf_counter()
+    host = _to_host(x)
+    out = None
+    if out_shape is not None and x.device.type != "cpu":
+        out = torch.empty(out_shape, dtype=x.dtype, pin_memory=True)
+    t1 = time.perf_counter()
+    out = collective(host, out)
+    t2 = time.perf_counter()
+    out = _to_device(out, x)
+    stats["calls"] += 1
+    stats["bytes"] += x.numel() * x.element_size()
+    stats["to_host_seconds"] += t1 - t0
+    stats["collective_seconds"] += t2 - t1
+    stats["seconds"] += time.perf_counter() - t0
+    return out
 
 
 def _all_reduce_impl(x: torch.Tensor, op: str) -> torch.Tensor:
-    t0 = time.perf_counter()
-    host = _to_host(x)
-    t1 = time.perf_counter()
-    out = _comm().all_reduce(host, op, inplace=host is not x)
-    t2 = time.perf_counter()
-    out = _to_device(out, x)
-    _reduce_stats["calls"] += 1
-    _reduce_stats["bytes"] += x.numel() * x.element_size()
-    _reduce_stats["to_host_seconds"] += t1 - t0
-    _reduce_stats["collective_seconds"] += t2 - t1
-    _reduce_stats["seconds"] += time.perf_counter() - t0
-    return out
+    return _staged(_reduce_stats, x, lambda host, _: _comm().all_reduce(
+        host, op, inplace=host is not x))
 
 
 class _AllReduce(torch.autograd.Function):
@@ -182,7 +210,8 @@ def dcn_all_reduce_finish(ticket: int, like: torch.Tensor | None = None):
 
 def dcn_all_gather(x: torch.Tensor) -> torch.Tensor:
     """Gather `x` from every process: result shape (world, *x.shape)."""
-    return _to_device(_comm().all_gather(_to_host(x)), x)
+    return _staged(_other_stats["all_gather"], x, _comm().all_gather,
+                   (distributed.world_size(), *x.shape))
 
 
 def dcn_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -192,7 +221,9 @@ def dcn_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if x.shape[0] % w:
         raise ValueError(f"leading axis {x.shape[0]} not divisible by world "
                          f"size {w}")
-    return _to_device(_comm().reduce_scatter(_to_host(x), op), x)
+    return _staged(_other_stats["reduce_scatter"], x,
+                   lambda host, out: _comm().reduce_scatter(host, op, out),
+                   (x.shape[0] // w, *x.shape[1:]))
 
 
 def dcn_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
@@ -216,6 +247,16 @@ def dcn_neighbor_exchange(x: torch.Tensor) -> torch.Tensor:
 
 
 def hierarchical_psum(x: torch.Tensor, axis_name: str | None = None):
-    raise NotImplementedError(
-        "hierarchical_psum (an ICI psum, then the DCN all-reduce) belongs to "
-        "a later training slice of the port (ROADMAP A.1)")
+    """Two-tier psum, the DCN tier: a sum all-reduce across processes when
+    the world has more than one (``world_size()`` raises if
+    ``initialize()`` was skipped, as the JAX version does, which bakes the
+    decision in at trace time). The JAX version first sums over the in-pod
+    mesh axis `axis_name` (ICI); that tier waits for the port's mesh."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"hierarchical_psum(axis_name={axis_name!r}): the in-pod psum "
+            "over a mesh axis belongs to a later training slice of the "
+            "port, the mesh and smap of ROADMAP A.6")
+    if distributed.world_size() > 1:
+        x = dcn_all_reduce(x, "sum")
+    return x

@@ -18,6 +18,14 @@ flax signature (the family has no dropout, so ``train`` changes nothing).
 ``remat=True`` runs each block under ``torch.utils.checkpoint``
 (non-reentrant): its activations are dropped in the forward and recomputed
 in the backward, flax ``nn.remat(Block)`` with ``remat_policy=None``.
+``remat_policy`` selects what a block keeps instead (a selective
+checkpoint policy, seen at the dispatch level, where a dense layer is
+``aten.mm``): "dots" saves the outputs of every matrix product
+(``aten.mm``, ``addmm``, ``bmm``, ``baddbmm``; jax's ``dots_saveable``),
+"dots_no_batch" only those without batch dims (``aten.mm``, ``addmm``;
+``dots_with_no_batch_dims_saveable``: the dense layers, not the reference
+attention's batched einsums). Everything else is recomputed, the flash
+kernels too, as JAX's policies save only ``dot_general`` outputs.
 ``bind(params, trainable=True)`` gives a module whose parameters ARE the
 given ``nn.Parameter`` tensors (f32 master weights; dense layers cast them
 to ``compute_dtype`` at use, so their gradients land in f32).
@@ -32,18 +40,20 @@ the per-row cache of continuous batching, a () index the lockstep cache of
 through the configured attention kernel (flash on the card).
 
 Options of the flax model that belong to later slices of the port (MoE,
-int8 weights, LoRA, the sequence-parallel attention impls, the "dots"
-remat policies, the ring decode cache) raise NotImplementedError.
+int8 weights, LoRA, the sequence-parallel attention impls, the ring decode
+cache) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from tpunet_torch import _device
 from tpunet_torch.ops.flash_attention import (_repeat_kv, attention_reference,
@@ -269,9 +279,16 @@ _LATER = {
     "n_experts": (0, "MoE (model options slice)"),
     "weight_quant": (None, "int8 weight quantization (model options slice)"),
     "lora_rank": (0, "LoRA (model options slice)"),
-    "remat_policy": (None, "the remat_policy option (training leftovers, "
-                           "ROADMAP A.1)"),
     "mesh": (None, "mesh-sharded attention (sequence-parallel slice)"),
+}
+
+_aten = torch.ops.aten
+# remat_policy -> the ops whose outputs a rematerialized block saves.
+REMAT_POLICIES = {
+    None: (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
 }
 
 
@@ -289,18 +306,19 @@ class Transformer(nn.Module):
                  n_kv_heads: int | None = None, mlp_impl: str = "gelu",
                  attn_window: int | None = None, flash_block_q: int = 128,
                  flash_block_k: int = 128, decode_ring_cache: bool = True,
-                 remat: bool = False, device=None, **later):
+                 remat: bool = False, remat_policy: str | None = None,
+                 device=None, **later):
         super().__init__()
         self._kwargs = dict(
             vocab=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
             d_ff=d_ff, compute_dtype=compute_dtype, attn_impl=attn_impl,
             n_kv_heads=n_kv_heads, mlp_impl=mlp_impl, attn_window=attn_window,
             flash_block_q=flash_block_q, flash_block_k=flash_block_k,
-            decode_ring_cache=decode_ring_cache, remat=remat)
-        policy = later.get("remat_policy")
-        if policy not in (None, "dots", "dots_no_batch"):
+            decode_ring_cache=decode_ring_cache, remat=remat,
+            remat_policy=remat_policy)
+        if remat_policy not in REMAT_POLICIES:
             # Validated even when remat is off, like the flax model.
-            raise ValueError(f"unknown remat_policy {policy!r}")
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"unknown Transformer option {name!r}")
@@ -324,6 +342,7 @@ class Transformer(nn.Module):
         self.flash_block_q, self.flash_block_k = flash_block_q, flash_block_k
         self.decode_ring_cache = decode_ring_cache
         self.remat = remat
+        self.remat_policy = remat_policy
         self.n_experts = 0
         head_dim = d_model // n_heads
         self.embed = nn.Parameter(torch.empty(vocab, d_model, device=device))
@@ -355,10 +374,15 @@ class Transformer(nn.Module):
         del train  # no dropout in this family; kept for the trainer
         dt = self.compute_dtype
         x = F.embedding(tokens, self.embed).to(dt)
+        saved = REMAT_POLICIES[self.remat_policy]
+        kw = {}
+        if saved:
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, list(saved))
         for i in range(self.n_layers):
             block = getattr(self, f"block{i}")
             if self.remat and cache is None and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, use_reentrant=False, **kw)
             else:
                 x = block(x, cache, prefill, f"block{i}/")
         x = self.norm_f(x)

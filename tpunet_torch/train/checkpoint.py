@@ -9,6 +9,20 @@ into place, so a reader never sees half of one. ``max_to_keep`` keeps the
 newest steps and deletes the rest. Saving a step that exists raises
 ``StepAlreadyExistsError`` unless ``force=True``, which overwrites it.
 Saves are synchronous, so ``wait_until_finished`` has nothing to wait for.
+
+A ZeRO state (``create_zero_train_state``) keeps its optimizer shard apart:
+``<step>.pt`` holds the params (replicated: every rank writes the same
+file), the step and the shard's world, with no optimizer state, and each
+rank writes its shard's ``state_dict()`` to
+``<step>.zero-<rank>-of-<world>.pt``, so ranks that share a directory lose
+no shard. Restoring a ZeRO checkpoint into a state of another world size
+(or another rank) raises: a world change invalidates the sharded state
+(the elastic caveat of ``make_zero_train_step``).
+
+``save_pytree`` / ``restore_pytree`` save and restore one tree in one file:
+a ``TrainState`` (replicated or ZeRO) or nested dicts, lists and tuples of
+tensors, numpy arrays and scalars; restore takes the structure, dtypes and
+devices from its target.
 """
 
 from __future__ import annotations
@@ -19,16 +33,92 @@ import re
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
-from tpunet_torch.train.trainer import TrainState
+from tpunet_torch.train.trainer import TrainState, _zero_layout
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
 
 class StepAlreadyExistsError(ValueError):
     """A checkpoint of this step exists and `force` was not given."""
+
+
+def _zero_geometry(opt) -> dict | None:
+    """{rank, world, n} of a ZeRO optimizer shard, None for a replicated
+    optimizer."""
+    return opt.param_groups[0].get("zero")
+
+
+def _atomic_save(payload, path: Path) -> None:
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _state_payload(state: TrainState, with_opt: bool = True) -> dict:
+    payload = {"params": {k: t.detach() for k, t in state.params.items()},
+               "opt_state": (state.opt_state.state_dict() if with_opt
+                             else None),
+               "step": int(state.step)}
+    zero = _zero_geometry(state.opt_state)
+    if zero is not None:
+        payload["zero"] = {"world": zero["world"], "n": zero["n"]}
+    return payload
+
+
+def _check_zero(saved: dict | None, target_opt) -> None:
+    """Raise unless a checkpoint's shard geometry ({world, n}, and rank
+    where it has one) fits the target optimizer's."""
+    want = _zero_geometry(target_opt)
+    if (saved is None) != (want is None):
+        kinds = {True: "a ZeRO (sharded) state", False: "a replicated state"}
+        raise ValueError(f"the checkpoint holds {kinds[saved is not None]}, "
+                         f"the target is {kinds[want is not None]}")
+    if saved is not None and any(saved[k] != want[k] for k in saved):
+        raise ValueError(
+            f"the checkpoint's optimizer shard is {saved} and the target's "
+            f"{want}: a world change invalidates the sharded optimizer "
+            "state; rebuild it with create_zero_train_state and restore "
+            "the params alone")
+
+
+def _new_optimizer(target_opt, params: list):
+    """An optimizer of the target's kind and hyperparameters over
+    `params`. `defaults` may hold keys the constructor does not take
+    (AdamW's decoupled_weight_decay); load_state_dict restores the groups'
+    hyperparameters anyway."""
+    kind = type(target_opt)
+    accepted = inspect.signature(kind.__init__).parameters
+    return kind(params, **{k: v for k, v in target_opt.defaults.items()
+                           if k in accepted})
+
+
+def _restore_state(payload: dict, opt_payload: dict,
+                   target: TrainState) -> TrainState:
+    """A NEW TrainState from saved params and optimizer state, on the
+    target's device and of the target's optimizer kind and layout (a ZeRO
+    target gets params laid out as views of one flat buffer and its
+    optimizer over this rank's slice, as create_zero_train_state lays
+    them out); `target` is not modified."""
+    if set(payload["params"]) != set(target.params):
+        raise KeyError("checkpoint parameters differ from the target's")
+    _check_zero(opt_payload["param_groups"][0].get("zero"), target.opt_state)
+    zero = _zero_geometry(target.opt_state)
+    dev = next(iter(target.params.values())).device
+    if zero is None:
+        params = {k: nn.Parameter(payload["params"][k].to(
+            dev, target.params[k].dtype)) for k in target.params}
+        opt = _new_optimizer(target.opt_state, list(params.values()))
+    else:
+        params, shard = _zero_layout(
+            {k: payload["params"][k] for k in target.params}, zero["rank"],
+            zero["world"], dev)
+        opt = _new_optimizer(target.opt_state, [shard])
+    opt.load_state_dict(opt_payload)
+    return TrainState(params, opt, int(payload["step"]))
 
 
 class CheckpointManager:
@@ -48,43 +138,57 @@ class CheckpointManager:
     def _path(self, step: int) -> Path:
         return self._dir / f"{int(step)}.pt"
 
+    def _shard_path(self, step: int, zero: dict) -> Path:
+        return self._dir / (f"{int(step)}.zero-{zero['rank']}-of-"
+                            f"{zero['world']}.pt")
+
+    def has(self, step: int, state: TrainState) -> bool:
+        """Whether `state`'s checkpoint of `step` exists: the step's file,
+        and for a ZeRO state this rank's shard (other ranks may have
+        written the step's file already)."""
+        zero = _zero_geometry(state.opt_state)
+        return self._path(step).exists() and (
+            zero is None or self._shard_path(step, zero).exists())
+
     def save(self, step: int, state: TrainState, force: bool = False) -> bool:
         path = self._path(step)
-        if path.exists() and not force:
+        if not force and self.has(step, state):
             raise StepAlreadyExistsError(
                 f"checkpoint for step {step} already exists in {self._dir}")
-        payload = {"params": {k: t.detach() for k, t in state.params.items()},
-                   "opt_state": state.opt_state.state_dict(),
-                   "step": int(state.step)}
-        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        zero = _zero_geometry(state.opt_state)
+        if zero is not None:
+            # The shard first: a step's file never names a shard that was
+            # not written.
+            _atomic_save(state.opt_state.state_dict(),
+                         self._shard_path(step, zero))
+        _atomic_save(_state_payload(state, with_opt=zero is None), path)
         if self._max_to_keep is not None:
             for old in self.all_steps()[:-self._max_to_keep]:
                 self._path(old).unlink(missing_ok=True)
+                for f in self._dir.glob(f"{old}.zero-*.pt"):
+                    f.unlink(missing_ok=True)
         return True
 
     def restore(self, step: int, target: TrainState) -> TrainState:
         """Restore a specific step into NEW tensors on the target's device
-        and a new optimizer of the target's kind; `target` is not
-        modified."""
+        and a new optimizer of the target's kind (and, for a ZeRO target,
+        its shard geometry); `target` is not modified."""
         dev = next(iter(target.params.values())).device
         payload = torch.load(self._path(step), map_location=dev,
                              weights_only=True)
-        if set(payload["params"]) != set(target.params):
-            raise KeyError("checkpoint parameters differ from the target's")
-        params = {k: nn.Parameter(payload["params"][k].to(
-            target.params[k].dtype)) for k in target.params}
-        # `defaults` may hold keys the constructor does not take (AdamW's
-        # decoupled_weight_decay); load_state_dict restores the groups'
-        # hyperparameters anyway.
-        kind = type(target.opt_state)
-        accepted = inspect.signature(kind.__init__).parameters
-        opt = kind(list(params.values()),
-                   **{k: v for k, v in target.opt_state.defaults.items()
-                      if k in accepted})
-        opt.load_state_dict(payload["opt_state"])
-        return TrainState(params, opt, int(payload["step"]))
+        _check_zero(payload.get("zero"), target.opt_state)
+        zero = _zero_geometry(target.opt_state)
+        if zero is None:
+            opt_payload = payload["opt_state"]
+        else:
+            shard = self._shard_path(step, zero)
+            if not shard.exists():
+                raise FileNotFoundError(
+                    f"no optimizer shard {shard.name} for step {step} in "
+                    f"{self._dir}")
+            opt_payload = torch.load(shard, map_location=dev,
+                                     weights_only=True)
+        return _restore_state(payload, opt_payload, target)
 
     def restore_latest(self, target: TrainState) -> TrainState | None:
         """Resume from the newest checkpoint, or None if none exists."""
@@ -110,3 +214,73 @@ class CheckpointManager:
 
     def __exit__(self, *exc: Any) -> None:
         self.close()
+
+
+# -- one-shot trees -----------------------------------------------------------
+
+
+def _to_payload(tree):
+    if isinstance(tree, TrainState):
+        return _state_payload(tree)
+    if isinstance(tree, dict):
+        return {k: _to_payload(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_payload(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(tree))
+    if isinstance(tree, np.generic):
+        return tree.item()
+    if tree is None or isinstance(tree, (bool, int, float, complex, str)):
+        return tree
+    raise TypeError(f"save_pytree cannot save a {type(tree).__name__}")
+
+
+def _from_payload(saved, target, where: str):
+    if isinstance(target, TrainState):
+        return _restore_state(saved, saved["opt_state"], target)
+    if isinstance(target, dict):
+        if set(saved) != set(target):
+            raise KeyError(f"{where or 'the tree'}: saved keys "
+                           f"{sorted(saved)} differ from the target's "
+                           f"{sorted(target)}")
+        return type(target)((k, _from_payload(saved[k], v, f"{where}[{k!r}]"))
+                            for k, v in target.items())
+    if isinstance(target, (list, tuple)):
+        if len(saved) != len(target):
+            raise ValueError(f"{where or 'the tree'}: {len(saved)} saved "
+                             f"items, the target has {len(target)}")
+        items = [_from_payload(s, t, f"{where}[{i}]")
+                 for i, (s, t) in enumerate(zip(saved, target))]
+        if isinstance(target, tuple) and hasattr(target, "_fields"):
+            return type(target)(*items)
+        return type(target)(items)
+    if isinstance(target, torch.Tensor):
+        out = saved.to(target.device, target.dtype)
+        if isinstance(target, nn.Parameter):
+            return nn.Parameter(out, requires_grad=target.requires_grad)
+        return out
+    if isinstance(target, np.ndarray):
+        return saved.numpy().astype(target.dtype, copy=False)
+    if isinstance(target, np.generic):
+        return type(target)(saved)
+    return saved
+
+
+def save_pytree(path: str | Path, tree: Any) -> None:
+    """One-shot save of `tree` (no manager, no retention) to the file
+    `path`. A ZeRO state's file records its shard's (rank, world): at a
+    world above 1 each rank saves to its own path."""
+    path = Path(path).absolute()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _atomic_save(_to_payload(tree), path)
+
+
+def restore_pytree(path: str | Path, target: Any) -> Any:
+    """One-shot restore; `target` supplies the structure, dtypes and
+    devices (and, for a TrainState, the optimizer kind and shard layout)
+    and is not modified."""
+    saved = torch.load(Path(path).absolute(), map_location="cpu",
+                       weights_only=True)
+    return _from_payload(saved, target, "")

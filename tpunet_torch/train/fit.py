@@ -115,7 +115,7 @@ def fit(state: TrainState, train_step: Callable, batches: Iterable, *,
                     f"fit() ran 0 steps (state.step={done}, steps={steps}): "
                     "the batch stream was empty; ensuring a checkpoint "
                     "exists for the current state", stacklevel=2)
-            if mgr.latest_step() != done:
+            if not mgr.has(done, state):
                 mgr.save(done, state, force=True)
             mgr.wait_until_finished()
     finally:

@@ -18,9 +18,13 @@ state stays valid, at twice the memory).
     submits byte-bounded same-dtype buckets in backward order as
     nonblocking all-reduces and then collects them all.
 
-The MoE auxiliary loss (``n_experts > 0``) and ZeRO
-(``create_zero_train_state``, ``make_zero_train_step``) belong to later
-slices of the port and raise NotImplementedError.
+ZeRO-1 (``create_zero_train_state``, ``make_zero_train_step``) keeps the
+params replicated and shards the optimizer: its state is built over ONE
+flat f32 parameter, this rank's 1/world slice of the zero-padded flat
+parameter vector. ``create_zero_train_state`` lays the params out as views
+of one flat buffer, so that slice IS the params' memory and the shard costs
+no copy. The MoE auxiliary loss (``n_experts > 0``) belongs to a later
+slice of the port and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -298,13 +302,176 @@ def make_train_step(model, tx=None, cross_host: bool = False,
     return train_step
 
 
-def create_zero_train_state(*args, **kwargs):
-    raise NotImplementedError(
-        "ZeRO (optimizer-state sharding) is a later slice of the port "
-        "(ROADMAP queue A, training leftovers)")
+def _zero_shard_geometry(n: int, world: int) -> tuple[int, int]:
+    """(padded_size, shard_size) for an n-element flat vector over `world`
+    equal shards."""
+    pad = (-n) % world
+    return n + pad, (n + pad) // world
 
 
-def make_zero_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "ZeRO (optimizer-state sharding) is a later slice of the port "
-        "(ROADMAP queue A, training leftovers)")
+def _shard_pairs(params: dict, lo: int, hi: int):
+    """(flat view of a param's slice, offset into the shard) for every
+    param overlapping flat elements [lo, hi) of the params laid end to end
+    in dict order."""
+    off = 0
+    for p in params.values():
+        k = p.numel()
+        a, b = max(lo, off), min(hi, off + k)
+        if a < b:
+            yield p.detach().view(-1)[a - off:b - off], a - lo
+        off += k
+
+
+def _zero_layout(params: dict, rank: int, world: int, device
+                 ) -> tuple[dict, nn.Parameter]:
+    """ZeRO-1's layout of `params`: ({name: nn.Parameter view}, shard)
+    over ONE new flat f32 buffer on `device` holding the params end to end
+    in dict order, zero-padded to a multiple of `world`; the shard is the
+    view of this rank's 1/world slice, so it costs no memory of its own."""
+    n = sum(t.numel() for t in params.values())
+    padded, shard_n = _zero_shard_geometry(n, world)
+    flat = torch.zeros(padded, dtype=torch.float32, device=device)
+    views, off = {}, 0
+    for k, t in params.items():
+        seg = flat[off:off + t.numel()]
+        seg.copy_(t.detach().reshape(-1))
+        views[k] = nn.Parameter(seg.view(t.shape))
+        off += t.numel()
+    return views, nn.Parameter(flat[rank * shard_n:(rank + 1) * shard_n])
+
+
+def create_zero_train_state(model, rng: int, sample_input, tx, *,
+                            params=None, device=None
+                            ) -> tuple[TrainState, Any]:
+    """ZeRO-1 companion to create_train_state: the optimizer state is built
+    on THIS RANK's flat parameter shard (1/world of the elements), not on
+    every parameter, so the memory that dominates adamw training (2 f32
+    moments per parameter) shrinks by the DCN world size. Requires
+    ``tpunet_torch.distributed.initialize()`` first; every rank must call
+    it. rng, params, device: as create_train_state.
+
+    The params are ``nn.Parameter`` views of one flat f32 buffer
+    (``_zero_layout``), and the optimizer's one parameter is the view of
+    this rank's slice of it."""
+    from tpunet_torch import distributed
+
+    world = distributed.world_size()  # raises if initialize() was skipped
+    rank = distributed.rank()
+    if device is None:
+        device = (sample_input.device
+                  if isinstance(sample_input, torch.Tensor) else None)
+    dev = _device.resolve(device)
+    if params is None:
+        params = init_params(model, seed=int(rng), device=dev)
+    views, shard = _zero_layout(params, rank, world, dev)
+    opt = tx.init({"zero_shard": shard})
+    # The shard's geometry travels with the optimizer (its state_dict
+    # too), so a checkpoint can refuse another rank's or world's shard.
+    opt.param_groups[0]["zero"] = {
+        "rank": rank, "world": world,
+        "n": sum(t.numel() for t in views.values())}
+    return TrainState(views, opt, 0), model.bind(views, trainable=True)
+
+
+def make_zero_train_step(model, tx=None, donate: bool = True,
+                         grad_compression: str | None = None,
+                         moe_aux_weight: float = 0.01,
+                         fused_xent_block: int | None = None,
+                         accum_steps: int | None = None, z_loss: float = 0.0):
+    """ZeRO-1 (optimizer-state sharding) cross-host train step
+    ``(state, inputs, labels, rng) -> (state, loss)``.
+
+    Instead of all-reducing the full gradient and updating a replicated
+    optimizer (make_train_step cross_host=True), each step:
+      1. reduce-scatters the flat, zero-padded gradient over DCN: each rank
+         receives the MEAN of its 1/world shard (the bytes of the ring
+         all-reduce's reduce-scatter phase);
+      2. steps the optimizer on that shard: update work and optimizer
+         memory both drop by world;
+      3. all-gathers the updated shards (the all-reduce's all-gather
+         phase's bytes) and copies them into the params in place.
+    The trajectory matches the replicated path to float rounding (bitwise
+    at world 2): the ring all-reduce computes each element's sum in
+    exactly the reduce-scatter this path runs, and adamw is elementwise,
+    so sharding the vector reorders no per-element arithmetic.
+
+    State must come from create_zero_train_state. grad_compression="bf16"
+    casts the gradient to bf16 around the reduce-scatter (or, on a
+    wire_dtype="bf16" communicator, ships f32 and lets the ring quantize);
+    the gather of updated params stays full precision either way.
+    (rank, world) are captured here, when the step is made.
+
+    Elastic caveat: the shard geometry bakes in (rank, world), so after an
+    elastic rebuild that CHANGES the world size the sharded optimizer
+    state is invalid: rebuild it with create_zero_train_state and restore
+    params (not optimizer state) from the checkpoint. Fixed-world rebuilds
+    resume fine."""
+    del tx  # the optimizer lives in the state (create_zero_train_state)
+    if grad_compression not in (None, "bf16"):
+        raise ValueError(f"unknown grad_compression {grad_compression!r}")
+    if getattr(model, "n_experts", 0) > 0:
+        raise NotImplementedError(
+            "the MoE auxiliary loss belongs to the model options slice of "
+            "the port (ROADMAP A.5)")
+    del moe_aux_weight
+    from tpunet_torch import distributed
+    from tpunet_torch.interop import dcn_all_gather, dcn_reduce_scatter
+
+    world = distributed.world_size()  # raises if initialize() was skipped
+    rank = distributed.rank()
+    # One cast path (see make_train_step): the native wire codec quantizes
+    # the reduce-scatter's hops itself, with f32 accumulation.
+    if grad_compression == "bf16" and _wire_handles_bf16():
+        grad_compression = None
+    loss_fn = _make_loss_fn(fused_xent_block, z_loss)
+
+    def train_step(state: TrainState, inputs, labels, rng=None):
+        del rng
+        if not donate:
+            state = copy.deepcopy(state)
+        params = state.params
+        (group,) = state.opt_state.param_groups
+        (shard,) = group["params"]
+        n = sum(p.numel() for p in params.values())
+        padded, shard_n = _zero_shard_geometry(n, world)
+        if shard.numel() != shard_n:
+            raise ValueError(
+                f"the optimizer shard holds {shard.numel()} elements; a "
+                f"ZeRO state of {n} params over world {world} holds "
+                f"{shard_n}: rebuild it with create_zero_train_state")
+        lo = rank * shard_n
+        with torch.no_grad():
+            # The shard IS the params' memory in a state laid out by
+            # create_zero_train_state; a deep copy (donate=False) or a
+            # caller's new params need it refreshed, as JAX slices it
+            # from the params every step.
+            sv = shard.detach()
+            for src, at in _shard_pairs(params, lo, lo + shard_n):
+                dst = sv[at:at + src.numel()]
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
+        dev = shard.device
+        inputs, labels = _as_tokens(inputs, dev), _as_tokens(labels, dev)
+        net = model.bind(params, trainable=True)
+        loss, grads = _value_and_grads(net, params, inputs, labels, loss_fn,
+                                       accum_steps)
+        parts = [grads[k].reshape(-1) for k in params]
+        gflat = torch.cat(parts + [parts[0].new_zeros(padded - n)])
+        del parts
+        grads.clear()  # the flat copy is all the reduce-scatter needs
+        if grad_compression == "bf16":
+            gflat = gflat.to(torch.bfloat16)
+        shard.grad = dcn_reduce_scatter(gflat).to(torch.float32) / world
+        del gflat
+        state.opt_state.step()
+        shard.grad = None
+        gathered = dcn_all_gather(shard.detach()).reshape(-1)
+        with torch.no_grad():
+            off = 0
+            for p in params.values():
+                p.copy_(gathered[off:off + p.numel()].view(p.shape))
+                off += p.numel()
+        del gathered
+        return TrainState(params, state.opt_state, state.step + 1), loss
+
+    return train_step
