@@ -99,6 +99,9 @@ Phases (each raises on failure; the script then exits non-zero):
            bf16-wire communicator with grad_compression="bf16" must leave
            the ranks bitwise equal, with a codec wire ratio of 0.5. The
            serve and train runs must copy no flash input (input_copies 0).
+           The peak memory per rank must stay within the params, the
+           optimizer state, two gradient-sized buffers and 1 GB (the flat
+           gradient mean works in the flat vector's own memory).
   zero     the train phase's run (same model, data, seed, ranks and
            steps) with ZeRO-1: create_zero_train_state and
            make_zero_train_step through fit(), the gradient
@@ -119,6 +122,26 @@ Phases (each raises on failure; the script then exits non-zero):
            bitwise equal across the policies, the peak memory under None
            below "dots" and "dots_no_batch" at most "dots"; the forward
            launched twice a layer a step under every policy
+  vgg      benchmarks/vgg_synthetic.py -n 2 at its defaults: VGG16 (width
+           1.0, hidden 4096, 1000 classes, 224 x 224 NHWC images, bf16
+           compute over f32 params, dropout 0), sgd(0.01, momentum=0.9),
+           32 images per rank on 2 data-parallel ranks spawned on this
+           card over loopback tpunet_torch.distributed (f32 wire), each
+           rank's synthetic_batch (seed + rank) repeated, fit() with
+           log_every=1 for 2 warmup and 6 timed steps. Under deterministic
+           cuDNN the ranks' params must be bitwise equal to each other and
+           to a single process applying the mean of the two half-batch
+           gradients, with equal losses, the loss finite and falling; the
+           same steps with 25 MiB buckets must give the flat path's
+           params; 2 steps at dropout 0.5, run twice from one seed, must
+           be bitwise equal and change the losses. The timed run (what
+           users run: cudnn.benchmark) must leave the ranks bitwise equal.
+           138,357,544 params (convs, fc1, fc2, head counted apart).
+           Reports step seconds, img/s per rank and in all, FLOPs per
+           image from the layer shapes and MFU, the all-reduce's seconds
+           (staging and collective), the flat and bucketed gradient
+           means' seconds, the peak memory per rank, and the img/s under
+           deterministic cuDNN
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
@@ -166,9 +189,25 @@ TRAIN_RANKS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4, 2048, 4, 3e-4
 # 735,102,976 params; the zero phase wants at least this much off the
 # replicated step's peak per rank.
 ZERO_MEM_SAVING_GB = 2.0
+# The replicated step's peak per rank may hold the params, the optimizer
+# state and two gradient-sized buffers (the gradients and the flat vector
+# they are copied into), plus this much for everything else.
+TRAIN_MEM_SLACK_GB = 1.0
 # The remat phase: benchmarks/mfu_sweep.py:29's configuration (the train
 # widths, global batch 8 x 2048 on one card), every remat_policy.
 REMAT_POLICIES, REMAT_BATCH, REMAT_STEPS = (None, "dots", "dots_no_batch"), 8, 2
+# The vgg phase: benchmarks/vgg_synthetic.py -n 2 at its defaults: VGG16
+# (width 1.0, hidden 4096, 1000 classes, 224 x 224 images, bf16 compute,
+# dropout 0), sgd(0.01, momentum=0.9), 32 images per rank, 2 ranks. Steps:
+# VGG_WARMUP, then the timed ones; the dropout runs take VGG_DROPOUT_STEPS
+# at vgg16()'s default rate. Buckets: PyTorch DDP's default size.
+VGG_RANKS, VGG_BATCH, VGG_IMAGE, VGG_CLASSES, VGG_LR = 2, 32, 224, 1000, 0.01
+VGG_HIDDEN = 4096
+VGG_STEPS, VGG_WARMUP, VGG_DROPOUT, VGG_DROPOUT_STEPS = 8, 2, 0.5, 2
+VGG_BUCKET_BYTES = 25 << 20
+# VGG16's params by layer group (convs, fc1, fc2, head).
+VGG_PARAMS = {"conv": 14_714_688, "fc1": 102_764_544, "fc2": 16_781_312,
+              "head": 4_097_000}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 PEAK_FLOPS = {BF16: 989e12, F16: 989e12,   # dense 16-bit tensor cores
@@ -1251,9 +1290,9 @@ def _read_counters() -> tuple[dict, int]:
             flash_attention.input_copies)
 
 
-def _fit_measured(state, step, batches):
-    """fit() for TRAIN_STEPS steps with every kernel counter, the DCN
-    stats and the peak-memory mark reset just before it; returns (state,
+def _fit_measured(state, step, batches, steps: int = TRAIN_STEPS):
+    """fit() for `steps` steps with every kernel counter, the DCN stats
+    and the peak-memory mark reset just before it; returns (state,
     measurements)."""
     from tpunet_torch import interop
     from tpunet_torch.train import fit
@@ -1264,7 +1303,7 @@ def _fit_measured(state, step, batches):
     interop.dcn_reduce_stats_reset()
     _zero_counters()
     t0 = time.perf_counter()
-    state = fit(state, step, batches, steps=TRAIN_STEPS, log_every=1,
+    state = fit(state, step, batches, steps=steps, log_every=1,
                 log_fn=logs.append, prefetch=2, prefetch_device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1286,7 +1325,7 @@ def _params_crc(params: dict) -> int:
 
     crc = 0
     for t in params.values():
-        crc = crc32c(t.detach().cpu().numpy(), crc)
+        crc = crc32c(t.detach().contiguous().cpu().numpy(), crc)
     return crc
 
 
@@ -1340,7 +1379,97 @@ def _zero_rank_body(rank: int, ports, path: str, seed: int) -> dict:
     return out
 
 
-_RANK_BODIES = {"train": _train_rank_body, "zero": _zero_rank_body}
+def _vgg_setup(seed: int, dropout: float = 0.0):
+    """(model, state) of the vgg phase's configuration: VGG16 with f32
+    master weights from `seed` (identically in every process), sgd with
+    momentum."""
+    from tpunet_torch.models import VGG, VGG16_CFG
+    from tpunet_torch.train import create_train_state, sgd
+
+    model = VGG(VGG16_CFG, num_classes=VGG_CLASSES, hidden=VGG_HIDDEN,
+                compute_dtype=torch.bfloat16, classifier_dropout=dropout,
+                image_size=VGG_IMAGE, device="meta")
+    state, _ = create_train_state(model, seed, None,
+                                  sgd(VGG_LR, momentum=0.9), device=DEVICE)
+    return model, state
+
+
+def _vgg_batch(seed: int, rank: int):
+    """Rank `rank`'s batch, as benchmarks/vgg_synthetic.py draws it."""
+    from tpunet_torch.train import synthetic_batch
+
+    return synthetic_batch(np.random.default_rng(seed + rank), VGG_BATCH,
+                           VGG_IMAGE, VGG_CLASSES)
+
+
+def _cudnn(deterministic: bool) -> None:
+    """Deterministic cuDNN (fixed algorithms, reproducible bits) or what
+    users run: benchmark=True, the autotuned algorithms."""
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.benchmark = not deterministic
+
+
+def _timed_gradient_means(seconds: dict) -> None:
+    """Wrap the trainer's two gradient means (flat and bucketed) so each
+    call's host seconds, between two device synchronisations, land in
+    seconds["flat"] / seconds["bucketed"]."""
+    from tpunet_torch.train import trainer
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    trainer._flat_dcn_pmean = timed("flat", trainer._flat_dcn_pmean)
+    trainer._bucketed_dcn_pmean = timed("bucketed",
+                                        trainer._bucketed_dcn_pmean)
+
+
+# The vgg phase's runs in each rank: (name, deterministic cuDNN,
+# make_train_step's bucket_bytes, dropout rate, steps). The timed run is
+# last, with the autotuner on.
+VGG_RUNS = (("flat", True, None, 0.0, VGG_STEPS),
+            ("bucketed", True, VGG_BUCKET_BYTES, 0.0, VGG_STEPS),
+            ("dropout_a", True, None, VGG_DROPOUT, VGG_DROPOUT_STEPS),
+            ("dropout_b", True, None, VGG_DROPOUT, VGG_DROPOUT_STEPS),
+            ("timed", False, None, 0.0, VGG_STEPS))
+
+
+def _vgg_rank_body(rank: int, ports, path, seed: int) -> dict:
+    """The vgg phase's runs (VGG_RUNS) on one rank, each from the same
+    seed through fit() on this rank's batch, repeated."""
+    from tpunet_torch import distributed
+    from tpunet_torch.train import make_train_step
+
+    del path
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, VGG_RANKS)
+    batch = _vgg_batch(seed, rank)
+    seconds = {"flat": [], "bucketed": []}
+    _timed_gradient_means(seconds)
+    out = {"rank": rank}
+    for name, deterministic, bucket_bytes, dropout, steps in VGG_RUNS:
+        _cudnn(deterministic)
+        model, state = _vgg_setup(seed, dropout)
+        step = make_train_step(model, cross_host=True,
+                               bucket_bytes=bucket_bytes)
+        for v in seconds.values():
+            v.clear()
+        state, out[name] = _fit_measured(state, step,
+                                         itertools.repeat(batch), steps)
+        out[name]["sync_s"] = list(
+            seconds["bucketed" if bucket_bytes else "flat"])
+        del model, state, step
+    distributed.finalize()
+    return out
+
+
+_RANK_BODIES = {"train": _train_rank_body, "zero": _zero_rank_body,
+                "vgg": _vgg_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
@@ -1352,8 +1481,9 @@ def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
         q.put((rank, "FAIL", traceback.format_exc()))
 
 
-def _spawn_ranks(kind: str, path: str, seed: int) -> tuple[list, float]:
-    """Run TRAIN_RANKS spawned ranks of `kind`; ([payload by rank], wall
+def _spawn_ranks(kind: str, path: str, seed: int,
+                 world: int = TRAIN_RANKS) -> tuple[list, float]:
+    """Run `world` spawned ranks of `kind`; ([payload by rank], wall
     seconds), raising if any rank failed."""
     import multiprocessing as mp
 
@@ -1362,7 +1492,7 @@ def _spawn_ranks(kind: str, path: str, seed: int) -> tuple[list, float]:
     ports = (_free_port(), _free_port())
     procs = [ctx.Process(target=_train_rank,
                          args=(kind, r, ports, path, seed, q))
-             for r in range(TRAIN_RANKS)]
+             for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -1379,26 +1509,24 @@ def _spawn_ranks(kind: str, path: str, seed: int) -> tuple[list, float]:
             if p.is_alive():
                 p.kill()
                 p.join()
-    return [res[r] for r in range(TRAIN_RANKS)], time.perf_counter() - t0
+    return [res[r] for r in range(world)], time.perf_counter() - t0
 
 
-def _train_reference(path: str, seed: int):
-    """The same steps in one process: each rank's half-batch gradients
-    computed apart, then (g0 + g1) / 2 applied. Returns (params CRC,
-    per-step [loss of rank 0's half, loss of rank 1's half])."""
-    from tpunet_torch.train.trainer import _make_loss_fn, _value_and_grads
+def _half_batch_reference(model, state, rank_batches: list):
+    """Steps in one process: each rank's half-batch gradients computed
+    apart, then (g0 + g1) / 2 applied; rank_batches[r][i] is rank r's
+    (inputs, labels) of step i. Returns (params CRC, per-step [loss of
+    rank 0's half, loss of rank 1's half])."""
+    from tpunet_torch.train.trainer import (_as_batch, _make_loss_fn,
+                                            _value_and_grads)
 
-    model, _, state = _train_setup(seed)
     loss_fn = _make_loss_fn()
-    batches = [list(itertools.islice(_train_batches(path, r, seed),
-                                     TRAIN_STEPS)) for r in range(TRAIN_RANKS)]
     losses = []
-    for i in range(TRAIN_STEPS):
+    for step_batches in zip(*rank_batches):
         net = model.bind(state.params, trainable=True)
         halves, step_losses = [], []
-        for r in range(TRAIN_RANKS):
-            x, y = (torch.as_tensor(a, device=DEVICE).long()
-                    for a in batches[r][i])
+        for batch in step_batches:
+            x, y = (_as_batch(a, DEVICE) for a in batch)
             loss, grads = _value_and_grads(net, state.params, x, y, loss_fn,
                                            None)
             halves.append(grads)
@@ -1411,6 +1539,14 @@ def _train_reference(path: str, seed: int):
             p.grad = None
         losses.append(step_losses)
     return _params_crc(state.params), losses
+
+
+def _train_reference(path: str, seed: int):
+    """The train phase's steps in one process (_half_batch_reference)."""
+    model, _, state = _train_setup(seed)
+    return _half_batch_reference(model, state, [
+        list(itertools.islice(_train_batches(path, r, seed), TRAIN_STEPS))
+        for r in range(TRAIN_RANKS)])
 
 
 def _mfu_flops_per_token(n_params: int) -> float:
@@ -1464,6 +1600,10 @@ def phase_train(seed: int) -> tuple[dict, dict]:
         bf16_wire_ratio=[r["bf16_wire_ratio"] for r in ranks],
         bf16_crc=[r["bf16_crc"] for r in ranks],
         bf16_loss=[r["bf16_loss"] for r in ranks])
+    # f32 params and gradients: params + optimizer state + 2 gradients.
+    summary["peak_mem_limit_gb_per_rank"] = [
+        (3 * 4 * n_params + opt) / 1e9 + TRAIN_MEM_SLACK_GB
+        for opt in summary["opt_state_bytes_per_rank"]]
     log("train", **summary)
     if len(set(summary["crc"])) != 1:
         raise AssertionError("the data-parallel ranks' params differ")
@@ -1476,6 +1616,13 @@ def phase_train(seed: int) -> tuple[dict, dict]:
             r != 0.5 for r in summary["bf16_wire_ratio"]):
         raise AssertionError("bf16-wire step: ranks differ or wire ratio "
                              f"{summary['bf16_wire_ratio']} != 0.5")
+    for got, limit in zip(summary["peak_mem_gb_per_rank"],
+                          summary["peak_mem_limit_gb_per_rank"]):
+        if got > limit:
+            raise AssertionError(
+                f"train peak memory {got:.3f} GB per rank above {limit:.3f} "
+                "GB (params, optimizer state, two gradient buffers and "
+                f"{TRAIN_MEM_SLACK_GB} GB)")
     launches = {n: sum(r["launches"][n] for r in ranks) for n in COUNTERS}
     want = _want_launches(TRAIN_RANKS, TRAIN_STEPS)
     if launches != want:
@@ -1605,6 +1752,115 @@ def phase_remat(seed: int) -> None:
             raise AssertionError(f"remat_policy {p}: launches "
                                  f"{r['launches']}, expected {want}; input "
                                  f"copies {r['input_copies']}")
+
+
+def _vgg_macs_per_image(model) -> int:
+    """Multiply-adds of one image's forward, from the layer shapes: each
+    conv's weight once per output pixel, each dense weight once."""
+    side, macs, i = model.image_size, 0, 0
+    for item in model.cfg:
+        if item == "M":
+            side //= 2
+        else:
+            macs += side * side * getattr(model, f"conv{i}").weight.numel()
+            i += 1
+    return macs + sum(getattr(model, n).weight.numel()
+                      for n in ("fc1", "fc2", "head"))
+
+
+def _vgg_steady(ranks: list, run: str) -> float:
+    """Mean step time past the warmup, over the ranks."""
+    return float(np.mean([np.mean(r[run]["step_s"][VGG_WARMUP:])
+                          for r in ranks]))
+
+
+def phase_vgg(seed: int) -> None:
+    """benchmarks/vgg_synthetic.py -n 2 on this card: VGG16 data-parallel
+    on VGG_RANKS spawned ranks (VGG_RUNS), held to a single process that
+    applies the mean of the two half-batch gradients; reports img/s, MFU,
+    the gradient all-reduce's seconds and the peak memory per rank."""
+    _cudnn(True)
+    ranks, ranks_wall = _spawn_ranks("vgg", None, seed, VGG_RANKS)
+    model, state = _vgg_setup(seed)
+    groups = {g: sum(p.numel() for n, p in state.params.items()
+                     if n.startswith(g)) for g in VGG_PARAMS}
+    ref_crc, ref_losses = _half_batch_reference(
+        model, state, [[_vgg_batch(seed, r)] * VGG_STEPS
+                       for r in range(VGG_RANKS)])
+    del state
+    torch.cuda.empty_cache()
+    runs = {name: [r[name] for r in ranks] for name, *_ in VGG_RUNS}
+    flops_image = 6 * _vgg_macs_per_image(model)  # forward 2, backward 4
+    steady = {k: _vgg_steady(ranks, k) for k in ("flat", "timed")}
+    mean_s = {k: float(np.mean([np.mean(r["sync_s"][VGG_WARMUP:])
+                                for r in runs[k]]))
+              for k in ("flat", "bucketed", "timed")}
+    img_s = {k: VGG_RANKS * VGG_BATCH / v for k, v in steady.items()}
+
+    def per_step(run, key):
+        return [r["all_reduce"][key] / VGG_STEPS for r in runs[run]]
+
+    rank_losses = [list(x) for x in zip(*(r["losses"] for r in runs["flat"]))]
+    losses = [float(np.mean(x)) for x in rank_losses]
+    summary = dict(
+        params=ranks[0]["flat"]["params"], params_by_group=groups,
+        ranks=VGG_RANKS, batch_per_rank=VGG_BATCH, image=VGG_IMAGE,
+        classes=VGG_CLASSES, steps=VGG_STEPS, warmup=VGG_WARMUP,
+        losses=losses, rank_losses=rank_losses, reference_losses=ref_losses,
+        crc={k: [r["crc"] for r in v] for k, v in runs.items()},
+        reference_crc=ref_crc,
+        dropout_rank_losses={k: [r["losses"] for r in runs[k]]
+                             for k in ("dropout_a", "dropout_b")},
+        step_s={k: [r["step_s"] for r in v] for k, v in runs.items()},
+        steady_step_s=steady["timed"],
+        img_per_s_per_rank=img_s["timed"] / VGG_RANKS,
+        img_per_s=img_s["timed"],
+        deterministic_steady_step_s=steady["flat"],
+        deterministic_img_per_s=img_s["flat"],
+        flops_per_image=flops_image,
+        mfu=img_s["timed"] * flops_image / PEAK_FLOPS[BF16],
+        all_reduce_s_per_step=per_step("timed", "seconds"),
+        all_reduce_to_host_s_per_step=per_step("timed", "to_host_seconds"),
+        all_reduce_collective_s_per_step=per_step("timed",
+                                                  "collective_seconds"),
+        gradient_mean_s={k: [r["sync_s"] for r in runs[k]]
+                         for k in ("flat", "bucketed", "timed")},
+        gradient_mean_steady_s=mean_s,
+        # The rest of a steady step: forward, backward, the sgd update and
+        # fit's loss read-back.
+        outside_gradient_mean_s={k: steady[k] - mean_s[k]
+                                 for k in ("flat", "timed")},
+        peak_mem_gb_per_rank={k: [r["peak_mem_gb"] for r in v]
+                              for k, v in runs.items()},
+        opt_state_bytes_per_rank=[r["opt_state_bytes"]
+                                  for r in runs["flat"]],
+        launches=[r["launches"] for r in runs["flat"]],
+        fit_wall_s={k: [r["fit_wall_s"] for r in v] for k, v in runs.items()},
+        ranks_wall_s=ranks_wall)
+    log("vgg", **summary)
+    if summary["params"] != sum(VGG_PARAMS.values()) or groups != VGG_PARAMS:
+        raise AssertionError(f"VGG16 has {summary['params']} params "
+                             f"({groups}), expected {VGG_PARAMS}")
+    crc = summary["crc"]
+    if len(set(crc["flat"])) != 1 or crc["flat"][0] != ref_crc or (
+            rank_losses != ref_losses):
+        raise AssertionError("the VGG ranks differ from each other or from "
+                             "the single-process half-batch-mean reference")
+    if crc["bucketed"] != crc["flat"]:
+        raise AssertionError(f"bucketed CRCs {crc['bucketed']} differ from "
+                             f"the flat path's {crc['flat']}")
+    if len(set(crc["timed"])) != 1:
+        raise AssertionError("the autotuned (cudnn.benchmark) ranks differ")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"VGG loss not finite and falling: {losses}")
+    drop = summary["dropout_rank_losses"]
+    if (crc["dropout_a"] != crc["dropout_b"]
+            or drop["dropout_a"] != drop["dropout_b"]
+            or len(set(crc["dropout_a"])) != 1):
+        raise AssertionError("two dropout runs from one seed differ")
+    if any(a == r["losses"][:VGG_DROPOUT_STEPS]
+           for a, r in zip(drop["dropout_a"], runs["flat"])):
+        raise AssertionError("dropout changed no loss")
 
 
 # The paths of the other kernel routes, each a user's training run through
@@ -1745,6 +2001,7 @@ def main() -> int:
     launches.update(train_launches)
     phase_zero(args.seed, train)
     phase_remat(args.seed)
+    phase_vgg(args.seed)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []

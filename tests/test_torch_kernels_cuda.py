@@ -460,3 +460,84 @@ def test_train_step_on_card_matches_cpu(card):
         assert float((gpu[1][name] - g).abs().max()) <= 1e-4 * scale, name
     for name, p in cpu[2].items():
         assert float((gpu[2][name] - p).abs().max()) <= 2 * lr * 1.001, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vgg_on_card_matches_cpu(card, dtype):
+    """A tiny VGG (the tiny plan of tests/test_models.py on 16x16 images)
+    on the card (cuDNN's NHWC convolutions, cuBLAS) against the same model
+    on the CPU: logits and loss; in f32 also the gradients and the params
+    after 2 steps of sgd with momentum."""
+    from tpunet_torch.models import VGG
+    from tpunet_torch.train import (create_train_state, make_train_step, sgd,
+                                    synthetic_batch)
+    from tpunet_torch.train.trainer import _make_loss_fn, _value_and_grads
+
+    model = VGG(cfg=(8, "M", 16, "M"), num_classes=10, hidden=32,
+                image_size=16, compute_dtype=dtype, classifier_dropout=0.0,
+                device="meta")
+    params = model.init_params(seed=0, device="cpu")
+    images, labels = synthetic_batch(np.random.default_rng(4), 4, 16, 10)
+    out = {}
+    for dev in ("cpu", card):
+        state, net = create_train_state(model, 0, None, sgd(5e-2, 0.9),
+                                        params=params, device=dev)
+        x = torch.as_tensor(images, device=dev)
+        y = torch.as_tensor(labels, device=dev).long()
+        feats = net.conv0(x.to(dtype).permute(0, 3, 1, 2))
+        assert feats.is_contiguous(memory_format=torch.channels_last)
+        logits = net(x).detach().cpu()
+        loss, grads = _value_and_grads(net, state.params, x, y,
+                                       _make_loss_fn(), None)
+        step = make_train_step(model)
+        for i in range(2):
+            state, _ = step(state, images, labels, i)
+        out[str(dev)] = (logits, float(loss),
+                         {k: g.cpu() for k, g in grads.items()},
+                         {k: p.detach().cpu()
+                          for k, p in state.params.items()})
+    cpu, gpu = out["cpu"], out[str(card)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    scale = float(cpu[0].abs().max())
+    assert float((gpu[0] - cpu[0]).abs().max()) <= tol * scale
+    assert abs(gpu[1] - cpu[1]) <= tol * abs(cpu[1])
+    if dtype != torch.float32:
+        assert all(torch.isfinite(p).all() for p in gpu[3].values())
+        return
+    for name, g in cpu[2].items():
+        gs = max(float(g.abs().max()), 1e-6)
+        assert float((gpu[2][name] - g).abs().max()) <= 1e-4 * gs, name
+    for name, p in cpu[3].items():
+        ps = max(float(p.abs().max()), 1e-6)
+        assert float((gpu[3][name] - p).abs().max()) <= 1e-5 * ps, name
+
+
+def test_flat_mean_on_card_is_in_place_with_dcn_pmean_bits(card):
+    """The replicated step's flat gradient mean on the card: the bits of
+    dcn_pmean (f32 and the bf16 cast), and no device buffer beyond the flat
+    vector itself (dcn_pmean's path held two more)."""
+    from conftest import free_port
+    from tpunet_torch import distributed, interop
+    from tpunet_torch.train.trainer import _flat_dcn_pmean
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        gen = torch.Generator(device=card).manual_seed(0)
+        g = torch.randn(1 << 22, generator=gen, device=card)
+        grads = {"a": g[:3 << 20].view(3 << 10, 1 << 10), "b": g[3 << 20:]}
+        want32 = interop.dcn_pmean(g)
+        want16 = interop.dcn_pmean(g.to(torch.bfloat16)).to(torch.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got32 = _flat_dcn_pmean(dict(grads), None, 1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        got16 = _flat_dcn_pmean(dict(grads), "bf16", 1)
+        for got, want in ((got32, want32), (got16, want16)):
+            assert got["a"].device.type == "cuda"
+            flat = torch.cat([got["a"].reshape(-1), got["b"]])
+            assert torch.equal(flat, want)
+        assert peak <= g.numel() * 4 + (1 << 20), peak
+    finally:
+        distributed.finalize()

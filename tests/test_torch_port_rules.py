@@ -96,3 +96,26 @@ def test_training_entry_points_raise_without_a_gpu(monkeypatch):
     assert next(iter(state.params.values())).device.type == "cpu"
     batch = next(prefetch_to_device(iter([tokens]), device="cpu"))
     assert batch.device.type == "cpu" and batch.shape == (2, 8)
+
+
+def test_vgg_entry_points_raise_without_a_gpu(monkeypatch):
+    """VGG, vgg16, VGG's init_params and create_train_state with a VGG
+    resolve device=None to the GPU and raise without one."""
+    from tpunet_torch.models import VGG, vgg16
+    from tpunet_torch.models.vgg import init_params
+    from tpunet_torch.train import create_train_state, sgd, synthetic_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(cfg=(8, "M"), num_classes=4, hidden=8, image_size=8,
+               compute_dtype=torch.float32)
+    images, _ = synthetic_batch(np.random.default_rng(0), 2, 8, 4)
+    meta = VGG(device="meta", **cfg)
+    for call in (lambda: VGG(**cfg), lambda: vgg16(),
+                 lambda: init_params(meta, seed=0),
+                 lambda: meta.init_params(seed=0),
+                 lambda: create_train_state(meta, 0, images, sgd(0.1))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state, net = create_train_state(meta, 0, images, sgd(0.1), device="cpu")
+    assert next(iter(state.params.values())).device.type == "cpu"
+    assert net(torch.from_numpy(images)).shape == (2, 4)

@@ -51,12 +51,12 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def _to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    if like.device.type == "cpu":
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    if device.type == "cpu":
         return host
     # The caching host allocator keeps the pinned block until this copy
     # has run, even once `host` is dropped.
-    return host.to(like.device, non_blocking=True)
+    return host.to(device, non_blocking=True)
 
 
 # -- all-reduce -------------------------------------------------------------
@@ -102,7 +102,7 @@ def _staged(stats: dict, x: torch.Tensor, collective,
     t1 = time.perf_counter()
     out = collective(host, out)
     t2 = time.perf_counter()
-    out = _to_device(out, x)
+    out = _to_device(out, x.device)
     stats["calls"] += 1
     stats["bytes"] += x.numel() * x.element_size()
     stats["to_host_seconds"] += t1 - t0
@@ -144,9 +144,26 @@ def dcn_pmean(x: torch.Tensor) -> torch.Tensor:
     return dcn_all_reduce(x, "sum") / distributed.world_size()
 
 
+def _all_reduce_into_(x: torch.Tensor) -> torch.Tensor:
+    """Sum-all-reduce the contiguous tensor `x` INTO ITS OWN MEMORY and
+    return it: staged through pinned host memory, reduced there in place,
+    copied back into `x`. No second device buffer exists, and there is no
+    autograd. Counted in dcn_reduce_stats() as the blocking all-reduce."""
+    if not x.is_contiguous():
+        raise ValueError("_all_reduce_into_ needs a contiguous tensor")
+
+    def collective(host, _):
+        _comm().all_reduce(host, "sum", inplace=True)
+        if host is not x:
+            x.copy_(host, non_blocking=True)
+        return x
+
+    return _staged(_reduce_stats, x, collective)
+
+
 # -- nonblocking all-reduce (gradient buckets) ------------------------------
 
-# Outstanding (AsyncResult, like) keyed by (communicator identity, native
+# Outstanding (AsyncResult, device) keyed by (communicator identity, native
 # ticket): two live communicators both count tickets from 1, so a
 # ticket-only key could pair a finish with the wrong buffer.
 # max_in_flight shows that buckets overlapped.
@@ -181,7 +198,8 @@ def dcn_all_reduce_start(x: torch.Tensor, op: str = "sum") -> int:
     c = _comm()
     res = c.iall_reduce(_to_host(x), op, inplace=x.device.type != "cpu")
     ticket = res._ticket & 0xFFFFFFFF
-    _async_pending[(id(c), ticket)] = (res, x)
+    # Only x's device is kept: x itself may be freed once it is staged.
+    _async_pending[(id(c), ticket)] = (res, x.device)
     _async_stats["in_flight"] += 1
     _async_stats["max_in_flight"] = max(_async_stats["max_in_flight"],
                                         _async_stats["in_flight"])
@@ -194,7 +212,7 @@ def dcn_all_reduce_finish(ticket: int, like: torch.Tensor | None = None):
     start call. `like` exists for parity with the JAX signature."""
     del like
     try:
-        res, x = _async_pending.pop((id(_comm()), int(ticket)))
+        res, device = _async_pending.pop((id(_comm()), int(ticket)))
     except KeyError:
         raise RuntimeError(
             f"no pending async collective with ticket {ticket} on the "
@@ -202,7 +220,7 @@ def dcn_all_reduce_finish(ticket: int, like: torch.Tensor | None = None):
             "matching start, or the communicator was re-initialized "
             "mid-flight") from None
     _async_stats["in_flight"] -= 1
-    return _to_device(res.wait(), x)
+    return _to_device(res.wait(), device)
 
 
 # -- other collectives ------------------------------------------------------
@@ -227,7 +245,7 @@ def dcn_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
 
 
 def dcn_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
-    return _to_device(_comm().broadcast(_to_host(x), root), x)
+    return _to_device(_comm().broadcast(_to_host(x), root), x.device)
 
 
 def dcn_barrier() -> None:

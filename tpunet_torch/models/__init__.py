@@ -1,4 +1,5 @@
-"""The Transformer family, generation and continuous batching, ported."""
+"""The Transformer and VGG families, generation and continuous batching,
+ported."""
 
 from tpunet_torch.models.convert import from_flax, to_flax  # noqa: F401
 from tpunet_torch.models.generate import generate, init_cache  # noqa: F401
@@ -7,3 +8,4 @@ from tpunet_torch.models.transformer import (  # noqa: F401
     Transformer,
     init_params,
 )
+from tpunet_torch.models.vgg import VGG, VGG16, VGG16_CFG, vgg16  # noqa: F401

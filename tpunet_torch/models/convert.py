@@ -2,10 +2,15 @@
 
 The flax tree of ``tpunet.models.Transformer`` holds ``embed``,
 ``block{i}/attn/{q,k,v,out}/kernel``, ``block{i}/mlp/{up,gate,down}/kernel``,
-``block{i}/norm{1,2}/scale``, ``norm_f/scale`` and ``lm_head/kernel``. The
-port's module tree uses the same names with ``.`` for ``/`` and ``weight``
-for ``kernel``. A flax Dense kernel is (in, out) and a torch weight
-(out, in), so dense kernels are transposed on the way in and out.
+``block{i}/norm{1,2}/scale``, ``norm_f/scale`` and ``lm_head/kernel``;
+that of ``tpunet.models.VGG`` holds ``conv{i}/{kernel,bias}`` and
+``{fc1,fc2,head}/{kernel,bias}``. The port's module trees use the same
+names with ``.`` for ``/`` and ``weight`` for ``kernel``. A flax Dense
+kernel is (in, out) and a torch weight (out, in), so dense kernels are
+transposed on the way in and out. A flax conv kernel is (kh, kw, in, out)
+(HWIO) and a torch one (out, in, kh, kw) (OIHW): ``permute(3, 2, 0, 1)``
+in, ``(2, 3, 1, 0)`` out (a plain ``.T`` would give the right shape with
+kh and kw swapped); the port keeps them channels-last.
 `to_flax(from_flax(tree))` gives back the tree bitwise.
 """
 
@@ -31,11 +36,18 @@ def _torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
+def _torch_layout(path: str, arr):
+    """A flax array in the port's layout, as a numpy view (no copy)."""
+    if not path.endswith("/kernel"):
+        return arr
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+
+
 def from_flax(params, model, dtype=None, device=None) -> dict:
     """The port's state_dict from a flax param tree of numpy arrays (a
     nested dict, as ``jax.tree.map(np.asarray, params)`` gives). `dtype`
-    pre-casts dense kernels and the embedding (norm scales stay f32);
-    `device` defaults to the model's own parameters' device."""
+    pre-casts everything but the norm scales (which stay f32); `device`
+    defaults to the model's own parameters' device."""
     expected = dict(model.named_parameters())
     if device is None:
         device = next(iter(expected.values())).device
@@ -45,9 +57,10 @@ def from_flax(params, model, dtype=None, device=None) -> dict:
         if name not in expected:
             raise KeyError(f"flax parameter {path!r} has no counterpart "
                            f"{name!r} in the port's model")
-        arr = np.asarray(value)
-        t = torch.from_numpy(np.array(
-            arr.T if path.endswith("/kernel") else arr, order="C"))
+        t = torch.from_numpy(np.array(_torch_layout(path, np.asarray(value)),
+                                      order="C"))
+        if t.dim() == 4:
+            t = t.contiguous(memory_format=torch.channels_last)
         if tuple(t.shape) != tuple(expected[name].shape):
             raise ValueError(f"{path}: shape {tuple(t.shape)} does not match "
                              f"the port's {tuple(expected[name].shape)}")
@@ -74,5 +87,7 @@ def to_flax(state_dict) -> dict:
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = np.ascontiguousarray(arr.T) if kernel else arr
+        if kernel:
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node[parts[-1]] = np.ascontiguousarray(arr)
     return tree

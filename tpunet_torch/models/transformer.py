@@ -13,8 +13,10 @@ weight and input to ``compute_dtype`` at use, so weights pre-cast once to
 ``compute_dtype`` give bitwise the same result without the per-call cast.
 The norm scales must stay f32 (the flax RMSNorm multiplies in f32).
 
-Training: ``forward(tokens, train=False, features_only=False)`` keeps the
-flax signature (the family has no dropout, so ``train`` changes nothing).
+Training: ``forward(tokens, train=False, features_only=False, *,
+rng=None)`` keeps the flax signature (the family has no dropout, so
+``train`` and the dropout seed ``rng`` change nothing; ``VGG`` takes the
+same two).
 ``remat=True`` runs each block under ``torch.utils.checkpoint``
 (non-reentrant): its activations are dropped in the forward and recomputed
 in the backward, flax ``nn.remat(Block)`` with ``remat_policy=None``.
@@ -56,6 +58,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from tpunet_torch import _device
+from tpunet_torch.models import _bind
 from tpunet_torch.ops.flash_attention import (_repeat_kv, attention_reference,
                                               flash_attention)
 
@@ -370,8 +373,8 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, train: bool = False,
                 features_only: bool = False, *, cache=None,
-                prefill: bool = False):
-        del train  # no dropout in this family; kept for the trainer
+                prefill: bool = False, rng=None):
+        del train, rng  # no dropout in this family; kept for the trainer
         dt = self.compute_dtype
         x = F.embedding(tokens, self.embed).to(dt)
         saved = REMAT_POLICIES[self.remat_policy]
@@ -391,27 +394,19 @@ class Transformer(nn.Module):
         return self.lm_head(x).float()
 
 
+    def init_params(self, *, seed: int, device=None) -> dict:
+        """This family's ``init_params`` (the trainer's init, as flax's
+        ``model.init``)."""
+        return init_params(self, seed=seed, device=device)
+
     def bind(self, params: dict, trainable: bool = False) -> "Transformer":
         """A copy of this architecture whose parameters ARE the tensors of
         `params` (a state_dict, e.g. from ``convert.from_flax`` or
         ``init_params``; nothing is copied). Each engine runs its own bound
         copy, so threads never share a module whose weights are swapped.
-
-        trainable=False freezes the copy (inference). trainable=True takes
-        `params` as ``nn.Parameter`` tensors (the trainer's f32 master
-        weights) and leaves them requiring grad, so gradients land on the
-        very tensors the optimizer updates."""
-        net = Transformer(**self._kwargs, device="meta")
-        if trainable:
-            plain = [k for k, t in params.items()
-                     if not isinstance(t, nn.Parameter)]
-            if plain:
-                raise TypeError(f"bind(trainable=True) takes nn.Parameter "
-                                f"tensors; {plain[:3]} are not")
-            net.load_state_dict(params, strict=True, assign=True)
-            return net.requires_grad_(True)
-        net.load_state_dict(params, strict=True, assign=True)
-        return net.requires_grad_(False)
+        trainable: as ``_bind.bind``."""
+        return _bind.bind(Transformer(**self._kwargs, device="meta"), params,
+                          trainable)
 
 
 def init_params(model: Transformer, *, seed: int, device=None,

@@ -12,7 +12,11 @@ state stays valid, at twice the memory).
   * ``tx``: an ``adamw(learning_rate)`` factory, the counterpart of
     ``optax.adamw``: ``torch.optim.AdamW`` with optax's defaults (betas
     0.9/0.999, eps 1e-8, weight decay 1e-4 where torch's default is 1e-2),
-    decay on every parameter (optax with no mask).
+    decay on every parameter (optax with no mask); or ``sgd(learning_rate,
+    momentum, nesterov)``, ``optax.sgd``'s counterpart.
+  * The model is either family of ``tpunet_torch.models``: a Transformer
+    (token inputs) or a VGG (float NHWC images). Its params come from its
+    own ``init_params``; the step's ``rng`` seeds its dropout.
   * Cross-host sync flattens all gradients into ONE vector before the DCN
     all-reduce (one large striped message), or, with ``bucket_bytes``,
     submits byte-bounded same-dtype buckets in backward order as
@@ -30,6 +34,7 @@ slice of the port and raises NotImplementedError.
 from __future__ import annotations
 
 import copy
+import inspect
 import re
 from typing import Any, NamedTuple
 
@@ -38,7 +43,6 @@ import torch
 from torch import nn
 
 from tpunet_torch import _device
-from tpunet_torch.models.transformer import init_params
 
 
 class TrainState(NamedTuple):
@@ -62,21 +66,39 @@ class adamw:  # noqa: N801 — named after the optax factory it stands for
         return torch.optim.AdamW(list(params.values()), **self.kwargs)
 
 
+class sgd:  # noqa: N801 — named after the optax factory it stands for
+    """``optax.sgd`` for torch: ``init(params)`` builds a
+    ``torch.optim.SGD`` with no dampening and no weight decay. optax's
+    trace is t <- g + momentum * t from zeros and its update -lr * t
+    (-lr * (g + momentum * t) with Nesterov); torch's momentum buffer
+    starts at the first g, which is the same trajectory. optax ignores
+    `nesterov` without momentum, and so does this."""
+
+    def __init__(self, learning_rate: float, momentum: float | None = None,
+                 nesterov: bool = False):
+        self.kwargs = dict(lr=learning_rate, momentum=momentum or 0.0,
+                           dampening=0.0, weight_decay=0.0,
+                           nesterov=bool(momentum) and nesterov)
+
+    def init(self, params: dict) -> torch.optim.Optimizer:
+        return torch.optim.SGD(list(params.values()), **self.kwargs)
+
+
 def create_train_state(model, rng: int, sample_input, tx, *, params=None,
                        device=None) -> tuple[TrainState, Any]:
     """Initialize f32 trainable params and the optimizer. Returns
     (state, apply_fn), apply_fn being the trainable module bound to them.
 
-    rng: the init seed (``init_params``); `params` overrides the init with a
-    given state_dict (e.g. ``from_flax`` of a flax init). device: where the
-    params live; default the sample input's device when it is a tensor,
-    else the GPU."""
+    rng: the init seed (the model family's ``init_params``); `params`
+    overrides the init with a given state_dict (e.g. ``from_flax`` of a
+    flax init). device: where the params live; default the sample input's
+    device when it is a tensor, else the GPU."""
     if device is None:
         device = (sample_input.device
                   if isinstance(sample_input, torch.Tensor) else None)
     dev = _device.resolve(device)
     if params is None:
-        params = init_params(model, seed=int(rng), device=dev)
+        params = model.init_params(seed=int(rng), device=dev)
     params = {k: nn.Parameter(t.detach().to(dev, torch.float32).clone())
               for k, t in params.items()}
     state = TrainState(params, tx.init(params), 0)
@@ -100,7 +122,8 @@ def _bucketed_dcn_pmean(grads: dict, bucket_bytes: int,
     """Mean-all-reduce the gradients over DCN in byte-bounded buckets,
     nonblocking: every bucket is SUBMITTED (dcn_all_reduce_start) before any
     is WAITED (dcn_all_reduce_finish), so the native worker reduces them
-    while the next ones are staged."""
+    while the next ones are staged. Each gradient leaves `grads` once its
+    bucket is staged, and each bucket's device copy is freed then too."""
     from tpunet_torch.interop import (dcn_all_reduce_finish,
                                       dcn_all_reduce_start)
 
@@ -120,38 +143,46 @@ def _bucketed_dcn_pmean(grads: dict, bucket_bytes: int,
     if cur:
         buckets.append(cur)
 
-    tickets = []
+    tickets, shapes, dtypes = [], {}, []
     for b in buckets:
         flat = torch.cat([grads[n].reshape(-1) for n in b])
+        dtypes.append(flat.dtype)
+        for n in b:
+            shapes[n] = grads.pop(n).shape
         if compression == "bf16":
             flat = flat.to(torch.bfloat16)
         tickets.append(dcn_all_reduce_start(flat))
+        del flat
     out = {}
-    for b, ticket in zip(buckets, tickets):
+    for b, dtype, ticket in zip(buckets, dtypes, tickets):
         reduced = dcn_all_reduce_finish(ticket)
         off = 0
         for n in b:
-            g = grads[n]
-            seg = reduced[off:off + g.numel()].to(g.dtype)
-            out[n] = seg.reshape(g.shape) / world
-            off += g.numel()
+            k = shapes[n].numel()
+            seg = reduced[off:off + k].to(dtype)
+            out[n] = seg.reshape(shapes[n]) / world
+            off += k
     return out
 
 
-def _flat_dcn_pmean(grads: dict, compression: str | None) -> dict:
-    """Mean-all-reduce the gradients as ONE flat vector (dcn_pmean)."""
-    from tpunet_torch.interop import dcn_pmean
+def _flat_dcn_pmean(grads: dict, compression: str | None,
+                    world: int) -> dict:
+    """Mean-all-reduce the gradients as ONE flat vector, in that vector's
+    own memory: the gradient dict is emptied once it is flattened, the sum
+    comes back into the vector and is divided in place, so at most two
+    gradient-sized device buffers exist (the dict and the vector, while it
+    is filled). The bits are dcn_pmean's: x / world in place or not."""
+    from tpunet_torch.interop import _all_reduce_into_
 
     names = list(grads)
     shapes = [grads[n].shape for n in names]
     flat = torch.cat([grads[n].reshape(-1) for n in names])
     grads.clear()  # the flat copy is all the all-reduce needs
     if compression == "bf16":
-        reduced = dcn_pmean(flat.to(torch.bfloat16)).to(flat.dtype)
+        flat.copy_(_all_reduce_into_(flat.to(torch.bfloat16)).div_(world))
     else:
-        reduced = dcn_pmean(flat)
-    del flat
-    segs = torch.split(reduced, [int(np.prod(s)) for s in shapes])
+        _all_reduce_into_(flat).div_(world)
+    segs = torch.split(flat, [s.numel() for s in shapes])
     return {n: seg.view(s) for n, seg, s in zip(names, segs, shapes)}
 
 
@@ -177,16 +208,30 @@ def _pick(logits, labels):
     return torch.where(valid, picked, float("nan"))
 
 
-def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0):
-    """The train-step objective on a bound module: token cross-entropy
-    (optax's ``softmax_cross_entropy_with_integer_labels``, i.e.
-    logsumexp - picked logit), fused blockwise over the vocab when
-    `fused_xent_block` is set (the (b, s, vocab) logits never exist), plus
-    z_loss * mean(lse^2) when z_loss > 0."""
-    fused = fused_xent_block is not None
+def _check_fused(model, fused_xent_block: int | None) -> None:
+    """The fused cross-entropy needs the model's features (the Transformer
+    family's ``features_only``); JAX raises a TypeError for a model without
+    them, and so does this, at once."""
+    if fused_xent_block is not None and "features_only" not in (
+            inspect.signature(model.forward).parameters):
+        raise TypeError(
+            f"fused_xent_block needs a model whose forward takes "
+            f"features_only (the Transformer family); "
+            f"{type(model).__name__} has none")
 
-    def loss_fn(net, inputs, labels):
-        out = net(inputs, train=True, features_only=fused)
+
+def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0):
+    """The train-step objective on a bound module: cross-entropy over
+    integer labels (optax's ``softmax_cross_entropy_with_integer_labels``,
+    i.e. logsumexp - picked logit), fused blockwise over the vocab when
+    `fused_xent_block` is set (the (b, s, vocab) logits never exist), plus
+    z_loss * mean(lse^2) when z_loss > 0. `rng` seeds the model's dropout
+    (None: a model with dropout raises in training)."""
+    fused = fused_xent_block is not None
+    kw = {"features_only": True} if fused else {}
+
+    def loss_fn(net, inputs, labels, rng=None):
+        out = net(inputs, train=True, rng=rng, **kw)
         if fused:
             from tpunet_torch.ops import blockwise_cross_entropy
 
@@ -207,17 +252,27 @@ def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0):
     return loss_fn
 
 
+def _split_rng(rng, n: int) -> list:
+    """`n` dropout seeds derived from `rng`, jax.random.split's role (None
+    stays None)."""
+    if rng is None:
+        return [None] * n
+    return [int(s.generate_state(1)[0])
+            for s in np.random.SeedSequence(int(rng)).spawn(n)]
+
+
 def _value_and_grads(net, params: dict, inputs, labels, loss_fn,
-                     accum_steps: int | None):
+                     accum_steps: int | None, rng=None):
     """(mean loss, {name: mean grad}) for the batch: one backward, or (with
     accum_steps=k) k microbatches whose activations are freed in between.
     Microbatches are STRIDED (row r -> microbatch r % k), as in the JAX
     trainer; any equal-size grouping keeps the mean of means equal to the
-    full-batch mean."""
+    full-batch mean. `rng` seeds the dropout; each microbatch gets its own
+    seed derived from it, as JAX splits the key."""
     names = list(params)
     tensors = [params[n] for n in names]
     if accum_steps is None or accum_steps == 1:
-        loss = loss_fn(net, inputs, labels)
+        loss = loss_fn(net, inputs, labels, rng)
         grads = torch.autograd.grad(loss, tensors)
         return loss.detach(), dict(zip(names, grads))
     batch = inputs.shape[0]
@@ -226,8 +281,9 @@ def _value_and_grads(net, params: dict, inputs, labels, loss_fn,
                          f"{accum_steps}")
     loss_sum = torch.zeros((), device=inputs.device)
     grad_sum = None
-    for j in range(accum_steps):
-        loss = loss_fn(net, inputs[j::accum_steps], labels[j::accum_steps])
+    for j, seed in enumerate(_split_rng(rng, accum_steps)):
+        loss = loss_fn(net, inputs[j::accum_steps], labels[j::accum_steps],
+                       seed)
         grads = torch.autograd.grad(loss, tensors)
         loss_sum = loss_sum + loss.detach()
         grad_sum = (list(grads) if grad_sum is None
@@ -236,9 +292,12 @@ def _value_and_grads(net, params: dict, inputs, labels, loss_fn,
                                     for n, g in zip(names, grad_sum)}
 
 
-def _as_tokens(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                           else x, device=device).long()
+def _as_batch(x, device) -> torch.Tensor:
+    """A batch array as a tensor on `device`: float inputs (images) stay
+    float, token ids and labels become int64."""
+    t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                        else x, device=device)
+    return t if t.is_floating_point() else t.long()
 
 
 def make_train_step(model, tx=None, cross_host: bool = False,
@@ -256,8 +315,9 @@ def make_train_step(model, tx=None, cross_host: bool = False,
     "bf16" casts the gradient vector to bf16 around the all-reduce, or,
     when the communicator's wire already compresses to bf16, ships f32 and
     lets the ring quantize. bucket_bytes (cross_host only): nonblocking
-    byte-bounded buckets instead of one flat vector. `rng` is accepted for
-    signature parity: the model family has no dropout."""
+    byte-bounded buckets instead of one flat vector. `rng` (an int) seeds
+    the model's dropout, as JAX's dropout key; fused_xent_block needs a
+    model with ``features_only`` (the Transformer family)."""
     del tx  # the optimizer lives in the state (tx.init in create_train_state)
     if grad_compression not in (None, "bf16"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
@@ -268,6 +328,7 @@ def make_train_step(model, tx=None, cross_host: bool = False,
             "the MoE auxiliary loss belongs to the model options slice of "
             "the port (ROADMAP A.5)")
     del moe_aux_weight
+    _check_fused(model, fused_xent_block)
     if cross_host:
         from tpunet_torch import distributed
 
@@ -277,21 +338,20 @@ def make_train_step(model, tx=None, cross_host: bool = False,
     loss_fn = _make_loss_fn(fused_xent_block, z_loss)
 
     def train_step(state: TrainState, inputs, labels, rng=None):
-        del rng
         if not donate:
             state = copy.deepcopy(state)
         params = state.params
         dev = next(iter(params.values())).device
-        inputs, labels = _as_tokens(inputs, dev), _as_tokens(labels, dev)
+        inputs, labels = _as_batch(inputs, dev), _as_batch(labels, dev)
         net = model.bind(params, trainable=True)
         loss, grads = _value_and_grads(net, params, inputs, labels, loss_fn,
-                                       accum_steps)
+                                       accum_steps, rng)
         if cross_host:
             if bucket_bytes is not None:
                 grads = _bucketed_dcn_pmean(grads, bucket_bytes,
                                             grad_compression, world)
             else:
-                grads = _flat_dcn_pmean(grads, grad_compression)
+                grads = _flat_dcn_pmean(grads, grad_compression, world)
         for name, p in params.items():
             p.grad = grads.pop(name)
         state.opt_state.step()
@@ -362,7 +422,7 @@ def create_zero_train_state(model, rng: int, sample_input, tx, *,
                   if isinstance(sample_input, torch.Tensor) else None)
     dev = _device.resolve(device)
     if params is None:
-        params = init_params(model, seed=int(rng), device=dev)
+        params = model.init_params(seed=int(rng), device=dev)
     views, shard = _zero_layout(params, rank, world, dev)
     opt = tx.init({"zero_shard": shard})
     # The shard's geometry travels with the optimizer (its state_dict
@@ -414,6 +474,7 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
             "the MoE auxiliary loss belongs to the model options slice of "
             "the port (ROADMAP A.5)")
     del moe_aux_weight
+    _check_fused(model, fused_xent_block)
     from tpunet_torch import distributed
     from tpunet_torch.interop import dcn_all_gather, dcn_reduce_scatter
 
@@ -426,7 +487,6 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
     loss_fn = _make_loss_fn(fused_xent_block, z_loss)
 
     def train_step(state: TrainState, inputs, labels, rng=None):
-        del rng
         if not donate:
             state = copy.deepcopy(state)
         params = state.params
@@ -451,10 +511,10 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
                 if dst.data_ptr() != src.data_ptr():
                     dst.copy_(src)
         dev = shard.device
-        inputs, labels = _as_tokens(inputs, dev), _as_tokens(labels, dev)
+        inputs, labels = _as_batch(inputs, dev), _as_batch(labels, dev)
         net = model.bind(params, trainable=True)
         loss, grads = _value_and_grads(net, params, inputs, labels, loss_fn,
-                                       accum_steps)
+                                       accum_steps, rng)
         parts = [grads[k].reshape(-1) for k in params]
         gflat = torch.cat(parts + [parts[0].new_zeros(padded - n)])
         del parts
@@ -475,3 +535,14 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
         return TrainState(params, state.opt_state, state.step + 1), loss
 
     return train_step
+
+
+def synthetic_batch(rng: np.random.Generator, batch: int, image_size: int,
+                    num_classes: int, channels: int = 3):
+    """Random NHWC f32 images and int32 labels (the synthetic-benchmark
+    diet), as numpy arrays: the JAX package's draws in its order, so one
+    generator state gives both packages the same batch."""
+    images = rng.standard_normal(
+        (batch, image_size, image_size, channels)).astype(np.float32)
+    labels = rng.integers(0, num_classes, size=(batch,)).astype(np.int32)
+    return images, labels
