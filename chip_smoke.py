@@ -70,7 +70,12 @@ Phases (each raises on failure; the script then exits non-zero):
            8 greedy requests of 64 tokens. On the f32 KV wire (the serving
            path; flash_fwd's launches are counted over exactly this run)
            the tokens must equal a single-host BatchServer's; on the int8
-           wire the codec's wire ratio is read over a reset() window.
+           wire the codec's wire ratio is read over a reset() window. Then
+           the f32 tier once more with re-admission armed: the only decode
+           rank serves one block and exits with requests in flight, a
+           recovered rank on a new thread reconnects through the hello
+           handshake; the tokens must equal the single host's, with one
+           rank failure, one re-admission and one readmit event.
   paths    the wide and f32 routes as users run them: 2 adamw steps
            (create_train_state, make_train_step) of a bf16 GQA-4 model of
            head dim 320 (d1280, 4 heads, 1 kv head, 2 layers, 2 x 1024
@@ -102,6 +107,26 @@ Phases (each raises on failure; the script then exits non-zero):
            The peak memory per rank must stay within the params, the
            optimizer state, two gradient-sized buffers and 1 GB (the flat
            gradient mean works in the flat vector's own memory).
+  elastic  the train phase's run (same model, data, seed, ranks, steps,
+           prefetch) under run_elastic, fit() checkpointing every 2 steps
+           into one directory per member (max_to_keep 1) and each
+           generation restoring the most advanced member's checkpoint.
+           Member 1 runs with TPUNET_FAULT_SPEC's churn script and SIGKILLs
+           itself once it has logged step 3; the parent respawns it
+           without the script; the survivor's next all-reduce fails, it
+           rebuilds at generation 1 and both replay steps 3-4. Member 0
+           closes one data stream a few MB into its first all-reduce (a
+           failover), and both bracket the last step with
+           telemetry.profile; the parent merges the rank files. The free
+           disk must hold the checkpoints (checked before the first save;
+           they are deleted at the end). Gates: the victim died by
+           SIGKILL, generation >= 1, both final CRCs and the replayed
+           losses bitwise the train phase's, world 2 on both, no churn
+           event pending in the replacement, a failover on member 0, the
+           merged trace with both ranks' spans of one collective, the
+           replacement's launches 2 steps' worth with no input copy, the
+           survivor's peak within the train line's limit. Reports detect,
+           rebuild, respawn and checkpoint seconds and bytes
   zero     the train phase's run (same model, data, seed, ranks and
            steps) with ZeRO-1: create_zero_train_state and
            make_zero_train_step through fit(), the gradient
@@ -163,6 +188,7 @@ import itertools
 import json
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -1148,6 +1174,72 @@ def _serve_tier(model, params, prompts, max_new, kv_codec, count=None):
     return [results[i] for i in ids], router, wall
 
 
+def _serve_readmission(model, params, prompts, max_new):
+    """The f32 tier with re-admission armed: the only decode rank serves
+    one block and exits with requests in flight; a recovered rank on a new
+    thread reconnects through the hello handshake and the router's probe
+    re-admits it. Returns (tokens by submit order, router stats, readmit
+    events counted over the run, wall seconds)."""
+    from tpunet_torch import serve, telemetry
+
+    lsock = serve.Router.listen("127.0.0.1:0")
+    addr = "127.0.0.1:%d" % lsock.getsockname()[1]
+    flaky_done = threading.Event()
+    box = {}
+
+    def decode_main(max_blocks):
+        try:
+            if max_blocks is None:
+                flaky_done.wait(timeout=600)
+            worker = serve.connect_decode(addr, model, params, slots=8,
+                                          max_len=1024, kv_codec="f32",
+                                          device=DEVICE)
+            try:
+                worker.serve(max_blocks=max_blocks)
+            finally:
+                worker.close()
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            box[max_blocks] = e
+        finally:
+            if max_blocks is not None:
+                flaky_done.set()
+
+    def readmits() -> float:
+        m = telemetry.metrics().get("tpunet_churn_events_total", {})
+        return sum(v for k, v in m.items()
+                   if telemetry.labels(k).get("kind") == "readmit")
+
+    before = readmits()
+    flaky = threading.Thread(target=decode_main, args=(1,), daemon=True)
+    flaky.start()
+    pe = serve.PrefillEngine(model, params, max_len=1024, device=DEVICE)
+    # Every request is admitted up front, also while no rank is alive.
+    router = serve.Router(pe, kv_codec="f32", retain_kv=True,
+                          queue_limit=len(prompts))
+    recovered = threading.Thread(target=decode_main, args=(None,),
+                                 daemon=True)
+    try:
+        router.accept_ranks(lsock, 1)
+        router.enable_readmission(lsock)
+        recovered.start()
+        t0 = time.perf_counter()
+        ids = [router.submit(p, max_new) for p in prompts]
+        results = router.run(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        router.shutdown()
+        flaky.join(timeout=120)
+        recovered.join(timeout=120)
+        router.close()
+        lsock.close()
+    if box:
+        raise next(iter(box.values()))
+    if flaky.is_alive() or recovered.is_alive():
+        raise RuntimeError("a decode worker did not exit")
+    return ([results[i] for i in ids], dict(router.stats),
+            readmits() - before, wall)
+
+
 def _latency(router, ntok: int, wall: float) -> dict:
     """TTFT/TPOT medians from the router's per-request samples, the decode
     rate of the concurrent streams (sum over requests of 1/TPOT) and the
@@ -1219,6 +1311,21 @@ def phase_serve(seed: int, params_bf16) -> int:
     if abs(ratio - 0.25390625) > 1e-6 or any(len(t) != max_new
                                              for t in tier8):
         raise AssertionError(f"int8 tier: wire ratio {ratio}")
+
+    readmit, stats, events, wall_r = _serve_readmission(
+        model, params_bf16, prompts, max_new)
+    same = all(np.array_equal(a, b) for a, b in zip(readmit, single))
+    log("serve", kv_codec="f32", readmission=True,
+        bitwise_equal_single_host=same, readmit_events=events,
+        wall_s=wall_r, router=stats)
+    if not same or any(len(t) != max_new for t in readmit):
+        raise AssertionError("re-admission tier tokens differ from the "
+                             "single-host BatchServer's")
+    if (stats["rank_failures"], stats["readmissions"], events) != (1, 1, 1):
+        raise AssertionError(
+            f"re-admission: rank_failures {stats['rank_failures']}, "
+            f"readmissions {stats['readmissions']}, readmit events "
+            f"{events} (want 1 each)")
     return counts["flash_fwd"]
 
 
@@ -1634,6 +1741,330 @@ def phase_train(seed: int) -> tuple[dict, dict]:
     return launches, summary
 
 
+# The elastic phase: the train phase's run under run_elastic. Member 1 is
+# SIGKILLed by the churn script once it has logged step 3 and is respawned
+# without the script; member 0 closes one data stream of its gradient
+# all-reduce a few MB in (a failover, not a failure).
+ELASTIC_KILL_SPEC = "churn:at_step=3:rank=1:action=kill"
+ELASTIC_STREAM_FAULT = "stream=1:side=send:after_bytes=4M:action=close"
+ELASTIC_VICTIM = 1
+ELASTIC_CKPT_EVERY = 2
+# A replacement that read a stale generation gives up on its dead port
+# after the connect retry; the survivor parked at the new generation waits
+# the longer bootstrap timeout.
+ELASTIC_ENV = {"TPUNET_BOOTSTRAP_TIMEOUT_MS": "120000",
+               "TPUNET_CONNECT_RETRY_MS": "5000"}
+
+
+def _timed_checkpoints(record: list) -> None:
+    """Wrap CheckpointManager.save and .restore so each call's seconds
+    (between device synchronisations) and its step file's bytes land in
+    `record`."""
+    from tpunet_torch.train.checkpoint import CheckpointManager
+
+    def timed(op, fn):
+        def run(self, step, state, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(self, step, state, *args, **kwargs)
+            torch.cuda.synchronize()
+            record.append({"op": op, "step": int(step),
+                           "seconds": time.perf_counter() - t0,
+                           "bytes": self._path(step).stat().st_size})
+            return res
+        return run
+
+    CheckpointManager.save = timed("save", CheckpointManager.save)
+    CheckpointManager.restore = timed("restore", CheckpointManager.restore)
+
+
+def _restore_most_advanced(base: Path, state):
+    """`state` restored from the member checkpoint directory that holds
+    the highest step (every member's holds the same bits at a step), or
+    `state` itself when there is none."""
+    from tpunet_torch.train import CheckpointManager
+
+    best, best_dir = -1, None
+    for d in sorted(base.glob("ckpt_m*")):
+        latest = CheckpointManager(d).latest_step()
+        if latest is not None and latest > best:
+            best, best_dir = latest, d
+    if best_dir is None:
+        return state
+    return CheckpointManager(best_dir).restore(best, state)
+
+
+def _elastic_body(member: int, port: int, path: str, seed: int,
+                  base: str) -> dict:
+    """One member of the elastic run: run_elastic over a train_once that
+    rebuilds the state and step from the comm it is given, restores the
+    most advanced member's checkpoint and runs fit(); every kernel counter
+    is zeroed just before fit() and read just after, per generation."""
+    from tpunet_torch import telemetry, transport
+    from tpunet_torch.elastic import churn_action, churn_pending
+    from tpunet_torch.train import (fit, make_train_step, read_generation,
+                                    run_elastic)
+
+    started = time.time()
+    base = Path(base)
+    out = {"member": member, "generations": [], "checkpoints": []}
+    _timed_checkpoints(out["checkpoints"])
+
+    def train_once(comm, gen):
+        rec = {"generation": gen, "entered": time.time(), "losses": {},
+               "step_s": {}}
+        out["generations"].append(rec)
+        model, tx, state = _train_setup(seed)
+        state = _restore_most_advanced(base, state)
+        rec["start_step"] = int(state.step)
+        step = make_train_step(model, tx, cross_host=True)
+        trace_dir = str(base / "trace" / f"g{gen}")
+
+        def traced_step(st, x, y, rng):
+            if st.step == TRAIN_STEPS - 1:  # the last step
+                with telemetry.profile(trace_dir):
+                    return step(st, x, y, rng)
+            return step(st, x, y, rng)
+
+        def log_fn(m):
+            rec.setdefault("first_step_at", time.time())
+            rec["losses"][m["step"]] = m["loss"]
+            rec["step_s"][m["step"]] = 1.0 / m["steps_per_s"]
+            if churn_action(m["step"], member) == "kill":
+                launches, copies = _read_counters()
+                (base / "victim.json").write_text(json.dumps(dict(
+                    killed_at=time.time(), step=m["step"], launches=launches,
+                    input_copies=copies, losses=rec["losses"])))
+                os.kill(os.getpid(), signal.SIGKILL)
+
+        if member == 0 and gen == 0:
+            transport.fault_inject(ELASTIC_STREAM_FAULT)
+        torch.cuda.synchronize()
+        _zero_counters()
+        try:
+            state = fit(state, traced_step,
+                        _train_batches(path, comm.rank, seed),
+                        steps=TRAIN_STEPS,
+                        checkpoint_dir=str(base / f"ckpt_m{member}"),
+                        checkpoint_every=ELASTIC_CKPT_EVERY, max_to_keep=1,
+                        log_every=1, log_fn=log_fn,
+                        skip_batches_on_resume=True, prefetch=2,
+                        prefetch_device=DEVICE)
+            torch.cuda.synchronize()
+        except Exception as e:
+            rec["failed_at"] = time.time()
+            rec["error"] = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            rec["launches"], rec["input_copies"] = _read_counters()
+        return _params_crc(state.params), comm.world_size, gen
+
+    crc, world, gen = run_elastic(
+        train_once, coordinator=f"127.0.0.1:{port}", rank=member,
+        world_size=TRAIN_RANKS, directory=str(base), max_restarts=2)
+    m = telemetry.metrics()
+    out.update(crc=crc, world=world, generation=gen,
+               published_generation=read_generation(base),
+               churn_pending=churn_pending(), started=started,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               stream_failovers=sum(m.get("tpunet_stream_failovers_total",
+                                          {}).values()))
+    return out
+
+
+def _elastic_member(member: int, port: int, path: str, seed: int, base: str,
+                    q, die: bool) -> None:
+    """Entry point of a spawned elastic member; reports to `q` before the
+    communicator is finalized. The trace file is named after TPUNET_RANK as
+    the library loads, and the churn script is read when the first engine
+    is made, so both are set before the port is imported."""
+    os.environ["TPUNET_RANK"] = str(member)
+    os.environ["TPUNET_FLIGHTREC_DIR"] = base
+    os.environ.update(ELASTIC_ENV)
+    if die:
+        os.environ["TPUNET_FAULT_SPEC"] = ELASTIC_KILL_SPEC
+    try:
+        q.put((member, "OK", _elastic_body(member, port, path, seed, base)))
+    except Exception:  # noqa: BLE001 — reported to the parent
+        q.put((member, "FAIL", traceback.format_exc()))
+
+
+def _supervise_elastic(path: str, seed: int, base: Path) -> tuple[dict, dict]:
+    """Spawn the members; respawn the victim once it has died by SIGKILL
+    (the scheduler's half of elastic training). The victim reports on a
+    queue of its own: a process killed while writing to a queue can wedge
+    it. Returns ({member: payload}, supervisor facts)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q, vq = ctx.Queue(), ctx.Queue()
+    port = _free_port()
+
+    def spawn(member, die):
+        p = ctx.Process(target=_elastic_member, args=(
+            member, port, path, seed, str(base), vq if die else q, die))
+        p.start()
+        return p
+
+    t0 = time.time()
+    procs = {m: spawn(m, m == ELASTIC_VICTIM) for m in range(TRAIN_RANKS)}
+    info = {"spawned_at": t0, "victim_exitcode": None, "respawned_at": None}
+    results: dict = {}
+    deadline = t0 + 900
+    try:
+        while len(results) < TRAIN_RANKS and time.time() < deadline:
+            for qq in (q, vq):
+                try:
+                    member, status, payload = qq.get(timeout=0.25)
+                except queue_mod.Empty:
+                    continue
+                if status != "OK":
+                    raise RuntimeError(f"elastic member {member} failed:\n"
+                                       f"{payload}")
+                results[member] = payload
+            victim = procs[ELASTIC_VICTIM]
+            if info["victim_exitcode"] is None and not victim.is_alive():
+                victim.join()
+                info["victim_exitcode"] = victim.exitcode
+                if victim.exitcode != -signal.SIGKILL:
+                    raise RuntimeError(f"the victim exited with "
+                                       f"{victim.exitcode}, not -SIGKILL")
+                procs[ELASTIC_VICTIM] = spawn(ELASTIC_VICTIM, False)
+                info["respawned_at"] = time.time()
+    finally:
+        for p in procs.values():
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if len(results) < TRAIN_RANKS:
+        raise RuntimeError(f"elastic members {sorted(results)} reported "
+                           "within 900 s")
+    info["wall_s"] = time.time() - t0
+    return results, info
+
+
+def _trace_summary(trace_dir: Path) -> dict:
+    """Merge the final generation's rank files; span counts per rank and
+    the (comm_id, coll_seq) tags whose phase spans both ranks hold."""
+    from tpunet_torch import telemetry
+
+    merged = json.loads(Path(telemetry.merge_traces(
+        str(trace_dir))).read_text())
+    spans: dict = {}
+    tags: dict = {}
+    for ev in merged:
+        if ev.get("ph") != "X":
+            continue
+        rank = int(ev.get("tid", 0)) // 1_000_000
+        spans[rank] = spans.get(rank, 0) + 1
+        args = ev.get("args") or {}
+        if "comm_id" in args and "coll_seq" in args:
+            tags.setdefault((args["comm_id"], args["coll_seq"]),
+                            set()).add(rank)
+    shared = sorted(k for k, v in tags.items() if len(v) == TRAIN_RANKS)
+    return {"events": len(merged), "spans_per_rank": spans,
+            "shared_collective_tags": len(shared)}
+
+
+def phase_elastic(seed: int, train: dict) -> None:
+    """The train phase's run under run_elastic with a scripted rank death,
+    a respawned replacement and a stream failover, held to the train line
+    `train`: the same final params and replayed losses, bitwise."""
+    import shutil
+
+    path = _ramp_data(seed)
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke" / "elastic"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    # A save holds the f32 params and AdamW's two moments; a member's
+    # directory holds two while a new step is written and the old dropped.
+    save_bytes = 4 * train["params"] + train["opt_state_bytes_per_rank"][0]
+    need = 2 * TRAIN_RANKS * save_bytes + (2 << 30)
+    free = shutil.disk_usage(base).free
+    if free < need:
+        raise AssertionError(
+            f"elastic: {free / 1e9:.1f} GB free at {base}, the checkpoints "
+            f"need {need / 1e9:.1f} GB")
+    try:
+        results, info = _supervise_elastic(path, seed, base)
+        victim = json.loads((base / "victim.json").read_text())
+        trace = _trace_summary(base / "trace" / "g1")
+    finally:
+        for d in base.glob("ckpt_m*"):
+            shutil.rmtree(d, ignore_errors=True)
+    survivor, repl = results[1 - ELASTIC_VICTIM], results[ELASTIC_VICTIM]
+    s_fail = next(g for g in survivor["generations"] if "failed_at" in g)
+    s_last, r_last = survivor["generations"][-1], repl["generations"][-1]
+    replayed = range(ELASTIC_CKPT_EVERY + 1, TRAIN_STEPS + 1)
+    summary = dict(
+        victim_exitcode=info["victim_exitcode"], killed_at_step=victim["step"],
+        generation=[r["generation"] for r in (survivor, repl)],
+        published_generation=survivor["published_generation"],
+        world=[r["world"] for r in (survivor, repl)],
+        crc=[r["crc"] for r in (survivor, repl)], train_crc=train["crc"][0],
+        restored_step=[s_last["start_step"], r_last["start_step"]],
+        replayed_losses=[[r["losses"][s] for s in replayed]
+                         for r in (s_last, r_last)],
+        train_losses=[[train["rank_losses"][s - 1][m] for s in replayed]
+                      for m in range(TRAIN_RANKS)],
+        replacement_churn_pending=repl["churn_pending"],
+        stream_failovers=[r["stream_failovers"] for r in (survivor, repl)],
+        detect_s=s_fail["failed_at"] - victim["killed_at"],
+        survivor_error=s_fail["error"][:200],
+        survivor_rebuild_s=s_last["entered"] - s_fail["failed_at"],
+        respawn_to_first_step_s=r_last["first_step_at"] - info["respawned_at"],
+        replacement_start_to_first_step_s=r_last["first_step_at"]
+        - repl["started"],
+        checkpoints={m: r["checkpoints"] for m, r in results.items()},
+        replayed_step_s=[[r["step_s"][s] for s in replayed]
+                         for r in (s_last, r_last)],
+        launches={"survivor": [g["launches"] for g in
+                               survivor["generations"]],
+                  "victim": victim["launches"],
+                  "replacement": r_last["launches"]},
+        input_copies=r_last["input_copies"],
+        survivor_peak_mem_gb=survivor["peak_mem_gb"],
+        replacement_peak_mem_gb=repl["peak_mem_gb"],
+        peak_mem_limit_gb=train["peak_mem_limit_gb_per_rank"][0],
+        trace=trace, wall_s=info["wall_s"])
+    log("elastic", **summary)
+    if info["victim_exitcode"] != -signal.SIGKILL or \
+            summary["published_generation"] < 1:
+        raise AssertionError("elastic: the victim was not SIGKILLed by the "
+                             "churn script, or no new generation")
+    if len(set(summary["crc"])) != 1 or summary["crc"][0] != train["crc"][0]:
+        raise AssertionError(f"elastic: final params CRC {summary['crc']}, "
+                             f"the train phase's {train['crc'][0]}")
+    if summary["replayed_losses"] != summary["train_losses"]:
+        raise AssertionError("elastic: the replayed losses differ from the "
+                             "train phase's")
+    if summary["world"] != [TRAIN_RANKS] * 2 or \
+            summary["replacement_churn_pending"] != 0:
+        raise AssertionError(f"elastic: final world {summary['world']}, "
+                             "replacement churn events pending "
+                             f"{summary['replacement_churn_pending']}")
+    if summary["stream_failovers"][0] < 1:
+        raise AssertionError("elastic: no stream failover on member 0")
+    if summary["restored_step"] != [ELASTIC_CKPT_EVERY] * 2:
+        raise AssertionError(f"elastic: restored steps "
+                             f"{summary['restored_step']}")
+    if trace["shared_collective_tags"] < 1 or \
+            sorted(trace["spans_per_rank"]) != list(range(TRAIN_RANKS)):
+        raise AssertionError(f"elastic: merged trace {trace}")
+    want = _want_launches(1, TRAIN_STEPS - ELASTIC_CKPT_EVERY)
+    if r_last["launches"] != want or r_last["input_copies"]:
+        raise AssertionError(f"elastic: replacement launches "
+                             f"{r_last['launches']} (want {want}), input "
+                             f"copies {r_last['input_copies']}")
+    if survivor["peak_mem_gb"] > summary["peak_mem_limit_gb"]:
+        raise AssertionError(
+            f"elastic: survivor peak {survivor['peak_mem_gb']:.3f} GB above "
+            f"the train line's {summary['peak_mem_limit_gb']:.3f} GB: the "
+            "failed generation's state outlived it")
+
+
 def _want_launches(ranks: int, steps: int) -> dict:
     """flash launches of `steps` remat steps on `ranks` ranks: the forward
     twice a layer (once more in the recompute), dQ and dK/dV once."""
@@ -1999,6 +2430,7 @@ def main() -> int:
     launches = phase_paths(args.seed)
     train_launches, train = phase_train(args.seed)
     launches.update(train_launches)
+    phase_elastic(args.seed, train)
     phase_zero(args.seed, train)
     phase_remat(args.seed)
     phase_vgg(args.seed)

@@ -541,3 +541,34 @@ def test_flat_mean_on_card_is_in_place_with_dcn_pmean_bits(card):
         assert peak <= g.numel() * 4 + (1 << 20), peak
     finally:
         distributed.finalize()
+
+
+def test_elastic_crc_check_of_cuda_tensors_and_reduce_into_refusal(
+        card, tmp_path):
+    """ElasticWorld.crc_check of tensors on the card gives the digest of
+    the same tensors on the CPU (by their contiguous host bytes; bf16 and a
+    channels-last view included), and transport.reduce_into refuses a CUDA
+    tensor with TypeError instead of copying it."""
+    from conftest import free_port
+    from tpunet_torch import elastic, transport
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=gen, device=card),
+              "b16": torch.randn(100, generator=gen, device=card).to(
+                  torch.bfloat16),
+              "conv": torch.randn(8, 4, 3, 3, generator=gen, device=card)
+              .to(memory_format=torch.channels_last)}
+    world = elastic.ElasticWorld(f"127.0.0.1:{free_port()}", 0, 1,
+                                 directory=tmp_path)
+    world.create()
+    try:
+        on_card = world.crc_check(list(params.values()))
+        on_cpu = world.crc_check([v.cpu() for v in params.values()])
+        assert on_card == on_cpu != 0
+    finally:
+        world.close()
+    x = torch.ones(16, device=card)
+    host = torch.ones(16)
+    for args in ((x, host, host), (host, x, host), (host, host, x)):
+        with pytest.raises(TypeError, match="cuda"):
+            transport.reduce_into(*args, "f32")

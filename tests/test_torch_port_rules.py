@@ -42,7 +42,8 @@ def test_no_forbidden_imports(path):
 
 def test_import_leaves_jax_and_tpunet_unloaded():
     code = ("import sys, tpunet_torch, tpunet_torch.serve, "
-            "tpunet_torch.models, tpunet_torch.ops\n"
+            "tpunet_torch.models, tpunet_torch.ops, tpunet_torch.elastic, "
+            "tpunet_torch.train.elastic\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))")

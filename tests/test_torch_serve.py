@@ -283,3 +283,138 @@ def test_decode_rank_death_replay_contained(pair, retain_kv):
         assert router.stats["replays_prefill"] == 0
     else:
         assert router.stats["replays_prefill"] >= 1
+
+
+def _readmission_run(serve_mod, model, params, prompts, lens, **kw):
+    """The only decode rank serves one block and dies with a request in
+    flight; a recovered host reconnects through the hello handshake on the
+    router's re-admission port. Returns (tokens by submit order, router
+    stats, readmit events counted during the run)."""
+    lsock = serve_mod.Router.listen("127.0.0.1:0")
+    addr = "127.0.0.1:%d" % lsock.getsockname()[1]
+    flaky_done = threading.Event()
+
+    def flaky_decode():
+        worker = serve_mod.connect_decode(addr, model, params, slots=1,
+                                          max_len=40, kv_codec="f32", **kw)
+        worker.serve(max_blocks=1)  # ingest one block, report nothing
+        worker.close()
+        flaky_done.set()
+
+    def recovered_decode():
+        flaky_done.wait(timeout=120)
+        worker = serve_mod.connect_decode(addr, model, params, slots=1,
+                                          max_len=40, kv_codec="f32", **kw)
+        try:
+            worker.serve()
+        finally:
+            worker.close()
+
+    def readmits():
+        m = telemetry.metrics().get("tpunet_churn_events_total", {})
+        return sum(v for k, v in m.items()
+                   if telemetry.labels(k).get("kind") == "readmit")
+
+    before = readmits()
+    th_flaky = threading.Thread(target=flaky_decode, daemon=True)
+    th_flaky.start()
+    prefill = serve_mod.PrefillEngine(model, params, max_len=40, **kw)
+    router = serve_mod.Router(prefill, kv_codec="f32", retain_kv=True)
+    router.accept_ranks(lsock, 1)
+    router.enable_readmission(lsock)
+    th_rec = threading.Thread(target=recovered_decode, daemon=True)
+    th_rec.start()
+    try:
+        ids = [router.submit(p, n) for p, n in zip(prompts, lens)]
+        results = router.run(timeout=240)
+    finally:
+        router.shutdown()
+        th_flaky.join(timeout=60)
+        th_rec.join(timeout=60)
+        router.close()
+        lsock.close()
+    return [results[i] for i in ids], dict(router.stats), readmits() - before
+
+
+def test_router_readmission_matches_the_jax_router(pair, monkeypatch):
+    """Total rank loss with re-admission armed: run() keeps the stranded
+    and queued requests until the recovered host is re-admitted (probed at
+    TPUNET_READMIT_PROBE_MS), then they complete from the retained KV. The
+    tokens equal the JAX router's on the same (converted) params, and both
+    routers count one failure, one re-admission and one readmit event."""
+    jm, tm, params, sd = pair
+    monkeypatch.setenv("TPUNET_READMIT_PROBE_MS", "20")
+    prompts = _prompts(9, (7, 5, 9))
+    lens = [6, 6, 6]
+    ours, stats, events = _readmission_run(serve, tm, sd, prompts, lens,
+                                           device="cpu")
+    theirs, jstats, jevents = _readmission_run(jax_serve, jm, params,
+                                               prompts, lens)
+    for a, b, n in zip(ours, theirs, lens):
+        assert len(a) == n
+        np.testing.assert_array_equal(a, np.asarray(b))
+    for st, ev in ((stats, events), (jstats, jevents)):
+        assert st["rank_failures"] == 1 and st["readmissions"] == 1
+        assert st["readmit_rejected"] == 0 and st["replays_kv"] >= 1
+        assert ev == 1
+
+
+def test_router_readmission_signature_drift_typed(pair):
+    """A host rejoining with another model configuration fails the
+    re-handshake typed on both sides (poll_admissions raises
+    TierMismatchError; run() would count and contain it) and is not
+    admitted; a correct host afterwards is."""
+    _, tm, _, sd = pair
+    import time
+
+    lsock = serve.Router.listen("127.0.0.1:0")
+    addr = "127.0.0.1:%d" % lsock.getsockname()[1]
+    pe = serve.PrefillEngine(tm, sd, max_len=40, device="cpu")
+    router = serve.Router(pe, kv_codec="f32")
+    assert router.poll_admissions() == 0  # not armed: nothing to accept
+    router.enable_readmission(lsock)
+    drift_err: list = []
+
+    def drifted_decode():
+        other = Transformer(compute_dtype=torch.float32, device="cpu",
+                            **{**CFG, "d_ff": 128})
+        from tpunet_torch.models import init_params
+        try:
+            serve.connect_decode(addr, other, init_params(other, seed=1,
+                                                          device="cpu"),
+                                 slots=1, max_len=40, kv_codec="f32",
+                                 device="cpu")
+        except proto.TierMismatchError as e:
+            drift_err.append(e)
+
+    th = threading.Thread(target=drifted_decode, daemon=True)
+    th.start()
+    deadline = time.monotonic() + 60
+    try:
+        with pytest.raises(proto.TierMismatchError, match="signature"):
+            while time.monotonic() < deadline:
+                router.poll_admissions()
+                time.sleep(0.01)
+        th.join(timeout=30)
+        assert drift_err, "the decode side was not told about the drift"
+        assert router.stats["readmit_rejected"] == 1
+        assert router.stats["readmissions"] == 0 and not router._ranks
+
+        def correct_decode():
+            worker = serve.connect_decode(addr, tm, sd, slots=1, max_len=40,
+                                          kv_codec="f32", device="cpu")
+            worker.serve(idle_timeout=0.5)
+            worker.close()
+
+        th2 = threading.Thread(target=correct_decode, daemon=True)
+        th2.start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not router.stats["readmissions"]:
+            router.poll_admissions()
+            time.sleep(0.01)
+        th2.join(timeout=60)
+        assert router.stats["readmissions"] == 1
+        assert len(router._ranks) == 1 and router._ranks[0].alive
+    finally:
+        router.close()
+        lsock.close()

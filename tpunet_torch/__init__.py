@@ -6,7 +6,9 @@ own ctypes loader and runs its compute on torch tensors, with a hand-written
 CUDA kernel where the JAX package has a Pallas kernel. Layers, bottom up:
 
 - ``_native`` / ``transport`` / ``telemetry`` / ``config`` — the binding,
-  multi-stream P2P comms and codec, metrics, serving knobs;
+  multi-stream P2P comms, codec, fault injection and the native goldens;
+  metrics, tracing (``profile``, ``merge_traces``) and the flight recorder;
+  the whole env-var inventory;
 - ``collectives`` / ``distributed`` / ``interop`` — the ring communicator
   on host buffers, its process group, and the DCN collectives on torch
   tensors (CUDA tensors staged through pinned host memory);
@@ -16,8 +18,11 @@ CUDA kernel where the JAX package has a Pallas kernel. Layers, bottom up:
   continuous-batching ``BatchServer``;
 - ``data``   — token datasets, host->device prefetch, the byte tokenizer;
 - ``train``  — the data-parallel train step (replicated or ZeRO-1),
-  ``fit`` and checkpoints;
-- ``serve``  — the disaggregated prefill/decode tier over the transport.
+  ``fit``, checkpoints and elastic recovery (``run_elastic``);
+- ``elastic`` — the churn engine: shrink or grow the world mid-run
+  (``ElasticWorld``), scripted by the chaos grammar;
+- ``serve``  — the disaggregated prefill/decode tier over the transport,
+  with re-admission of recovered decode hosts.
 
 Entry points run on the GPU unless given ``device="cpu"``.
 """

@@ -9,7 +9,8 @@ binaries), which keeps first-use set-up short.
 
 Argtypes are set only for the symbols the port calls. Two bindings in one
 process load the same handle (dlopen dedupes by path), so native singletons
-(metrics, fault spec, host id) are shared between them.
+(metrics, fault slot and churn latches, QoS scheduler, flight recorder,
+tracer directory, host id) are shared between them.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ _CPP_DIR = _REPO_ROOT / "cpp"
 _LIB_PATH = _CPP_DIR / "build" / "libtpunet.so"
 
 TPUNET_OK = 0
+TPUNET_ERR_NULL = -1
+TPUNET_ERR_INVALID = -2
+TPUNET_ERR_INNER = -3
 TPUNET_ERR_CORRUPT = -4        # per-chunk CRC32C mismatch (TPUNET_CRC=1)
 TPUNET_ERR_TIMEOUT = -5        # progress watchdog (TPUNET_PROGRESS_TIMEOUT_MS)
 TPUNET_ERR_VERSION = -6        # wire-framing version mismatch with the peer
@@ -38,6 +42,18 @@ HANDLE_SIZE = 64
 
 class SocketHandle(ctypes.Structure):
     _fields_ = [("data", ctypes.c_uint8 * HANDLE_SIZE)]
+
+
+class NetProperties(ctypes.Structure):
+    _fields_ = [
+        ("name", ctypes.c_char_p),
+        ("pci_path", ctypes.c_char_p),
+        ("guid", ctypes.c_uint64),
+        ("ptr_support", ctypes.c_int32),
+        ("speed_mbps", ctypes.c_int32),
+        ("port", ctypes.c_int32),
+        ("max_comms", ctypes.c_int32),
+    ]
 
 
 def _sources_mtime() -> float:
@@ -96,10 +112,13 @@ def load() -> ctypes.CDLL:
     i32, u8, u64 = ctypes.c_int32, ctypes.c_uint8, ctypes.c_uint64
     P = ctypes.POINTER
     vp = ctypes.c_void_p
+    cp = ctypes.c_char_p
 
     sigs = {
         "tpunet_c_create_ex": ([ctypes.c_char_p, P(u)], i32),
         "tpunet_c_destroy": ([P(u)], i32),
+        "tpunet_c_devices": ([u, P(i32)], i32),
+        "tpunet_c_get_properties": ([u, i32, P(NetProperties)], i32),
         "tpunet_c_listen": ([u, i32, P(SocketHandle), P(u)], i32),
         "tpunet_c_connect": ([u, i32, P(SocketHandle), P(u)], i32),
         "tpunet_c_accept": ([u, u, P(u)], i32),
@@ -116,6 +135,24 @@ def load() -> ctypes.CDLL:
         "tpunet_c_serve_observe": ([i32, u64], i32),
         "tpunet_c_serve_queue_depth": ([i32, u64], i32),
         "tpunet_c_churn_event": ([i32], i32),
+        "tpunet_c_trace_flush": ([], i32),
+        "tpunet_c_trace_set_dir": ([cp], i32),
+        "tpunet_c_metrics_port": ([], i32),
+        "tpunet_c_qos_state": ([cp, u64], i32),
+        "tpunet_c_lane_parse": ([cp, cp, u64], i32),
+        "tpunet_c_stripe_map": ([u64, u64, cp, u64, cp, u64], i32),
+        "tpunet_c_qos_drr_golden": ([cp, cp, cp, cp, u64], i32),
+        "tpunet_c_fault_inject": ([cp], i32),
+        "tpunet_c_fault_clear": ([], i32),
+        "tpunet_c_churn_poll": ([u64, ctypes.c_int64], i32),
+        "tpunet_c_churn_pending": ([], i32),
+        "tpunet_c_rewire_observe": ([i32, u64], i32),
+        "tpunet_c_world_size": ([u64], i32),
+        "tpunet_c_swap_observe": ([i32, u64], i32),
+        "tpunet_c_swap_event": ([i32], i32),
+        "tpunet_c_flightrec_dump": ([cp, cp, cp, u64], i32),
+        "tpunet_c_flightrec_stats": ([P(u64), P(u64)], i32),
+        "tpunet_c_reduce": ([vp, vp, vp, u64, i32, i32], i32),
         "tpunet_c_weight_version": ([u64], i32),
         "tpunet_c_crc32c": ([vp, u64, ctypes.c_uint32], ctypes.c_uint32),
         "tpunet_c_codec_wire_bytes": ([i32, u64], u64),
@@ -184,7 +221,10 @@ class QosAdmissionError(NativeError):
 
 
 class RewireTimeoutError(NativeError):
-    """An elastic membership rewire exceeded its deadline."""
+    """An elastic membership rewire (``tpunet_torch.elastic.ElasticWorld``)
+    did not complete inside TPUNET_REWIRE_TIMEOUT_MS. The old communicator
+    was already finalized when this raises, so the process holds no live
+    comm: retry the rewire or exit."""
 
 
 class WeightSwapError(NativeError):

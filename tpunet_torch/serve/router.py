@@ -23,8 +23,16 @@ it.
 ``tpunet_req_tpot_us``, and the router/prefill queue depths
 ``tpunet_serve_queue_depth``.
 
-Re-admission of recovered decode hosts and live weight updates are later
-slices of the port.
+**Re-admission.** ``enable_readmission`` keeps the wiring port open: a
+recovered decode host reconnects through the full hello handshake and
+re-enters the placement pool (``poll_admissions``, which ``run()`` calls
+every ``TPUNET_READMIT_PROBE_MS``), counted in ``stats["readmissions"]``
+and ``tpunet_churn_events_total{kind="readmit"}``; a host whose model
+signature or codec drifted is refused with a typed TierMismatchError. With
+re-admission armed, losing every decode rank parks the queue until a host
+comes back instead of raising.
+
+Live weight updates are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -86,9 +94,15 @@ class Router:
         self._recs: dict[int, dict] = {}
         self._results: dict[int, np.ndarray] = {}
         self._next_id = 0
+        # Re-admission probing, armed by enable_readmission(): run() polls
+        # the wiring port at this cadence.
+        self._listen_sock: socket.socket | None = None
+        self._probe_interval = max(1, cfg.readmit_probe_ms) / 1e3
+        self._last_probe = 0.0
         self.stats = {"submitted": 0, "completed": 0, "rank_failures": 0,
                       "replays_kv": 0, "replays_prefill": 0, "rejected": 0,
-                      "qos_backpressure": 0}
+                      "qos_backpressure": 0, "readmissions": 0,
+                      "readmit_rejected": 0}
         # Every TTFT/TPOT sample (us) fed to the histograms, for exact
         # percentiles over a run.
         self.samples: dict[str, list[int]] = {"ttft": [], "tpot": []}
@@ -125,6 +139,58 @@ class Router:
             finally:
                 conn.close()
             self._ranks.append(_Rank(link, len(self._ranks)))
+
+    # -- re-admission ------------------------------------------------------
+
+    def enable_readmission(self, listen_sock: socket.socket) -> None:
+        """Keep the wiring port open for recovered decode hosts: run() (and
+        explicit poll_admissions() calls) accepts reconnects, re-runs the
+        hello handshake and re-enters the host into the placement pool.
+        The socket stays the caller's."""
+        listen_sock.setblocking(False)
+        self._listen_sock = listen_sock
+
+    def poll_admissions(self, raise_on_mismatch: bool = True) -> int:
+        """Non-blocking accept pass over the wiring port (a recovered host
+        proves it is alive by reconnecting). Each pending connection runs
+        the full hello re-handshake; a model-signature or codec drift is a
+        typed TierMismatchError, re-raised when `raise_on_mismatch`, else
+        counted in stats["readmit_rejected"] and contained (the serving loop
+        must not die because a stale host knocked). Returns the number of
+        ranks re-admitted."""
+        if self._listen_sock is None:
+            return 0
+        admitted = 0
+        while True:
+            try:
+                conn, _ = self._listen_sock.accept()
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError:
+                break  # the listener was closed: probing stops
+            try:
+                conn.setblocking(True)
+                link = proto.wire_frontend(
+                    conn, self._net, self._hello(),
+                    name=f"decode-{len(self._ranks)}")
+            except proto.TierMismatchError:
+                self.stats["readmit_rejected"] += 1
+                if raise_on_mismatch:
+                    raise
+                continue
+            except (proto.ServeError, _native.NativeError, OSError):
+                # A half-open reconnect (the host died again mid-handshake)
+                # is no pool event: drop it.
+                continue
+            finally:
+                conn.close()
+            self._ranks.append(_Rank(link, len(self._ranks)))
+            self.stats["readmissions"] += 1
+            telemetry.churn_event("readmit")
+            admitted += 1
+        if admitted:
+            self._pump()  # queued work flows onto the recovered capacity
+        return admitted
 
     # -- admission ---------------------------------------------------------
 
@@ -186,6 +252,8 @@ class Router:
             rank = self._pick_rank()
             if rank is None:
                 if not any(r.alive for r in self._ranks):
+                    if self._listen_sock is not None:
+                        break  # re-admission armed: wait for a rejoin
                     raise proto.NoLiveDecodeRankError(
                         "every decode rank has failed; "
                         f"{len(self._queue)} request(s) cannot be placed")
@@ -287,10 +355,18 @@ class Router:
     def run(self, timeout: float = 300.0,
             poll_interval: float = 0.001) -> dict[int, np.ndarray]:
         """Drive until every admitted request has a result (or raise on
-        timeout / total rank loss); returns {request_id: tokens} for every
-        request admitted since the last run() and clears the slate."""
+        timeout / total rank loss, unless re-admission is armed); returns
+        {request_id: tokens} for every request admitted since the last
+        run() and clears the slate."""
         deadline = time.monotonic() + timeout
         while self.outstanding() > 0:
+            now = time.monotonic()
+            if (self._listen_sock is not None
+                    and now - self._last_probe >= self._probe_interval):
+                self._last_probe = now
+                # Drift rejections are contained here; poll_admissions()
+                # raises them only when called directly.
+                self.poll_admissions(raise_on_mismatch=False)
             self.poll()
             if self.outstanding() == 0:
                 break

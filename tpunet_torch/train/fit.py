@@ -52,6 +52,7 @@ def fit(state: TrainState, train_step: Callable, batches: Iterable, *,
     """
     mgr = (CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep)
            if checkpoint_dir else None)
+    prefetched = None
     try:
         if mgr is not None:
             # Adopt the checkpoint only when it is AHEAD of the caller's
@@ -80,7 +81,8 @@ def fit(state: TrainState, train_step: Callable, batches: Iterable, *,
         if prefetch > 0:
             from tpunet_torch.data import prefetch_to_device
 
-            it = prefetch_to_device(it, size=prefetch, device=prefetch_device)
+            it = prefetched = prefetch_to_device(it, size=prefetch,
+                                                 device=prefetch_device)
         t0 = time.perf_counter()
         while done < steps:
             try:
@@ -119,6 +121,11 @@ def fit(state: TrainState, train_step: Callable, batches: Iterable, *,
                 mgr.save(done, state, force=True)
             mgr.wait_until_finished()
     finally:
+        if prefetched is not None:
+            # Stop the prefetch thread now, also when a step raised (a comm
+            # failure that elastic training recovers from): it must not
+            # hold batches, or wait on a full queue, past this call.
+            prefetched.close()
         if mgr is not None:
             mgr.close()
     return state

@@ -7,7 +7,12 @@ buffer until ``test()``/``wait()`` reports done, so the garbage collector
 cannot free memory the native stream workers still read or write.
 
 Device tensors never reach this layer: callers stage them to host memory
-first (the serving tier ships KV blocks as f32 numpy rows).
+first (the serving tier ships KV blocks as f32 numpy rows), and
+``reduce_into`` refuses a CUDA tensor rather than copy it. The module also
+carries the native layer's socket-free goldens (``reduce_into``,
+``lane_parse``, ``stripe_map``, ``qos_drr_golden``), the QoS scheduler's
+parsed state, and the process-wide fault slot (``fault_inject`` /
+``fault_clear``) that chaos runs and the churn script arm.
 """
 
 from __future__ import annotations
@@ -17,11 +22,31 @@ import time
 from typing import Any
 
 import numpy as np
+import torch
 
 from tpunet_torch import _native
 
 TRAFFIC_CLASSES = ("latency", "bulk", "control")
 _CODECS = {"f32": 0, "bf16": 1, "int8": 2}
+_REDUCE_DTYPES = {"f32": 0, "f64": 1, "bf16": 2, "i32": 3, "i64": 4, "u8": 5}
+_REDUCE_OPS = {"sum": 0, "prod": 1, "min": 2, "max": 3}
+
+
+def fault_inject(spec: str) -> None:
+    """Arm a deterministic transport fault process-wide (chaos testing),
+    in the native grammar, e.g. ``"stream=1:after_bytes=1M:action=close"``
+    (close / stall / corrupt / delay=<ms>), or a churn script
+    (``"churn:at_step=3:rank=1:action=kill"``). One fault at a time;
+    re-arming replaces it and resets the byte counters and churn latches.
+    A malformed spec raises NativeError (INVALID) naming the bad token. The
+    env knob TPUNET_FAULT_SPEC arms the same slot at engine creation."""
+    _native.check(_native.load().tpunet_c_fault_inject(spec.encode()),
+                  "fault_inject")
+
+
+def fault_clear() -> None:
+    """Disarm any injected fault (safe to call when none is armed)."""
+    _native.check(_native.load().tpunet_c_fault_clear(), "fault_clear")
 
 
 def crc32c(data: Any, seed: int = 0) -> int:
@@ -33,6 +58,121 @@ def crc32c(data: Any, seed: int = 0) -> int:
         raise ValueError("crc32c needs a C-contiguous buffer")
     buf = bytes(mv) if mv.nbytes else b""
     return int(lib.tpunet_c_crc32c(buf, mv.nbytes, seed & 0xFFFFFFFF))
+
+
+def _reduce_operand(name: str, x: Any, writable: bool) -> tuple[int, int]:
+    """(address, element count) of a C-contiguous numpy array or CPU torch
+    tensor; a CUDA tensor raises TypeError (it is never copied)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise TypeError(f"{name} is a tensor on {x.device}: reduce_into "
+                            "takes host buffers (stage the tensor first)")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CPU tensor")
+        return x.data_ptr(), x.numel()
+    if not isinstance(x, np.ndarray) or not x.flags.c_contiguous:
+        raise ValueError(f"{name} must be a C-contiguous numpy array or CPU "
+                         "tensor")
+    if writable and not x.flags.writeable:
+        raise ValueError(f"{name} must be writable")
+    return x.ctypes.data, x.size
+
+
+def reduce_into(dst, a, b, dtype: str, op: str = "sum") -> None:
+    """Elementwise ``dst = a op b`` with the native reduction kernel (SIMD
+    where the CPU has it) that the ring collectives run after the wire.
+    ``dst`` may be ``a`` itself (in-place accumulate). ``dtype`` is the
+    wire dtype ("f32", "f64", "bf16", "i32", "i64", "u8"). Each operand is
+    a C-contiguous numpy array (bf16 as a uint16 view) or a contiguous CPU
+    torch tensor (bf16 as ``torch.bfloat16``); a CUDA tensor raises
+    TypeError."""
+    if dtype not in _REDUCE_DTYPES:
+        raise ValueError(f"unknown reduce dtype {dtype!r}")
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"unknown reduce op {op!r}")
+    (pd, nd), (pa, na), (pb, nb) = (
+        _reduce_operand("dst", dst, True), _reduce_operand("a", a, False),
+        _reduce_operand("b", b, False))
+    if not nd == na == nb:
+        raise ValueError("dst/a/b element counts differ")
+    _native.check(
+        _native.load().tpunet_c_reduce(pd, pa, pb, nd, _REDUCE_DTYPES[dtype],
+                                       _REDUCE_OPS[op]),
+        "reduce")
+
+
+def qos_state() -> dict:
+    """Parsed view of the process QoS scheduler's config and live state:
+    weights/budgets/admitted/queued ({class: int}), wire_window and
+    wire_inflight (ints), so tests pin what ``TPUNET_QOS_WEIGHTS`` /
+    ``TPUNET_QOS_INFLIGHT_BYTES`` parsed to."""
+    buf = ctypes.create_string_buffer(4096)
+    n = _native.load().tpunet_c_qos_state(buf, 4096)
+    if n < 0:
+        raise _native.NativeError(n, "qos_state")
+    out: dict = {}
+    for line in buf.value.decode().splitlines():
+        parts = line.split()
+        if not parts:
+            continue
+        if "=" in (parts[1] if len(parts) > 1 else ""):
+            out[parts[0]] = {k: int(v) for k, v in
+                             (kv.split("=") for kv in parts[1:])}
+        elif len(parts) == 2:
+            out[parts[0]] = int(parts[1])
+    return out
+
+
+def qos_drr_golden(weights: str, window: str, chunks: str) -> list[str]:
+    """The exact wire-credit grant order the QoS scheduler's deficit round
+    robin gives ``chunks`` ("class:bytes,...", queued in order) under
+    ``weights`` (TPUNET_QOS_WEIGHTS grammar) and ``window``
+    ("wire=<bytes>"). Pure arithmetic, no sockets. A malformed spec raises
+    NativeError (INVALID) naming the token."""
+    buf = ctypes.create_string_buffer(65536)
+    n = _native.load().tpunet_c_qos_drr_golden(
+        weights.encode(), window.encode(), chunks.encode(), buf, 65536)
+    _native.check(min(n, 0), "qos_drr_golden")
+    return buf.value.decode().split(",") if buf.value else []
+
+
+def lane_parse(spec: str) -> list[dict]:
+    """Parse a ``TPUNET_LANES`` spec with the native parser the engines use
+    (``"addr=10.0.0.1:w=4,addr=10.0.1.1:w=1"``; either key may be left
+    out): one ``{"lane", "addr", "w"}`` dict per lane, ``addr`` None for the
+    default path. A malformed spec raises NativeError (INVALID) naming the
+    token."""
+    buf = ctypes.create_string_buffer(16384)
+    n = _native.load().tpunet_c_lane_parse(spec.encode(), buf, 16384)
+    _native.check(min(n, 0), "lane_parse")
+    out = []
+    for line in buf.value.decode().splitlines():
+        kv = dict(tok.split("=", 1) for tok in line.split())
+        out.append({"lane": int(kv["lane"]),
+                    "addr": None if kv["addr"] == "-" else kv["addr"],
+                    "w": int(kv["w"])})
+    return out
+
+
+def stripe_map(length: int, min_chunksize: int,
+               weights: list[int] | tuple[int, ...],
+               cursor: int = 0) -> list[int]:
+    """The stream each chunk of a ``length``-byte message goes to under the
+    weighted stripe scheduler, from the arithmetic both engines run, so a
+    sender and a receiver derive one layout from (length, min_chunksize,
+    weights) alone. Equal weights give the uniform rotation
+    ``(cursor + i) % nstreams``."""
+    lib = _native.load()
+    wspec = ",".join(str(int(w)) for w in weights).encode()
+    # Two calls: the text's length first, then the text (a dense map of a
+    # long message is long).
+    n = lib.tpunet_c_stripe_map(length, min_chunksize, wspec, cursor, None, 0)
+    _native.check(min(n, 0), "stripe_map")
+    buf = ctypes.create_string_buffer(n + 1)
+    n = lib.tpunet_c_stripe_map(length, min_chunksize, wspec, cursor, buf,
+                                n + 1)
+    _native.check(min(n, 0), "stripe_map")
+    return [int(t) for t in buf.value.decode().split(",")] if buf.value else []
 
 
 def codec_wire_bytes(codec: str, n: int) -> int:
@@ -190,6 +330,9 @@ class RecvComm:
             "irecv")
         return Request(self._net, req.value, pin)
 
+    def recv(self, buf: Any, timeout: float | None = None) -> int:
+        return self.irecv(buf).wait(timeout)
+
     def close(self) -> None:
         _native.check(
             self._net._lib.tpunet_c_close_recv(self._net._id, self._id),
@@ -234,6 +377,23 @@ class Net:
             "create")
         self._id = inst.value
         self.traffic_class = traffic_class
+
+    def devices(self) -> int:
+        n = ctypes.c_int32(0)
+        _native.check(self._lib.tpunet_c_devices(self._id, ctypes.byref(n)),
+                      "devices")
+        return n.value
+
+    def properties(self, dev: int = 0) -> dict:
+        p = _native.NetProperties()
+        _native.check(self._lib.tpunet_c_get_properties(self._id, dev,
+                                                        ctypes.byref(p)),
+                      "props")
+        return {"name": (p.name or b"").decode(),
+                "pci_path": (p.pci_path or b"").decode(),
+                "guid": p.guid, "ptr_support": p.ptr_support,
+                "speed_mbps": p.speed_mbps, "port": p.port,
+                "max_comms": p.max_comms}
 
     def listen(self, dev: int = 0) -> ListenComm:
         h = _native.SocketHandle()
