@@ -76,7 +76,43 @@ Phases (each raises on failure; the script then exits non-zero):
            recovered rank on a new thread reconnects through the hello
            handshake; the tokens must equal the single host's, with one
            rank failure, one re-admission and one readmit event.
-  paths    the wide and f32 routes as users run them: 2 adamw steps
+  swap     live weight updates on the serve phase's configuration (full
+           width and depth, slots 8, max_len 1024, f32 KV wire, 8 greedy
+           requests of 64 tokens): a frontend (Router round robin,
+           PrefillEngine, WeightPublisher) and decode ranks A and B, each
+           a spawned process on this card with the QoS gate armed
+           (TPUNET_QOS_INFLIGHT_BYTES=wire=256K,
+           TPUNET_QOS_WEIGHTS=latency=8,bulk=1), 64 MiB broadcast chunks
+           and a 60 s swap deadline. v0 is phase_model's bf16 params, v1
+           and v2 init_params(seed + 1 / + 2) cast the same way; each
+           publication ships 2 bytes a parameter of bf16 wire. The
+           frontend's swap script (swap:at_step=N:action=publish) times
+           both publications. Window 1, v0 -> v1, published once the first
+           FIRST frame is in: rank A's script
+           (swap:at_step=1:action=corrupt) flips a received byte, so the
+           fleet refuses the first attempt and the retry commits; the
+           prompts again under v1. Window 2, v1 -> v2, published as soon
+           as its requests are in flight: the frontend SIGKILLs B once the
+           broadcast is, the retry commits on A (B's requests replay from
+           their retained KV), the parent respawns B on v0, the router
+           re-admits it and catch_up() brings it to v2; then the prompts
+           under v2 on both ranks. Gates: every request's tokens bitwise a single-host
+           BatchServer's on the version pinned at its admission; window 1
+           1 abort, 1 retry, 1 commit and a CRC mismatch event; window 2
+           >= 1 retry, 1 commit, 1 catch-up, 1 rank failure, 1
+           re-admission, B killed by SIGKILL; the frontend at v2 with only
+           v2's engine, both ranks at v2 with only v2 resident and the
+           weight-version gauge 2; no swap event pending anywhere; the
+           bulk class moved at least the wire's bytes; flash_fwd launched
+           by the frontend's engine of every version and by both new
+           engines' warm-ups (a decode rank adopts shipped KV and decodes
+           on the cache's einsum branch: no flash launch), no input copy
+           anywhere. Reports each
+           publication's phase seconds and broadcast GB/s, TTFT before,
+           during and after each swap, the longest serve-loop pass of a
+           decode rank during a swap, the latency class's p99 queue wait,
+           peak memory and flash_fwd launches per process and version
+  paths   the wide and f32 routes as users run them: 2 adamw steps
            (create_train_state, make_train_step) of a bf16 GQA-4 model of
            head dim 320 (d1280, 4 heads, 1 kv head, 2 layers, 2 x 1024
            tokens; the wide kernels) and of an f32 model of the training
@@ -187,6 +223,7 @@ import importlib
 import itertools
 import json
 import os
+import queue
 import re
 import signal
 import socket
@@ -205,6 +242,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 DEVICE = "cuda"
+CARD = None  # nvidia-smi's name and power limit, set by phase_card
 MODEL_735M = dict(vocab=32000, d_model=2048, n_layers=12, n_heads=16,
                   n_kv_heads=4, d_ff=8192, mlp_impl="gelu")
 # The headline training configuration of benchmarks/tpu_headline.py: MHA.
@@ -462,10 +500,12 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 
 def phase_card() -> None:
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    CARD = smi
     print(smi, flush=True)
     log("card", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
@@ -1327,6 +1367,574 @@ def phase_serve(seed: int, params_bf16) -> int:
             f"readmissions {stats['readmissions']}, readmit events "
             f"{events} (want 1 each)")
     return counts["flash_fwd"]
+
+
+# -- swap: live weight updates on the serving fleet --------------------------
+
+# The weight broadcast's chunk and the whole-swap deadline, set in every
+# process of the swap phase (documented user knobs; the defaults stay 1 MiB
+# and 30 s). A receiver pumps one chunk per serve-loop pass, and under load
+# a pass is a decode step: 1.32 GB of wire in 1 MiB chunks is 1,259 passes,
+# about a minute at 46 ms a pass, past the 30 s default. 64 MiB makes it 20
+# passes. The deadline also covers the receivers' decode of the wire, their
+# new server's build and warm-up request, and the frontend's engine build.
+SWAP_CHUNK_BYTES = 64 << 20
+SWAP_TIMEOUT_MS = 60_000
+SWAP_MAX_NEW = 64
+SWAP_ENV = {
+    # The QoS gate armed as tests/swap_smoke.py arms it, so the bulk-class
+    # weight bytes contend with the latency-class tier traffic.
+    "TPUNET_QOS_INFLIGHT_BYTES": "wire=256K",
+    "TPUNET_QOS_WEIGHTS": "latency=8,bulk=1",
+    "TPUNET_SWAP_CHUNK_BYTES": str(SWAP_CHUNK_BYTES),
+    "TPUNET_SWAP_TIMEOUT_MS": str(SWAP_TIMEOUT_MS),
+    # A killed peer must surface typed in a blocked broadcast (the
+    # survivor's receive pump included), not park a serve loop.
+    "TPUNET_PROGRESS_TIMEOUT_MS": "10000",
+    "TPUNET_KEEPALIVE_IDLE_S": "3", "TPUNET_KEEPALIVE_INTVL_S": "2",
+    "TPUNET_KEEPALIVE_CNT": "2",
+}
+SWAP_PUBLISH_SPEC = "swap:at_step=1:action=publish;swap:at_step=2:action=publish"
+SWAP_CORRUPT_SPEC = "swap:at_step=1:action=corrupt"
+
+
+def _bf16_checkpoint(seed: int) -> dict:
+    """phase_model's bf16 parameters for `seed` (norm scales stay f32)."""
+    from tpunet_torch.models import Transformer, init_params
+
+    meta = Transformer(compute_dtype=torch.float32, device="meta",
+                       **MODEL_735M)
+    p32 = init_params(meta, seed=seed, device=DEVICE)
+    return {k: (t if k.endswith(".scale") else t.to(torch.bfloat16))
+            for k, t in p32.items()}
+
+
+def _wire_crc(params: dict) -> tuple[int, int]:
+    """(bytes, CRC32C) of the bf16 publication wire of `params`."""
+    from tpunet_torch import transport
+    from tpunet_torch.serve import flatten_params
+
+    wire = transport.codec_encode(flatten_params(params), "bf16")
+    return int(wire.size), transport.crc32c(wire)
+
+
+def _swap_child_env(spec: str | None) -> None:
+    """The swap phase's knobs, set in a spawned process before its first
+    engine (the QoS gate and the fault script are read there, once)."""
+    os.environ.update(SWAP_ENV)
+    os.environ.pop("TPUNET_FAULT_SPEC", None)
+    if spec:
+        os.environ["TPUNET_FAULT_SPEC"] = spec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _tag_flash_launches(counts: dict, tls) -> None:
+    """Attribute this process's flash_fwd launches to a version: a launch
+    on a serving thread counts for the version in `tls.version`; one on a
+    build thread (tpunet-flip-vN, tpunet-prefill-vN) is that version's
+    warm-up. The module counter still counts every launch."""
+    fa = sys.modules["tpunet_torch.ops.flash_attention"]
+    count = fa._count
+
+    def tagged(name, n=1):
+        count(name, n)
+        if name != "kernel_launches":
+            return
+        thread = threading.current_thread().name
+        m = re.match(r"tpunet-(?:flip|prefill)-v(\d+)$", thread)
+        key = (f"warm_v{m.group(1)}" if m
+               else f"v{getattr(tls, 'version', '?')}")
+        counts[key] = counts.get(key, 0) + n
+
+    fa._count = tagged
+
+
+def _tagged(fn, tls, version_of):
+    def call(*args, **kw):
+        tls.version = version_of(*args, **kw)
+        try:
+            return fn(*args, **kw)
+        finally:
+            tls.version = "?"
+    return call
+
+
+def _swap_phase_metrics(m: dict) -> dict:
+    """{phase: [count, seconds]} of tpunet_weight_swap_duration_us."""
+    from tpunet_torch import telemetry
+
+    out = {}
+    for fam, i, scale in (("_count", 0, 1), ("_sum", 1, 1e-6)):
+        for k, v in m.get("tpunet_weight_swap_duration_us" + fam,
+                          {}).items():
+            ph = telemetry.labels(k).get("phase")
+            out.setdefault(ph, [0, 0.0])[i] = v * scale
+    return out
+
+
+def _swap_events(m: dict) -> dict:
+    from tpunet_torch import telemetry
+
+    return {telemetry.labels(k).get("kind"): int(v)
+            for k, v in m.get("tpunet_swap_events_total", {}).items()}
+
+
+def _quantiles(us: list) -> dict:
+    if not us:
+        return {"n": 0}
+    return {"n": len(us), "p50_ms": float(np.percentile(us, 50)) / 1e3,
+            "p99_ms": float(np.percentile(us, 99)) / 1e3}
+
+
+def _class_p99_us(m: dict, cls: str) -> float | None:
+    """p99 (upper bucket bound) of tpunet_qos_queue_wait_us for `cls`."""
+    from tpunet_torch import telemetry
+
+    by_le: dict = {}
+    for k, v in m.get("tpunet_qos_queue_wait_us_bucket", {}).items():
+        lab = telemetry.labels(k)
+        if lab.get("class") != cls:
+            continue
+        le = lab["le"]
+        le = float("inf") if le in ("+Inf", "Inf") else float(le)
+        by_le[le] = by_le.get(le, 0) + int(v)
+    if not by_le or max(by_le.values()) == 0:
+        return None
+    total = max(by_le.values())
+    for le, c in sorted(by_le.items()):
+        if c >= 0.99 * total:
+            return le
+    return None
+
+
+def _swap_decode(name: str, seed: int, spec: str | None, weight_version: int,
+                 cmd, q) -> None:
+    """A spawned decode rank of the swap phase: v0 from `seed`, the
+    frontend's address from `cmd`; serves until SHUTDOWN, then reports."""
+    try:
+        _swap_child_env(spec)
+        from tpunet_torch import serve, telemetry
+        from tpunet_torch.models import Transformer
+        from tpunet_torch.ops.flash_attention import flash_attention
+        from tpunet_torch.serve import publish
+
+        model = Transformer(compute_dtype=torch.bfloat16, attn_impl="flash",
+                            device="meta", **MODEL_735M)
+        v0 = _bf16_checkpoint(seed)
+        crc = _wire_crc(v0)
+        addr = cmd.get(timeout=600)
+        worker = serve.connect_decode(addr, model, v0, slots=8,
+                                      max_len=1024, kv_codec="f32",
+                                      weight_version=weight_version,
+                                      device=DEVICE, timeout=300)
+        # Per-version launches, and the serve loop's pass times (a pass
+        # starts at _poll_chaos) while a swap is live on this rank.
+        tls, launches = threading.local(), {}
+        _tag_flash_launches(launches, tls)
+        build = worker._build_server
+
+        def build_tagged(version, params):
+            srv = build(version, params)
+            srv.step = _tagged(srv.step, tls, lambda: version)
+            return srv
+
+        worker._build_server = build_tagged
+        for v, srv in worker._servers.items():
+            srv.step = _tagged(srv.step, tls, lambda v=v: v)
+        passes = {"t": None, "swap": False, "max_swap_s": 0.0,
+                  "max_other_s": 0.0, "n_swap": 0}
+        chaos = worker._poll_chaos
+
+        def timed_chaos():
+            now = time.perf_counter()
+            live = worker._receiver is not None or worker._flip is not None
+            if passes["t"] is not None:
+                dt = now - passes["t"]
+                key = ("max_swap_s" if passes["swap"] or live
+                       else "max_other_s")
+                passes[key] = max(passes[key], dt)
+                passes["n_swap"] += passes["swap"] or live
+            passes["t"], passes["swap"] = now, live
+            chaos()
+
+        worker._poll_chaos = timed_chaos
+        q.put((name, "ready", {"pid": os.getpid(), "wire": crc}))
+        flash_attention.kernel_launches = 0
+        flash_attention.input_copies = 0
+        t0 = time.perf_counter()
+        worker.serve()
+        wall = time.perf_counter() - t0
+        m = telemetry.metrics()
+        report = {
+            "version": worker.version, "resident": sorted(worker._servers),
+            "stats": dict(worker.stats),
+            "weight_version_gauge": int(next(iter(
+                m["tpunet_weight_version"].values()))),
+            "swap_events": _swap_events(m),
+            "swap_phases": _swap_phase_metrics(m),
+            "swap_pending": publish.swap_pending(),
+            "flash_fwd": flash_attention.kernel_launches,
+            "flash_fwd_by_version": launches,
+            "input_copies": flash_attention.input_copies,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "passes": {k: v for k, v in passes.items()
+                       if k not in ("t", "swap")},
+            "serve_s": wall, "wire": crc}
+        worker.close()
+        q.put((name, "OK", report))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        q.put((name, "FAIL", traceback.format_exc()))
+
+
+def _swap_frontend(seed: int, cmd, q) -> None:
+    """The spawned frontend of the swap phase: Router + PrefillEngine +
+    WeightPublisher, the publications scheduled by the swap script."""
+    try:
+        _swap_child_env(None)
+        from tpunet_torch import serve, telemetry, transport
+        from tpunet_torch.models import Transformer
+        from tpunet_torch.ops.flash_attention import flash_attention
+        from tpunet_torch.serve import publish
+
+        model = Transformer(compute_dtype=torch.bfloat16, attn_impl="flash",
+                            device="meta", **MODEL_735M)
+        ckpt = {v: _bf16_checkpoint(seed + v) for v in (0, 1, 2)}
+        crcs = {v: _wire_crc(p) for v, p in ckpt.items()}
+        lsock = serve.Router.listen("127.0.0.1:0")
+        q.put(("F", "addr", "127.0.0.1:%d" % lsock.getsockname()[1]))
+        pe = serve.PrefillEngine(model, ckpt[0], max_len=1024, device=DEVICE)
+        router = serve.Router(pe, kv_codec="f32", policy="round_robin")
+        router.accept_ranks(lsock, 2, timeout=600)
+        router.enable_readmission(lsock)
+        pids = cmd.get(timeout=600)
+        pub = serve.WeightPublisher(router)
+        transport.fault_inject(SWAP_PUBLISH_SPEC)
+        prompts = _prompts(seed + 2, 8, model.vocab)
+        # Warm both ranks and this engine (a short request each), so the
+        # windows below time serving, not first calls.
+        for p in prompts[:2]:
+            router.submit(p[:16], 2)
+        router.run(timeout=600)
+        tls, launches = threading.local(), {}
+        _tag_flash_launches(launches, tls)
+        router._build_payload = _tagged(router._build_payload, tls,
+                                        lambda rec: rec["version"])
+        telemetry.reset()
+        flash_attention.kernel_launches = 0
+        flash_attention.input_copies = 0
+        t_phase = time.perf_counter()
+        windows, tokens = [], {}
+
+        def first_frame_in() -> None:
+            while not any(r["t_first"] for r in router._recs.values()):
+                router.poll()
+                time.sleep(0.001)
+
+        def window(n: int, params, pump=None, first=True) -> dict:
+            """Submit the prompts, publish `n` (once the first FIRST frame
+            is in, with `first`), drain them; returns the window's
+            record."""
+            samples = router.samples["ttft"]
+            n_start = len(samples)
+            stats0, m0 = dict(pub.stats), telemetry.metrics()
+            ids = [router.submit(p, SWAP_MAX_NEW) for p in prompts]
+            pinned = {router._recs[i]["version"] for i in ids}
+            if first:
+                first_frame_in()
+            action = publish.swap_action(n)
+            if action != "publish":
+                raise AssertionError(f"swap script step {n}: {action}")
+            n_before, t0 = len(samples), time.perf_counter()
+            pub.publish(n, params, pump=pump or router.poll,
+                        warm_lengths=(128,))
+            t_pub = time.perf_counter() - t0
+            n_during = len(samples)
+            res = router.run(timeout=600)
+            tokens[f"w{n}_inflight"] = [res[i].tolist() for i in ids]
+            m1 = telemetry.metrics()
+            ph0, ph1 = _swap_phase_metrics(m0), _swap_phase_metrics(m1)
+            phases = {k: [ph1[k][0] - ph0.get(k, [0, 0])[0],
+                          ph1[k][1] - ph0.get(k, [0, 0])[1]] for k in ph1}
+            nb, sb = phases.get("broadcast", [0, 0.0])
+            ev0, ev1 = _swap_events(m0), _swap_events(m1)
+            return {"version": n, "pinned": sorted(pinned),
+                    "publish_s": t_pub,
+                    "pub_stats": {k: pub.stats[k] - stats0[k]
+                                  for k in pub.stats},
+                    "events": {k: ev1.get(k, 0) - ev0.get(k, 0)
+                               for k in ev1},
+                    "phases_count_s": phases,
+                    "broadcast_gb_per_s": (crcs[n][0] * nb / sb / 1e9
+                                           if sb else None),
+                    "ttft_before": _quantiles(samples[n_start:n_before]),
+                    "ttft_during": _quantiles(samples[n_before:n_during]),
+                    "n_during": n_during}
+
+        # Window 1: v0 -> v1; rank A's corrupt latch refuses the first
+        # attempt fleet-wide, the retry commits.
+        w1 = window(1, ckpt[1])
+        ids = [router.submit(p, SWAP_MAX_NEW) for p in prompts]
+        w1["after_pinned"] = sorted({router._recs[i]["version"]
+                                     for i in ids})
+        res = router.run(timeout=600)
+        tokens["w1_after"] = [res[i].tolist() for i in ids]
+        w1["ttft_after"] = _quantiles(
+            router.samples["ttft"][w1.pop("n_during"):])
+        windows.append(w1)
+
+        # Window 2: v1 -> v2; rank B SIGKILLed once the broadcast is in
+        # flight (the parent respawns it stale, on v0).
+        killed = {}
+
+        def pump_kill() -> None:
+            if not killed and pub.phase in ("broadcast", "verify"):
+                os.kill(pids["B"], signal.SIGKILL)
+                killed["phase"] = pub.phase
+            router.poll()
+
+        # Published as soon as the requests are in flight, so that B holds
+        # some of them when it dies (its 64 tokens take about 2 s, as long
+        # as the publisher's flatten and encode).
+        w2 = window(2, ckpt[2], pump=pump_kill, first=False)
+        w2["ttft_after"] = _quantiles(
+            router.samples["ttft"][w2.pop("n_during"):])
+        w2["killed_in_phase"] = killed.get("phase")
+        t0 = time.perf_counter()
+        deadline = t0 + 600
+        while router.stats["readmissions"] < 1:
+            if time.perf_counter() > deadline:
+                raise TimeoutError("the respawned rank never rejoined")
+            router.poll_admissions(raise_on_mismatch=False)
+            router.poll()
+            time.sleep(0.01)
+        w2["wait_for_readmission_s"] = time.perf_counter() - t0
+        stale = [sorted(r.versions) for r in router._ranks if r.alive]
+        t0 = time.perf_counter()
+        caught = pub.catch_up()
+        w2["catch_up_s"] = time.perf_counter() - t0
+        w2["caught_up"], w2["versions_before_catch_up"] = caught, stale
+        w2["pub_stats_total"] = dict(pub.stats)
+        windows.append(w2)
+
+        # Window 3: v2 on both ranks (round robin).
+        n0 = len(router.samples["ttft"])
+        ids = [router.submit(p, SWAP_MAX_NEW) for p in prompts]
+        pinned = sorted({router._recs[i]["version"] for i in ids})
+        ranks = sorted({router._recs[i]["rank"] for i in ids})
+        res = router.run(timeout=600)
+        tokens["w3"] = [res[i].tolist() for i in ids]
+        windows.append({"version": 2, "pinned": pinned, "ranks": ranks,
+                        "ttft": _quantiles(router.samples["ttft"][n0:])})
+        for _ in range(50):  # let the retire sweeps go out
+            router.poll()
+            time.sleep(0.002)
+        m = telemetry.metrics()
+        bulk_tx = sum(v for k, v in m.get("tpunet_qos_bytes_total",
+                                          {}).items()
+                      if telemetry.labels(k).get("class") == "bulk"
+                      and telemetry.labels(k).get("dir") == "tx")
+        report = {
+            "wire": crcs, "windows": windows, "tokens": tokens,
+            "router_version": router.version,
+            "prefills": sorted(router._prefills),
+            "rank_versions": [sorted(r.versions) for r in router._ranks
+                              if r.alive],
+            "router": dict(router.stats), "pub": dict(pub.stats),
+            "swap_pending": publish.swap_pending(),
+            "bulk_tx_bytes": bulk_tx,
+            "latency_queue_wait_p99_us": _class_p99_us(m, "latency"),
+            "flash_fwd": flash_attention.kernel_launches,
+            "flash_fwd_by_version": launches,
+            "input_copies": flash_attention.input_copies,
+            "tpot_p50_ms": (float(np.percentile(router.samples["tpot"], 50))
+                            / 1e3 if router.samples["tpot"] else None),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": time.perf_counter() - t_phase}
+        router.shutdown()
+        q.put(("F", "OK", report))
+        cmd.get(timeout=600)  # the ranks have reported: tear down
+        transport.fault_clear()
+        router.close()
+        lsock.close()
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        q.put(("F", "FAIL", traceback.format_exc()))
+
+
+def phase_swap(seed: int, params_v0) -> None:
+    """Live weight swap on a serving fleet of this card: frontend and two
+    decode ranks in spawned processes; see the module docstring."""
+    import multiprocessing as mp
+
+    from tpunet_torch.models import BatchServer, Transformer
+    from tpunet_torch.serve import publish, roundtrip_params
+
+    t_phase = time.perf_counter()
+    model = Transformer(compute_dtype=torch.bfloat16, attn_impl="flash",
+                        device="meta", **MODEL_735M)
+    prompts = _prompts(seed + 2, 8, model.vocab)
+    ckpt = {0: params_v0, 1: _bf16_checkpoint(seed + 1),
+            2: _bf16_checkpoint(seed + 2)}
+    n_params = sum(t.numel() for t in params_v0.values())
+    refs, wires = {}, {}
+    for v, p in ckpt.items():
+        if v:  # what every rank holds after the wire: the identity on bf16
+            rt = roundtrip_params(p, "bf16")
+            if not all(torch.equal(rt[k], t) for k, t in p.items()):
+                raise AssertionError(f"bf16 round trip of v{v} is not the "
+                                     f"identity")
+            del rt
+        wires[v] = _wire_crc(p)
+        srv = BatchServer(model, p, slots=8, max_len=1024, device=DEVICE)
+        sids = [srv.submit(x, SWAP_MAX_NEW) for x in prompts]
+        out = srv.run()
+        refs[v] = [out[i].tolist() for i in sids]
+        del srv
+    if any(w[0] != 2 * n_params for w in wires.values()):
+        raise AssertionError(f"wire bytes {wires} (want 2 x {n_params})")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    cmds = {n: ctx.Queue() for n in ("F", "A", "B", "B2")}
+    procs = {"F": ctx.Process(target=_swap_frontend,
+                              args=(seed, cmds["F"], q)),
+             "A": ctx.Process(target=_swap_decode,
+                              args=("A", seed, SWAP_CORRUPT_SPEC, 0,
+                                    cmds["A"], q)),
+             "B": ctx.Process(target=_swap_decode,
+                              args=("B", seed, None, 0, cmds["B"], q))}
+    for p in procs.values():
+        p.start()
+    got, ready, addr = {}, {}, None
+    t_kill = t_b2_ready = None
+    deadline = time.perf_counter() + 900
+    try:
+        while len(got) < 3:  # the reports of F, A and B2
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"swap phase: reports {sorted(got)}")
+            if procs["B"].exitcode is not None and "B2" not in procs:
+                # B died mid-broadcast: respawn it stale, on v0.
+                t_kill = time.perf_counter()
+                procs["B2"] = ctx.Process(
+                    target=_swap_decode,
+                    args=("B2", seed, None, 0, cmds["B2"], q))
+                procs["B2"].start()
+                cmds["B2"].put(addr)
+            try:
+                name, status, payload = q.get(timeout=0.2)
+            except queue.Empty:
+                dead = {n: p.exitcode for n, p in procs.items()
+                        if n != "B" and n not in got
+                        and p.exitcode is not None}
+                if dead:
+                    raise RuntimeError(f"swap processes exited {dead}")
+                continue
+            if status == "FAIL":
+                raise RuntimeError(f"swap {name} failed:\n{payload}")
+            if status == "addr":
+                addr = payload
+                cmds["A"].put(addr)
+                cmds["B"].put(addr)
+            elif status == "ready":
+                ready[name] = payload
+                if name == "B2":
+                    t_b2_ready = time.perf_counter()
+                elif "A" in ready and "B" in ready:
+                    cmds["F"].put({n: ready[n]["pid"] for n in ("A", "B")})
+            else:
+                got[name] = payload
+        cmds["F"].put("done")  # the ranks have reported: F may close
+    finally:
+        for p in procs.values():
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    f, a, b2 = got["F"], got["A"], got["B2"]
+    wall = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # Tokens: each window's requests against the single host on the version
+    # pinned at their admission.
+    checks = {"w1_inflight": 0, "w1_after": 1, "w2_inflight": 1, "w3": 2}
+    bitwise = {k: f["tokens"][k] == refs[v] for k, v in checks.items()}
+    pinned = {"w1_inflight": f["windows"][0]["pinned"],
+              "w1_after": f["windows"][0]["after_pinned"],
+              "w2_inflight": f["windows"][1]["pinned"],
+              "w3": f["windows"][2]["pinned"]}
+    w1, w2 = f["windows"][0], f["windows"][1]
+    log("swap", card=CARD, params=n_params, wire_bytes=wires[0][0],
+        wire_crc32c={v: w[1] for v, w in wires.items()},
+        chunk_bytes=SWAP_CHUNK_BYTES, timeout_ms=SWAP_TIMEOUT_MS,
+        bitwise_equal_single_host=bitwise, pinned_versions=pinned,
+        windows=f["windows"], frontend={
+            k: f[k] for k in ("router_version", "prefills", "rank_versions",
+                              "router", "pub", "swap_pending",
+                              "bulk_tx_bytes", "latency_queue_wait_p99_us",
+                              "flash_fwd", "flash_fwd_by_version",
+                              "input_copies", "tpot_p50_ms", "peak_mem_gb",
+                              "wall_s")},
+        decode={"A": a, "B2": b2}, victim_exitcode=procs["B"].exitcode,
+        respawn_to_ready_s=(t_b2_ready - t_kill) if t_b2_ready else None,
+        parent_peak_mem_gb=peak, phase_wall_s=wall)
+    errors = []
+    if not all(bitwise.values()):
+        errors.append(f"tokens differ from the single host's: {bitwise}")
+    if pinned != {"w1_inflight": [0], "w1_after": [1], "w2_inflight": [1],
+                  "w3": [2]}:
+        errors.append(f"pinned versions {pinned}")
+    if f["wire"] != wires:
+        errors.append(f"frontend checkpoints {f['wire']} != {wires}")
+    for n, r in (("A", a), ("B2", b2)):
+        if tuple(r["wire"]) != wires[0]:
+            errors.append(f"rank {n}'s v0 {r['wire']} != {wires[0]}")
+    s1 = w1["pub_stats"]
+    if (s1["aborts"], s1["retries"], s1["commits"]) != (1, 1, 1) or (
+            w1["events"].get("mismatch", 0) < 1):
+        errors.append(f"window 1: {s1}, events {w1['events']}")
+    s2 = w2["pub_stats"]
+    if s2["retries"] < 1 or s2["commits"] != 1 or f["pub"]["catch_ups"] != 1:
+        errors.append(f"window 2: {s2}, catch-ups {f['pub']['catch_ups']}")
+    if (f["router"]["rank_failures"], f["router"]["readmissions"]) != (1, 1):
+        errors.append(f"router {f['router']}")
+    if procs["B"].exitcode != -signal.SIGKILL:
+        errors.append(f"rank B exited {procs['B'].exitcode}, not SIGKILL")
+    if len(f["windows"][2]["ranks"]) != 2 or 2 not in f["windows"][2][
+            "ranks"]:  # the respawned rank is the router's third
+        errors.append(f"window 3 placed on ranks {f['windows'][2]['ranks']}")
+    if f["router_version"] != 2 or f["prefills"] != [2]:
+        errors.append(f"frontend at v{f['router_version']}, engines "
+                      f"{f['prefills']}")
+    for n, r in (("A", a), ("B2", b2)):
+        if (r["version"], r["resident"], r["weight_version_gauge"]) != (
+                2, [2], 2):
+            errors.append(f"rank {n}: version {r['version']}, resident "
+                          f"{r['resident']}, gauge "
+                          f"{r['weight_version_gauge']}")
+        if r["input_copies"] != 0:
+            errors.append(f"rank {n} copied {r['input_copies']} flash "
+                          f"inputs")
+        if r["stats"]["results"] <= 0:
+            errors.append(f"rank {n} served nothing")
+    # flash_fwd runs in the prefills, all on the frontend: a decode rank
+    # adopts shipped KV and its cached steps take the dense einsum branch
+    # (as in the JAX model), so it launches none. Every version's engine
+    # and both new engines' warm-ups must have launched it.
+    by_ver = f["flash_fwd_by_version"]
+    if (any(by_ver.get(k, 0) <= 0 for k in ("v0", "v1", "v2", "warm_v1",
+                                             "warm_v2"))
+            or f["flash_fwd"] != sum(by_ver.values())
+            or f["input_copies"] != 0):
+        errors.append(f"frontend: flash_fwd {f['flash_fwd']} "
+                      f"({by_ver}), copies {f['input_copies']}")
+    pending = {"F": f["swap_pending"], "A": a["swap_pending"],
+               "B2": b2["swap_pending"], "parent": publish.swap_pending()}
+    if any(pending.values()):
+        errors.append(f"swap events pending {pending}")
+    if f["bulk_tx_bytes"] < wires[0][0]:
+        errors.append(f"bulk class moved {f['bulk_tx_bytes']} B, under the "
+                      f"wire's {wires[0][0]}")
+    if errors:
+        raise AssertionError("swap phase: " + "; ".join(errors))
+
 
 
 def _free_port() -> int:
@@ -2425,6 +3033,7 @@ def main() -> int:
     bwd_rows = phase_bwd_kernels(args.seed)
     params = phase_model(args.seed)
     phase_serve(args.seed, params)
+    phase_swap(args.seed, params)
     del params
     torch.cuda.empty_cache()
     launches = phase_paths(args.seed)

@@ -189,6 +189,68 @@ def test_unsupported_dtype_and_host_only():
         _Buf(meta)
 
 
+BYTE_DTYPES = ("uint32", "uint16", "float16", "bool", "int8")
+
+
+@pytest.fixture(scope="module")
+def world1_comms():
+    """A world-1 Communicator of each package, on ports of their own."""
+    from tpunet.collectives import Communicator as JaxCommunicator
+    from tpunet_torch.collectives import Communicator
+
+    ours = Communicator(f"127.0.0.1:{free_port()}", 0, 1)
+    theirs = JaxCommunicator(f"127.0.0.1:{free_port()}", 0, 1)
+    yield ours, theirs
+    ours.close()
+    theirs.close()
+
+
+@pytest.mark.parametrize("dtype", BYTE_DTYPES)
+def test_all_gather_and_broadcast_move_bytes_of_any_dtype(world1_comms,
+                                                          dtype):
+    """all_gather and broadcast move raw bytes, as the JAX package's do:
+    any dtype, the same bytes, dtype and shape as JAX's on the same numpy
+    input; a CPU tensor comes back as a tensor of its own dtype."""
+    ours, theirs = world1_comms
+    rng = np.random.default_rng(len(dtype))
+    raw = rng.integers(0, 256, 3 * 5 * np.dtype(dtype).itemsize, np.uint8)
+    arr = raw.view(dtype).reshape(3, 5)
+    if dtype == "bool":
+        arr = raw.reshape(3, 5) % 2 == 1
+    for mine, jax_out in ((ours.all_gather(arr), theirs.all_gather(arr)),
+                          (ours.broadcast(arr), theirs.broadcast(arr))):
+        assert isinstance(mine, np.ndarray)
+        assert mine.dtype == jax_out.dtype == arr.dtype
+        assert mine.shape == jax_out.shape
+        assert mine.tobytes() == jax_out.tobytes()
+    assert ours.all_gather(arr).shape == (1, 3, 5)
+    t = torch.from_numpy(arr.copy())
+    for got in (ours.all_gather(t)[0], ours.broadcast(t)):
+        assert isinstance(got, torch.Tensor) and got.dtype == t.dtype
+        assert got.numpy().tobytes() == arr.tobytes()
+    # Into a caller's buffer, or in place (the weight receiver's chunks).
+    buf = np.empty_like(arr)
+    assert ours.broadcast(arr, out=buf) is buf
+    assert buf.tobytes() == arr.tobytes()
+    inplace = arr.copy()
+    assert ours.broadcast(inplace, out=inplace) is inplace
+    with pytest.raises(ValueError, match="out must be"):
+        ours.broadcast(arr, out=np.empty(arr.shape, np.float64))
+
+
+def test_reductions_still_refuse_dtypes_they_cannot_reduce(world1_comms):
+    ours, _ = world1_comms
+    for op in (lambda a: ours.all_reduce(a),
+               lambda a: ours.reduce_scatter(a),
+               lambda a: ours.iall_reduce(a)):
+        with pytest.raises(TypeError, match="uint32"):
+            op(np.arange(4, dtype=np.uint32))
+    with pytest.raises(ValueError, match="host buffers"):
+        ours.all_gather(torch.empty(3, device="meta"))
+    with pytest.raises(ValueError, match="host buffers"):
+        ours.broadcast(torch.empty(3, device="meta"))
+
+
 def test_psum_requires_initialize():
     from tpunet_torch import distributed, interop
 

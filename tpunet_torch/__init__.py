@@ -22,7 +22,8 @@ CUDA kernel where the JAX package has a Pallas kernel. Layers, bottom up:
 - ``elastic`` — the churn engine: shrink or grow the world mid-run
   (``ElasticWorld``), scripted by the chaos grammar;
 - ``serve``  — the disaggregated prefill/decode tier over the transport,
-  with re-admission of recovered decode hosts.
+  with re-admission of recovered decode hosts and live weight updates
+  (``WeightPublisher``/``WeightReceiver``: version-pinned hot swap).
 
 Entry points run on the GPU unless given ``device="cpu"``.
 """

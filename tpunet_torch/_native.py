@@ -146,6 +146,8 @@ def load() -> ctypes.CDLL:
         "tpunet_c_fault_clear": ([], i32),
         "tpunet_c_churn_poll": ([u64, ctypes.c_int64], i32),
         "tpunet_c_churn_pending": ([], i32),
+        "tpunet_c_swap_poll": ([u64], i32),
+        "tpunet_c_swap_pending": ([], i32),
         "tpunet_c_rewire_observe": ([i32, u64], i32),
         "tpunet_c_world_size": ([u64], i32),
         "tpunet_c_swap_observe": ([i32, u64], i32),

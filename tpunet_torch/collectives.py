@@ -7,11 +7,12 @@ tensor; results come back as the same kind, C-contiguous, of the input
 dtype. CUDA tensors are staged through pinned host memory by
 ``tpunet_torch.interop``.
 
-Supported dtypes: float32, float64, bfloat16, int32, int64, uint8. numpy has
-no bfloat16 without ``ml_dtypes`` (which the JAX package uses and the port
-does not depend on), so bfloat16 is passed as a ``torch.bfloat16`` tensor: its
-``data_ptr()`` goes to the native layer with dtype code 2. Ops: sum, prod,
-min, max.
+The reductions take float32, float64, bfloat16, int32, int64 and uint8.
+numpy has no bfloat16 without ``ml_dtypes`` (which the JAX package uses and
+the port does not depend on), so bfloat16 is passed as a ``torch.bfloat16``
+tensor: its ``data_ptr()`` goes to the native layer with dtype code 2. Ops:
+sum, prod, min, max. ``all_gather`` and ``broadcast`` move raw bytes, so
+they take any dtype.
 
 ``all_to_all``/``all_to_all_typed``/``iall_to_all`` wait for the MoE slice
 of the port and ``neighbor_exchange`` for the sequence-parallel slice.
@@ -50,16 +51,17 @@ def _dtype_code(dt) -> int:
 
 class _Buf:
     """A C-contiguous host buffer (numpy array or CPU tensor) with what the
-    native calls need: pointer, element count, byte count, dtype code."""
+    native calls need: pointer, element count, byte count and, for a
+    reduction (`typed`), the dtype code; the byte-moving collectives take
+    any dtype."""
 
-    def __init__(self, x: Any):
+    def __init__(self, x: Any, typed: bool = True):
         if isinstance(x, torch.Tensor):
             if x.device.type != "cpu":
                 raise ValueError(
                     f"Communicator takes host buffers, got a tensor on "
                     f"{x.device}; tpunet_torch.interop stages device tensors")
             self.obj = x.contiguous()
-            self.code = _dtype_code(x.dtype)
             self.size = self.obj.numel()
             self.nbytes = self.size * self.obj.element_size()
             self.shape = tuple(self.obj.shape)
@@ -67,10 +69,11 @@ class _Buf:
             arr = np.asarray(x)
             self.obj = arr if arr.flags.c_contiguous else np.ascontiguousarray(
                 arr)
-            self.code = _dtype_code(self.obj.dtype)
             self.size = self.obj.size
             self.nbytes = self.obj.nbytes
             self.shape = self.obj.shape
+        self.dtype = self.obj.dtype
+        self.code = _dtype_code(self.dtype) if typed else None
 
     @property
     def ptr(self):
@@ -83,9 +86,10 @@ class _Buf:
     def empty(self, shape=None):
         """A new buffer of this kind and dtype (default: this shape)."""
         shape = self.shape if shape is None else tuple(shape)
+        typed = self.code is not None
         if isinstance(self.obj, torch.Tensor):
-            return _Buf(torch.empty(shape, dtype=self.obj.dtype))
-        return _Buf(np.empty(shape, dtype=self.obj.dtype))
+            return _Buf(torch.empty(shape, dtype=self.dtype), typed)
+        return _Buf(np.empty(shape, dtype=self.dtype), typed)
 
 
 def _out_buf(like: _Buf, shape: tuple, out: Any) -> _Buf:
@@ -93,9 +97,9 @@ def _out_buf(like: _Buf, shape: tuple, out: Any) -> _Buf:
     C-contiguous buffer of `shape` and `like`'s dtype, or a new one."""
     if out is None:
         return like.empty(shape)
-    buf = _Buf(out)
+    buf = _Buf(out, typed=False)
     if buf.obj is not out or buf.shape != tuple(shape) or (
-            buf.code != like.code):
+            buf.dtype != like.dtype):
         raise ValueError(f"out must be a C-contiguous buffer of shape "
                          f"{tuple(shape)} and the input's dtype")
     return buf
@@ -234,22 +238,25 @@ class Communicator:
     def all_gather(self, arr: Any, out: Any = None):
         """Returns shape (world_size, *arr.shape), rank-ordered, written
         into `out` when given (a C-contiguous buffer of that shape and
-        dtype)."""
-        buf = _Buf(arr)
+        dtype). Moves raw bytes: any dtype."""
+        buf = _Buf(arr, typed=False)
         out = _out_buf(buf, (self.world_size,) + tuple(buf.shape), out)
         _native.check(self._lib.tpunet_comm_all_gather(
             self._id, buf.ptr, out.ptr, buf.nbytes), "all_gather")
         return out.obj
 
-    def broadcast(self, arr: Any, root: int = 0):
-        """Returns root's buffer on every rank (a copy; `arr` is left as
-        it was)."""
-        src = _Buf(arr)
-        out = src.empty()
-        if isinstance(out.obj, torch.Tensor):
-            out.obj.copy_(src.obj)
-        else:
-            out.obj[...] = src.obj
+    def broadcast(self, arr: Any, root: int = 0, out: Any = None):
+        """Returns root's buffer on every rank: a copy, `arr` left as it
+        was, or written into `out` when given (a C-contiguous buffer of
+        arr's shape and dtype; `out` may be `arr` itself). Moves raw bytes:
+        any dtype."""
+        src = _Buf(arr, typed=False)
+        out = _out_buf(src, src.shape, out)
+        if out.obj is not src.obj:
+            if isinstance(out.obj, torch.Tensor):
+                out.obj.copy_(src.obj)
+            else:
+                out.obj[...] = src.obj
         _native.check(self._lib.tpunet_comm_broadcast(
             self._id, out.ptr, out.nbytes, root), "broadcast")
         return out.obj

@@ -388,7 +388,7 @@ class ElasticWorld:
         crc = 0
         for a in arrays:
             crc = transport.crc32c(_host_bytes(a), seed=crc)
-        digests = self.comm.all_gather(np.array([crc], np.int64)).ravel()
+        digests = self.comm.all_gather(np.array([crc], np.uint32)).ravel()
         self.stats["crc_checks"] += 1
         if len(set(int(d) for d in digests)) != 1:
             raise WorldCorruptionError(

@@ -21,7 +21,13 @@ Minimal setup::
     rid = router.submit(prompt_tokens, max_new_tokens=64)
     tokens = router.run()[rid]
 
-Env knobs: TPUNET_KV_WIRE_DTYPE, TPUNET_ROUTER_POLICY, TPUNET_SERVE_ROLE.
+Live weight updates (``publish``): ``WeightPublisher(router).publish(v,
+params)`` ships a new checkpoint to every decode rank over a bulk-class
+tree broadcast, flips the fleet behind a fleet-wide CRC32C gate at request
+boundaries, and keeps each request on the version that admitted it.
+
+Env knobs: TPUNET_KV_WIRE_DTYPE, TPUNET_ROUTER_POLICY, TPUNET_SERVE_ROLE,
+TPUNET_SWAP_TIMEOUT_MS, TPUNET_SWAP_CHUNK_BYTES, TPUNET_PUBLISH_CLASS.
 """
 
 from tpunet_torch.serve.decode import DecodeWorker, connect as connect_decode  # noqa: F401
@@ -42,9 +48,21 @@ from tpunet_torch.serve.protocol import (  # noqa: F401
     NoLiveDecodeRankError,
     RouterBusyError,
     ServeError,
+    SwapAnnounce,
     TierMismatchError,
     TierProtocolError,
     wire_decode,
     wire_frontend,
+)
+from tpunet_torch.serve.publish import (  # noqa: F401
+    WeightPublisher,
+    WeightReceiver,
+    WeightSwapError,
+    flatten_params,
+    parse_swap_script,
+    roundtrip_params,
+    swap_action,
+    swap_pending,
+    unflatten_params,
 )
 from tpunet_torch.serve.router import Router  # noqa: F401

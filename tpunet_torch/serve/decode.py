@@ -1,30 +1,49 @@
 """Decode tier: the BatchServer slot machine fed by shipped KV blocks.
 
-A DecodeWorker owns one BatchServer and one FrameLink to the frontend. Its
-serve loop is single-threaded and non-blocking: drain arriving BLOCK frames
-(decode the KV wire, ``submit_kv``; never a re-prefill), advance every live
-slot one window, then report: a FIRST frame the moment a request's first
-token commits (the router's TTFT stamp) and a RESULT frame with the whole
-token array and the measured TPOT when it retires. Requests are never
-streamed token by token, so a decode rank that dies cannot truncate or
-corrupt a stream: the router replays it elsewhere.
+A DecodeWorker owns one BatchServer per resident checkpoint version and one
+FrameLink to the frontend. Its serve loop is single-threaded and
+non-blocking: drain arriving BLOCK frames (decode the KV wire,
+``submit_kv``; never a re-prefill), advance every live slot one window,
+then report: a FIRST frame the moment a request's first token commits (the
+router's TTFT stamp) and a RESULT frame with the whole token array and the
+measured TPOT when it retires. Requests are never streamed token by token,
+so a decode rank that dies cannot truncate or corrupt a stream: the router
+replays it elsewhere.
 
-Live weight updates (the JAX package's swap frames) are a later slice of
-the port; their frame types raise TierProtocolError here.
+**Live weight updates** ride the same loop: a T_SWAP_BEGIN frame arms a
+``WeightReceiver``, which receives on a thread of its own and is polled
+once per pass (the bulk-class broadcast never parks the loop). Once the
+received bytes pass the fleet-wide CRC gate, a background thread decodes
+them into parameters on the card, builds the new version's BatchServer
+(its own bound copy of the model) and drives one throwaway request through
+it while the old version keeps serving; the flip lands between loop
+passes, a request boundary by construction. Each in-flight request stays pinned to the version that
+prefilled it (the T_BLOCK aux word); old versions serve their pinned
+sessions until the frontend's T_SWAP_RETIRE and the local drain both say
+they are done. Any swap failure reports SWAP_ABORTED and the previous
+version keeps serving.
 """
 
 from __future__ import annotations
 
+import os
+import signal
+import threading
 import time
+from functools import partial
+
+import numpy as np
 
 from tpunet_torch import telemetry, transport
 from tpunet_torch.models.serve import BatchServer
 from tpunet_torch.serve import kv as kv_mod
 from tpunet_torch.serve import protocol as proto
+from tpunet_torch.serve import publish as publish_mod
+from tpunet_torch.serve.publish import WeightReceiver, WeightSwapError
 
 
 class DecodeWorker:
-    """Serve loop around a BatchServer for one decode rank."""
+    """Serve loop around per-version BatchServers for one decode rank."""
 
     def __init__(self, model, params, link: proto.FrameLink, *,
                  slots: int, max_len: int, kv_codec: str = "int8",
@@ -34,20 +53,49 @@ class DecodeWorker:
         self._net = None  # set by connect(): the engine this worker owns
         self.link = link
         self.kv_codec = kv_codec
+        self._model = model
+        self._slots = slots
+        self._max_len = max_len
+        self._server_kwargs = server_kwargs
         self.version = int(weight_version)
-        self.srv = BatchServer(model, params, slots=slots, max_len=max_len,
-                               on_first_token=self._on_first,
-                               **server_kwargs)
-        # BatchServer local id -> router request id.
-        self._router_id: dict[int, int] = {}
-        self._t_first: dict[int, float] = {}
-        self._first_pending: list[int] = []
-        self.stats = {"blocks": 0, "results": 0}
+        self._params = {self.version: params}
+        self._servers = {
+            self.version: self._build_server(self.version, params)}
+        # (version, local id) -> router req id: BatchServer local ids
+        # restart at 0 per instance, so the version is part of the key.
+        self._router_id: dict[tuple[int, int], int] = {}
+        self._t_first: dict[tuple[int, int], float] = {}
+        self._first_pending: list[tuple[int, int]] = []
+        # Live-swap state: the pumped receiver, the background build/warm
+        # of the next server, versions the frontend says may retire, and
+        # the scripted-chaos step counter.
+        self._receiver: WeightReceiver | None = None
+        self._receiver_token = 0
+        self._flip = None  # (version, token, thread, result box, t0)
+        self._retiring: set[int] = set()
+        self._corrupt_next = False
+        self._swap_step = 0
+        self.stats = {"blocks": 0, "results": 0, "swaps": 0,
+                      "swap_aborts": 0}
         telemetry.weight_version(self.version)
 
-    def _on_first(self, local_id: int) -> None:
-        self._t_first[local_id] = time.monotonic()
-        self._first_pending.append(local_id)
+    @property
+    def srv(self) -> BatchServer:
+        """The current version's server (pinned traffic may still run on
+        older resident versions)."""
+        return self._servers[self.version]
+
+    def _build_server(self, version: int, params) -> BatchServer:
+        return BatchServer(self._model, params, slots=self._slots,
+                           max_len=self._max_len,
+                           on_first_token=partial(self._on_first, version),
+                           **self._server_kwargs)
+
+    def _on_first(self, version: int, local_id: int) -> None:
+        self._t_first[(version, local_id)] = time.monotonic()
+        self._first_pending.append((version, local_id))
+
+    # -- frame ingestion -----------------------------------------------------
 
     def _ingest(self) -> tuple[bool, bool]:
         """Drain available frames; returns (progressed, shutdown_seen)."""
@@ -57,46 +105,187 @@ class DecodeWorker:
             if frame is None:
                 return progressed, shutdown
             progressed = True
-            ftype, rid, payload, _aux = frame
+            ftype, rid, payload, aux = frame
             if ftype == proto.T_BLOCK:
                 prompt, max_new, n_kv, logits, wire = proto.unpack_block(
                     payload, self.kv_codec)
-                shapes = self.srv.kv_leaf_shapes(len(prompt))
+                # aux pins the request to the version that prefilled it;
+                # fall back to current if that version already retired here
+                # (the router places onto resident versions; this keeps a
+                # request from being dropped when none holds it).
+                ver = aux if aux in self._servers else self.version
+                srv = self._servers[ver]
+                shapes = srv.kv_leaf_shapes(len(prompt))
                 if kv_mod.kv_block_elems(shapes) != n_kv:
                     raise proto.TierProtocolError(
                         f"BLOCK for request {rid} carries {n_kv} KV "
                         f"elements; this model/prompt-length expects "
                         f"{kv_mod.kv_block_elems(shapes)}")
                 rows = kv_mod.decode_kv_block(wire, self.kv_codec, shapes)
-                local = self.srv.submit_kv(prompt, max_new, rows, logits)
-                self._router_id[local] = rid
+                local = srv.submit_kv(prompt, max_new, rows, logits)
+                self._router_id[(ver, local)] = rid
                 self.stats["blocks"] += 1
+            elif ftype == proto.T_SWAP_BEGIN:
+                self._begin_swap(rid, payload)
+            elif ftype == proto.T_SWAP_RETIRE:
+                self._retiring.add(aux)
             elif ftype == proto.T_SHUTDOWN:
                 shutdown = True
             else:
                 raise proto.TierProtocolError(
                     f"decode tier got unexpected frame type {ftype}")
 
-    def _report(self, finished: list[dict]) -> None:
+    def _report(self, finished_by_ver: list[tuple[int, list[dict]]]) -> None:
         # FIRST frames go out before any RESULT so the router's TTFT stamp
         # for a request always precedes its completion.
-        for local in self._first_pending:
-            rid = self._router_id.get(local)
+        for key in self._first_pending:
+            rid = self._router_id.get(key)
             if rid is not None:
                 self.link.send_frame(proto.T_FIRST, rid)
         self._first_pending.clear()
-        for rec in finished:
-            rid = self._router_id.pop(rec["id"], None)
-            if rid is None:
+        for ver, finished in finished_by_ver:
+            for rec in finished:
+                rid = self._router_id.pop((ver, rec["id"]), None)
+                if rid is None:
+                    continue  # the warm-up request, or a replayed one
+                t_first = self._t_first.pop((ver, rec["id"]), None)
+                ntok = len(rec["tokens"])
+                tpot_us = 0
+                if t_first is not None and ntok > 1:
+                    tpot_us = int(
+                        (time.monotonic() - t_first) / (ntok - 1) * 1e6)
+                self.link.send_frame(
+                    proto.T_RESULT, rid,
+                    proto.pack_result(rec["tokens"], 0, tpot_us))
+                self.stats["results"] += 1
+
+    # -- live weight updates -------------------------------------------------
+
+    def _begin_swap(self, token: int, payload: bytes) -> None:
+        ann = proto.unpack_swap_begin(payload)
+        if self._receiver is not None:
+            # A retry superseded the in-flight attempt: drop it silently
+            # (the publisher already abandoned its token).
+            self._receiver.abort()
+            self.stats["swap_aborts"] += 1
+        self._receiver = WeightReceiver(
+            ann, self._params[self.version], corrupt=self._corrupt_next)
+        self._receiver_token = token
+        self._corrupt_next = False
+
+    def _status(self, token: int, verdict: int) -> None:
+        try:
+            self.link.send_frame(proto.T_SWAP_STATUS, token, aux=verdict)
+        except Exception:  # noqa: BLE001 — a dead frontend ends us anyway
+            pass
+
+    def _pump_swap(self) -> bool:
+        """One poll of the live swap per loop pass (the receive and the
+        build run on threads of their own); True when it moved on. Never
+        raises: a failed swap reports ABORTED and the old version keeps
+        serving."""
+        progressed = False
+        if self._receiver is not None:
+            recv, token = self._receiver, self._receiver_token
+            try:
+                ready = recv.pump()
+            except WeightSwapError:
+                self._receiver = None
+                self.stats["swap_aborts"] += 1
+                self._status(token, proto.SWAP_ABORTED)
+                return True
+            progressed = ready
+            if ready:
+                # Verified bytes: stage, build and warm the new server on a
+                # background thread so the old version keeps serving. The
+                # flip itself lands in _pump_swap on a later pass: a
+                # request boundary.
+                self._receiver = None
+                box: dict = {}
+                thread = threading.Thread(
+                    target=self._build_and_warm,
+                    args=(recv.version, recv, box),
+                    name=f"tpunet-flip-v{recv.version}", daemon=True)
+                thread.start()
+                self._flip = (recv.version, token, thread, box,
+                              time.monotonic())
+        if self._flip is not None and not self._flip[2].is_alive():
+            version, token, thread, box, t0 = self._flip
+            thread.join()
+            self._flip = None
+            progressed = True
+            if "err" in box:
+                self.stats["swap_aborts"] += 1
+                telemetry.swap_event("abort")
+                self._status(token, proto.SWAP_ABORTED)
+            else:
+                self._servers[version] = box["srv"]
+                self._params[version] = box["params"]
+                self.version = version
+                telemetry.weight_version(version)
+                telemetry.swap_observe(
+                    "flip", int((time.monotonic() - t0) * 1e6))
+                telemetry.swap_event("commit")
+                self.stats["swaps"] += 1
+                self._status(token, proto.SWAP_FLIPPED)
+        return progressed
+
+    def _build_and_warm(self, version: int, recv: WeightReceiver,
+                        box: dict) -> None:
+        """Background thread: decode the verified wire into parameters on
+        the card, build the next version's BatchServer and drive one
+        throwaway request through it, so its adopt and decode paths have
+        run (kernels loaded, allocator warm) before the flip."""
+        try:
+            params = recv.stage()
+            srv = self._build_server(version, params)
+            plen = 1
+            rows = [np.zeros(s, np.float32)
+                    for s in srv.kv_leaf_shapes(plen)]
+            logits = np.zeros(self._model.vocab, np.float32)
+            srv.submit_kv(np.zeros(plen, np.int32), 4, rows, logits)
+            while srv._live or srv._pending:
+                srv.step()  # the finished dummy has no router id: dropped
+            box["srv"] = srv
+            box["params"] = params
+        except BaseException as e:  # noqa: BLE001 — surfaced as ABORTED
+            box["err"] = e
+
+    def _poll_chaos(self) -> None:
+        """Scripted swap chaos (swap:at_step=N:action=...): the decode side
+        answers "die" (SIGKILL mid-swap: the router replays, the publisher
+        aborts and retries) and "corrupt" (flip a received byte: the CRC
+        gate must refuse fleet-wide). "publish" verdicts belong to the
+        frontend and are ignored here."""
+        self._swap_step += 1
+        action = publish_mod.swap_action(self._swap_step)
+        if action == "die":
+            os.kill(os.getpid(), signal.SIGKILL)
+        elif action == "corrupt":
+            if self._receiver is not None and not self._receiver.done:
+                self._receiver.corrupt = True
+            else:
+                self._corrupt_next = True
+
+    def _retire_drained(self) -> None:
+        """Drop retired versions once both the frontend said retire and no
+        local request is still pinned to them."""
+        for ver in list(self._retiring):
+            if ver == self.version:
+                self._retiring.discard(ver)  # never retire the live one
                 continue
-            t_first = self._t_first.pop(rec["id"], None)
-            ntok = len(rec["tokens"])
-            tpot_us = 0
-            if t_first is not None and ntok > 1:
-                tpot_us = int((time.monotonic() - t_first) / (ntok - 1) * 1e6)
-            self.link.send_frame(proto.T_RESULT, rid,
-                                 proto.pack_result(rec["tokens"], 0, tpot_us))
-            self.stats["results"] += 1
+            srv = self._servers.get(ver)
+            if srv is None:
+                self._retiring.discard(ver)
+                continue
+            if (srv._live or srv._pending
+                    or any(k[0] == ver for k in self._router_id)):
+                continue  # still draining its pinned sessions
+            self._servers.pop(ver)
+            self._params.pop(ver, None)
+            self._retiring.discard(ver)
+
+    # -- the loop ------------------------------------------------------------
 
     def serve(self, *, idle_timeout: float | None = None,
               poll_interval: float = 0.001,
@@ -104,35 +293,47 @@ class DecodeWorker:
         """Run until a SHUTDOWN frame arrives and every live request has
         reported (or `idle_timeout` seconds pass with no traffic).
         `max_blocks` returns after ingesting that many KV blocks without
-        draining (a chaos control). Transport errors propagate."""
-        srv = self.srv
+        draining (a chaos control). Each pass: scripted chaos, ingest, one
+        window of every resident version, report, a poll of the live swap,
+        retire drained versions. Transport errors propagate."""
         draining = False
         idle_since = time.monotonic()
         while True:
+            self._poll_chaos()
             progressed, shutdown = self._ingest()
             draining = draining or shutdown
             if max_blocks is not None and self.stats["blocks"] >= max_blocks:
                 return
-            finished = []
-            if srv._live or srv._pending:
-                finished = srv.step()
-                progressed = True
-            if finished or self._first_pending:
-                self._report(finished)
-            telemetry.serve_queue_depth("decode",
-                                        len(srv._live) + len(srv._pending))
-            if draining and not (srv._live or srv._pending):
+            finished_by_ver = []
+            for ver, srv in list(self._servers.items()):
+                if srv._live or srv._pending:
+                    finished_by_ver.append((ver, srv.step()))
+                    progressed = True
+            if finished_by_ver or self._first_pending:
+                self._report(finished_by_ver)
+            progressed |= self._pump_swap()
+            self._retire_drained()
+            telemetry.serve_queue_depth(
+                "decode", sum(len(s._live) + len(s._pending)
+                              for s in self._servers.values()))
+            if draining and not any(s._live or s._pending
+                                    for s in self._servers.values()):
                 return
-            if progressed:
-                idle_since = time.monotonic()
-            else:
-                if (idle_timeout is not None
-                        and time.monotonic() - idle_since > idle_timeout):
-                    return
+            if (progressed or self._receiver is not None
+                    or self._flip is not None):
+                idle_since = time.monotonic()  # a live swap is not idle
+            elif (idle_timeout is not None
+                    and time.monotonic() - idle_since > idle_timeout):
+                return
+            if not progressed:
                 time.sleep(poll_interval)
 
     def close(self) -> None:
-        """Tear down the link (and the engine, when this worker owns it)."""
+        """Abort a live weight receiver, then tear down the link (and the
+        engine, when this worker owns it)."""
+        if self._receiver is not None:
+            self._receiver.abort()
+            self._receiver = None
         self.link.close()
         if self._net is not None:
             self._net.close()
@@ -145,8 +346,10 @@ def connect(addr, model, params, *, slots: int, max_len: int,
             **server_kwargs) -> DecodeWorker:
     """Wire this process to a frontend at `addr` ("host:port" or tuple) as
     a decode rank and return the ready DecodeWorker. `kv_codec` None
-    defers to TPUNET_KV_WIRE_DTYPE (default int8). `server_kwargs` go to
-    the BatchServer (`device=` among them)."""
+    defers to TPUNET_KV_WIRE_DTYPE (default int8). `weight_version` rides
+    the HELLO: a stale value (re-admission after dying mid-swap) is not a
+    mismatch; the publisher catches the rank up. `server_kwargs` go to
+    every BatchServer (`device=` among them)."""
     from tpunet_torch.config import Config
 
     if kv_codec is None:

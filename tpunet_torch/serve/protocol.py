@@ -43,8 +43,12 @@ T_BLOCK = 1      # frontend -> decode: one request's prompt + logits + KV
 T_FIRST = 2      # decode -> frontend: request's first token committed
 T_RESULT = 3     # decode -> frontend: request finished (tokens + timing)
 T_SHUTDOWN = 4   # frontend -> decode: drain live requests, then exit
-# Types 5-7 carry live weight updates in the JAX package; the port's tiers
-# do not speak them yet and treat them as protocol errors.
+# Live weight updates: the swap control plane rides the same latency-class
+# tier links as requests; only the weight bytes themselves go over the
+# bulk-class broadcast comm (serve/publish.py).
+T_SWAP_BEGIN = 5   # frontend -> decode: announce a publication (SwapAnnounce)
+T_SWAP_STATUS = 6  # decode -> frontend: aux=1 flipped / aux=2 aborted, id=token
+T_SWAP_RETIRE = 7  # frontend -> decode: drop version `aux` once locally drained
 
 # Hello roles.
 ROLE_FRONTEND = 0
@@ -394,6 +398,75 @@ def unpack_result(payload: bytes):
             f"{len(payload) - _RESULT_HDR.size}B of payload follow")
     tokens = np.frombuffer(payload, np.int32, ntok, _RESULT_HDR.size)
     return tokens, status, tpot_us
+
+
+# -- weight-swap announce payload --------------------------------------------
+
+# SWAP_BEGIN sub-header: version, broadcast world size, the receiver's rank
+# in it, total f32 elements across the flat parameter leaves, broadcast
+# chunk size (bytes of encoded wire per tree broadcast), wire codec id,
+# the QoS class the broadcast comm must wire on (the PUBLISHER is
+# authoritative — receivers must not read their own env, or a half-fleet
+# TPUNET_PUBLISH_CLASS drift would fail the comm negotiation), and the
+# whole-swap deadline (ms). The rendezvous coordinator ("host:port")
+# follows as UTF-8 — variable length, hence last.
+_SWAP_HDR = struct.Struct("<IIIQIBBI")
+
+# STATUS verdicts (the aux word of a T_SWAP_STATUS frame).
+SWAP_FLIPPED = 1
+SWAP_ABORTED = 2
+
+
+class SwapAnnounce:
+    """Parsed T_SWAP_BEGIN payload (see pack_swap_begin)."""
+
+    def __init__(self, version: int, world: int, rank: int, nelems: int,
+                 chunk_bytes: int, codec: str, timeout_ms: int,
+                 coordinator: str, traffic_class: str = "bulk"):
+        self.version = version
+        self.world = world
+        self.rank = rank
+        self.nelems = nelems
+        self.chunk_bytes = chunk_bytes
+        self.codec = codec
+        self.timeout_ms = timeout_ms
+        self.coordinator = coordinator
+        self.traffic_class = traffic_class
+
+
+def pack_swap_begin(ann: SwapAnnounce) -> bytes:
+    if ann.codec not in _CODEC_IDS:
+        raise ValueError(f"unknown weight wire codec {ann.codec!r}")
+    if ann.traffic_class not in _CLASS_IDS:
+        raise ValueError(f"unknown traffic class {ann.traffic_class!r}")
+    return (_SWAP_HDR.pack(ann.version, ann.world, ann.rank, ann.nelems,
+                           ann.chunk_bytes, _CODEC_IDS[ann.codec],
+                           _CLASS_IDS[ann.traffic_class], ann.timeout_ms)
+            + ann.coordinator.encode())
+
+
+def unpack_swap_begin(payload: bytes) -> SwapAnnounce:
+    if len(payload) < _SWAP_HDR.size:
+        raise TierProtocolError("SWAP_BEGIN payload shorter than its sub-header")
+    version, world, rank, nelems, chunk_bytes, codec_id, cls_id, timeout_ms \
+        = _SWAP_HDR.unpack(payload[:_SWAP_HDR.size])
+    if codec_id not in _CODEC_NAMES:
+        raise TierProtocolError(
+            f"SWAP_BEGIN carries unknown codec id {codec_id}")
+    if cls_id not in _CLASS_NAMES:
+        raise TierProtocolError(
+            f"SWAP_BEGIN carries unknown traffic class id {cls_id}")
+    if not (0 < rank < world):
+        raise TierProtocolError(
+            f"SWAP_BEGIN rank {rank} outside broadcast world {world} "
+            f"(rank 0 is the publisher — never a receiver)")
+    coordinator = payload[_SWAP_HDR.size:].decode("utf-8", "replace")
+    if ":" not in coordinator:
+        raise TierProtocolError(
+            f"SWAP_BEGIN coordinator {coordinator!r} is not host:port")
+    return SwapAnnounce(version, world, rank, nelems, chunk_bytes,
+                        _CODEC_NAMES[codec_id], timeout_ms, coordinator,
+                        _CLASS_NAMES[cls_id])
 
 
 # -- tier wiring -------------------------------------------------------------

@@ -32,7 +32,13 @@ signature or codec drifted is refused with a typed TierMismatchError. With
 re-admission armed, losing every decode rank parks the queue until a host
 comes back instead of raising.
 
-Live weight updates are a later slice of the port.
+**Live weight updates.** Each request is pinned at admission to the
+checkpoint version current then: it prefills on that version's engine,
+ships with the version in the BLOCK frame's aux word, and is placed (and
+replayed) on a rank where that version is resident. ``install_version``
+(called by the WeightPublisher once the fleet flipped) makes a new version
+current for new sessions; a drained old version is retired on both tiers
+(``_retire_sweep``, T_SWAP_RETIRE).
 """
 
 from __future__ import annotations
@@ -58,6 +64,11 @@ class _Rank:
         self.slots = max(1, link.peer.slots)
         self.inflight: set[int] = set()
         self.alive = True
+        # Checkpoint versions resident on this rank: seeded from the HELLO
+        # (a re-admitted host announces the version it still serves; stale
+        # is legal, the publisher catches it up), grown by SWAP_STATUS
+        # flips, shrunk by the retire sweep.
+        self.versions: set[int] = {link.peer.weight_version}
 
     def free(self) -> int:
         return self.slots - len(self.inflight)
@@ -84,6 +95,14 @@ class Router:
         self.policy = policy
         self.retain_kv = retain_kv
         self._queue_limit = queue_limit
+        # Live weight updates: the version new sessions are admitted under,
+        # one PrefillEngine per still-draining version (a request prefilled
+        # under v1 decodes and replays under v1), swap verdicts keyed by
+        # (rank index, attempt token), and versions awaiting drain-retire.
+        self.version = 0
+        self._prefills: dict[int, PrefillEngine] = {0: prefill}
+        self._swap_status: dict[tuple[int, int], str] = {}
+        self._retire_pending: set[int] = set()
         # KV BLOCK and FIRST/RESULT frames ship on a latency-class link, so
         # TTFT-bound traffic never queues behind a co-tenant's bulk traffic
         # in the transport's QoS scheduler.
@@ -102,7 +121,7 @@ class Router:
         self.stats = {"submitted": 0, "completed": 0, "rank_failures": 0,
                       "replays_kv": 0, "replays_prefill": 0, "rejected": 0,
                       "qos_backpressure": 0, "readmissions": 0,
-                      "readmit_rejected": 0}
+                      "readmit_rejected": 0, "swaps": 0, "swap_aborts": 0}
         # Every TTFT/TPOT sample (us) fed to the histograms, for exact
         # percentiles over a run.
         self.samples: dict[str, list[int]] = {"ttft": [], "tpot": []}
@@ -123,7 +142,8 @@ class Router:
     def _hello(self) -> proto.Hello:
         return proto.Hello(proto.ROLE_FRONTEND, self.kv_codec, 0,
                            self.prefill.max_len, self.prefill.model.vocab,
-                           kv_mod.model_signature(self.prefill.model))
+                           kv_mod.model_signature(self.prefill.model),
+                           weight_version=self.version)
 
     def accept_ranks(self, listen_sock: socket.socket, n: int,
                      timeout: float = 60.0) -> None:
@@ -212,7 +232,11 @@ class Router:
         self._next_id += 1
         rec = {"id": rid, "prompt": np.asarray(prompt, np.int32),
                "max_new": int(max_new_tokens), "payload": None,
-               "t_submit": time.monotonic(), "t_first": None, "rank": None}
+               "t_submit": time.monotonic(), "t_first": None, "rank": None,
+               # Pinned at admission: this request prefills, decodes and
+               # replays under the version current now, even if a swap
+               # lands while it is in flight.
+               "version": self.version}
         self._recs[rid] = rec
         self._queue.append(rec)
         self.stats["submitted"] += 1
@@ -227,10 +251,18 @@ class Router:
 
     # -- placement + dispatch ----------------------------------------------
 
-    def _pick_rank(self) -> _Rank | None:
+    def _pick_rank(self, version: int) -> _Rank | None:
         live = [r for r in self._ranks if r.alive and r.free() > 0]
         if not live:
             return None
+        # Version-pinned placement: prefer ranks where the request's version
+        # is resident (a mixed-version pool mid-swap, a stale re-admitted
+        # host). Fall through to the whole pool only when no rank holds it:
+        # the decode side then serves on its current version rather than
+        # drop the request.
+        resident = [r for r in live if version in r.versions]
+        if resident:
+            live = resident
         if self.policy == "round_robin":
             live.sort(key=lambda r: (r.index < self._rr_next, r.index))
             rank = live[0]
@@ -239,17 +271,20 @@ class Router:
         return max(live, key=lambda r: r.free())  # least loaded
 
     def _build_payload(self, rec: dict) -> bytes:
-        kv_rows, logits = self.prefill.prefill(rec["prompt"])
+        # Prefill under the request's pinned version (the engine of a
+        # draining version stays resident until it retires).
+        eng = self._prefills[rec["version"]]
+        kv_rows, logits = eng.prefill(rec["prompt"])
         wire = kv_mod.encode_kv_block(kv_rows, self.kv_codec)
         n_kv = kv_mod.kv_block_elems(
-            self.prefill.kv_leaf_shapes(len(rec["prompt"])))
+            eng.kv_leaf_shapes(len(rec["prompt"])))
         return proto.pack_block(rec["prompt"], rec["max_new"], wire, n_kv,
                                 logits, self.kv_codec)
 
     def _pump(self) -> None:
         """Dispatch queued requests while live capacity exists."""
         while self._queue:
-            rank = self._pick_rank()
+            rank = self._pick_rank(self._queue[0]["version"])
             if rank is None:
                 if not any(r.alive for r in self._ranks):
                     if self._listen_sock is not None:
@@ -267,7 +302,8 @@ class Router:
                     # bytes instead of re-prefilling.
                     rec["payload"] = payload
             try:
-                rank.link.send_frame(proto.T_BLOCK, rec["id"], payload)
+                rank.link.send_frame(proto.T_BLOCK, rec["id"], payload,
+                                     aux=rec["version"])
             except _native.QosAdmissionError:
                 # The header send is the admission point and nothing reached
                 # the wire: requeue front-of-queue and retry next poll.
@@ -319,7 +355,20 @@ class Router:
                     break
                 if frame is None:
                     break
-                ftype, rid, payload, _aux = frame
+                ftype, rid, payload, aux = frame
+                if ftype == proto.T_SWAP_STATUS:
+                    # rid is the publisher's attempt token
+                    # ((seq << 32) | version): echoing it back makes a late
+                    # aborted-status from an abandoned attempt inert.
+                    version = rid & 0xFFFFFFFF
+                    if aux == proto.SWAP_FLIPPED:
+                        rank.versions.add(version)
+                        self._swap_status[(rank.index, rid)] = "flipped"
+                        self.stats["swaps"] += 1
+                    else:
+                        self._swap_status[(rank.index, rid)] = "aborted"
+                        self.stats["swap_aborts"] += 1
+                    continue
                 rec = self._recs.get(rid)
                 if rec is None or rid in self._results:
                     continue  # duplicate after a replay
@@ -341,11 +390,49 @@ class Router:
                     self.stats["completed"] += 1
                     if tpot_us > 0:
                         self._observe("tpot", tpot_us)
+        self._retire_sweep()
         self._pump()
 
     def _observe(self, kind: str, us: int) -> None:
         self.samples[kind].append(us)
         telemetry.serve_observe(kind, us)
+
+    # -- live weight updates -------------------------------------------------
+
+    def install_version(self, version: int, engine: PrefillEngine) -> None:
+        """Adopt `engine` as the prefill for checkpoint `version` and make
+        it current for new sessions. The previous version's engine stays
+        resident for its pinned in-flight sessions and retires once they
+        drain; called by WeightPublisher after the fleet flipped."""
+        old = self.version
+        self._prefills[version] = engine
+        self.prefill = engine
+        self.version = version
+        telemetry.weight_version(version)
+        if old != version:
+            self._retire_pending.add(old)
+
+    def _retire_sweep(self) -> None:
+        """Retire drained versions: once no admitted request still pins an
+        old version, tell every rank holding it to drop it after its own
+        local drain, and drop the frontend engine."""
+        for ver in list(self._retire_pending):
+            if ver == self.version:
+                self._retire_pending.discard(ver)
+                continue
+            if any(rec["version"] == ver and rec["id"] not in self._results
+                   for rec in self._recs.values()):
+                continue  # the version still has pinned sessions in flight
+            for rank in self._ranks:
+                if rank.alive and ver in rank.versions:
+                    try:
+                        rank.link.send_frame(proto.T_SWAP_RETIRE, ver,
+                                             aux=ver)
+                    except Exception:  # noqa: BLE001 — failure poll reaps
+                        pass
+                rank.versions.discard(ver)
+            self._prefills.pop(ver, None)
+            self._retire_pending.discard(ver)
 
     # -- driving -----------------------------------------------------------
 

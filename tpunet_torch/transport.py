@@ -56,8 +56,11 @@ def crc32c(data: Any, seed: int = 0) -> int:
     mv = memoryview(data)
     if not mv.c_contiguous:
         raise ValueError("crc32c needs a C-contiguous buffer")
-    buf = bytes(mv) if mv.nbytes else b""
-    return int(lib.tpunet_c_crc32c(buf, mv.nbytes, seed & 0xFFFFFFFF))
+    # Hashed in place (no copy of a weight-sized buffer).
+    buf = np.frombuffer(mv.cast("B"), np.uint8) if mv.nbytes else None
+    return int(lib.tpunet_c_crc32c(
+        buf.ctypes.data if buf is not None else None, mv.nbytes,
+        seed & 0xFFFFFFFF))
 
 
 def _reduce_operand(name: str, x: Any, writable: bool) -> tuple[int, int]:
