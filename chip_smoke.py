@@ -112,6 +112,32 @@ Phases (each raises on failure; the script then exits non-zero):
            during and after each swap, the longest serve-loop pass of a
            decode rank during a swap, the latency class's p99 queue wait,
            peak memory and flash_fwd launches per process and version
+  spec     speculative serving, bf16, flash prefill, random weights from
+           --seed: (a) benchmarks/chip_session.py's decode_spec, the 735M
+           MHA target (d2048, 12 layers, 16 heads, ff 8192, vocab 32000)
+           with a random draft of its widths at 2 layers, batch 8, prompt
+           512, 256 new tokens, gamma 4, greedy, lockstep and per row; (b)
+           decode_bench.py --spec-draft quant: quantize_params of the
+           target as its int8 self-draft, per row, greedy, then sampled
+           (temperature 0.8, top_k 50) twice from one generator seed; (c)
+           decode_window: the target at window 256 on the ring (the
+           512-token prompt wraps it), generate on the ring against the
+           masked cache, and speculation with the int8 self-draft; (d)
+           serve_bench.py --spec-gamma 4: an int8 self-draft BatchServer on
+           the serve phase's model and requests (slots 8, 64 tokens)
+           against the plain BatchServer. Gates: greedy tokens equal to
+           the port's generate (plain BatchServer for (d)), or diverging
+           only at a tie: at the first differing position the reference's
+           top-2 logit gap is no larger than the largest |difference|
+           between that position's logits from a (b, gamma + 1) verify
+           block and from the one-token step on the same prefix (for the
+           masked cache against the ring: from the masked cache's step);
+           flash_fwd launched once a layer in every target and draft
+           prefill, with window 256 in (c), no input copy; the int8
+           self-draft committing more than one token a round; the sampled
+           runs bitwise equal with tokens in [0, vocab); ring leaves of
+           256. Reports rounds, acceptance, tokens a round, tokens/s beside
+           plain generate's, each cache's bytes, peak memory, wall time
   paths   the wide and f32 routes as users run them: 2 adamw steps
            (create_train_state, make_train_step) of a bf16 GQA-4 model of
            head dim 320 (d1280, 4 heads, 1 kv head, 2 layers, 2 x 1024
@@ -1937,6 +1963,318 @@ def phase_swap(seed: int, params_v0) -> None:
 
 
 
+# -- spec: speculative serving -----------------------------------------------
+
+# benchmarks/chip_session.py's decode_spec (:85-89; the target at the train
+# widths, MHA, a random draft of the same widths at 2 layers) and
+# decode_window (:81-84; window 256), decode_bench.py --spec-draft quant
+# (:142-154; the target's int8 self-draft), serve_bench.py --spec-gamma 4
+# (:112-118; an int8 self-draft BatchServer on the serve phase's model).
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 8, 512, 256, 4
+SPEC_DRAFT_LAYERS, SPEC_WINDOW = 2, 256
+SPEC_SAMPLING = dict(temperature=0.8, top_k=50)
+SPEC_SERVE_NEW, SPEC_SERVE_MAX_LEN = 64, 1024
+
+
+def _spec_run(fn):
+    """Run fn with the flash counters zeroed just before and read just
+    after; also record the window of every flash_fwd launch and the KV
+    leaves of every decode cache allocated inside. Returns (fn's result,
+    {"flash_fwd", "input_copies", "windows", "caches", "s"})."""
+    from tpunet_torch.ops.flash_attention import flash_attention
+
+    # The modules (the packages re-export functions of the same names).
+    gen = importlib.import_module("tpunet_torch.models.generate")
+    fa = importlib.import_module("tpunet_torch.ops.flash_attention")
+    launch, alloc = fa._launch_fwd, gen.init_cache
+    windows, caches = [], []
+
+    def rec_launch(q, k, v, causal, window, scale):
+        windows.append(window)
+        return launch(q, k, v, causal, window, scale=scale)
+
+    def rec_alloc(*args, **kw):
+        cache = alloc(*args, **kw)
+        kv = [t for name, t in cache.items()
+              if not name.endswith("cache_index")]
+        caches.append({"kv_len": kv[0].shape[1], "bytes": sum(
+            t.numel() * t.element_size() for t in kv)})
+        return cache
+
+    fa._launch_fwd, gen.init_cache = rec_launch, rec_alloc
+    flash_attention.kernel_launches = 0
+    flash_attention.input_copies = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        fa._launch_fwd, gen.init_cache = launch, alloc
+    return out, {"flash_fwd": flash_attention.kernel_launches,
+                 "input_copies": flash_attention.input_copies,
+                 "windows": sorted({w or 0 for w in windows}),
+                 "caches": caches, "s": time.perf_counter() - t0}
+
+
+def _first_divergence(ref, got, plens) -> dict:
+    """{row: first column past its prompt where two (b, L) token arrays
+    differ}."""
+    out = {}
+    for r in range(ref.shape[0]):
+        d = np.nonzero(ref[r, plens[r]:] != got[r, plens[r]:])[0]
+        if d.size:
+            out[r] = int(plens[r]) + int(d[0])
+    return out
+
+
+class _Teacher:
+    """One decode path fed given tokens: `model` with a cache of capacity
+    `cap` (per row or lockstep) that holds each row's prompt, prefilled
+    as the path under test prefills (the rows of one prompt length
+    together). Step k feeds each row's column plens + k."""
+
+    def __init__(self, model, params, seqs, plens, cap, per_row, gamma):
+        from tpunet_torch.models import init_cache
+        from tpunet_torch.models.generate import _prefill, _set_cache_index
+
+        self.net = model.bind(params)
+        seqs = torch.as_tensor(seqs, device=DEVICE)
+        # Blocks near the end read past it; causal rows never look there.
+        self.seqs = torch.cat([seqs, seqs[:, -1:].expand(-1, gamma + 1)], 1)
+        self.plens = torch.as_tensor(plens, device=DEVICE)
+        self.cache = init_cache(model, seqs.shape[0], cap, per_row=per_row,
+                                device=DEVICE)
+        for plen in sorted(set(int(x) for x in plens)):
+            if not per_row:  # lockstep: one prompt length, every row
+                self.cache, _ = _prefill(self.net, self.cache,
+                                         self.seqs[:, :plen], None)
+                continue
+            rows = torch.nonzero(self.plens == plen)[:, 0]
+            row = _set_cache_index({k: v[rows] for k, v in
+                                    self.cache.items()}, 0)
+            row, _ = _prefill(self.net, row, self.seqs[rows, :plen], None)
+            for k, v in self.cache.items():
+                v[rows] = row[k]
+
+    def _cols(self, k: int, width: int):
+        idx = self.plens[:, None] + k + torch.arange(width, device=DEVICE)
+        return torch.gather(self.seqs, 1, idx)
+
+    def step(self, k: int):
+        """Feed column plens + k; the logits predicting the next one."""
+        return self.net(self._cols(k, 1), cache=self.cache)[:, -1].float()
+
+    def block(self, k: int, width: int):
+        """(b, width, vocab) logits of a verify block over columns
+        plens + k .., on a copy of the cache (before step k)."""
+        blk = {name: t.clone() for name, t in self.cache.items()}
+        return self.net(self._cols(k, width), cache=blk).float()
+
+
+@torch.no_grad()
+def _tie_gaps(ref_path, alt_path, cols: dict, plens, gamma) -> dict:
+    """The tie rule, fixed before the phase's first run. For each row r
+    whose tokens first differ at column c = cols[r]: gap, the reference
+    path's top-2 logit gap at the position predicting c (its one-token
+    step), and delta, the largest |logit difference| there between the
+    reference and the path under test on the same prefix, each with its
+    own cache (capacity, row mode): the latter's (b, gamma + 1) verify
+    block at every alignment that holds position c - 1, or, with gamma
+    None, its one-token step. A divergence is a tie when gap <= delta."""
+    due = {r: c - 1 - int(plens[r]) for r, c in cols.items()}
+    out = {r: (float("inf"), 0.0) for r, d in due.items() if d < 0}
+    due = {r: d for r, d in due.items() if d >= 0}
+    seen = {r: [] for r in due}
+    for k in range(max(due.values(), default=-1) + 1):
+        if gamma is not None:
+            js = {r: d - k for r, d in due.items() if 0 <= d - k <= gamma}
+            if js:
+                blk = alt_path.block(k, gamma + 1)
+                for r, j in js.items():
+                    seen[r].append(blk[r, j])
+        other = alt_path.step(k)
+        step = ref_path.step(k)
+        for r in (r for r, d in due.items() if d == k):
+            if gamma is None:
+                seen[r].append(other[r])
+            top2 = torch.topk(step[r], 2).values
+            out[r] = (float(top2[0] - top2[1]),
+                      max(float((x - step[r]).abs().max()) for x in seen[r]))
+    return out
+
+
+def _held(name, ref, got, plens, gamma, ref_path, alt_path,
+          errors) -> dict:
+    """Greedy tokens `got` against the reference's `ref` ((b, L) numpy):
+    bitwise, or diverging only at ties (`_tie_gaps`; the paths are built
+    only when a row diverges). Any other divergence goes to `errors`."""
+    cols = _first_divergence(ref, got, plens)
+    gaps = _tie_gaps(ref_path(), alt_path(), cols, plens, gamma) if cols \
+        else {}
+    rep = {"rows_bitwise_equal": ref.shape[0] - len(cols),
+           "divergences": [{"row": r, "col": c, "gap": gaps[r][0],
+                            "delta": gaps[r][1]}
+                           for r, c in sorted(cols.items())]}
+    bad = [d for d in rep["divergences"] if not d["gap"] <= d["delta"]]
+    if bad:
+        errors.append(f"{name}: divergences that are no tie (gap > delta): "
+                      f"{bad}")
+    return rep
+
+
+def phase_spec(seed: int, params_serve) -> None:
+    from tpunet_torch.models import (BatchServer, Transformer, generate,
+                                     init_params, quantize_params,
+                                     speculative_generate)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    b, p, new, g = SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA
+    length = p + new  # generate's cache capacity; speculation adds g + 1
+    meta = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
+                       **MODEL_TRAIN)
+    params = init_params(meta, seed=seed + 3, device=DEVICE, dtype=BF16)
+    n_params = sum(t.numel() for t in params.values())
+    draft = meta.clone(n_layers=SPEC_DRAFT_LAYERS)
+    dparams = init_params(draft, seed=seed + 4, device=DEVICE, dtype=BF16)
+    qdraft = meta.clone(weight_quant="int8")
+    qparams = quantize_params(params)
+    vocab, layers = meta.vocab, meta.n_layers
+    prompt = torch.as_tensor(np.random.default_rng(seed + 5).integers(
+        0, vocab, (b, p)), dtype=torch.int32, device=DEVICE)
+    plens = np.full(b, p)
+    errors = []
+
+    def check(name, counts, launches, window=None):
+        want = {window or 0}
+        if (counts["flash_fwd"] != launches or counts["input_copies"]
+                or set(counts["windows"]) != want):
+            errors.append(f"{name}: flash_fwd {counts['flash_fwd']} (want "
+                          f"{launches}), copies {counts['input_copies']}, "
+                          f"windows {counts['windows']} (want {want})")
+
+    def teacher(model, prm, seqs, cap, per_row):
+        return lambda: _Teacher(model, prm, seqs, plens, cap, per_row, g)
+
+    def spec(name, model, prm, dmodel, dprm, ref, per_row=True, **kw):
+        (out, st), c = _spec_run(lambda: speculative_generate(
+            model, prm, dmodel, dprm, prompt, new, gamma=g, per_row=per_row,
+            return_stats=True, **kw))
+        out = out.cpu().numpy()
+        row = {"s": c["s"], "tokens_per_s": b * new / c["s"],
+               "rounds": st["rounds"],
+               "draft_accept_rate": st["draft_accept_rate"],
+               "tokens_per_round": 1 + g * st["draft_accept_rate"],
+               "flash_fwd": c["flash_fwd"], "windows": c["windows"],
+               "caches": c["caches"]}
+        check(name, c, model.n_layers + dmodel.n_layers, model.attn_window)
+        if ref is not None:
+            row.update(_held(name, ref, out, plens, g,
+                             teacher(model, prm, ref, length, False),
+                             teacher(model, prm, ref, length + g + 1,
+                                     per_row), errors))
+        log("spec", run=name, **row)
+        return out, row
+
+    def plain(name, model):
+        out, c = _spec_run(lambda: generate(model, params, prompt, new))
+        check(name, c, layers, model.attn_window)
+        row = {"s": c["s"], "tokens_per_s": b * new / c["s"],
+               "flash_fwd": c["flash_fwd"], "caches": c["caches"]}
+        return out.cpu().numpy(), row
+
+    # The reference: the port's generate on the same target and prompt.
+    ref, row = plain("generate", meta)
+    log("spec", run="generate", **row)
+    # (a) the shallow random draft, lockstep and per row.
+    spec("a_lockstep", meta, params, draft, dparams, ref, per_row=False)
+    spec("a_per_row", meta, params, draft, dparams, ref)
+    # (b) the int8 self-draft, greedy, then sampled twice from one seed.
+    _, row = spec("b_int8", meta, params, qdraft, qparams, ref)
+    if not row["draft_accept_rate"] > 0:
+        errors.append(f"b_int8: {row['tokens_per_round']} tokens a round")
+    sampled = [spec(f"b_sampled_{i}", meta, params, qdraft, qparams, None,
+                    generator=torch.Generator(device=DEVICE).manual_seed(
+                        seed), **SPEC_SAMPLING)[0] for i in range(2)]
+    if not np.array_equal(sampled[0], sampled[1]):
+        errors.append("b_sampled: two runs from one seed differ")
+    if not ((sampled[0] >= 0) & (sampled[0] < vocab)).all():
+        errors.append("b_sampled: a token outside [0, vocab)")
+    # (c) window 256 on the ring: generate against the masked cache, then
+    # speculation on the ring with the int8 self-draft.
+    wmeta = meta.clone(attn_window=SPEC_WINDOW)
+    masked = wmeta.clone(decode_ring_cache=False)
+    wref, ring_row = plain("c_generate_ring", wmeta)
+    log("spec", run="c_generate_ring", **ring_row)
+    mref, row = plain("c_generate_masked", masked)
+    row.update(_held("c_generate_masked", wref, mref, plens, None,
+                     teacher(wmeta, params, wref, length, False),
+                     teacher(masked, params, wref, length, False), errors))
+    log("spec", run="c_generate_masked", **row)
+    _, row = spec("c_int8_ring", wmeta, params,
+                  qdraft.clone(attn_window=SPEC_WINDOW), qparams, wref)
+    lens = {x["kv_len"] for x in ring_row["caches"] + row["caches"]}
+    if lens != {min(SPEC_WINDOW, length)}:
+        errors.append(f"c: ring leaves of {lens}, want {SPEC_WINDOW}")
+    if not row["draft_accept_rate"] > 0:
+        errors.append(f"c_int8_ring: {row['tokens_per_round']} tokens a "
+                      f"round")
+    del qparams, dparams, params, sampled, mref
+    torch.cuda.empty_cache()
+    # (d) speculative continuous batching on the serve phase's model.
+    smodel = Transformer(compute_dtype=BF16, attn_impl="flash",
+                         device="meta", **MODEL_735M)
+    prompts = _prompts(seed + 2, 8, smodel.vocab)
+    qlens = np.array([len(q) for q in prompts])
+
+    def serve(**kw):
+        srv = BatchServer(smodel, params_serve, slots=8,
+                          max_len=SPEC_SERVE_MAX_LEN, device=DEVICE, **kw)
+        ids = [srv.submit(q, SPEC_SERVE_NEW) for q in prompts]
+        res = srv.run()
+        return [res[i] for i in ids], srv.stats
+
+    def seqs(outs):  # prompt + tokens per request, zero-padded
+        arr = np.zeros((len(prompts), max(qlens) + SPEC_SERVE_NEW), np.int32)
+        for i, (q, t) in enumerate(zip(prompts, outs)):
+            arr[i, :len(q) + len(t)] = np.concatenate([q, t])
+        return arr
+
+    (base, _), cp = _spec_run(serve)
+    sq = quantize_params(params_serve)
+    (got, st), c = _spec_run(lambda: serve(
+        draft_model=smodel.clone(weight_quant="int8"), draft_params=sq,
+        gamma=g))
+    check("d_server", c, len(set(qlens)) * 2 * smodel.n_layers)
+    ntok = sum(len(t) for t in got)
+    per_round = st["spec_committed"] / max(st["spec_rounds"], 1)
+    row = {"s": c["s"], "tokens_per_s": ntok / c["s"], "plain_s": cp["s"],
+           "plain_tokens_per_s": ntok / cp["s"], "stats": st,
+           "tokens_per_round": per_round, "flash_fwd": c["flash_fwd"],
+           "plain_flash_fwd": cp["flash_fwd"]}
+    ref_d = seqs(base)
+    row.update(_held("d_server", ref_d, seqs(got), qlens, g,
+                     lambda: _Teacher(smodel, params_serve, ref_d, qlens,
+                                      SPEC_SERVE_MAX_LEN, True, g),
+                     lambda: _Teacher(smodel, params_serve, ref_d, qlens,
+                                      SPEC_SERVE_MAX_LEN + g + 1, True, g),
+                     errors))
+    log("spec", run="d_server", **row)
+    if not per_round > 1 or any(len(t) != SPEC_SERVE_NEW for t in got):
+        errors.append(f"d_server: {per_round} tokens a round, lengths "
+                      f"{[len(t) for t in got]}")
+    del sq
+    log("spec", params=n_params, draft_layers=SPEC_DRAFT_LAYERS, batch=b,
+        prompt=p, new=new, gamma=g, window=SPEC_WINDOW,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        wall_s=time.perf_counter() - t_phase, card=CARD)
+    if n_params != 735_102_976:
+        errors.append(f"target has {n_params} params")
+    if errors:
+        raise AssertionError("spec phase: " + "; ".join(errors))
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3034,6 +3372,7 @@ def main() -> int:
     params = phase_model(args.seed)
     phase_serve(args.seed, params)
     phase_swap(args.seed, params)
+    phase_spec(args.seed, params)
     del params
     torch.cuda.empty_cache()
     launches = phase_paths(args.seed)

@@ -648,3 +648,63 @@ def test_stale_readmitted_rank_is_caught_up(models, monkeypatch):
         assert pub.catch_up() == 0  # nobody is stale now
     finally:
         _stop(router, threads, lsock, box)
+
+
+def test_bootstrap_clamps_that_overlap_restore_the_users_knob(monkeypatch):
+    """A publisher and a receiver that are threads of one process clamp the
+    process-wide bootstrap knob at once and end in either order: while one
+    rendezvous is still open the knob holds a swap budget, and once both
+    ended it is the user's value again (no clamp leaks past its swap)."""
+    for user in (None, "45000"):
+        if user is None:
+            monkeypatch.delenv("TPUNET_BOOTSTRAP_TIMEOUT_MS", raising=False)
+        else:
+            monkeypatch.setenv("TPUNET_BOOTSTRAP_TIMEOUT_MS", user)
+        deadline = time.monotonic() + 30.0
+        first = publish._bounded_bootstrap(deadline)
+        second = publish._bounded_bootstrap(deadline - 10.0)
+        first.__enter__()
+        second.__enter__()
+        first.__exit__(None, None, None)  # the publisher's side ends first
+        held = os.environ.get("TPUNET_BOOTSTRAP_TIMEOUT_MS")
+        assert held is not None and 0 < int(held) <= 30_000, held
+        second.__exit__(None, None, None)
+        assert os.environ.get("TPUNET_BOOTSTRAP_TIMEOUT_MS") == user
+
+
+def test_retire_sweep_spares_a_readmitted_rank_serving_that_version(
+        models, monkeypatch):
+    """A stale host re-admitted before the router's first sweep after a flip
+    still serves the old version: the sweep must neither tell it to retire
+    its live version nor forget that it holds it (the catch-up then targets
+    it and retires the old version there)."""
+    jm, tm, trees, sds = models
+    monkeypatch.setenv("TPUNET_READMIT_PROBE_MS", "20")
+    router, box, threads, lsock, addr = _start_tier(
+        tm, sds[0], slots=2, policy="round_robin")
+    try:
+        router.enable_readmission(lsock)
+        pub = serve.WeightPublisher(router, chunk_bytes=16384)
+        pub.publish(1, sds[1])
+        assert router._retire_pending == {0}  # no sweep has run yet
+        threads.append(_decode_thread(addr, tm, sds[0], box, "b", slots=2,
+                                      weight_version=0))
+        deadline = time.monotonic() + 60
+        while not router.poll_admissions():
+            assert time.monotonic() < deadline, "stale host never admitted"
+            time.sleep(0.01)
+        stale = router._ranks[1]
+        router.poll()  # the sweep of v0 runs after the admission
+        assert not router._retire_pending
+        assert stale.versions == {0} and stale.live_version == 0
+        assert router._ranks[0].versions == {1}
+        assert pub.catch_up() == 1
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (
+                stale.versions != {1} or len(box["b"]._servers) != 1):
+            router.poll()
+            time.sleep(0.02)
+        assert stale.versions == {1} and stale.live_version == 1
+        assert set(box["b"]._servers) == {1}
+    finally:
+        _stop(router, threads, lsock, box)

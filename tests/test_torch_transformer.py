@@ -226,15 +226,20 @@ def test_greedy_generate_matches_jax_where_margin_allows():
 
 
 def test_unported_options_raise_not_implemented():
-    for kw in ({"n_experts": 4}, {"weight_quant": "int8"},
-               {"lora_rank": 2}, {"attn_impl": "ring"}):
+    """MoE, LoRA and the sequence-parallel impls are later slices; int8
+    weights and the ring decode cache are ported (their parity tests are
+    test_torch_quant.py and test_torch_ring_cache.py)."""
+    for kw in ({"n_experts": 4}, {"lora_rank": 2}, {"attn_impl": "ring"}):
         with pytest.raises(NotImplementedError):
             Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4,
                         d_ff=64, device="cpu", **kw)
+    quant = Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4,
+                        d_ff=64, device="cpu", weight_quant="int8")
+    assert quant.lm_head.q.dtype == torch.int8
     tm = Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4, d_ff=64,
                      attn_window=4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        init_cache(tm, 1, 8, device="cpu")
+    ring = init_cache(tm, 1, 8, device="cpu")
+    assert ring["block0/attn/cached_key"].shape == (1, 4, 4, 8)
 
 
 def test_init_params_scales_and_meta_model():

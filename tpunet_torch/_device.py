@@ -20,3 +20,16 @@ def resolve(device=None) -> torch.device:
 def params_device(params: dict) -> torch.device:
     """The device a parameter dict lives on (its first tensor's)."""
     return next(iter(params.values())).device
+
+
+def same(a, b) -> bool:
+    """Whether two devices are one (``cuda`` and ``cuda:0`` are, when 0 is
+    the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)

@@ -10,7 +10,12 @@ kernel is (in, out) and a torch weight (out, in), so dense kernels are
 transposed on the way in and out. A flax conv kernel is (kh, kw, in, out)
 (HWIO) and a torch one (out, in, kh, kw) (OIHW): ``permute(3, 2, 0, 1)``
 in, ``(2, 3, 1, 0)`` out (a plain ``.T`` would give the right shape with
-kh and kw swapped); the port keeps them channels-last.
+kh and kw swapped); the port keeps them channels-last. An int8 model's
+dense layers (``QuantDense``) hold ``{q, scale}`` instead of ``kernel``:
+``q`` is int8 (in, out) in flax and (out, in) here, transposed like a
+kernel, and never cast; ``scale`` is (out,) f32 either way. (The
+attention's Dense named ``q`` then has a leaf ``q``:
+``block{i}/attn/q/q`` <-> ``block{i}.attn.q.q``.)
 `to_flax(from_flax(tree))` gives back the tree bitwise.
 """
 
@@ -36,9 +41,15 @@ def _torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
+def _transposed(leaf: str, ndim: int) -> bool:
+    """A dense or conv kernel, or a QuantDense's int8 matrix: the leaves
+    whose layout differs between flax and the port."""
+    return leaf == "kernel" or (leaf == "q" and ndim == 2)
+
+
 def _torch_layout(path: str, arr):
     """A flax array in the port's layout, as a numpy view (no copy)."""
-    if not path.endswith("/kernel"):
+    if not _transposed(path.rsplit("/", 1)[-1], arr.ndim):
         return arr
     return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
 
@@ -46,8 +57,9 @@ def _torch_layout(path: str, arr):
 def from_flax(params, model, dtype=None, device=None) -> dict:
     """The port's state_dict from a flax param tree of numpy arrays (a
     nested dict, as ``jax.tree.map(np.asarray, params)`` gives). `dtype`
-    pre-casts everything but the norm scales (which stay f32); `device`
-    defaults to the model's own parameters' device."""
+    pre-casts the floating-point leaves but the scales (norm and int8
+    scales stay f32); `device` defaults to the model's own parameters'
+    device."""
     expected = dict(model.named_parameters())
     if device is None:
         device = next(iter(expected.values())).device
@@ -64,7 +76,8 @@ def from_flax(params, model, dtype=None, device=None) -> dict:
         if tuple(t.shape) != tuple(expected[name].shape):
             raise ValueError(f"{path}: shape {tuple(t.shape)} does not match "
                              f"the port's {tuple(expected[name].shape)}")
-        if dtype is not None and not name.endswith(".scale"):
+        if (dtype is not None and t.is_floating_point()
+                and not name.endswith(".scale")):
             t = t.to(dtype)
         out[name] = t.to(device)
     missing = sorted(set(expected) - set(out))
@@ -75,19 +88,19 @@ def from_flax(params, model, dtype=None, device=None) -> dict:
 
 def to_flax(state_dict) -> dict:
     """Invert `from_flax`: a nested dict of numpy arrays in flax layout
-    (bf16 tensors come back as f32, numpy having no bfloat16)."""
+    (bf16 tensors come back as f32, numpy having no bfloat16; int8 stays
+    int8)."""
     tree: dict = {}
     for name, t in state_dict.items():
         parts = name.split(".")
-        kernel = parts[-1] == "weight"
-        if kernel:
+        if parts[-1] == "weight":
             parts[-1] = "kernel"
         t = t.detach().cpu()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        if kernel:
+        if _transposed(parts[-1], arr.ndim):
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node[parts[-1]] = np.ascontiguousarray(arr)
     return tree

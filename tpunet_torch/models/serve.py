@@ -1,5 +1,5 @@
 """Continuous batching: a slot server over the per-row decode cache (port of
-``tpunet/models/serve.py``, non-speculative parts).
+``tpunet/models/serve.py``).
 
 The model runs with a per-row cache (each batch row has its own
 cache_index), so rows are independent sequences: a finished row's slot is
@@ -16,6 +16,15 @@ equal to this server on an exact wire. `submit_kv` is the disaggregated
 refill: the prompt K/V computed elsewhere is written into the slot and the
 first token is sampled from the shipped logits.
 
+Speculative mode (`draft_model=`, `draft_params=`, `gamma=`): each decode
+window is `steps_per_call` speculative rounds over every slot (draft gamma,
+verify in one target forward, commit each row's own accepted prefix plus
+the fix or bonus token), through the same round core as
+`speculative_generate`. A window commits up to gamma + 1 tokens a row; the
+draft cache rides the same slot lifecycle (a refill prefills both). Both
+caches hold gamma + 1 positions of slack past `max_len`, and idle rows
+park at that capacity.
+
 Device work is issued asynchronously; the host reads a window's tokens
 back once (`run(pipeline=2)` keeps a second window in flight meanwhile).
 The cache is updated in place.
@@ -30,10 +39,12 @@ import numpy as np
 import torch
 
 from tpunet_torch import _device
-from tpunet_torch.models.generate import (_kv_leaves, _map_cache_index,
-                                          _prefill, _set_cache_index,
-                                          _validate_sampling, init_cache,
-                                          make_sampler)
+from tpunet_torch.models.generate import (_get_cache_index, _kv_leaves,
+                                          _make_spec_round_core,
+                                          _map_cache_index, _prefill,
+                                          _set_cache_index, _spec_ring_ok,
+                                          _validate_sampling, filtered_logits,
+                                          init_cache, make_sampler)
 
 
 class BatchServer:
@@ -41,22 +52,30 @@ class BatchServer:
 
     submit() enqueues a request; slots are assigned at the next
     step()/run() boundary, so a burst of submissions prefills together.
-    step() advances every live slot `steps_per_call` tokens and returns
-    the requests that finished. Greedy by default; temperature/top-k/top-p
-    sample per row from `generator`."""
+    step() advances every live slot `steps_per_call` tokens (or
+    speculative rounds of up to gamma + 1 tokens, with a draft model) and
+    returns the requests that finished. Greedy by default;
+    temperature/top-k/top-p sample per row from `generator`, which must be
+    on the server's device."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  temperature: float = 0.0, top_k: int | None = None,
                  top_p: float | None = None, eos_id: int | None = None,
                  generator=None, prefill_chunk: int | None = None,
                  steps_per_call: int = 1, refill_coalesce: int = 1,
-                 draft_model=None, draft_params=None, on_first_token=None,
-                 device=None):
-        if draft_model is not None or draft_params is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_model) is a later slice of the "
-                "port (speculative serving slice)")
+                 draft_model=None, draft_params=None, gamma: int = 4,
+                 on_first_token=None, device=None):
         _validate_sampling(temperature, top_k, top_p)
+        spec = draft_model is not None
+        if (draft_model is None) != (draft_params is None):
+            raise ValueError("draft_model and draft_params come together")
+        if spec and gamma < 1:
+            raise ValueError(f"gamma must be >= 1, got {gamma}")
+        if spec and getattr(draft_model, "n_experts", 0):
+            raise ValueError("draft_model must be dense (same MoE "
+                             "batch-coupling argument as the target)")
+        if spec and draft_model.vocab != model.vocab:
+            raise ValueError("draft vocab must match the target")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if steps_per_call < 1:
@@ -66,9 +85,17 @@ class BatchServer:
             raise ValueError(
                 f"refill_coalesce must be >= 1, got {refill_coalesce}")
         self.device = _device.resolve(device)
+        if generator is not None and not _device.same(generator.device,
+                                                      self.device):
+            raise ValueError(f"generator must be on the server's device "
+                             f"{self.device}, got {generator.device}")
         self.model = model
-        self._net = model.bind({k: v.to(self.device)
-                                for k, v in params.items()})
+        # Speculation keeps a windowed model on its ring only when a
+        # round's gamma + 1 writes cannot lap it.
+        tm = (model.clone(decode_ring_cache=_spec_ring_ok(model, gamma))
+              if spec else model)
+        self._net = tm.bind({k: v.to(self.device)
+                             for k, v in params.items()})
         self.slots, self.max_len = slots, max_len
         # A freed slot is not refilled until this many are free (or nothing
         # decodes, or the queue drains anyway); see the JAX BatchServer.
@@ -76,8 +103,13 @@ class BatchServer:
         self.eos_id = eos_id
         self.steps_per_call = steps_per_call
         self._prefill_chunk = prefill_chunk
-        self._cache = init_cache(model, slots, max_len, per_row=True,
+        # A verify block overshoots a live row's frontier by up to gamma:
+        # speculation adds gamma + 1 positions of slack (submit() still
+        # bounds prompt + max_new <= max_len).
+        cache_cap = max_len + (gamma + 1 if spec else 0)
+        self._cache = init_cache(tm, slots, cache_cap, per_row=True,
                                  device=self.device)
+        self._draft = draft_model
         self._free = list(range(slots))
         self._live: dict[int, dict] = {}       # slot -> request record
         self._pending: list[dict] = []
@@ -90,6 +122,25 @@ class BatchServer:
         # Called with a request's id when its first token is committed
         # (TTFT instrumentation for the disaggregated decode worker).
         self._on_first_token = on_first_token
+        if spec:
+            d_ring = _spec_ring_ok(draft_model, gamma)
+            dm = draft_model.clone(decode_ring_cache=d_ring)
+            self._dnet = dm.bind({k: v.to(self.device)
+                                  for k, v in draft_params.items()})
+            self._dcache = init_cache(dm, slots, cache_cap, per_row=True,
+                                      device=self.device)
+            self.gamma = gamma
+            self._spec_cap = cache_cap
+
+            def probs_of(logits):
+                return torch.softmax(filtered_logits(
+                    logits.float(), temperature, top_k, top_p), -1)
+
+            self._round_core = _make_spec_round_core(
+                self._net, self._dnet, gamma, temperature == 0.0, probs_of,
+                _spec_ring_ok(model, gamma), d_ring)
+            self.stats["spec_rounds"] = 0
+            self.stats["spec_committed"] = 0
 
     # -- device programs ---------------------------------------------------
 
@@ -109,14 +160,48 @@ class BatchServer:
         return torch.stack(outs, dim=1)
 
     @torch.no_grad()
-    def _prefill_slots(self, prompts, rows):
-        """Row surgery: gather the claimed rows, reset their indexes,
-        prefill, scatter back; returns the sampled first tokens."""
-        row = {k: v[rows] for k, v in self._cache.items()}
+    def _spec_decode_step(self):
+        """One speculative window: `steps_per_call` rounds over every slot,
+        each committing its row's own accepted prefix plus one token.
+        Returns the (slots, rounds, gamma + 2) device tensor of committed
+        blocks, each round's commit count in its last column."""
+        g = self.gamma
+        rows = torch.arange(self.slots, device=self.device)
+        outs = []
+        for _ in range(self.steps_per_call):
+            idx0 = _get_cache_index(self._cache).long()  # round frontier
+            w, _, n_eff = self._round_core(
+                self._cache, self._dcache, self._toks, idx0, self._gen,
+                lambda n_raw: n_raw,                      # per-row commits
+                lambda n_eff, idx0=idx0: idx0 + n_eff + 1)
+            counts = n_eff + 1
+            # Idle rows park at the capacity (the slack keeps live rows
+            # below it), not at max_len.
+            new_idx = torch.clamp(idx0 + counts, max=self._spec_cap)
+            self._cache = _set_cache_index(self._cache, new_idx)
+            self._dcache = _set_cache_index(self._dcache, new_idx)
+            self._toks = w[rows, n_eff]
+            outs.append(torch.cat([w, counts[:, None].to(w.dtype)], dim=1))
+        return torch.stack(outs, dim=1)
+
+    def _refill(self, net, cache, prompts, rows):
+        """Row surgery on one cache: gather the claimed rows, reset their
+        indexes, prefill, scatter back; returns the last prompt logits."""
+        row = {k: v[rows] for k, v in cache.items()}
         row = _set_cache_index(row, 0)
-        row, last = _prefill(self._net, row, prompts, self._prefill_chunk)
-        for k, v in self._cache.items():
+        row, last = _prefill(net, row, prompts, self._prefill_chunk)
+        for k, v in cache.items():
             v[rows] = row[k]
+        return last
+
+    @torch.no_grad()
+    def _prefill_slots(self, prompts, rows):
+        """Refill the claimed rows of the cache (and, speculating, of the
+        draft cache: the draft must hold the prompt before it proposes);
+        returns the sampled first tokens."""
+        last = self._refill(self._net, self._cache, prompts, rows)
+        if self._draft is not None:
+            self._refill(self._dnet, self._dcache, prompts, rows)
         tok = self._sample(last, self._gen)
         self._toks[rows] = tok
         return tok
@@ -176,6 +261,10 @@ class BatchServer:
         prefill rank) and shipped here: `kv_rows` are numpy arrays matching
         kv_leaf_shapes(len(prompt)), `last_logits` the prefill's
         final-position logit row (vocab,)."""
+        if self._draft is not None:
+            raise ValueError(
+                "submit_kv requires a non-speculative server: the draft "
+                "cache has no shipped prompt K/V to propose from")
         if self.model.attn_window is not None:
             raise ValueError(
                 "submit_kv requires a full-capacity cache (attn_window "
@@ -277,7 +366,8 @@ class BatchServer:
     def _dispatch_window(self):
         """Issue one decode window without reading it back; returns it with
         a {slot: request_id} snapshot of occupancy at dispatch time."""
-        window = self._decode_step()
+        window = (self._spec_decode_step() if self._draft is not None
+                  else self._decode_step())
         self.stats["decode_windows"] += 1
         return window, {r: req["id"] for r, req in self._live.items()}
 
@@ -294,7 +384,16 @@ class BatchServer:
                 self._append_tokens(r, req, holder["np"][i: i + 1])
                 if r not in self._live:
                     continue
-            self._append_tokens(r, req, window[r])
+            if self._draft is None:
+                self._append_tokens(r, req, window[r])
+                continue
+            for blk in window[r]:  # speculative rounds: tokens, then count
+                c = int(blk[-1])
+                self.stats["spec_rounds"] += 1
+                self.stats["spec_committed"] += c
+                self._append_tokens(r, req, blk[:c])
+                if r not in self._live:
+                    break  # the row's later rounds are garbage
 
     def step(self) -> list[dict]:
         """Advance every live slot one window; returns the requests that

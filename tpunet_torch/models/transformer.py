@@ -41,9 +41,16 @@ the per-row cache of continuous batching, a () index the lockstep cache of
 ``generate``. ``prefill=True`` is the first fill of an empty cache, routed
 through the configured attention kernel (flash on the card).
 
+With ``attn_window`` and ``decode_ring_cache=True`` (the default) the decode
+cache is a rolling ring: leaves sized min(window, capacity), a step writes
+its last min(s, capacity) positions at position mod capacity, and attends
+over the pre-write ring plus its own k/v (flax's ring branch, the same
+rules). ``weight_quant="int8"`` makes every dense layer a ``QuantDense``
+(int8 weight and f32 per-output-channel scale, from
+``quant.quantize_params``); it is an inference path.
+
 Options of the flax model that belong to later slices of the port (MoE,
-int8 weights, LoRA, the sequence-parallel attention impls, the ring decode
-cache) raise NotImplementedError.
+LoRA, the sequence-parallel attention impls) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -114,10 +121,36 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt))
 
 
-def _dense(in_features, features, dtype, device=None):
-    """The dense factory every matmul goes through: the fp layer in this
-    slice (QuantDense and LoraDense come with the model options slice)."""
-    return Dense(in_features, features, dtype, device=device)
+class QuantDense(nn.Module):
+    """Weight-only int8 dense layer, flax ``QuantDense``: weight stored int8
+    (out, in) with a per-output-channel f32 scale (w ≈ q · scale). The
+    input and q are cast to the compute dtype, multiplied, and the product
+    scaled by the scale in the compute dtype, in the flax order. The
+    parameters come from ``quant.quantize_params``; a fresh init is a
+    zero skeleton. The int8 leaf takes no gradient (it is created with
+    requires_grad=False and ``bind`` keeps integer leaves frozen)."""
+
+    def __init__(self, in_features: int, features: int, dtype, device=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.q = nn.Parameter(
+            torch.zeros(features, in_features, dtype=torch.int8,
+                        device=device), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.q.to(dt)) * self.scale.to(dt)
+
+
+def _dense(in_features, features, dtype, device=None, weight_quant=None):
+    """The dense factory every matmul goes through: fp by default,
+    QuantDense under weight_quant="int8" (the same module names, so the
+    quantized state_dict is the fp one with each ``weight`` swapped for
+    ``q`` and ``scale``). LoraDense comes with the model options slice."""
+    if weight_quant is None:
+        return Dense(in_features, features, dtype, device=device)
+    return QuantDense(in_features, features, dtype, device=device)
 
 
 def _causal_kernel_attention(q, k, v, attn_impl, window):
@@ -134,7 +167,8 @@ def _causal_kernel_attention(q, k, v, attn_impl, window):
 
 class SelfAttention(nn.Module):
     def __init__(self, d_model, n_heads, head_dim, compute_dtype, attn_impl,
-                 n_kv_heads, attn_window, device=None):
+                 n_kv_heads, attn_window, decode_ring_cache=True,
+                 weight_quant=None, device=None):
         super().__init__()
         kv = n_kv_heads or n_heads
         if n_heads % kv:
@@ -144,11 +178,13 @@ class SelfAttention(nn.Module):
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.attn_window = attn_window
-        dt = compute_dtype
-        self.q = _dense(d_model, n_heads * head_dim, dt, device=device)
-        self.k = _dense(d_model, kv * head_dim, dt, device=device)
-        self.v = _dense(d_model, kv * head_dim, dt, device=device)
-        self.out = _dense(n_heads * head_dim, d_model, dt, device=device)
+        # The decode cache is a rolling ring (leaves of min(window, cap)).
+        self.ring = attn_window is not None and decode_ring_cache
+        dt, wq = compute_dtype, weight_quant
+        self.q = _dense(d_model, n_heads * head_dim, dt, device, wq)
+        self.k = _dense(d_model, kv * head_dim, dt, device, wq)
+        self.v = _dense(d_model, kv * head_dim, dt, device, wq)
+        self.out = _dense(n_heads * head_dim, d_model, dt, device, wq)
 
     def forward(self, x, cache=None, prefill=False, prefix=""):
         b, s, _ = x.shape
@@ -165,30 +201,79 @@ class SelfAttention(nn.Module):
         return self.out(o.reshape(b, s, h * dh))
 
     def _cached(self, q, k, v, cache, prefill, prefix):
-        """The decode-cache step (flax SelfAttention's decode branch,
-        full-capacity cache). Writes this step's K/V into the cache dict in
-        place and advances its index."""
+        """The decode-cache step (flax SelfAttention's decode branch). Writes
+        this step's K/V into the cache dict in place and advances its index.
+        On the ring the step attends over the PRE-write ring plus its own
+        k/v, so attention runs before the write."""
         b, s, h, dh = q.shape
-        kv = self.n_kv_heads
         dt = self.compute_dtype
         ckey = cache[prefix + "cached_key"]
         cval = cache[prefix + "cached_value"]
         idx = cache[prefix + "cache_index"]
         cap = ckey.shape[1]
         per_row = idx.dim() == 1
-        dev = q.device
-        steps = torch.arange(s, device=dev)
-        pos = idx[..., None] + steps                 # (b, s) or (s,)
+        # (b, s) per row, (s,) lockstep
+        pos = idx[..., None] + torch.arange(s, device=q.device)
         q = rotary_embed(q, positions=pos.float())
         k = rotary_embed(k, positions=pos.float())
-        overflow = idx + s > cap                     # poisons the row to NaN
+        if self.ring and cap >= self.attn_window:
+            # A ring at least as wide as the window never overflows: the
+            # window addresses only resident positions.
+            overflow = torch.zeros_like(idx, dtype=torch.bool)
+        else:
+            overflow = idx + s > cap                 # poisons the row to NaN
+        cache[prefix + "cache_index"] = idx + s
+        if prefill:
+            # First fill of an empty cache: plain causal self-attention over
+            # the block, through the configured kernel. Valid only at
+            # idx == 0; any other row is poisoned, like an overflow.
+            self._write(ckey, cval, k, v, idx, per_row)
+            o = _causal_kernel_attention(q, k, v, self.attn_impl,
+                                         self.attn_window)
+            bad = overflow | (idx != 0)
+            if per_row:
+                bad = bad[:, None, None, None]
+            return o.masked_fill(bad, float("nan")).to(dt)
+        if self.ring:
+            # Ring slot j holds the largest position p < idx with
+            # p = j (mod cap); p < 0 was never written (or belongs to a
+            # recycled serving slot's previous occupant).
+            i1 = idx[..., None] - 1
+            p_ring = i1 - (i1 - torch.arange(cap, device=q.device)) % cap
+            o = self._attend(q, torch.cat([ckey, k], 1),
+                             torch.cat([cval, v], 1),
+                             torch.cat([p_ring, pos], -1), pos, overflow)
+            self._write(ckey, cval, k, v, idx, per_row)
+            return o
+        self._write(ckey, cval, k, v, idx, per_row)
+        return self._attend(q, ckey, cval, torch.arange(cap, device=q.device),
+                            pos, overflow)
+
+    def _write(self, ckey, cval, k, v, idx, per_row):
+        """This step's K/V into the cache leaves, in place."""
+        b, s = k.shape[:2]
+        cap = ckey.shape[1]
+        dev = k.device
         rows = torch.arange(b, device=dev)
+        if self.ring:
+            # The step's last min(s, cap) positions, at position mod cap
+            # (all distinct).
+            m = min(s, cap)
+            slot = (idx[..., None] + torch.arange(s - m, s, device=dev)) % cap
+            for buf, new in ((ckey, k), (cval, v)):
+                if per_row:
+                    buf[rows[:, None], slot] = new[:, s - m:]
+                else:
+                    buf[:, slot] = new[:, s - m:]
+            return
+        steps = torch.arange(s, device=dev)
         if per_row:
             # Per-row scatter at idx + arange(s), positions >= cap DROPPED
             # (the JAX scatter's out-of-bounds mode) without a host sync:
             # out-of-range writes are clamped onto slot cap-1 and carry the
             # value that slot ends up with anyway, so no two writes to one
             # slot disagree.
+            pos = idx[:, None] + steps
             valid = pos < cap
             wpos = pos.clamp(max=cap - 1)
             last = (cap - 1 - idx).clamp(0, s - 1)
@@ -204,53 +289,52 @@ class SelfAttention(nn.Module):
             wpos = (idx.clamp(0, cap - s) + steps).expand(b, s)
             ckey[rows[:, None], wpos] = k
             cval[rows[:, None], wpos] = v
-        cache[prefix + "cache_index"] = idx + s
-        if prefill:
-            # First fill of an empty cache: plain causal self-attention over
-            # the block, through the configured kernel. Valid only at
-            # idx == 0; any other row is poisoned, like an overflow.
-            o = _causal_kernel_attention(q, k, v, self.attn_impl,
-                                         self.attn_window)
-            bad = overflow | (idx != 0)
-            if per_row:
-                bad = bad[:, None, None, None]
-            return o.masked_fill(bad, float("nan")).to(dt)
-        # Grouped einsum: q as (b, s, kv, group, dh) against the (b, cap, kv,
-        # dh) cache; the group-repeated K/V never exists.
+
+    def _attend(self, q, att_k, att_v, key_pos, pos, overflow):
+        """Masked softmax attention of the step's queries (at positions
+        `pos`) over keys at positions `key_pos` ((K,) or (b, K); negative:
+        never written), as a grouped einsum: q as (b, s, kv, group, dh)
+        against (b, K, kv, dh) keys, so the group-repeated K/V never
+        exists."""
+        b, s, h, dh = q.shape
+        kv = self.n_kv_heads
         qg = q.reshape(b, s, kv, h // kv, dh).float()
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                              ckey.float()) / math.sqrt(dh)
-        kp = torch.arange(cap, device=dev)[None, None, None, None, :]
-        if per_row:
+                              att_k.float()) / math.sqrt(dh)
+        kp = (key_pos[:, None, None, None, :] if key_pos.dim() == 2
+              else key_pos)
+        if pos.dim() == 2:
             q_pos = pos[:, None, None, :, None]
             row_overflow = overflow[:, None, None, None]
         else:
-            q_pos = pos[None, None, None, :, None]
+            q_pos = pos[:, None]
             row_overflow = overflow
-        keep = kp <= q_pos
+        keep = (kp >= 0) & (kp <= q_pos)
         if self.attn_window is not None:
             keep &= (q_pos - kp) < self.attn_window
         scores = scores.masked_fill(~keep, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", probs,
-                         cval.float()).reshape(b, s, h, dh)
-        return o.masked_fill(row_overflow, float("nan")).to(dt)
+                         att_v.float()).reshape(b, s, h, dh)
+        return o.masked_fill(row_overflow, float("nan")).to(
+            self.compute_dtype)
 
 
 class Mlp(nn.Module):
     """"gelu" (up -> tanh-approximated gelu -> down, flax ``nn.gelu``) or
     "swiglu" (silu(gate) * up -> down)."""
 
-    def __init__(self, d_model, d_ff, compute_dtype, mlp_impl, device=None):
+    def __init__(self, d_model, d_ff, compute_dtype, mlp_impl,
+                 weight_quant=None, device=None):
         super().__init__()
         if mlp_impl not in ("gelu", "swiglu"):
             raise ValueError(f"unknown mlp_impl {mlp_impl!r}")
         self.mlp_impl = mlp_impl
-        dt = compute_dtype
+        dt, wq = compute_dtype, weight_quant
         if mlp_impl == "swiglu":
-            self.gate = _dense(d_model, d_ff, dt, device=device)
-        self.up = _dense(d_model, d_ff, dt, device=device)
-        self.down = _dense(d_ff, d_model, dt, device=device)
+            self.gate = _dense(d_model, d_ff, dt, device, wq)
+        self.up = _dense(d_model, d_ff, dt, device, wq)
+        self.down = _dense(d_ff, d_model, dt, device, wq)
 
     def forward(self, x):
         if self.mlp_impl == "swiglu":
@@ -262,14 +346,17 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model, n_heads, head_dim, d_ff, compute_dtype,
-                 attn_impl, n_kv_heads, mlp_impl, attn_window, device=None):
+                 attn_impl, n_kv_heads, mlp_impl, attn_window,
+                 decode_ring_cache=True, weight_quant=None, device=None):
         super().__init__()
         self.norm1 = RMSNorm(d_model, device=device)
         self.attn = SelfAttention(d_model, n_heads, head_dim, compute_dtype,
                                   attn_impl, n_kv_heads, attn_window,
+                                  decode_ring_cache, weight_quant,
                                   device=device)
         self.norm2 = RMSNorm(d_model, device=device)
-        self.mlp = Mlp(d_model, d_ff, compute_dtype, mlp_impl, device=device)
+        self.mlp = Mlp(d_model, d_ff, compute_dtype, mlp_impl, weight_quant,
+                       device=device)
 
     def forward(self, x, cache=None, prefill=False, prefix=""):
         x = x + self.attn(self.norm1(x), cache, prefill, prefix + "attn/")
@@ -280,7 +367,6 @@ class Block(nn.Module):
 # name -> (the only value this slice takes, the slice that brings it).
 _LATER = {
     "n_experts": (0, "MoE (model options slice)"),
-    "weight_quant": (None, "int8 weight quantization (model options slice)"),
     "lora_rank": (0, "LoRA (model options slice)"),
     "mesh": (None, "mesh-sharded attention (sequence-parallel slice)"),
 }
@@ -301,7 +387,8 @@ class Transformer(nn.Module):
     `device=None` builds the parameters on the GPU (raising without one);
     pass "cpu" or "meta" explicitly. A "meta" model holds no weights; the
     entry points take the weights as a parameter dict and run a `bind`
-    copy of the architecture that holds them."""
+    copy of the architecture that holds them. `clone(**overrides)` is the
+    weightless copy with options changed (flax's ``Module.clone``)."""
 
     def __init__(self, vocab: int = 32000, d_model: int = 512,
                  n_layers: int = 4, n_heads: int = 8, d_ff: int = 2048,
@@ -310,7 +397,7 @@ class Transformer(nn.Module):
                  attn_window: int | None = None, flash_block_q: int = 128,
                  flash_block_k: int = 128, decode_ring_cache: bool = True,
                  remat: bool = False, remat_policy: str | None = None,
-                 device=None, **later):
+                 weight_quant: str | None = None, device=None, **later):
         super().__init__()
         self._kwargs = dict(
             vocab=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
@@ -318,10 +405,16 @@ class Transformer(nn.Module):
             n_kv_heads=n_kv_heads, mlp_impl=mlp_impl, attn_window=attn_window,
             flash_block_q=flash_block_q, flash_block_k=flash_block_k,
             decode_ring_cache=decode_ring_cache, remat=remat,
-            remat_policy=remat_policy)
+            remat_policy=remat_policy, weight_quant=weight_quant)
         if remat_policy not in REMAT_POLICIES:
             # Validated even when remat is off, like the flax model.
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"unknown weight_quant {weight_quant!r}")
+        if weight_quant is not None and later.get("n_experts", 0) > 0:
+            raise ValueError(
+                "weight_quant does not cover MoE expert einsum weights; "
+                "use a dense model or weight_quant=None")
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"unknown Transformer option {name!r}")
@@ -346,15 +439,18 @@ class Transformer(nn.Module):
         self.decode_ring_cache = decode_ring_cache
         self.remat = remat
         self.remat_policy = remat_policy
+        self.weight_quant = weight_quant
         self.n_experts = 0
         head_dim = d_model // n_heads
         self.embed = nn.Parameter(torch.empty(vocab, d_model, device=device))
         for i in range(n_layers):
             self.add_module(f"block{i}", Block(
                 d_model, n_heads, head_dim, d_ff, compute_dtype, attn_impl,
-                n_kv_heads, mlp_impl, attn_window, device=device))
+                n_kv_heads, mlp_impl, attn_window, decode_ring_cache,
+                weight_quant, device=device))
         self.norm_f = RMSNorm(d_model, device=device)
-        self.lm_head = _dense(d_model, vocab, compute_dtype, device=device)
+        self.lm_head = _dense(d_model, vocab, compute_dtype, device,
+                              weight_quant)
 
     @property
     def head_dim(self) -> int:
@@ -369,12 +465,18 @@ class Transformer(nn.Module):
             "d_ff": self.d_ff, "mlp_impl": self.mlp_impl,
             "compute_dtype": str(self.compute_dtype).replace("torch.", ""),
             "attn_window": self.attn_window,
+            "weight_quant": self.weight_quant,
         }
 
     def forward(self, tokens, train: bool = False,
                 features_only: bool = False, *, cache=None,
                 prefill: bool = False, rng=None):
         del train, rng  # no dropout in this family; kept for the trainer
+        if self.weight_quant is not None and features_only:
+            raise ValueError(
+                "weight_quant is incompatible with features_only: the "
+                "blockwise fused cross-entropy reads an fp lm_head weight "
+                "from the state_dict")
         dt = self.compute_dtype
         x = F.embedding(tokens, self.embed).to(dt)
         saved = REMAT_POLICIES[self.remat_policy]
@@ -405,8 +507,13 @@ class Transformer(nn.Module):
         ``init_params``; nothing is copied). Each engine runs its own bound
         copy, so threads never share a module whose weights are swapped.
         trainable: as ``_bind.bind``."""
-        return _bind.bind(Transformer(**self._kwargs, device="meta"), params,
-                          trainable)
+        return _bind.bind(self.clone(), params, trainable)
+
+    def clone(self, **overrides) -> "Transformer":
+        """A weightless (meta) copy of this architecture with `overrides`
+        applied, e.g. ``clone(weight_quant="int8")`` for the int8
+        self-draft or ``clone(decode_ring_cache=False)``."""
+        return Transformer(**{**self._kwargs, **overrides}, device="meta")
 
 
 def init_params(model: Transformer, *, seed: int, device=None,
@@ -415,7 +522,9 @@ def init_params(model: Transformer, *, seed: int, device=None,
     torch.Generator seeded with `seed`: embed ~ normal(0.02), dense kernels
     lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796), norm scales
     ones. `dtype` pre-casts the dense kernels and the embedding (the norm
-    scales stay f32)."""
+    scales stay f32). An int8 model gets flax's zero skeleton for its int8
+    leaves and ones for their scales; its weights come from
+    ``quant.quantize_params`` of an fp state_dict."""
     dev = _device.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -423,6 +532,9 @@ def init_params(model: Transformer, *, seed: int, device=None,
     for name, p in model.named_parameters():
         if name.endswith(".scale"):
             out[name] = torch.ones(p.shape, device=dev)
+            continue
+        if not p.is_floating_point():
+            out[name] = torch.zeros(p.shape, dtype=p.dtype, device=dev)
             continue
         t = torch.empty(p.shape, device=dev)
         if name == "embed":

@@ -269,6 +269,13 @@ def roundtrip_params(params, codec: str = "bf16"):
         params, transport.codec_decode(wire, codec, flat.size))
 
 
+# The clamps in force in this process (publisher and receivers may be
+# threads of one process): the user's own knob comes back only when the
+# last of them ends, never while another rendezvous still reads it.
+_CLAMP_LOCK = threading.Lock()
+_clamps: dict = {"count": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def _bounded_bootstrap(deadline: float):
     """Clamp the rendezvous bootstrap to the remaining swap budget.
@@ -278,18 +285,27 @@ def _bounded_bootstrap(deadline: float):
     A swap's coordinator binds milliseconds after the announce, so a member
     that has not joined within the swap deadline is dead (or the attempt
     was abandoned), and a 120 s park here would wedge the serving loop of
-    whoever waits. The native layer reads the knob when a rendezvous
-    starts, and a process runs one swap rendezvous at a time."""
+    whoever waits. The native layer reads the knob (process-wide) during
+    the rendezvous. Clamps that overlap in one process share it, each
+    setting its own budget on entry, and the value from before the first
+    comes back when the last one ends."""
     remaining_ms = max(1, int((deadline - time.monotonic()) * 1e3))
-    prev = os.environ.get("TPUNET_BOOTSTRAP_TIMEOUT_MS")
-    os.environ["TPUNET_BOOTSTRAP_TIMEOUT_MS"] = str(remaining_ms)
+    with _CLAMP_LOCK:
+        if _clamps["count"] == 0:
+            _clamps["saved"] = os.environ.get("TPUNET_BOOTSTRAP_TIMEOUT_MS")
+        _clamps["count"] += 1
+        os.environ["TPUNET_BOOTSTRAP_TIMEOUT_MS"] = str(remaining_ms)
     try:
         yield
     finally:
-        if prev is None:
-            os.environ.pop("TPUNET_BOOTSTRAP_TIMEOUT_MS", None)
-        else:
-            os.environ["TPUNET_BOOTSTRAP_TIMEOUT_MS"] = prev
+        with _CLAMP_LOCK:
+            _clamps["count"] -= 1
+            if _clamps["count"] == 0:
+                if _clamps["saved"] is None:
+                    os.environ.pop("TPUNET_BOOTSTRAP_TIMEOUT_MS", None)
+                else:
+                    os.environ["TPUNET_BOOTSTRAP_TIMEOUT_MS"] = _clamps[
+                        "saved"]
 
 
 def _ephemeral_coordinator(host: str = "127.0.0.1") -> str:

@@ -69,6 +69,9 @@ class _Rank:
         # is legal, the publisher catches it up), grown by SWAP_STATUS
         # flips, shrunk by the retire sweep.
         self.versions: set[int] = {link.peer.weight_version}
+        # The version the rank serves new work on (the HELLO's, then each
+        # flip's): a rank never retires it, so neither does the sweep.
+        self.live_version = link.peer.weight_version
 
     def free(self) -> int:
         return self.slots - len(self.inflight)
@@ -363,6 +366,7 @@ class Router:
                     version = rid & 0xFFFFFFFF
                     if aux == proto.SWAP_FLIPPED:
                         rank.versions.add(version)
+                        rank.live_version = version
                         self._swap_status[(rank.index, rid)] = "flipped"
                         self.stats["swaps"] += 1
                     else:
@@ -415,7 +419,10 @@ class Router:
     def _retire_sweep(self) -> None:
         """Retire drained versions: once no admitted request still pins an
         old version, tell every rank holding it to drop it after its own
-        local drain, and drop the frontend engine."""
+        local drain, and drop the frontend engine. A rank that still serves
+        the version live (a stale host re-admitted before this sweep ran)
+        keeps it until the publisher catches it up, which queues the
+        version for retirement again."""
         for ver in list(self._retire_pending):
             if ver == self.version:
                 self._retire_pending.discard(ver)
@@ -424,6 +431,8 @@ class Router:
                    for rec in self._recs.values()):
                 continue  # the version still has pinned sessions in flight
             for rank in self._ranks:
+                if rank.live_version == ver:
+                    continue
                 if rank.alive and ver in rank.versions:
                     try:
                         rank.link.send_frame(proto.T_SWAP_RETIRE, ver,
