@@ -229,12 +229,60 @@ Phases (each raises on failure; the script then exits non-zero):
            (staging and collective), the flat and bucketed gradient
            means' seconds, the peak memory per rank, and the img/s under
            deterministic cuDNN
+  moe      MoE data-parallel training at the training widths:
+           benchmarks/lm_synthetic.py --experts 4 --moe-top-k 2 (moe_every
+           2, capacity factor 1.25) on MODEL_TRAIN, six MoE blocks,
+           1,339,131,904 params; bf16 compute, f32 master weights, flash,
+           remat, adamw 3e-4, moe_aux_weight 0.01; the train phase's ranks,
+           batch and token ramps, 4 fit() steps. Gates: the params count;
+           the ranks bitwise equal to each other and to one process
+           applying the mean of the two half-batch gradients under the
+           same objective (aux term included), with the same losses; the
+           loss finite and falling; every step's aux loss finite; every
+           router moved; flash launches 24 / 12 / 12 a rank-step; no input
+           copy; each rank's peak at most 40 GB. Reports step seconds,
+           tokens/s, each MoE block's dropped share, the all-reduce's
+           seconds and bytes, the peak memory
+  qlora    QLoRA fine-tuning at the serving widths: MODEL_735M (GQA-4)
+           from --seed, quantize_params, graft_base under
+           Transformer(weight_quant="int8", lora_rank=64, lora_alpha=16):
+           28,131,328 adapter params; lora_optimizer(adamw(2e-4)), bf16,
+           flash, remat, the train phase's ranks, batch and ramps, 4 fit()
+           steps. Gates: before training the grafted model's logits on a
+           512-token prompt equal the int8 base model's (B = 0); the ranks
+           bitwise equal to each other and to the one-process half-batch
+           mean; every int8 q and scale, embed and norm scale bitwise its
+           start; every lora_b off zero; the loss finite and falling;
+           flash launches 24 / 12 / 12 a rank-step, no input copy; then
+           greedy generate with the trained model on the serve phase's 8
+           prompts, 64 tokens each: tokens in [0, vocab), one flash
+           forward a layer per prefill and no backward. Reports step
+           seconds, tokens/s, the all-reduce's bytes a step, peak memory
+  a2a      the all-to-alls on 4 ranks spawned on this card (loopback): (a)
+           byte and typed all-to-all on the f32, bf16 and int8 wires
+           (f32 bitwise the block transpose; each compressed non-self block
+           bitwise the codec oracle, one encode at the source and one
+           decode at the destination, the self block exact), iall_to_all
+           beside an iall_reduce, and dcn_all_to_all of a CUDA tensor
+           bitwise the host call's, on the card; (b)
+           benchmarks/moe_bench.py's defaults through the port's
+           MoeDispatcher (world 4, 256 tokens, d 64, capacity 192, skew
+           1.0, f32 wire, 32 steps, a 256K wire window, a 4 MiB bulk
+           tenant) held to tests/moe_smoke.py's gates: the latency class's
+           p99 queue wait within 100 ms, the bulk class moving its budget,
+           the a2a byte counters exactly the dispatches' bytes; (c) the
+           MoE layer's widths (d 2048, 8192 tokens a rank, top-1 of 4 by
+           route_tokens at skew 1.0, capacity 2560): the round trip through
+           a stand-in expert x2 is 2x bitwise on kept rows and zero on
+           dropped ones, the drop count pack's. Reports the round trip's
+           p50 and p99, GB/s and drop fraction
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
 at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
 heads 1 kv head D320), with the tensor-core instructions of the function
-each runs; and, last, the device line.
+each runs, and for the bf16 kernels the launches on each training path
+(train, moe, qlora); and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are False), so f32 references are true f32.
@@ -283,6 +331,9 @@ ZERO_MEM_SAVING_GB = 2.0
 # state and two gradient-sized buffers (the gradients and the flat vector
 # they are copied into), plus this much for everything else.
 TRAIN_MEM_SLACK_GB = 1.0
+# make_train_step's default weight of the MoE load-balancing loss, which
+# the ranks train with and the single-process references use.
+MOE_AUX_WEIGHT = 0.01
 # The remat phase: benchmarks/mfu_sweep.py:29's configuration (the train
 # widths, global batch 8 x 2048 on one card), every remat_policy.
 REMAT_POLICIES, REMAT_BATCH, REMAT_STEPS = (None, "dots", "dots_no_batch"), 8, 2
@@ -1399,11 +1450,11 @@ def phase_serve(seed: int, params_bf16) -> int:
 
 # The weight broadcast's chunk and the whole-swap deadline, set in every
 # process of the swap phase (documented user knobs; the defaults stay 1 MiB
-# and 30 s). A receiver pumps one chunk per serve-loop pass, and under load
-# a pass is a decode step: 1.32 GB of wire in 1 MiB chunks is 1,259 passes,
-# about a minute at 46 ms a pass, past the 30 s default. 64 MiB makes it 20
-# passes. The deadline also covers the receivers' decode of the wire, their
-# new server's build and warm-up request, and the frontend's engine build.
+# and 30 s). A chunk of 64 native 1 MiB pieces, broadcast one piece per
+# call, is the case where a call of many pieces deadlocked on the QoS wire
+# window armed below (tpunet_torch/serve/publish.py, _pieces). The deadline
+# also covers the receivers' decode of the wire, their new server's build
+# and warm-up request, and the frontend's engine build.
 SWAP_CHUNK_BYTES = 64 << 20
 SWAP_TIMEOUT_MS = 60_000
 SWAP_MAX_NEW = 64
@@ -2521,15 +2572,18 @@ def _vgg_rank_body(rank: int, ports, path, seed: int) -> dict:
     return out
 
 
-_RANK_BODIES = {"train": _train_rank_body, "zero": _zero_rank_body,
-                "vgg": _vgg_rank_body}
+def _rank_bodies() -> dict:
+    return {"train": _train_rank_body, "zero": _zero_rank_body,
+            "vgg": _vgg_rank_body, "moe": _moe_rank_body,
+            "qlora": _qlora_rank_body, "a2a": _a2a_rank_body,
+            "moe_bench": _moe_bench_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
                 q) -> None:
     """Entry point of a spawned training rank; reports to `q`."""
     try:
-        q.put((rank, "OK", _RANK_BODIES[kind](rank, ports, path, seed)))
+        q.put((rank, "OK", _rank_bodies()[kind](rank, ports, path, seed)))
     except Exception:  # noqa: BLE001 — reported to the parent
         q.put((rank, "FAIL", traceback.format_exc()))
 
@@ -2542,7 +2596,7 @@ def _spawn_ranks(kind: str, path: str, seed: int,
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    ports = (_free_port(), _free_port())
+    ports = tuple(_free_port() for _ in range(4))
     procs = [ctx.Process(target=_train_rank,
                          args=(kind, r, ports, path, seed, q))
              for r in range(world)]
@@ -2565,15 +2619,18 @@ def _spawn_ranks(kind: str, path: str, seed: int,
     return [res[r] for r in range(world)], time.perf_counter() - t0
 
 
-def _half_batch_reference(model, state, rank_batches: list):
+def _half_batch_reference(model, state, rank_batches: list,
+                          moe_aux_weight: float = MOE_AUX_WEIGHT):
     """Steps in one process: each rank's half-batch gradients computed
     apart, then (g0 + g1) / 2 applied; rank_batches[r][i] is rank r's
-    (inputs, labels) of step i. Returns (params CRC, per-step [loss of
-    rank 0's half, loss of rank 1's half])."""
+    (inputs, labels) of step i. The objective is the ranks' own
+    (make_train_step's at `moe_aux_weight`: an MoE model's aux term
+    included). Returns (params CRC, per-step [loss of rank 0's half, loss
+    of rank 1's half])."""
     from tpunet_torch.train.trainer import (_as_batch, _make_loss_fn,
                                             _value_and_grads)
 
-    loss_fn = _make_loss_fn()
+    loss_fn = _make_loss_fn(moe_aux_weight=moe_aux_weight, model=model)
     losses = []
     for step_batches in zip(*rank_batches):
         net = model.bind(state.params, trainable=True)
@@ -2584,8 +2641,8 @@ def _half_batch_reference(model, state, rank_batches: list):
                                            None)
             halves.append(grads)
             step_losses.append(float(loss))
-        for n, p in state.params.items():
-            p.grad = (halves[0][n] + halves[1][n]) / 2
+        for n in halves[0]:
+            state.params[n].grad = (halves[0][n] + halves[1][n]) / 2
         del halves
         state.opt_state.step()
         for p in state.params.values():
@@ -3240,6 +3297,568 @@ def phase_vgg(seed: int) -> None:
         raise AssertionError("dropout changed no loss")
 
 
+# The moe phase: benchmarks/lm_synthetic.py --experts 4 --moe-top-k 2 at its
+# default capacity factor and moe_every (:47-48, :161-165) on the training
+# widths: six MoE blocks of 4 experts, top-2, 1,339,131,904 params
+# (735,102,976 + 6 x (3 x 33,554,432 + 8,192)). A rank's step routes t =
+# 4 x 2048 tokens a layer: capacity 5120 an expert. Each rank's peak is
+# gated at MOE_MEM_LIMIT_GB (its params, AdamW's moments, the gradients and
+# their flat vector are 26.8 GB).
+MOE_OPTIONS = dict(n_experts=4, moe_every=2, moe_top_k=2,
+                   capacity_factor=1.25)
+MOE_PARAMS = 1_339_131_904
+MOE_MEM_LIMIT_GB = 40.0
+# The qlora phase: the serve configuration (MODEL_735M, GQA-4) quantised
+# with quantize_params and grafted under the QLoRA paper's adapters (r 64,
+# alpha 16 on every linear layer; Dettmers et al., 2023): 28,131,328
+# adapter params, trained by lora_optimizer(adamw(2e-4)).
+QLORA_OPTIONS = dict(weight_quant="int8", lora_rank=64, lora_alpha=16.0)
+QLORA_ADAPTER_PARAMS = 28_131_328
+QLORA_LR = 2e-4
+QLORA_MAX_NEW = 64
+# The a2a phase: 4 ranks spawned on this card over loopback. (a) the
+# all-to-alls on odd blocks (the int8 codec's scale blocks restart per
+# (src, dst) block); (b) benchmarks/moe_bench.py's defaults (its env, a
+# latency-class dispatcher beside a bulk all-reduce tenant); (c) the MoE
+# layer's own widths: d 2048, 8192 tokens a rank, top-1 of 4 experts,
+# capacity ceil(8192 / 4 x 1.25) = 2560: an 84 MB dispatch buffer.
+A2A_WORLD, A2A_N = 4, 1031
+MOE_BENCH = dict(tokens=256, d_model=64, capacity=192, skew=1.0, steps=32,
+                 bulk_bytes=4 << 20, bulk_min_iters=4, p99_budget_us=100_000)
+MOE_BENCH_ENV = {"TPUNET_NSTREAMS": "1", "TPUNET_ASYNC_CHANNELS": "1",
+                 "TPUNET_QOS_INFLIGHT_BYTES": "wire=256K",
+                 "TPUNET_MOE_SKEW": "1.0"}
+A2A_LAYER = dict(d_model=2048, tokens=8192, capacity=2560, skew=1.0,
+                 rounds=8)
+
+
+def _moe_setup(seed: int):
+    """(model, state) of the moe phase: MODEL_TRAIN with MOE_OPTIONS, bf16
+    compute, flash, remat, f32 master weights from `seed`, adamw."""
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.train import adamw, create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", remat=True,
+                        device="meta", **MODEL_TRAIN, **MOE_OPTIONS)
+    state, _ = create_train_state(model, seed, None, adamw(TRAIN_LR),
+                                  device=DEVICE)
+    return model, state
+
+
+def _record_moe(records: list) -> None:
+    """Wrap Transformer.forward in this process so each forward that hands
+    out its MoE blocks' aux losses (the trainer's) appends a (2, blocks)
+    tensor to `records`: the aux losses and the dropped shares, read
+    before the backward's recompute."""
+    from tpunet_torch.models import Transformer
+
+    forward = Transformer.forward
+
+    def recorded(self, *args, **kwargs):
+        out = forward(self, *args, **kwargs)
+        if kwargs.get("moe_aux"):
+            dropped = [b.moe.dropped for b in self.children()
+                       if getattr(b, "is_moe", False)]
+            records.append(torch.stack([torch.stack(kwargs["moe_aux"]),
+                                        torch.stack(dropped)]).detach())
+        return out
+
+    Transformer.forward = recorded
+
+
+def _moe_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    from tpunet_torch import distributed
+    from tpunet_torch.train import make_train_step
+
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, TRAIN_RANKS)
+    records: list = []
+    _record_moe(records)
+    model, state = _moe_setup(seed)
+    routers = {k: v.detach().clone() for k, v in state.params.items()
+               if k.endswith(".router")}
+    step = make_train_step(model, cross_host=True,
+                           moe_aux_weight=MOE_AUX_WEIGHT)
+    state, out = _fit_measured(state, step, _train_batches(path, rank, seed))
+    rec = torch.stack(records).cpu()  # (step, aux / dropped, block)
+    out.update(rank=rank, aux=rec[:, 0].tolist(), dropped=rec[:, 1].tolist(),
+               router_moved=[not torch.equal(v, state.params[k].detach())
+                             for k, v in routers.items()])
+    distributed.finalize()
+    return out
+
+
+def phase_moe(seed: int) -> dict:
+    """MoE data-parallel training at the training widths on TRAIN_RANKS
+    spawned ranks, held to one process applying the mean of the two
+    half-batch gradients under the ranks' own objective (the aux term
+    included); returns the summed kernel launch counts of the ranks'
+    fit() runs."""
+    from tpunet_torch.models import MoeMlp
+
+    path = _ramp_data(seed)
+    ranks, ranks_wall = _spawn_ranks("moe", path, seed)
+    model, state = _moe_setup(seed)
+    ref_crc, ref_losses = _half_batch_reference(model, state, [
+        list(itertools.islice(_train_batches(path, r, seed), TRAIN_STEPS))
+        for r in range(TRAIN_RANKS)])
+    del model, state
+    torch.cuda.empty_cache()
+    n = ranks[0]["params"]
+    steady = _steady(ranks)
+    rank_losses = [list(x) for x in zip(*(r["losses"] for r in ranks))]
+    losses = [float(np.mean(x)) for x in rank_losses]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(
+        params=n, options=MOE_OPTIONS, ranks=TRAIN_RANKS,
+        batch_per_rank=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        capacity=MoeMlp(
+            MODEL_TRAIN["d_model"], MOE_OPTIONS["n_experts"],
+            MODEL_TRAIN["d_ff"], MOE_OPTIONS["capacity_factor"],
+            top_k=MOE_OPTIONS["moe_top_k"], device="meta").capacity(tokens),
+        losses=losses, rank_losses=rank_losses, reference_losses=ref_losses,
+        aux_per_block=[r["aux"] for r in ranks],
+        dropped_share_per_block=[r["dropped"] for r in ranks],
+        router_moved=[r["router_moved"] for r in ranks],
+        step_s=[r["step_s"] for r in ranks], steady_step_s=steady,
+        tokens_per_s=TRAIN_RANKS * tokens / steady,
+        all_reduce=[r["all_reduce"] for r in ranks],
+        all_reduce_s_per_step=[r["all_reduce"]["seconds"] / TRAIN_STEPS
+                               for r in ranks],
+        all_reduce_bytes_per_step=[r["all_reduce"]["bytes"] / TRAIN_STEPS
+                                   for r in ranks],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        peak_mem_limit_gb=MOE_MEM_LIMIT_GB,
+        # f32 params, AdamW's two moments, the gradients and their flat
+        # vector: 20 bytes a parameter.
+        reckoned_state_gb=20 * n / 1e9,
+        opt_state_bytes_per_rank=[r["opt_state_bytes"] for r in ranks],
+        fit_wall_s=[r["fit_wall_s"] for r in ranks], ranks_wall_s=ranks_wall,
+        launches=[r["launches"] for r in ranks],
+        input_copies=[r["input_copies"] for r in ranks],
+        crc=[r["crc"] for r in ranks], reference_crc=ref_crc)
+    log("moe", **summary)
+    if n != MOE_PARAMS:
+        raise AssertionError(f"the MoE model has {n} params, expected "
+                             f"{MOE_PARAMS}")
+    if len(set(summary["crc"])) != 1:
+        raise AssertionError("the MoE ranks' params differ")
+    if summary["crc"][0] != ref_crc or rank_losses != ref_losses:
+        raise AssertionError("the MoE ranks differ from the single-process "
+                             "half-batch-mean reference (aux term included)")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"MoE loss not finite and falling: {losses}")
+    aux = np.asarray(summary["aux_per_block"])
+    if aux.shape != (TRAIN_RANKS, TRAIN_STEPS, len(
+            summary["router_moved"][0])) or not np.isfinite(aux).all():
+        raise AssertionError(f"MoE aux losses not finite, or not one a "
+                             f"block a step: {aux.tolist()}")
+    if not all(all(r) for r in summary["router_moved"]):
+        raise AssertionError(f"a router did not move: "
+                             f"{summary['router_moved']}")
+    for got in summary["peak_mem_gb_per_rank"]:
+        if got > MOE_MEM_LIMIT_GB:
+            raise AssertionError(f"MoE peak memory {got:.3f} GB per rank "
+                                 f"above {MOE_MEM_LIMIT_GB} GB")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in COUNTERS}
+    want = _want_launches(1, TRAIN_STEPS)  # each rank's
+    if any(r["launches"] != want for r in ranks) or any(
+            summary["input_copies"]):
+        raise AssertionError(f"kernel launches on the moe path "
+                             f"{summary['launches']}, expected {want} a "
+                             f"rank; input copies "
+                             f"{summary['input_copies']}")
+    return launches
+
+
+def _qlora_setup(seed: int):
+    """(model, state, int8 base) of the qlora phase: MODEL_735M's params
+    from `seed`, quantised, grafted under QLORA_OPTIONS (adapters from
+    seed + 1), bf16 compute, flash, remat; lora_optimizer(adamw)."""
+    from tpunet_torch.models import (Transformer, graft_base, init_params,
+                                     lora_optimizer, quantize_params)
+    from tpunet_torch.train import adamw, create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = Transformer(compute_dtype=torch.float32, device="meta",
+                       **MODEL_735M)
+    qbase = quantize_params(init_params(base, seed=seed, device=DEVICE))
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", remat=True,
+                        device="meta", **MODEL_735M, **QLORA_OPTIONS)
+    params = graft_base(init_params(model, seed=seed + 1, device=DEVICE),
+                        qbase)
+    state, _ = create_train_state(
+        model, seed, None, lora_optimizer(adamw(QLORA_LR), params),
+        params=params, device=DEVICE)
+    return model, state, qbase
+
+
+def _frozen(params: dict) -> dict:
+    """Every leaf but the adapters: the int8 q and its scale, embed, the
+    norm scales."""
+    return {k: v for k, v in params.items() if ".lora_" not in k}
+
+
+def _qlora_generate(model, params: dict, seed: int) -> dict:
+    """Greedy generate with the adapted model on the serve phase's 8
+    prompts, QLORA_MAX_NEW tokens each, the kernel counters zeroed just
+    before and read just after."""
+    from tpunet_torch.models import generate
+
+    params = {k: v.detach() for k, v in params.items()}
+    prompts = _prompts(seed + 2, 8, model.vocab)
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    outs = [generate(model, params, torch.as_tensor(p[None], device=DEVICE),
+                     QLORA_MAX_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, copies = _read_counters()
+    new = [o[0, len(p):] for o, p in zip(outs, prompts)]
+    return dict(
+        prompts=[len(p) for p in prompts], wall_s=wall,
+        tokens_per_s=len(prompts) * QLORA_MAX_NEW / wall,
+        launches=launches, input_copies=copies,
+        shapes_ok=all(tuple(o.shape) == (1, len(p) + QLORA_MAX_NEW)
+                      for o, p in zip(outs, prompts)),
+        in_vocab=all(bool(((t >= 0) & (t < model.vocab)).all())
+                     for t in new),
+        first_tokens=[t[:8].tolist() for t in new])
+
+
+def _qlora_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    from tpunet_torch import distributed
+    from tpunet_torch.train import make_train_step
+
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, TRAIN_RANKS)
+    model, state, qbase = _qlora_setup(seed)
+    del qbase
+    crc0 = _params_crc(_frozen(state.params))
+    step = make_train_step(model, cross_host=True)
+    state, out = _fit_measured(state, step, _train_batches(path, rank, seed))
+    lora_b = [v for k, v in state.params.items() if k.endswith(".lora_b")]
+    out.update(
+        rank=rank,
+        adapter_params=sum(v.numel() for k, v in state.params.items()
+                           if ".lora_" in k),
+        int8_leaves=sum(v.dtype == torch.int8
+                        for v in state.params.values()),
+        frozen_crc=[crc0, _params_crc(_frozen(state.params))],
+        lora_b_off_zero=all(bool(v.detach().abs().max() > 0)
+                            for v in lora_b))
+    distributed.finalize()
+    if rank == 0:
+        out["generate"] = _qlora_generate(model, state.params, seed)
+    return out
+
+
+def phase_qlora(seed: int) -> dict:
+    """QLoRA fine-tuning of the serve configuration on TRAIN_RANKS spawned
+    ranks, held to one process applying the mean of the two half-batch
+    gradients; before training the grafted model must be the int8 base
+    (B = 0), after it every frozen leaf bitwise its start; then greedy
+    generate with the adapted model. Returns the summed kernel launch
+    counts of the ranks' fit() runs."""
+    from tpunet_torch.models import Transformer
+
+    path = _ramp_data(seed)
+    model, state, qbase = _qlora_setup(seed)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, MODEL_735M["vocab"], (1, 512)), device=DEVICE)
+    base = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
+                       weight_quant="int8", **MODEL_735M)
+    with torch.no_grad():
+        graft_is_base = bool(torch.equal(
+            model.bind({k: v.detach() for k, v in state.params.items()})(
+                tokens), base.bind(qbase)(tokens)))
+    del state, qbase
+    torch.cuda.empty_cache()
+    ranks, ranks_wall = _spawn_ranks("qlora", path, seed)
+    model, state, _ = _qlora_setup(seed)
+    ref_crc, ref_losses = _half_batch_reference(model, state, [
+        list(itertools.islice(_train_batches(path, r, seed), TRAIN_STEPS))
+        for r in range(TRAIN_RANKS)])
+    del model, state
+    torch.cuda.empty_cache()
+    steady = _steady(ranks)
+    rank_losses = [list(x) for x in zip(*(r["losses"] for r in ranks))]
+    losses = [float(np.mean(x)) for x in rank_losses]
+    gen = ranks[0]["generate"]
+    summary = dict(
+        params=ranks[0]["params"], options=QLORA_OPTIONS,
+        adapter_params=[r["adapter_params"] for r in ranks],
+        int8_leaves=[r["int8_leaves"] for r in ranks],
+        ranks=TRAIN_RANKS, batch_per_rank=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, graft_is_base=graft_is_base, losses=losses,
+        rank_losses=rank_losses, reference_losses=ref_losses,
+        frozen_crc=[r["frozen_crc"] for r in ranks],
+        lora_b_off_zero=[r["lora_b_off_zero"] for r in ranks],
+        step_s=[r["step_s"] for r in ranks], steady_step_s=steady,
+        tokens_per_s=TRAIN_RANKS * TRAIN_BATCH * TRAIN_SEQ / steady,
+        all_reduce_s_per_step=[r["all_reduce"]["seconds"] / TRAIN_STEPS
+                               for r in ranks],
+        all_reduce_bytes_per_step=[r["all_reduce"]["bytes"] / TRAIN_STEPS
+                                   for r in ranks],
+        peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+        opt_state_bytes_per_rank=[r["opt_state_bytes"] for r in ranks],
+        fit_wall_s=[r["fit_wall_s"] for r in ranks], ranks_wall_s=ranks_wall,
+        launches=[r["launches"] for r in ranks],
+        input_copies=[r["input_copies"] for r in ranks],
+        crc=[r["crc"] for r in ranks], reference_crc=ref_crc, generate=gen)
+    log("qlora", **summary)
+    if summary["adapter_params"] != [QLORA_ADAPTER_PARAMS] * TRAIN_RANKS:
+        raise AssertionError(f"adapter params {summary['adapter_params']}, "
+                             f"expected {QLORA_ADAPTER_PARAMS}")
+    if not graft_is_base:
+        raise AssertionError("the grafted model's logits differ from the "
+                             "int8 base model's before training (B = 0)")
+    if len(set(summary["crc"])) != 1 or summary["crc"][0] != ref_crc or (
+            rank_losses != ref_losses):
+        raise AssertionError("the QLoRA ranks differ from each other or "
+                             "from the single-process half-batch mean")
+    if any(a != b for a, b in summary["frozen_crc"]):
+        raise AssertionError("a frozen leaf (int8 q or scale, embed, a "
+                             "norm) moved")
+    if not all(summary["lora_b_off_zero"]):
+        raise AssertionError("a lora_b stayed at zero")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"QLoRA loss not finite and falling: {losses}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in COUNTERS}
+    want = _want_launches(1, TRAIN_STEPS)  # each rank's
+    if any(r["launches"] != want for r in ranks) or any(
+            summary["input_copies"]):
+        raise AssertionError(f"kernel launches on the qlora path "
+                             f"{summary['launches']}, expected {want} a "
+                             f"rank; input copies "
+                             f"{summary['input_copies']}")
+    prefills = len(gen["prompts"]) * MODEL_735M["n_layers"]
+    if gen["launches"] != {"flash_fwd": prefills, "flash_dq": 0,
+                           "flash_dkv": 0} or gen["input_copies"]:
+        raise AssertionError(f"adapted generate launched {gen['launches']} "
+                             f"(want {prefills} forwards), input copies "
+                             f"{gen['input_copies']}")
+    if not (gen["shapes_ok"] and gen["in_vocab"]):
+        raise AssertionError("adapted generate gave tokens outside the "
+                             "vocab or of the wrong shape")
+    return launches
+
+
+def _a2a_send(seed: int, rank: int) -> np.ndarray:
+    rng = np.random.default_rng(seed * 100 + rank)
+    return (rng.standard_normal((A2A_WORLD, A2A_N)) * (rank + 1)).astype(
+        np.float32)
+
+
+def _a2a_rank_body(rank: int, ports, path, seed: int) -> dict:
+    """(a) every all-to-all against its oracle and (c) the MoE layer's
+    dispatch round trip, on one rank; returns what failed, if anything,
+    and the round trip's times."""
+    from tpunet_torch import distributed, interop, transport
+    from tpunet_torch.collectives import Communicator
+    from tpunet_torch.workloads import MoeDispatcher, route_tokens
+
+    del path
+    w = A2A_WORLD
+    sends = [_a2a_send(seed, r) for r in range(w)]
+    mine = sends[rank]
+    bad = []
+
+    def check(name, got, want):
+        if np.asarray(got).tobytes() != np.asarray(want).tobytes():
+            bad.append(name)
+
+    for i, wire in enumerate(("f32", "bf16", "int8")):
+        with Communicator(f"127.0.0.1:{ports[i]}", rank, w,
+                          wire_dtype=wire) as comm:
+            got = comm.all_to_all_typed(mine)
+            for j in range(w):
+                want = sends[j][rank]
+                if j != rank and wire != "f32":
+                    want = transport.codec_decode(transport.codec_encode(
+                        np.ascontiguousarray(want), wire), wire, A2A_N)
+                check(f"typed {wire} block {j}", got[j], want)
+            if wire == "f32":
+                transpose = np.stack([s[rank] for s in sends])
+                check("bytes f16", comm.all_to_all(mine.astype(np.float16)),
+                      transpose.astype(np.float16))
+                red = comm.iall_reduce(mine[0].copy())
+                pend = comm.iall_to_all(mine)
+                check("iall_to_all", pend.wait(), transpose)
+                total = sum(s[0].astype(np.float64) for s in sends)
+                if not np.allclose(red.wait(), total, rtol=1e-5, atol=1e-5):
+                    bad.append("iall_reduce beside iall_to_all")
+    distributed.initialize(f"127.0.0.1:{ports[3]}", rank, w)
+    dev = interop.dcn_all_to_all(torch.as_tensor(mine, device=DEVICE))
+    if dev.device.type != torch.device(DEVICE).type:
+        bad.append("dcn_all_to_all left the card")
+    check("dcn_all_to_all", dev.cpu().numpy(),
+          distributed.global_communicator().all_to_all(mine))
+
+    # (c) The MoE layer's widths through the dispatcher, f32 wire.
+    cfg = A2A_LAYER
+    comm = distributed.global_communicator()
+    disp = MoeDispatcher(comm, d_model=cfg["d_model"],
+                         capacity=cfg["capacity"])
+    rng = np.random.default_rng(seed * 100 + 50 + rank)
+    toks = rng.standard_normal((cfg["tokens"], cfg["d_model"])).astype(
+        np.float32)
+    times, drops = [], []
+    for _ in range(cfg["rounds"]):
+        experts = route_tokens(cfg["tokens"], w, cfg["skew"], rng)
+        dropped0 = disp.tokens_dropped
+        comm.barrier()
+        t0 = time.perf_counter()
+        recv, _ = disp.dispatch(toks, experts)
+        out = disp.combine(recv * 2.0)
+        times.append(time.perf_counter() - t0)
+        kept = disp._kept
+        check("round trip kept rows", out[kept], toks[kept] * 2.0)
+        if out[~kept].any():
+            bad.append("a dropped row came back non-zero")
+        # Each expert keeps its first `capacity` tokens in token order.
+        over = np.bincount(experts, minlength=w) - cfg["capacity"]
+        drops.append(disp.tokens_dropped - dropped0)
+        if not drops[-1] == int((~kept).sum()) == int(np.maximum(over,
+                                                                 0).sum()):
+            bad.append("drop count differs from pack's")
+    distributed.finalize()
+    buf_bytes = w * cfg["capacity"] * cfg["d_model"] * 4
+    return dict(rank=rank, failed=bad, round_trip_s=times, dropped=drops,
+                drop_fraction=disp.drop_fraction, buffer_bytes=buf_bytes)
+
+
+def _moe_bench_rank_body(rank: int, ports, path, seed: int) -> dict:
+    """(b) benchmarks/moe_bench.py's rank at its defaults through the
+    port's MoeDispatcher: a latency-class dispatcher beside a bulk-class
+    all-reduce tenant under the QoS gate. The bulk loop stops by a vote
+    carried in its own all-reduce, so every rank runs the same count."""
+    os.environ.update(MOE_BENCH_ENV)
+    import threading as th
+
+    from tpunet_torch import telemetry
+    from tpunet_torch.collectives import Communicator
+    from tpunet_torch.workloads import MoeDispatcher, route_tokens
+
+    del path, seed
+    b, w = MOE_BENCH, A2A_WORLD
+    lat = Communicator(f"127.0.0.1:{ports[0]}", rank, w, wire_dtype="f32",
+                       traffic_class="latency")
+    blk = Communicator(f"127.0.0.1:{ports[1]}", rank, w,
+                       traffic_class="bulk")
+    rng = np.random.default_rng(123 + rank)
+    disp = MoeDispatcher(lat, d_model=b["d_model"], capacity=b["capacity"])
+    grad = np.full(b["bulk_bytes"] // 4, 0.5, np.float32)
+    disp.dispatch(rng.standard_normal((8, b["d_model"])).astype(np.float32),
+                  route_tokens(8, w, b["skew"], rng))
+    disp.combine(np.zeros((w, b["capacity"], b["d_model"]), np.float32))
+    blk.all_reduce(np.ones(1024, np.float32))
+    lat.barrier()
+    telemetry.reset()
+    disp.tokens_routed = disp.tokens_dropped = 0
+    stop = th.Event()
+    bulk_iters = [0]
+
+    def bulk_loop():
+        while True:
+            grad[-1] = 1.0 if stop.is_set() else 0.0
+            blk.all_reduce(grad, inplace=True)
+            bulk_iters[0] += 1
+            if grad[-1] > 0 and bulk_iters[0] >= b["bulk_min_iters"]:
+                return
+
+    bt = th.Thread(target=bulk_loop, daemon=True)
+    bt.start()
+    lat_us = []
+    for _ in range(b["steps"]):
+        toks = rng.standard_normal((b["tokens"], b["d_model"])).astype(
+            np.float32)
+        experts = route_tokens(b["tokens"], w, b["skew"], rng)
+        t0 = time.perf_counter()
+        expert_toks, _ = disp.dispatch(toks, experts)
+        disp.combine(expert_toks * 2.0)
+        lat_us.append((time.perf_counter() - t0) * 1e6)
+    stop.set()
+    bt.join(timeout=120)
+    wedged = bt.is_alive()
+    m = telemetry.metrics()
+    a2a, by_class = {}, {}
+    for key, v in m.get("tpunet_a2a_bytes_total", {}).items():
+        lab = telemetry.labels(key)
+        a2a[f"{lab['stage']}.{lab['dir']}"] = int(v)
+    for key, v in m.get("tpunet_qos_bytes_total", {}).items():
+        lab = telemetry.labels(key)
+        by_class[f"{lab['class']}.{lab['dir']}"] = int(v)
+    if not wedged:
+        lat.close()
+        blk.close()
+    return dict(rank=rank, steps=len(lat_us), bulk_iters=bulk_iters[0],
+                bulk_wedged=wedged,
+                p99_queue_wait_us=_class_p99_us(m, "latency"),
+                a2a_bytes=a2a, qos_bytes=by_class,
+                dispatch_us=_quantiles(lat_us),
+                drop_fraction=disp.drop_fraction)
+
+
+def phase_a2a(seed: int) -> None:
+    """The all-to-alls and the MoE dispatcher on A2A_WORLD ranks spawned on
+    this card: (a) and (c) in one spawn, (b) in another with
+    benchmarks/moe_bench.py's env (the QoS gate is read at a process's
+    first engine)."""
+    t0 = time.perf_counter()
+    ranks, _ = _spawn_ranks("a2a", None, seed, A2A_WORLD)
+    bench, _ = _spawn_ranks("moe_bench", None, seed, A2A_WORLD)
+    b = MOE_BENCH
+    rt = [s for r in ranks for s in r["round_trip_s"]]
+    buf = ranks[0]["buffer_bytes"]
+    # A typed block is capacity x d f32; each dispatch and each combine
+    # ships W - 1 of them, and the counts' byte all-to-all W - 1 x 8 bytes.
+    blk_bytes = b["capacity"] * b["d_model"] * 4
+    a2a_tx = b["steps"] * (A2A_WORLD - 1) * (2 * blk_bytes + 8)
+    bulk_tx = b["bulk_min_iters"] * b["bulk_bytes"] * 2 * (
+        A2A_WORLD - 1) // A2A_WORLD
+    summary = dict(
+        world=A2A_WORLD, failed={r["rank"]: r["failed"] for r in ranks},
+        layer=A2A_LAYER, buffer_bytes=buf,
+        round_trip_p50_s=float(np.percentile(rt, 50)),
+        round_trip_p99_s=float(np.percentile(rt, 99)),
+        # Both buffers (dispatch and combine) of one rank over its round
+        # trip, and the off-rank share the wire carries.
+        round_trip_gb_per_s=2 * buf / float(np.percentile(rt, 50)) / 1e9,
+        wire_gb_per_s=2 * buf * (A2A_WORLD - 1) / A2A_WORLD
+        / float(np.percentile(rt, 50)) / 1e9,
+        layer_drop_fraction=[r["drop_fraction"] for r in ranks],
+        layer_dropped=[r["dropped"] for r in ranks],
+        bench=dict(config=b, env=MOE_BENCH_ENV,
+                   per_rank=[{k: v for k, v in r.items() if k != "rank"}
+                             for r in bench]),
+        bench_a2a_tx_expected=a2a_tx, bench_bulk_tx_min=bulk_tx,
+        wall_s=time.perf_counter() - t0)
+    log("a2a", **summary)
+    if any(summary["failed"].values()):
+        raise AssertionError(f"all-to-all checks failed: {summary['failed']}")
+    for r in bench:
+        p99 = r["p99_queue_wait_us"]
+        if r["bulk_wedged"] or r["steps"] != b["steps"]:
+            raise AssertionError(f"moe_bench rank {r['rank']} wedged or "
+                                 f"short: {r['steps']} steps")
+        if p99 is None or p99 > b["p99_budget_us"]:
+            raise AssertionError(f"moe_bench rank {r['rank']}: latency p99 "
+                                 f"queue wait {p99} us")
+        if r["bulk_iters"] < b["bulk_min_iters"] or r["qos_bytes"].get(
+                "bulk.tx", 0) < bulk_tx:
+            raise AssertionError(f"moe_bench rank {r['rank']}: bulk tenant "
+                                 f"starved: {r['bulk_iters']} iters, "
+                                 f"{r['qos_bytes']}")
+        if r["qos_bytes"].get("latency.tx", 0) <= 0 or r["a2a_bytes"].get(
+                "flat.tx") != a2a_tx:
+            raise AssertionError(f"moe_bench rank {r['rank']}: a2a bytes "
+                                 f"{r['a2a_bytes']}, expected flat.tx "
+                                 f"{a2a_tx}; {r['qos_bytes']}")
+
+
 # The paths of the other kernel routes, each a user's training run through
 # the trainer's entry points (create_train_state, make_train_step; adamw,
 # no remat) for PATH_STEPS steps on one batch of random tokens, held to the
@@ -3382,6 +4001,9 @@ def main() -> int:
     phase_zero(args.seed, train)
     phase_remat(args.seed)
     phase_vgg(args.seed)
+    by_path = {"train": train_launches, "moe": phase_moe(args.seed),
+               "qlora": phase_qlora(args.seed)}
+    phase_a2a(args.seed)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []
@@ -3391,9 +4013,13 @@ def main() -> int:
                 ("flash_dq", "flash_bwd.cu", 136, "max_abs_err"),
                 ("flash_dkv", "flash_bwd.cu", 183, "max_abs_err")):
             name = kernel + route
-            kernels.append(_kernel_entry(
+            entry = _kernel_entry(
                 name, src + source, f"tpunet/ops/flash_attention.py:{line}",
-                launches[name], rows[name], err_key))
+                launches[name], rows[name], err_key)
+            if not route:
+                entry["launches_by_path"] = {
+                    path: counts[name] for path, counts in by_path.items()}
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,6 +66,11 @@ def _rank_data(rank):
             rng.standard_normal(301).astype(np.float32))
 
 
+def _a2a_blocks(rank, world):
+    return (10 * rank + np.arange(world, dtype=np.float32)[:, None]
+            + np.zeros((world, 3), np.float32))
+
+
 def _collectives_worker(rank, world, q, port):
     def body():
         from tpunet_torch import distributed, interop
@@ -116,8 +121,13 @@ def _collectives_worker(rank, world, q, port):
              for k in (1, 2)]
         out["max_in_flight"] = interop.dcn_async_stats()["max_in_flight"]
         out["ticket"] = [interop.dcn_all_reduce_finish(x).numpy() for x in t]
-        with pytest.raises(NotImplementedError, match="MoE"):
-            comm.all_to_all(np.zeros((world, 2), np.float32))
+        # The all-to-alls (ported with the MoE slice): rank r sends block
+        # j = 10 * r + j's rows to rank j.
+        a2a_in = _a2a_blocks(rank, world)
+        out["a2a"] = comm.all_to_all(a2a_in)
+        out["a2a_typed"] = comm.all_to_all_typed(a2a_in)
+        out["dcn_a2a"] = interop.dcn_all_to_all(
+            torch.from_numpy(a2a_in)).numpy()
         with pytest.raises(NotImplementedError, match="sequence-parallel"):
             comm.neighbor_exchange(np.zeros(2, np.float32))
         interop.dcn_barrier()
@@ -172,6 +182,10 @@ def test_collectives_match_numpy_2proc():
         for s in (stats, stats["reduce_scatter"], stats["all_gather"]):
             assert s["seconds"] >= s["collective_seconds"] > 0
         assert got["max_in_flight"] == 2
+        # Block j of rank r's result came from rank j: 10 * j + r.
+        want_a2a = np.stack([_a2a_blocks(j, world)[r] for j in range(world)])
+        for key in ("a2a", "a2a_typed", "dcn_a2a"):
+            np.testing.assert_array_equal(got[key], want_a2a, err_msg=key)
         np.testing.assert_array_equal(got["ticket"][0], f32_sum)
         np.testing.assert_array_equal(got["ticket"][1],
                                       data[0][0] * 2 + data[1][0] * 2)
@@ -263,18 +277,40 @@ def test_psum_requires_initialize():
 
 
 @pytest.mark.parametrize("name,slice_", [
-    ("dcn_all_to_all", "MoE"), ("dcn_neighbor_exchange", "sequence-parallel"),
+    ("dcn_all_to_all", None), ("dcn_neighbor_exchange", "sequence-parallel"),
     ("hierarchical_psum", "later training slice")])
 def test_later_slice_collectives_raise(name, slice_):
     from tpunet_torch import interop
 
     # hierarchical_psum's DCN tier is ported; its in-pod tier (a mesh
     # axis) waits for the mesh of ROADMAP A.6.
+    if slice_ is None:
+        _dcn_all_to_all_parity()
+        return
     kw = {"axis_name": "ici"} if name == "hierarchical_psum" else {}
     with pytest.raises(NotImplementedError, match=slice_) as err:
         getattr(interop, name)(torch.ones(2), **kw)
     if kw:
         assert "A.6" in str(err.value)
+
+
+def _dcn_all_to_all_parity():
+    """dcn_all_to_all, ported with the MoE slice, at world 1 (the block
+    comes back) and against the communicator's own call; a leading axis
+    other than the world is refused."""
+    from tpunet_torch import distributed, interop
+
+    comm = distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        x = torch.arange(12, dtype=torch.int16).reshape(1, 3, 4)
+        got = interop.dcn_all_to_all(x)
+        assert got.dtype == torch.int16 and torch.equal(got, x)
+        np.testing.assert_array_equal(comm.all_to_all(x.numpy()),
+                                      got.numpy())
+        with pytest.raises(ValueError, match="leading axis"):
+            interop.dcn_all_to_all(torch.ones(2, 3))
+    finally:
+        distributed.finalize()
 
 
 # -- the cross-host train step ---------------------------------------------

@@ -15,7 +15,7 @@ Coverage, each case beside its counterpart in tests/test_publish.py:
     flatten_params(tree) (order, layout, f32), the same bf16 wire and
     CRC32C; unflatten and the bf16 round trip bitwise; truncation, the
     receiver deadline, the version rule and the abandoned wedged broadcast
-    thread typed.
+    thread typed; one native 1 MiB piece per broadcast call on both ends.
   * The tier (router + prefill on this thread, decode ranks on threads,
     real loopback comms, f32 KV wire): a hot swap keeps old sessions on v0
     and serves new ones on v1, every token bitwise the JAX generate oracle
@@ -455,6 +455,64 @@ def test_publish_abandons_wedged_broadcast_thread(monkeypatch):
     assert time.monotonic() - t0 < 5.0, "abandon did not bound the wait"
     assert pub.stats["aborts"] == 1 and pub.phase is None
     wedge.set()  # release the deliberately leaked daemon thread
+
+
+def test_broadcast_calls_carry_one_native_piece(monkeypatch):
+    """Whatever the chunk size, every broadcast call of a publication moves
+    at most one 1 MiB native pipeline piece, on the publisher and on the
+    receiver alike: a call of several pieces lets a later piece hold the
+    QoS wire credit the receiver's awaited piece needs, and both ends park
+    until the watchdog. A 2.5 MiB chunk that is no whole number of pieces
+    still gives the receiver the sent wire byte for byte (real loopback
+    comms, receiver on a thread)."""
+    sizes: dict[int, list[int]] = {0: [], 1: []}
+    bcast = publish.Communicator.broadcast
+
+    def spy(self, arr, root=0, out=None):
+        sizes[self.rank].append(int(np.asarray(arr).nbytes))
+        return bcast(self, arr, root=root, out=out)
+
+    monkeypatch.setattr(publish.Communicator, "broadcast", spy)
+    nelems = (5 << 20) // 4 + 61  # 2.5 MiB + 122 B of bf16 wire
+    wire = np.random.default_rng(0).integers(
+        0, 256, transport.codec_wire_bytes("bf16", nelems)).astype(np.uint8)
+    box: dict = {}
+
+    def receive(ann):
+        try:
+            recv = publish.WeightReceiver(ann, {})
+            deadline = time.monotonic() + 60
+            while not recv.pump():
+                assert time.monotonic() < deadline, "receiver never done"
+                time.sleep(0.002)
+            box["wire"] = recv.wire
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            box["err"] = e
+
+    class _Link:
+        def send_frame(self, ftype, token, payload):
+            assert ftype == proto.T_SWAP_BEGIN
+            thread = threading.Thread(
+                target=receive, args=(proto.unpack_swap_begin(payload),))
+            thread.start()
+            box["thread"] = thread
+
+    class _Rank:
+        alive, index, link = True, 0, _Link()
+
+    class _Router:
+        _ranks = [_Rank()]
+
+    pub = publish.WeightPublisher(_Router(), chunk_bytes=5 << 19,
+                                  timeout_ms=60_000)
+    pub._broadcast_to(_Router._ranks, 1, 1, wire, nelems,
+                      time.monotonic() + 60, pump=lambda: None)
+    box["thread"].join(timeout=60)
+    assert "err" not in box, box.get("err")
+    assert box["wire"].tobytes() == wire.tobytes()
+    mib = 1 << 20
+    tail = wire.size - 5 * mib // 2
+    assert sizes[0] == sizes[1] == [mib, mib, mib // 2, tail]
 
 
 # ---------------------------------------------------------------------------

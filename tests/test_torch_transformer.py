@@ -226,13 +226,18 @@ def test_greedy_generate_matches_jax_where_margin_allows():
 
 
 def test_unported_options_raise_not_implemented():
-    """MoE, LoRA and the sequence-parallel impls are later slices; int8
-    weights and the ring decode cache are ported (their parity tests are
-    test_torch_quant.py and test_torch_ring_cache.py)."""
-    for kw in ({"n_experts": 4}, {"lora_rank": 2}, {"attn_impl": "ring"}):
-        with pytest.raises(NotImplementedError):
+    """The sequence-parallel impls and the mesh are later slices (ROADMAP
+    A.6); int8 weights, the ring decode cache, MoE and LoRA are ported
+    (their parity tests are test_torch_quant.py, test_torch_ring_cache.py,
+    test_torch_moe.py and test_torch_lora.py)."""
+    for kw in ({"attn_impl": "ring"}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError, match="A.6"):
             Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4,
                         d_ff=64, device="cpu", **kw)
+    moe = Transformer(vocab=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,
+                      device="cpu", n_experts=4, lora_rank=2)
+    assert moe.block1.is_moe and not moe.block0.is_moe
+    assert tuple(moe.block0.mlp.up.lora_a.shape) == (32, 2)
     quant = Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4,
                         d_ff=64, device="cpu", weight_quant="int8")
     assert quant.lm_head.q.dtype == torch.int8

@@ -11,11 +11,12 @@ The reductions take float32, float64, bfloat16, int32, int64 and uint8.
 numpy has no bfloat16 without ``ml_dtypes`` (which the JAX package uses and
 the port does not depend on), so bfloat16 is passed as a ``torch.bfloat16``
 tensor: its ``data_ptr()`` goes to the native layer with dtype code 2. Ops:
-sum, prod, min, max. ``all_gather`` and ``broadcast`` move raw bytes, so
-they take any dtype.
+sum, prod, min, max. ``all_gather``, ``broadcast``, ``all_to_all`` and
+``iall_to_all`` move raw bytes, so they take any dtype;
+``all_to_all_typed`` takes the reductions' dtypes and compresses float32
+blocks on a bf16 or int8 wire.
 
-``all_to_all``/``all_to_all_typed``/``iall_to_all`` wait for the MoE slice
-of the port and ``neighbor_exchange`` for the sequence-parallel slice.
+``neighbor_exchange`` waits for the sequence-parallel slice (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -261,18 +262,52 @@ class Communicator:
             self._id, out.ptr, out.nbytes, root), "broadcast")
         return out.obj
 
+    def _a2a_bufs(self, arr: Any, typed: bool) -> tuple[_Buf, _Buf]:
+        """(send, recv) buffers of an all-to-all: `arr`'s leading axis is
+        the world, block j bound for rank j."""
+        buf = _Buf(arr, typed)
+        if not buf.shape or buf.shape[0] != self.world_size:
+            lead = buf.shape[0] if buf.shape else None
+            raise ValueError(f"leading axis {lead} must equal world size "
+                             f"{self.world_size}")
+        return buf, buf.empty()
+
     def all_to_all(self, arr: Any):
-        raise NotImplementedError(
-            "all_to_all belongs to the MoE slice of the port (ROADMAP A.5)")
+        """arr: leading axis == world_size, block j destined for rank j.
+        Returns the same shape with block j originating at rank j (the
+        cross-host MoE dispatch and Ulysses primitive). Moves raw bytes:
+        any dtype."""
+        buf, out = self._a2a_bufs(arr, typed=False)
+        _native.check(self._lib.tpunet_comm_all_to_all(
+            self._id, buf.ptr, out.ptr, buf.nbytes // self.world_size),
+            "all_to_all")
+        return out.obj
 
     def all_to_all_typed(self, arr: Any):
-        raise NotImplementedError(
-            "all_to_all_typed belongs to the MoE slice of the port "
-            "(ROADMAP A.5)")
+        """Typed AllToAll: like `all_to_all`, but blocks count ELEMENTS of
+        the array's dtype (the reductions' dtypes), and float32 blocks
+        honour the negotiated wire codec (``wire_dtype="bf16"``/"int8"):
+        every non-self block is encoded once at the source (int8 scale
+        blocks restart per (src, dst) block) and decoded once at the
+        destination; the self block arrives exact. The MoE
+        dispatch/combine primitive (``tpunet_torch.workloads.moe``)."""
+        buf, out = self._a2a_bufs(arr, typed=True)
+        _native.check(self._lib.tpunet_comm_all_to_all_typed(
+            self._id, buf.ptr, out.ptr, buf.size // self.world_size,
+            buf.code), "all_to_all_typed")
+        return out.obj
 
-    def iall_to_all(self, arr: Any):
-        raise NotImplementedError(
-            "iall_to_all belongs to the MoE slice of the port (ROADMAP A.5)")
+    def iall_to_all(self, arr: Any) -> AsyncResult:
+        """Nonblocking byte AllToAll: returns at once with an AsyncResult
+        whose `wait()` yields the result. Mesh-routed schedules run on the
+        communicator's mesh worker, so it overlaps an async all-reduce;
+        submission order across ranks must match, as for iall_reduce."""
+        buf, out = self._a2a_bufs(arr, typed=False)
+        ticket = ctypes.c_uint64(0)
+        _native.check(self._lib.tpunet_comm_iall_to_all(
+            self._id, buf.ptr, out.ptr, buf.nbytes // self.world_size,
+            ctypes.byref(ticket)), "iall_to_all")
+        return AsyncResult(self, ticket.value, buf.obj, out.obj)
 
     def neighbor_exchange(self, arr: Any):
         raise NotImplementedError(

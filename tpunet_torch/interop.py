@@ -254,8 +254,15 @@ def dcn_barrier() -> None:
 
 
 def dcn_all_to_all(x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "dcn_all_to_all belongs to the MoE slice of the port (ROADMAP A.5)")
+    """AllToAll across processes: `x`'s leading axis is the world, block j
+    goes to process j, and the result's block j came from process j
+    (shape-preserving; raw bytes, any dtype). A CUDA tensor is staged
+    through pinned host memory and the result comes back on its device."""
+    w = distributed.world_size()
+    if x.dim() == 0 or x.shape[0] != w:
+        raise ValueError(f"leading axis must equal world size {w}, got "
+                         f"{tuple(x.shape)}")
+    return _to_device(_comm().all_to_all(_to_host(x)), x.device)
 
 
 def dcn_neighbor_exchange(x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,13 @@ dense layers (``QuantDense``) hold ``{q, scale}`` instead of ``kernel``:
 kernel, and never cast; ``scale`` is (out,) f32 either way. (The
 attention's Dense named ``q`` then has a leaf ``q``:
 ``block{i}/attn/q/q`` <-> ``block{i}.attn.q.q``.)
+An MoE block's ``block{i}/moe/{router,wi,wo}`` are einsum weights, not
+Dense kernels: they keep flax's layout, (d, e), (e, d, f) and (e, f, d),
+and are never transposed. A LoRA model's dense layers nest the base one
+level deeper, ``…/q/base/kernel`` <-> ``….q.base.weight`` (or
+``base/q`` and ``base/scale`` over an int8 base, QLoRA), and keep
+``lora_a`` (in, r) and ``lora_b`` (r, out) in flax's layout, untransposed
+(``LoraDense`` computes x · A · B).
 `to_flax(from_flax(tree))` gives back the tree bitwise.
 """
 

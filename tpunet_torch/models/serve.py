@@ -84,6 +84,15 @@ class BatchServer:
         if refill_coalesce < 1:
             raise ValueError(
                 f"refill_coalesce must be >= 1, got {refill_coalesce}")
+        if getattr(model, "n_experts", 0):
+            # MoE capacity is computed batch-wide (t = b*s slots claimed by
+            # a cross-row cumulative count), so other rows' tokens, idle
+            # ones included, change which of a live row's tokens are
+            # dropped: the per-slot parity contract cannot hold.
+            raise ValueError(
+                "BatchServer requires a dense model: MoE capacity couples "
+                "rows (batch-wide expert slots), breaking per-slot "
+                "independence")
         self.device = _device.resolve(device)
         if generator is not None and not _device.same(generator.device,
                                                       self.device):

@@ -49,8 +49,16 @@ rules). ``weight_quant="int8"`` makes every dense layer a ``QuantDense``
 (int8 weight and f32 per-output-channel scale, from
 ``quant.quantize_params``); it is an inference path.
 
-Options of the flax model that belong to later slices of the port (MoE,
-LoRA, the sequence-parallel attention impls) raise NotImplementedError.
+``n_experts`` > 0 makes every ``moe_every``-th block's MLP a ``MoeMlp``
+(block i when (i + 1) % moe_every == 0) with ``moe_top_k`` choices a token
+and ``capacity_factor``; the trainer adds the blocks' load-balancing loss
+(``forward(..., moe_aux=[])`` hands it out). ``lora_rank`` > 0 makes every
+dense layer (q, k, v, out, gate, up, down, lm_head) a ``LoraDense``, over
+an int8 base too (QLoRA); ``models.lora`` holds the workflow around it.
+
+Options of the flax model that belong to later slices of the port (the
+sequence-parallel attention impls, ``mesh``) raise NotImplementedError
+naming ROADMAP A.6.
 """
 
 from __future__ import annotations
@@ -143,11 +151,46 @@ class QuantDense(nn.Module):
         return F.linear(x.to(dt), self.q.to(dt)) * self.scale.to(dt)
 
 
-def _dense(in_features, features, dtype, device=None, weight_quant=None):
+class LoraDense(nn.Module):
+    """Dense with a rank-r LoRA adapter, flax ``LoraDense``: y = base(x) +
+    ((x · A) · B) · (alpha / r), computed in the compute dtype. The base (a
+    ``Dense``, or a ``QuantDense`` under weight_quant="int8": QLoRA) lives
+    under ``.base`` with its ordinary leaves; ``lora_a`` (in, r) and
+    ``lora_b`` (r, out) are f32 in flax's layout (x · A, not a torch
+    weight). B starts at zero, so a freshly adapted model is bitwise the
+    base model; ``models.lora`` trains only A and B."""
+
+    def __init__(self, in_features: int, features: int, rank: int, dtype,
+                 alpha: float | None = None, quant: bool = False,
+                 device=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.base = (QuantDense if quant else Dense)(
+            in_features, features, dtype, device=device)
+        self.lora_a = nn.Parameter(
+            torch.empty(in_features, rank, device=device))
+        self.lora_b = nn.Parameter(torch.zeros(rank, features, device=device))
+        # flax multiplies by the scale as a compute-dtype scalar.
+        scale = (alpha if alpha is not None else rank) / rank
+        self.scale = float(torch.tensor(scale, dtype=dtype))
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        delta = (x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
+        return self.base(x) + delta * self.scale
+
+
+def _dense(in_features, features, dtype, device=None, weight_quant=None,
+           lora_rank=0, lora_alpha=None):
     """The dense factory every matmul goes through: fp by default,
     QuantDense under weight_quant="int8" (the same module names, so the
     quantized state_dict is the fp one with each ``weight`` swapped for
-    ``q`` and ``scale``). LoraDense comes with the model options slice."""
+    ``q`` and ``scale``), and LoraDense when lora_rank > 0 (the base's
+    leaves under ``.base``, the adapters beside it)."""
+    if lora_rank > 0:
+        return LoraDense(in_features, features, lora_rank, dtype,
+                         alpha=lora_alpha, quant=weight_quant is not None,
+                         device=device)
     if weight_quant is None:
         return Dense(in_features, features, dtype, device=device)
     return QuantDense(in_features, features, dtype, device=device)
@@ -168,7 +211,7 @@ def _causal_kernel_attention(q, k, v, attn_impl, window):
 class SelfAttention(nn.Module):
     def __init__(self, d_model, n_heads, head_dim, compute_dtype, attn_impl,
                  n_kv_heads, attn_window, decode_ring_cache=True,
-                 weight_quant=None, device=None):
+                 weight_quant=None, lora=(0, None), device=None):
         super().__init__()
         kv = n_kv_heads or n_heads
         if n_heads % kv:
@@ -181,10 +224,10 @@ class SelfAttention(nn.Module):
         # The decode cache is a rolling ring (leaves of min(window, cap)).
         self.ring = attn_window is not None and decode_ring_cache
         dt, wq = compute_dtype, weight_quant
-        self.q = _dense(d_model, n_heads * head_dim, dt, device, wq)
-        self.k = _dense(d_model, kv * head_dim, dt, device, wq)
-        self.v = _dense(d_model, kv * head_dim, dt, device, wq)
-        self.out = _dense(n_heads * head_dim, d_model, dt, device, wq)
+        self.q = _dense(d_model, n_heads * head_dim, dt, device, wq, *lora)
+        self.k = _dense(d_model, kv * head_dim, dt, device, wq, *lora)
+        self.v = _dense(d_model, kv * head_dim, dt, device, wq, *lora)
+        self.out = _dense(n_heads * head_dim, d_model, dt, device, wq, *lora)
 
     def forward(self, x, cache=None, prefill=False, prefix=""):
         b, s, _ = x.shape
@@ -325,16 +368,16 @@ class Mlp(nn.Module):
     "swiglu" (silu(gate) * up -> down)."""
 
     def __init__(self, d_model, d_ff, compute_dtype, mlp_impl,
-                 weight_quant=None, device=None):
+                 weight_quant=None, lora=(0, None), device=None):
         super().__init__()
         if mlp_impl not in ("gelu", "swiglu"):
             raise ValueError(f"unknown mlp_impl {mlp_impl!r}")
         self.mlp_impl = mlp_impl
         dt, wq = compute_dtype, weight_quant
         if mlp_impl == "swiglu":
-            self.gate = _dense(d_model, d_ff, dt, device, wq)
-        self.up = _dense(d_model, d_ff, dt, device, wq)
-        self.down = _dense(d_ff, d_model, dt, device, wq)
+            self.gate = _dense(d_model, d_ff, dt, device, wq, *lora)
+        self.up = _dense(d_model, d_ff, dt, device, wq, *lora)
+        self.down = _dense(d_ff, d_model, dt, device, wq, *lora)
 
     def forward(self, x):
         if self.mlp_impl == "swiglu":
@@ -344,31 +387,127 @@ class Mlp(nn.Module):
         return self.down(h)
 
 
+class MoeMlp(nn.Module):
+    """Top-k MoE with capacity-bounded one-hot dispatch, flax ``MoeMlp``
+    (top_k=1 is Switch routing, top_k=2 the GShard/Mixtral family).
+
+    ``router`` (d, e), ``wi`` (e, d, f) and ``wo`` (e, f, d) keep flax's
+    layout (they are not Dense kernels). The router's logits, softmax and
+    top-k run in f32; at k > 1 the gates are renormalised over the chosen
+    set. Each call's t = b·s tokens get cap = max(1, ceil(k·t/e ·
+    capacity_factor)) slots an expert, granted CHOICE-MAJOR by a cumulative
+    count (every token's first choice before any second choice); a choice
+    over capacity is dropped, so the residual passes the token. The expert
+    FFN is gelu(tanh)(x · wi) · wo in the compute dtype.
+
+    ``forward`` returns (y, aux): aux is the load-balancing loss e ·
+    Σ_e(frac_tokens · frac_probs) over the PRIMARY choice (the Switch
+    formula at k = 1), an output so that it survives a checkpointed block.
+    ``dropped`` holds the last call's share of (token, choice) pairs over
+    capacity (a 0-d tensor; for reports).
+
+    Determinism: no scatter, no atomics. flax's (t, k, e, cap) dispatch
+    tensor is only ever contracted summed over k, and a token's k choices
+    name k distinct experts, so the port builds the two (t, e·cap) sums
+    directly, one choice at a time: D (0/1: the dispatch) and C (the
+    gate-weighted combine). Each holds one nonzero a (token, choice), so
+    they are bitwise flax's k-summed tensors; every contraction is a
+    plain matrix product."""
+
+    def __init__(self, d_model, n_experts, d_ff, capacity_factor=1.25,
+                 compute_dtype=torch.bfloat16, top_k=1, device=None):
+        super().__init__()
+        if not 1 <= top_k <= n_experts:
+            raise ValueError(f"top_k {top_k} outside [1, n_experts="
+                             f"{n_experts}]")
+        self.n_experts, self.d_ff = n_experts, d_ff
+        self.capacity_factor = capacity_factor
+        self.compute_dtype = compute_dtype
+        self.top_k = top_k
+        e, d, f = n_experts, d_model, d_ff
+        self.router = nn.Parameter(torch.empty(d, e, device=device))
+        self.wi = nn.Parameter(torch.empty(e, d, f, device=device))
+        self.wo = nn.Parameter(torch.empty(e, f, d, device=device))
+        self.dropped = None
+
+    def capacity(self, tokens: int) -> int:
+        return max(1, int(math.ceil(self.top_k * tokens / self.n_experts
+                                    * self.capacity_factor)))
+
+    def forward(self, x):
+        b, s, d = x.shape
+        e, k, dt = self.n_experts, self.top_k, self.compute_dtype
+        t = b * s
+        cap = self.capacity(t)
+        xt = x.reshape(t, d)
+        probs = torch.softmax(xt.float() @ self.router.float(), dim=-1)
+        experts = torch.topk(probs.detach(), k, dim=-1).indices   # (t, k)
+        ids = torch.arange(e, device=x.device)
+        onehot = (experts[..., None] == ids).float()                # (t, k, e)
+        # The gates as products with the one-hots (no gather backward).
+        gates = (probs[:, None, :] * onehot).sum(-1)                # (t, k)
+        if k > 1:
+            gates = gates / gates.sum(-1, keepdim=True)
+        aux = e * torch.sum(onehot[:, 0, :].mean(0) * probs.mean(0))
+        # Slots: a cumulative count over the choice-major (k·t, e) rows,
+        # 1-based; a choice keeps its slot when it is within capacity.
+        oh = onehot.transpose(0, 1).to(torch.int32)                 # (k, t, e)
+        pos = (torch.cumsum(oh.reshape(k * t, e), 0, dtype=torch.int32)
+               .reshape(k, t, e) * oh).sum(-1)                      # (k, t)
+        keep = pos <= cap
+        self.dropped = (~keep).float().mean().detach()
+        cols = torch.arange(e * cap, device=x.device)
+        dispatch = combine = None
+        for j in range(k):
+            # This choice's (t, e·cap) one-hot; a dropped choice's row is 0.
+            where = torch.where(keep[j], experts[:, j] * cap + pos[j] - 1, -1)
+            p = (where[:, None] == cols).to(dt)
+            g = p * gates[:, j, None].to(dt)
+            dispatch = p if dispatch is None else dispatch + p
+            combine = g if combine is None else combine + g
+        xe = (dispatch.t() @ xt.to(dt)).reshape(e, cap, d)
+        hdn = F.gelu(torch.bmm(xe, self.wi.to(dt)), approximate="tanh")
+        ye = torch.bmm(hdn, self.wo.to(dt)).reshape(e * cap, d)
+        return (combine @ ye).reshape(b, s, d), aux
+
+
 class Block(nn.Module):
+    """Pre-norm attention + MLP block. With `n_experts` > 0 the MLP is a
+    ``MoeMlp`` (named ``moe``) and ``forward`` returns (x, aux loss)."""
+
     def __init__(self, d_model, n_heads, head_dim, d_ff, compute_dtype,
                  attn_impl, n_kv_heads, mlp_impl, attn_window,
-                 decode_ring_cache=True, weight_quant=None, device=None):
+                 decode_ring_cache=True, weight_quant=None, lora=(0, None),
+                 moe=(0, 1.25, 1), device=None):
         super().__init__()
         self.norm1 = RMSNorm(d_model, device=device)
         self.attn = SelfAttention(d_model, n_heads, head_dim, compute_dtype,
                                   attn_impl, n_kv_heads, attn_window,
-                                  decode_ring_cache, weight_quant,
+                                  decode_ring_cache, weight_quant, lora,
                                   device=device)
         self.norm2 = RMSNorm(d_model, device=device)
-        self.mlp = Mlp(d_model, d_ff, compute_dtype, mlp_impl, weight_quant,
-                       device=device)
+        n_experts, capacity_factor, top_k = moe
+        self.is_moe = n_experts > 0
+        if self.is_moe:
+            self.moe = MoeMlp(d_model, n_experts, d_ff, capacity_factor,
+                              compute_dtype, top_k, device=device)
+        else:
+            self.mlp = Mlp(d_model, d_ff, compute_dtype, mlp_impl,
+                           weight_quant, lora, device=device)
 
     def forward(self, x, cache=None, prefill=False, prefix=""):
         x = x + self.attn(self.norm1(x), cache, prefill, prefix + "attn/")
+        if self.is_moe:
+            y, aux = self.moe(self.norm2(x))
+            return x + y, aux
         return x + self.mlp(self.norm2(x))
 
 
 # Options of the flax model queued for later slices (ROADMAP.md queue A):
 # name -> (the only value this slice takes, the slice that brings it).
 _LATER = {
-    "n_experts": (0, "MoE (model options slice)"),
-    "lora_rank": (0, "LoRA (model options slice)"),
-    "mesh": (None, "mesh-sharded attention (sequence-parallel slice)"),
+    "mesh": (None, "mesh-sharded attention (sequence-parallel slice, "
+                   "ROADMAP A.6)"),
 }
 
 _aten = torch.ops.aten
@@ -397,7 +536,10 @@ class Transformer(nn.Module):
                  attn_window: int | None = None, flash_block_q: int = 128,
                  flash_block_k: int = 128, decode_ring_cache: bool = True,
                  remat: bool = False, remat_policy: str | None = None,
-                 weight_quant: str | None = None, device=None, **later):
+                 weight_quant: str | None = None, n_experts: int = 0,
+                 moe_every: int = 2, moe_top_k: int = 1,
+                 capacity_factor: float = 1.25, lora_rank: int = 0,
+                 lora_alpha: float | None = None, device=None, **later):
         super().__init__()
         self._kwargs = dict(
             vocab=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
@@ -405,13 +547,16 @@ class Transformer(nn.Module):
             n_kv_heads=n_kv_heads, mlp_impl=mlp_impl, attn_window=attn_window,
             flash_block_q=flash_block_q, flash_block_k=flash_block_k,
             decode_ring_cache=decode_ring_cache, remat=remat,
-            remat_policy=remat_policy, weight_quant=weight_quant)
+            remat_policy=remat_policy, weight_quant=weight_quant,
+            n_experts=n_experts, moe_every=moe_every, moe_top_k=moe_top_k,
+            capacity_factor=capacity_factor, lora_rank=lora_rank,
+            lora_alpha=lora_alpha)
         if remat_policy not in REMAT_POLICIES:
             # Validated even when remat is off, like the flax model.
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         if weight_quant not in (None, "int8"):
             raise ValueError(f"unknown weight_quant {weight_quant!r}")
-        if weight_quant is not None and later.get("n_experts", 0) > 0:
+        if weight_quant is not None and n_experts > 0:
             raise ValueError(
                 "weight_quant does not cover MoE expert einsum weights; "
                 "use a dense model or weight_quant=None")
@@ -426,7 +571,7 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r}: the sequence-parallel attention "
                 "impls are a later slice of the port (sequence-parallel "
-                "slice)")
+                "slice, ROADMAP A.6)")
         device = _device.resolve(device)
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads, self.d_ff = n_heads, d_ff
@@ -440,17 +585,23 @@ class Transformer(nn.Module):
         self.remat = remat
         self.remat_policy = remat_policy
         self.weight_quant = weight_quant
-        self.n_experts = 0
+        self.n_experts, self.moe_every = n_experts, moe_every
+        self.moe_top_k, self.capacity_factor = moe_top_k, capacity_factor
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
         head_dim = d_model // n_heads
+        lora = (lora_rank, lora_alpha)
         self.embed = nn.Parameter(torch.empty(vocab, d_model, device=device))
         for i in range(n_layers):
+            moe = n_experts > 0 and (i + 1) % moe_every == 0
             self.add_module(f"block{i}", Block(
                 d_model, n_heads, head_dim, d_ff, compute_dtype, attn_impl,
                 n_kv_heads, mlp_impl, attn_window, decode_ring_cache,
-                weight_quant, device=device))
+                weight_quant, lora,
+                (n_experts if moe else 0, capacity_factor, moe_top_k),
+                device=device))
         self.norm_f = RMSNorm(d_model, device=device)
         self.lm_head = _dense(d_model, vocab, compute_dtype, device,
-                              weight_quant)
+                              weight_quant, *lora)
 
     @property
     def head_dim(self) -> int:
@@ -466,17 +617,30 @@ class Transformer(nn.Module):
             "compute_dtype": str(self.compute_dtype).replace("torch.", ""),
             "attn_window": self.attn_window,
             "weight_quant": self.weight_quant,
+            "n_experts": self.n_experts,
+            "lora_rank": self.lora_rank,
         }
 
     def forward(self, tokens, train: bool = False,
                 features_only: bool = False, *, cache=None,
-                prefill: bool = False, rng=None):
+                prefill: bool = False, rng=None, moe_aux: list | None = None):
+        """Logits (or features). `moe_aux`, a list, receives each MoE
+        block's load-balancing loss in block order (flax's sown
+        ``intermediates/moe_aux_loss``), as a block output, so it keeps its
+        gradient under remat."""
         del train, rng  # no dropout in this family; kept for the trainer
         if self.weight_quant is not None and features_only:
             raise ValueError(
                 "weight_quant is incompatible with features_only: the "
                 "blockwise fused cross-entropy reads an fp lm_head weight "
                 "from the state_dict")
+        if self.lora_rank > 0 and features_only:
+            raise ValueError(
+                "lora_rank is incompatible with features_only: the "
+                "blockwise fused cross-entropy reads the lm_head weight, "
+                "but the adapted model nests it under 'base' (and the "
+                "lm_head adapters would be silently dropped) - merge_lora "
+                "first, or train without fused xent")
         dt = self.compute_dtype
         x = F.embedding(tokens, self.embed).to(dt)
         saved = REMAT_POLICIES[self.remat_policy]
@@ -490,6 +654,10 @@ class Transformer(nn.Module):
                 x = checkpoint(block, x, use_reentrant=False, **kw)
             else:
                 x = block(x, cache, prefill, f"block{i}/")
+            if block.is_moe:
+                x, aux = x
+                if moe_aux is not None:
+                    moe_aux.append(aux)
         x = self.norm_f(x)
         if features_only:
             return x.to(dt)
@@ -516,15 +684,27 @@ class Transformer(nn.Module):
         return Transformer(**{**self._kwargs, **overrides}, device="meta")
 
 
+def _fan_in(name: str, shape) -> int:
+    """flax lecun_normal's fan-in: the input axis times the receptive
+    field (every axis before the last two). A Dense weight here is (out,
+    in); the MoE leaves keep flax's layout, router (d, e), wi (e, d, f)
+    and wo (e, f, d), so wi's fan-in is e·d and wo's e·f."""
+    if name.endswith(".weight"):
+        return shape[1]
+    return math.prod(shape[:-1])
+
+
 def init_params(model: Transformer, *, seed: int, device=None,
                 dtype=None) -> dict:
     """Random parameters at the flax initialisers' scales, drawn from a
     torch.Generator seeded with `seed`: embed ~ normal(0.02), dense kernels
-    lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796), norm scales
-    ones. `dtype` pre-casts the dense kernels and the embedding (the norm
-    scales stay f32). An int8 model gets flax's zero skeleton for its int8
-    leaves and ones for their scales; its weights come from
-    ``quant.quantize_params`` of an fp state_dict."""
+    and the MoE router and experts lecun-normal (truncated normal, std
+    sqrt(1/fan_in)/0.8796, `_fan_in`), LoRA's A ~ normal(0.02) and B zeros,
+    norm scales ones. `dtype` pre-casts the dense kernels and the embedding
+    (the norm scales and the LoRA adapters stay f32). An int8 model gets
+    flax's zero skeleton for its int8 leaves and ones for their scales;
+    its weights come from ``quant.quantize_params`` of an fp state_dict
+    (and, adapted, ``lora.graft_base``)."""
     dev = _device.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -536,12 +716,13 @@ def init_params(model: Transformer, *, seed: int, device=None,
         if not p.is_floating_point():
             out[name] = torch.zeros(p.shape, dtype=p.dtype, device=dev)
             continue
-        t = torch.empty(p.shape, device=dev)
-        if name == "embed":
+        adapter = ".lora_" in name
+        t = torch.zeros(p.shape, device=dev)
+        if name == "embed" or name.endswith(".lora_a"):
             t.normal_(0.0, 0.02, generator=gen)
-        else:
-            std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
+        elif not adapter:
+            std = math.sqrt(1.0 / _fan_in(name, p.shape)) / 0.87962566103423978
             nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                   generator=gen)
-        out[name] = t.to(dtype) if dtype is not None else t
+        out[name] = t.to(dtype) if dtype is not None and not adapter else t
     return out

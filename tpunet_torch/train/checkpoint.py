@@ -109,9 +109,17 @@ def _restore_state(payload: dict, opt_payload: dict,
     zero = _zero_geometry(target.opt_state)
     dev = next(iter(target.params.values())).device
     if zero is None:
-        params = {k: nn.Parameter(payload["params"][k].to(
-            dev, target.params[k].dtype)) for k in target.params}
-        opt = _new_optimizer(target.opt_state, list(params.values()))
+        # Integer leaves (an int8 base) come back int8 and frozen.
+        params = {k: nn.Parameter(
+            payload["params"][k].to(dev, target.params[k].dtype),
+            requires_grad=target.params[k].is_floating_point())
+            for k in target.params}
+        # Over the target optimizer's own leaves, in its order: all of
+        # them, or the adapters alone (models.lora.lora_optimizer).
+        ids = {id(t): k for k, t in target.params.items()}
+        names = [ids[id(t)] for g in target.opt_state.param_groups
+                 for t in g["params"]]
+        opt = _new_optimizer(target.opt_state, [params[k] for k in names])
     else:
         params, shard = _zero_layout(
             {k: payload["params"][k] for k in target.params}, zero["rank"],

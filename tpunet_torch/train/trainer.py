@@ -27,8 +27,17 @@ params replicated and shards the optimizer: its state is built over ONE
 flat f32 parameter, this rank's 1/world slice of the zero-padded flat
 parameter vector. ``create_zero_train_state`` lays the params out as views
 of one flat buffer, so that slice IS the params' memory and the shard costs
-no copy. The MoE auxiliary loss (``n_experts > 0``) belongs to a later
-slice of the port and raises NotImplementedError.
+no copy.
+
+An MoE model (``n_experts > 0``) adds ``moe_aux_weight`` times the mean of
+its blocks' load-balancing losses to the objective, per (micro)batch.
+Integer leaves (QLoRA's int8 base) stay as they are: frozen tensors that
+take no gradient and no part in the gradient mean, as the JAX trainer
+passes their float0 gradients through. Frozen floating leaves (embed,
+norms, an fp LoRA base) still get gradients and are all-reduced;
+``models.lora.lora_optimizer`` is what leaves them unchanged. ZeRO-1
+refuses integer leaves, as the JAX step does (its flat gradient vector
+cannot hold them).
 """
 
 from __future__ import annotations
@@ -86,8 +95,9 @@ class sgd:  # noqa: N801 — named after the optax factory it stands for
 
 def create_train_state(model, rng: int, sample_input, tx, *, params=None,
                        device=None) -> tuple[TrainState, Any]:
-    """Initialize f32 trainable params and the optimizer. Returns
-    (state, apply_fn), apply_fn being the trainable module bound to them.
+    """Initialize f32 trainable params (integer leaves kept as they are,
+    frozen) and the optimizer. Returns (state, apply_fn), apply_fn being
+    the trainable module bound to them.
 
     rng: the init seed (the model family's ``init_params``); `params`
     overrides the init with a given state_dict (e.g. ``from_flax`` of a
@@ -99,10 +109,17 @@ def create_train_state(model, rng: int, sample_input, tx, *, params=None,
     dev = _device.resolve(device)
     if params is None:
         params = model.init_params(seed=int(rng), device=dev)
-    params = {k: nn.Parameter(t.detach().to(dev, torch.float32).clone())
-              for k, t in params.items()}
+    params = {k: _master(t, dev) for k, t in params.items()}
     state = TrainState(params, tx.init(params), 0)
     return state, model.bind(params, trainable=True)
+
+
+def _master(t: torch.Tensor, device) -> nn.Parameter:
+    """A leaf as the train state holds it: a floating leaf as an f32
+    master weight, an integer leaf (an int8 base) as it is, frozen."""
+    if t.is_floating_point():
+        return nn.Parameter(t.detach().to(device, torch.float32).clone())
+    return nn.Parameter(t.detach().to(device).clone(), requires_grad=False)
 
 
 def _backward_order_key(name: str):
@@ -220,18 +237,20 @@ def _check_fused(model, fused_xent_block: int | None) -> None:
             f"{type(model).__name__} has none")
 
 
-def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0):
+def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0,
+                  moe_aux_weight: float = 0.0, model=None):
     """The train-step objective on a bound module: cross-entropy over
     integer labels (optax's ``softmax_cross_entropy_with_integer_labels``,
     i.e. logsumexp - picked logit), fused blockwise over the vocab when
     `fused_xent_block` is set (the (b, s, vocab) logits never exist), plus
-    z_loss * mean(lse^2) when z_loss > 0. `rng` seeds the model's dropout
-    (None: a model with dropout raises in training)."""
+    z_loss * mean(lse^2) when z_loss > 0, plus, for an MoE `model`,
+    moe_aux_weight * the mean of its blocks' load-balancing losses (without
+    it the router can collapse onto one expert). `rng` seeds the model's
+    dropout (None: a model with dropout raises in training)."""
     fused = fused_xent_block is not None
-    kw = {"features_only": True} if fused else {}
+    has_moe = getattr(model, "n_experts", 0) > 0
 
-    def loss_fn(net, inputs, labels, rng=None):
-        out = net(inputs, train=True, rng=rng, **kw)
+    def xent(net, out, labels):
         if fused:
             from tpunet_torch.ops import blockwise_cross_entropy
 
@@ -247,6 +266,17 @@ def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0):
         loss = (lse - _pick(out, labels)).mean()
         if z_loss:
             loss = loss + z_loss * torch.mean(torch.square(lse.float()))
+        return loss
+
+    def loss_fn(net, inputs, labels, rng=None):
+        aux: list = []
+        kw = {"features_only": True} if fused else {}
+        if has_moe:
+            kw["moe_aux"] = aux
+        loss = xent(net, net(inputs, train=True, rng=rng, **kw), labels)
+        if aux:
+            loss = loss + moe_aux_weight * (sum(aux) / len(aux)).to(
+                loss.dtype)
         return loss
 
     return loss_fn
@@ -267,9 +297,11 @@ def _value_and_grads(net, params: dict, inputs, labels, loss_fn,
     accum_steps=k) k microbatches whose activations are freed in between.
     Microbatches are STRIDED (row r -> microbatch r % k), as in the JAX
     trainer; any equal-size grouping keeps the mean of means equal to the
-    full-batch mean. `rng` seeds the dropout; each microbatch gets its own
-    seed derived from it, as JAX splits the key."""
-    names = list(params)
+    full-batch mean (an MoE model routes, and sizes its capacity, per
+    microbatch, as JAX's does). `rng` seeds the dropout; each microbatch
+    gets its own seed derived from it, as JAX splits the key. Only the
+    floating leaves get a gradient (integer leaves are frozen)."""
+    names = [n for n, t in params.items() if t.is_floating_point()]
     tensors = [params[n] for n in names]
     if accum_steps is None or accum_steps == 1:
         loss = loss_fn(net, inputs, labels, rng)
@@ -323,11 +355,6 @@ def make_train_step(model, tx=None, cross_host: bool = False,
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     if bucket_bytes is not None and not cross_host:
         raise ValueError("bucket_bytes requires cross_host=True")
-    if getattr(model, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "the MoE auxiliary loss belongs to the model options slice of "
-            "the port (ROADMAP A.5)")
-    del moe_aux_weight
     _check_fused(model, fused_xent_block)
     if cross_host:
         from tpunet_torch import distributed
@@ -335,7 +362,7 @@ def make_train_step(model, tx=None, cross_host: bool = False,
         world = distributed.world_size()  # raises if initialize() was skipped
         if grad_compression == "bf16" and _wire_handles_bf16():
             grad_compression = None
-    loss_fn = _make_loss_fn(fused_xent_block, z_loss)
+    loss_fn = _make_loss_fn(fused_xent_block, z_loss, moe_aux_weight, model)
 
     def train_step(state: TrainState, inputs, labels, rng=None):
         if not donate:
@@ -352,8 +379,8 @@ def make_train_step(model, tx=None, cross_host: bool = False,
                                             grad_compression, world)
             else:
                 grads = _flat_dcn_pmean(grads, grad_compression, world)
-        for name, p in params.items():
-            p.grad = grads.pop(name)
+        for name in list(grads):
+            params[name].grad = grads.pop(name)
         state.opt_state.step()
         for p in params.values():
             p.grad = None
@@ -400,6 +427,19 @@ def _zero_layout(params: dict, rank: int, world: int, device
     return views, nn.Parameter(flat[rank * shard_n:(rank + 1) * shard_n])
 
 
+def _refuse_integer_leaves(params: dict) -> None:
+    """ZeRO-1 flattens every leaf and its gradient into one f32 vector;
+    an integer leaf (an int8 base) has no gradient to put there. The JAX
+    step fails there too (float0 gradients have no promotion), so this
+    refuses with a ValueError at once."""
+    ints = [k for k, t in params.items() if not t.is_floating_point()]
+    if ints:
+        raise ValueError(
+            f"ZeRO-1 needs floating-point params; {ints[:3]} are "
+            f"{params[ints[0]].dtype} (an int8 base: train QLoRA with "
+            "make_train_step)")
+
+
 def create_zero_train_state(model, rng: int, sample_input, tx, *,
                             params=None, device=None
                             ) -> tuple[TrainState, Any]:
@@ -423,6 +463,7 @@ def create_zero_train_state(model, rng: int, sample_input, tx, *,
     dev = _device.resolve(device)
     if params is None:
         params = model.init_params(seed=int(rng), device=dev)
+    _refuse_integer_leaves(params)
     views, shard = _zero_layout(params, rank, world, dev)
     opt = tx.init({"zero_shard": shard})
     # The shard's geometry travels with the optimizer (its state_dict
@@ -469,11 +510,6 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
     del tx  # the optimizer lives in the state (create_zero_train_state)
     if grad_compression not in (None, "bf16"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
-    if getattr(model, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "the MoE auxiliary loss belongs to the model options slice of "
-            "the port (ROADMAP A.5)")
-    del moe_aux_weight
     _check_fused(model, fused_xent_block)
     from tpunet_torch import distributed
     from tpunet_torch.interop import dcn_all_gather, dcn_reduce_scatter
@@ -484,12 +520,13 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
     # the reduce-scatter's hops itself, with f32 accumulation.
     if grad_compression == "bf16" and _wire_handles_bf16():
         grad_compression = None
-    loss_fn = _make_loss_fn(fused_xent_block, z_loss)
+    loss_fn = _make_loss_fn(fused_xent_block, z_loss, moe_aux_weight, model)
 
     def train_step(state: TrainState, inputs, labels, rng=None):
         if not donate:
             state = copy.deepcopy(state)
         params = state.params
+        _refuse_integer_leaves(params)
         (group,) = state.opt_state.param_groups
         (shard,) = group["params"]
         n = sum(p.numel() for p in params.values())
