@@ -34,7 +34,10 @@ Phases (each raises on failure; the script then exits non-zero):
            chunk groups of the 16-bit wide forward, a cluster of 5 f32
            span blocks) in every dtype, f32 D=800, 1024 and 1160 (B1
            S300 GQA-4: clusters of 7 and 8 span blocks, and past the f32
-           layout's boundary two clusters of 8), and a bf16 q sliced
+           layout's boundary two clusters of 8), the serve
+           configuration's attention (16 heads, 4 kv heads, D=128, bf16)
+           at the sp reference's S=16384 and a pipe stage's S=2048, and
+           a bf16 q sliced
            from a wider buffer at an odd offset, which the wrapper must
            copy (input_copies); each also bitwise equal on a second
            launch, and each shows that the row check sees two faults
@@ -276,13 +279,54 @@ Phases (each raises on failure; the script then exits non-zero):
            a stand-in expert x2 is 2x bitwise on kept rows and zero on
            dropped ones, the drop count pack's. Reports the round trip's
            p50 and p99, GB/s and drop fraction
+  sp       sequence parallelism across processes at the serve widths
+           (MODEL_735M, bf16, random weights from --seed): a global
+           sequence of 16,384 tokens, batch 1, over 2 ranks spawned on
+           this card, each rank's shard contiguous (dcn_ring, dcn_ulysses)
+           or its zigzag chunk pair (dcn_zigzag, tokens through
+           to_zigzag), each impl's forward in turn under no_grad. Gates:
+           each rank's logits within 5e-2 x max(1, max |ref|) of the
+           matching rows of one process running attn_impl="flash" over the
+           whole sequence (12 flash launches, no copy), finite, of the
+           shard's shape; the ring's and the zigzag's logits with no k/v
+           crossing (_exchange_packed planted to return its input) above
+           that limit; at 4,096 global tokens in f32 each rank within
+           1e-3 x max(1, max |ref|) of the attn_impl="reference" model; no
+           flash launch on the ranks; the exchange's calls and payload
+           bytes exactly the shapes' (the ring and the zigzag one packed
+           k/v exchange a layer, Ulysses two all-to-alls a layer); peak
+           memory at most 38 GB a rank. Reports forward seconds and
+           tokens/s per rank and impl, the exchange's bytes and seconds,
+           and the score elements of each rank's block updates (the
+           ring's imbalance against the zigzag's balance)
+  pipe     the pipeline-stage workload on 4 stages spawned on this card:
+           (a) benchmarks/pipeline_bench.py's base mode (32 microbatches
+           of 1 MiB, +1 a stage, TPUNET_NSTREAMS=1,
+           TPUNET_ASYNC_CHANNELS=1): the last stage must see every
+           microbatch equal to its index + 4; (b) in a spawn of its own,
+           at the transport's default streams, the same chain carrying
+           8 microbatches of f32 activations (1, 2048, 2048) (embedded
+           random tokens, 16 MiB a hop) through 3 consecutive blocks of
+           the serve configuration a stage (bf16, flash; one warm-up
+           transform a stage before the chain): the last
+           stage's outputs bitwise equal to one process running the 12
+           blocks in order, 24 flash launches a stage, no copy, each
+           link's byte counters at least the chain's bytes. Reports, for
+           both chains, the per-microbatch latency p50/p99 (the start of
+           stage 0's transform to the end of the last stage's; a later
+           microbatch's includes its wait behind the earlier ones), the
+           first microbatch's (no queue ahead of it), microbatches/s,
+           each stage's seconds inside its transform against its whole
+           run (what is left is the wait on its links), and the
+           isend/irecv byte counters per stage
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
 at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
 heads 1 kv head D320), with the tensor-core instructions of the function
-each runs, and for the bf16 kernels the launches on each training path
-(train, moe, qlora); and, last, the device line.
+each runs, and for the bf16 kernels the launches on each path (train,
+moe, qlora, sp's one-process reference, pipe); and, last, the device
+line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are False), so f32 references are true f32.
@@ -516,7 +560,12 @@ FWD_CASES = (
     + [(1, 517, 401, 4, True, 16, dt, 128) for dt in (BF16, F32, F16)]
     + WIDE_CASES
     + [(1, 1024, 1024, 4, True, None, dt, 576) for dt in (BF16, F16, F32)]
-    + [(1, 300, 300, 4, True, None, F32, d) for d in (800, 1024, 1160)])
+    + [(1, 300, 300, 4, True, None, F32, d) for d in (800, 1024, 1160)]
+    # The serve configuration's attention on the sp phase's one-process
+    # reference (a 16,384-token sequence; the plain version's f32 scores
+    # take 17 GB) and on each pipe stage (2,048 tokens).
+    + [(1, 16384, 16384, 4, True, None, BF16, 128),
+       (1, 2048, 2048, 4, True, None, BF16, 128)])
 BWD_CASES = [
     (4, 2048, 2048, 16, True, None, BF16, 128),
     (4, 2048, 2048, 16, True, None, F32, 128),
@@ -2576,7 +2625,9 @@ def _rank_bodies() -> dict:
     return {"train": _train_rank_body, "zero": _zero_rank_body,
             "vgg": _vgg_rank_body, "moe": _moe_rank_body,
             "qlora": _qlora_rank_body, "a2a": _a2a_rank_body,
-            "moe_bench": _moe_bench_rank_body}
+            "moe_bench": _moe_bench_rank_body, "sp": _sp_rank_body,
+            "pipe_bench": _pipe_bench_rank_body,
+            "pipe_model": _pipe_model_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
@@ -3859,6 +3910,432 @@ def phase_a2a(seed: int) -> None:
                                  f"{a2a_tx}; {r['qos_bytes']}")
 
 
+# Sequence parallelism across processes (ROADMAP A.6a) at the serve
+# configuration's widths: a global sequence of SP_SEQ tokens, batch 1, over
+# SP_RANKS ranks spawned on this card, each impl's forward in turn; then a
+# tight f32 check at SP_F32_SEQ tokens. Logit tolerances relative to
+# max(1, max |ref|): bf16 against the flash model on the whole sequence
+# (its attention rounds P to bf16, the dcn impls fold f32 blocks), f32
+# against the reference-attention model.
+SP_RANKS = 2
+SP_SEQ = 16384
+SP_F32_SEQ = 4096
+SP_IMPLS = ("dcn_ring", "dcn_zigzag", "dcn_ulysses")
+SP_TOL = {BF16: 5e-2, F32: 1e-3}
+SP_MEM_LIMIT_GB = 38.0
+
+
+def _sp_wire(impl: str, dt, seq: int) -> dict:
+    """What a rank's forward must move: {collective: (calls, payload
+    bytes)}. The ring and zigzag exchange the GQA-repeated k and v of the
+    rank's shard once a layer and step; Ulysses all-to-alls q, k and v
+    stacked, then the output, each once a layer."""
+    cfg, w = MODEL_735M, SP_RANKS
+    layers, s = cfg["n_layers"], seq // w
+    elem = torch.tensor([], dtype=dt).element_size()
+    d = cfg["d_model"]
+    if impl == "dcn_ulysses":
+        return {"all_to_all": (2 * layers, layers * (3 + 1) * s * d * elem)}
+    return {"neighbor_exchange": (layers * (w - 1),
+                                  layers * (w - 1) * 2 * s * d * elem)}
+
+
+def _sp_rank_body(rank: int, ports, ref: dict, seed: int) -> dict:
+    """The three impls' forwards on this rank's shard (bf16 at SP_SEQ, a
+    planted fault in the ring's and zigzag's exchange, f32 at SP_F32_SEQ),
+    each held to its reference's rows."""
+    from sp_shards import shard
+    from tpunet_torch import distributed, interop
+    from tpunet_torch.models import Transformer, init_params
+    from tpunet_torch.parallel import to_zigzag
+
+    ring_mod = importlib.import_module(
+        "tpunet_torch.parallel.dcn_ring_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, SP_RANKS)
+    comm = distributed.global_communicator()
+    # Score elements (b * sq * sk * h) of every block update: the ring's
+    # imbalance against the zigzag's balance.
+    scores = []
+    update = ring_mod._block_update
+
+    def counted(q, k, *args, **kw):
+        scores.append(q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2])
+        return update(q, k, *args, **kw)
+
+    ring_mod._block_update = counted
+
+    def forward(params, dt, impl, seq):
+        zig = impl == "dcn_zigzag"
+        toks = torch.as_tensor(ref["tokens"][:, :seq], device=DEVICE)
+        if zig:
+            toks = to_zigzag(toks, SP_RANKS)
+        s = seq // SP_RANKS
+        toks = toks[:, rank * s:(rank + 1) * s]
+        model = Transformer(compute_dtype=dt, attn_impl=impl, device="meta",
+                            **MODEL_735M).bind(params)
+        scores.clear()
+        interop.dcn_reduce_stats_reset()
+        _zero_counters()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        comm.barrier()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = model(toks)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches, copies = _read_counters()
+        stats = interop.dcn_reduce_stats()
+        name = "f32" if dt == F32 else "bf16"
+        want = torch.from_numpy(np.array(shard(
+            np.load(ref[name], mmap_mode="r"), SP_RANKS, rank, zig))).to(
+                DEVICE)
+        err = float((logits - want).abs().max())
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+        del logits, want, model
+        torch.cuda.empty_cache()
+        wire = {k: dict(calls=stats[k]["calls"], bytes=stats[k]["bytes"],
+                        seconds=stats[k]["seconds"],
+                        collective_seconds=stats[k]["collective_seconds"])
+                for k in _sp_wire(impl, dt, seq)}
+        return dict(seconds=sec, tokens_per_s=s / sec, max_abs_err=err,
+                    finite=finite, shape=shape, peak_mem_gb=peak,
+                    launches=launches, input_copies=copies, wire=wire,
+                    block_updates=len(scores), score_elements=sum(scores))
+
+    out = {"rank": rank, "bf16": {}, "fault": {}, "f32": {}}
+    params = _bf16_checkpoint(seed)
+    for impl in SP_IMPLS:
+        out["bf16"][impl] = forward(params, BF16, impl, SP_SEQ)
+    # The planted fault: no k/v crosses, every rank folds its own block.
+    exchange = ring_mod._exchange_packed
+    ring_mod._exchange_packed = lambda kc, vc: (kc, vc)
+    try:
+        for impl in ("dcn_ring", "dcn_zigzag"):
+            out["fault"][impl] = forward(params, BF16, impl, SP_SEQ)[
+                "max_abs_err"]
+    finally:
+        ring_mod._exchange_packed = exchange
+    del params
+    torch.cuda.empty_cache()
+    p32 = init_params(Transformer(compute_dtype=F32, device="meta",
+                                  **MODEL_735M), seed=seed, device=DEVICE)
+    for impl in SP_IMPLS:
+        out["f32"][impl] = forward(p32, F32, impl, SP_F32_SEQ)
+    distributed.finalize()
+    return out
+
+
+def phase_sp(seed: int) -> dict:
+    """Sequence parallelism across processes on the card; returns the flash
+    launches of its one-process reference (its kernel path)."""
+    from tpunet_torch.models import Transformer, init_params
+
+    t0 = time.perf_counter()
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    base.mkdir(parents=True, exist_ok=True)
+    tokens = np.random.default_rng(seed + 16).integers(
+        0, MODEL_735M["vocab"], (1, SP_SEQ))
+    ref = {"tokens": tokens, "bf16": str(base / "sp_ref_bf16.npy"),
+           "f32": str(base / "sp_ref_f32.npy")}
+    scale, ref_s = {}, {}
+    for dt, impl, seq in ((BF16, "flash", SP_SEQ),
+                          (F32, "reference", SP_F32_SEQ)):
+        name = "f32" if dt == F32 else "bf16"
+        p32 = init_params(Transformer(compute_dtype=F32, device="meta",
+                                      **MODEL_735M), seed=seed, device=DEVICE)
+        params = {k: (t if k.endswith(".scale") else t.to(dt))
+                  for k, t in p32.items()}
+        del p32
+        model = Transformer(compute_dtype=dt, attn_impl=impl, device="meta",
+                            **MODEL_735M).bind(params)
+        _zero_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            logits = model(torch.as_tensor(tokens[:, :seq], device=DEVICE))
+        torch.cuda.synchronize()
+        ref_s[name] = time.perf_counter() - t1
+        if dt == BF16:
+            launches, copies = _read_counters()
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"sp: the {name} reference is not finite")
+        scale[name] = max(1.0, float(logits.abs().max()))
+        np.save(ref[name], logits.cpu().numpy())
+        del logits, model, params
+        torch.cuda.empty_cache()
+    ranks, wall = _spawn_ranks("sp", ref, seed, SP_RANKS)
+    for name in ("bf16", "f32"):
+        os.remove(ref[name])
+    tol = {"bf16": SP_TOL[BF16] * scale["bf16"],
+           "f32": SP_TOL[F32] * scale["f32"]}
+    rows = {}
+    for name in ("bf16", "f32"):
+        for impl in SP_IMPLS:
+            per = [r[name][impl] for r in ranks]
+            rows[f"{name}/{impl}"] = dict(
+                max_abs_err=max(p["max_abs_err"] for p in per),
+                seconds=[p["seconds"] for p in per],
+                tokens_per_s=(SP_SEQ if name == "bf16" else SP_F32_SEQ)
+                / max(p["seconds"] for p in per),
+                peak_mem_gb=[p["peak_mem_gb"] for p in per],
+                wire=[p["wire"] for p in per],
+                block_updates=[p["block_updates"] for p in per],
+                score_elements=[p["score_elements"] for p in per],
+                launches=[p["launches"] for p in per],
+                input_copies=[p["input_copies"] for p in per])
+    fault = {impl: max(r["fault"][impl] for r in ranks)
+             for impl in ("dcn_ring", "dcn_zigzag")}
+    log("sp", model=MODEL_735M, ranks=SP_RANKS, seq=SP_SEQ,
+        f32_seq=SP_F32_SEQ, reference_launches=launches,
+        reference_input_copies=copies, reference_s=ref_s,
+        max_abs_ref=scale, tol=tol, planted_fault_err=fault,
+        mem_limit_gb=SP_MEM_LIMIT_GB, rank_wall_s=wall, runs=rows,
+        wall_s=time.perf_counter() - t0, card=CARD)
+    if launches["flash_fwd"] != MODEL_735M["n_layers"] or copies or any(
+            launches[k] for k in ("flash_dq", "flash_dkv")):
+        raise AssertionError(f"sp reference: launches {launches} (want "
+                             f"{MODEL_735M['n_layers']} forwards), copies "
+                             f"{copies}")
+    for r in ranks:
+        for name, dt, seq in (("bf16", BF16, SP_SEQ),
+                              ("f32", F32, SP_F32_SEQ)):
+            for impl, p in r[name].items():
+                where = f"sp rank {r['rank']} {name} {impl}"
+                if not (p["finite"] and p["max_abs_err"] <= tol[name]):
+                    raise AssertionError(f"{where}: logits off the "
+                                         f"reference by {p['max_abs_err']} "
+                                         f"(tol {tol[name]})")
+                if p["shape"] != (1, seq // SP_RANKS, MODEL_735M["vocab"]):
+                    raise AssertionError(f"{where}: logits {p['shape']}")
+                if any(p["launches"].values()) or p["input_copies"]:
+                    raise AssertionError(f"{where}: flash launched "
+                                         f"{p['launches']}")
+                for k, (calls, nbytes) in _sp_wire(impl, dt, seq).items():
+                    got = p["wire"][k]
+                    if (got["calls"], got["bytes"]) != (calls, nbytes):
+                        raise AssertionError(f"{where}: {k} moved {got}, "
+                                             f"want {calls} calls, "
+                                             f"{nbytes} B")
+                if name == "bf16" and p["peak_mem_gb"] > SP_MEM_LIMIT_GB:
+                    raise AssertionError(f"{where}: peak {p['peak_mem_gb']} "
+                                         f"GB")
+    for impl, err in fault.items():
+        if not err > tol["bf16"]:
+            raise AssertionError(f"sp: the check cannot see a planted "
+                                 f"{impl} exchange fault ({err})")
+    return launches
+
+
+# The pipeline-stage workload (ROADMAP A.11b) on PIPE_STAGES stages
+# spawned on this card: (a) benchmarks/pipeline_bench.py's base mode at
+# its defaults (with its env, PIPE_BENCH_ENV), (b) in a spawn of its own at
+# the transport's default env, the same chain carrying f32 activations of
+# (1, PIPE_SEQ, d) through PIPE_STAGES groups of consecutive blocks of the
+# serve configuration (bf16, flash).
+PIPE_STAGES = 4
+PIPE_BENCH = dict(n_micro=32, mb_bytes=1 << 20)
+PIPE_BENCH_ENV = {"TPUNET_NSTREAMS": "1", "TPUNET_ASYNC_CHANNELS": "1"}
+PIPE_MICRO, PIPE_SEQ = 8, 2048
+
+
+def _pipe_blocks(params: dict, layers) -> list:
+    """The blocks `layers` of the serve configuration, bound to `params`
+    (a meta Block loaded by assignment: nothing else of the model)."""
+    from tpunet_torch.models import Transformer
+
+    meta = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
+                       **MODEL_735M)
+    out = []
+    for i in layers:
+        blk, pre = getattr(meta, f"block{i}"), f"block{i}."
+        blk.load_state_dict({k[len(pre):]: t for k, t in params.items()
+                             if k.startswith(pre)}, strict=True, assign=True)
+        out.append(blk.requires_grad_(False))
+    return out
+
+
+def _pipe_inputs(params: dict, seed: int) -> list:
+    """PIPE_MICRO microbatches of embedded random tokens, f32 on the host."""
+    import torch.nn.functional as F
+
+    toks = np.random.default_rng(seed + 17).integers(
+        0, MODEL_735M["vocab"], (PIPE_MICRO, 1, PIPE_SEQ))
+    with torch.no_grad():
+        return [F.embedding(torch.as_tensor(t, device=DEVICE),
+                            params["embed"]).float().cpu().numpy()
+                for t in toks]
+
+
+def _pipe_apply(blocks: list):
+    """A stage's transform: f32 activations in, through `blocks` in bf16,
+    f32 out (the cast to bf16 and back is exact on bf16 values)."""
+    def fn(x):
+        h = torch.from_numpy(x).to(DEVICE).to(BF16)
+        with torch.no_grad():
+            for blk in blocks:
+                h = blk(h)
+        return h.float().cpu().numpy()
+    return fn
+
+
+def _pipe_run(rank: int, port: int, fn, inputs, n_micro, shape) -> dict:
+    """One PipelineStage chain on this stage: its seconds, the seconds
+    inside its transforms, its byte counters, the host clock at the start
+    and the end of each microbatch's transform, the last stage's
+    outputs."""
+    from tpunet_torch import telemetry
+    from tpunet_torch.collectives import Communicator
+    from tpunet_torch.workloads import PipelineStage
+
+    starts, ends = [], []
+
+    def stamped(x):
+        starts.append(time.perf_counter())
+        y = fn(x)
+        ends.append(time.perf_counter())
+        return y
+
+    with Communicator(f"127.0.0.1:{port}", rank, PIPE_STAGES) as comm, \
+            PipelineStage(comm) as st:
+        telemetry.reset()
+        comm.barrier()
+        t0 = time.perf_counter()
+        if st.is_first:
+            outs = st.run(stamped, microbatches=inputs)
+        else:
+            outs = st.run(stamped, n_micro=n_micro, mb_shape=shape)
+        sec = time.perf_counter() - t0
+        m = telemetry.metrics()
+    return dict(seconds=sec, mb_per_s=n_micro / sec, starts=starts,
+                ends=ends, transform_s=float(np.sum(np.subtract(ends,
+                                                                starts))),
+                outputs=outs,
+                isend_bytes=int(sum(m.get("tpunet_isend_nbytes_sum",
+                                          {}).values())),
+                irecv_bytes=int(sum(m.get("tpunet_irecv_nbytes_sum",
+                                          {}).values())))
+
+
+def _pipe_bench_rank_body(rank: int, ports, path, seed: int) -> dict:
+    """(a) the bench's chain of +1 stages, under the bench's env."""
+    del path, seed
+    os.environ.update(PIPE_BENCH_ENV)
+    n = PIPE_BENCH["mb_bytes"] // 4
+    n_micro = PIPE_BENCH["n_micro"]
+    bench = _pipe_run(rank, ports[0], lambda x: x + 1.0,
+                      [np.full(n, float(i), np.float32)
+                       for i in range(n_micro)], n_micro, (n,))
+    outs = bench.pop("outputs")
+    if outs is not None:
+        bench["verified"] = sum(bool(np.all(y == i + PIPE_STAGES))
+                                for i, y in enumerate(outs))
+        bench["outputs"] = len(outs)
+    return dict(rank=rank, bench=bench)
+
+
+def _pipe_model_rank_body(rank: int, ports, path, seed: int) -> dict:
+    """(b) this stage's 3 blocks of the serve configuration."""
+    del path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = _bf16_checkpoint(seed)
+    per = MODEL_735M["n_layers"] // PIPE_STAGES
+    blocks = _pipe_blocks(params, range(rank * per, (rank + 1) * per))
+    inputs = _pipe_inputs(params, seed) if rank == 0 else None
+    del params
+    torch.cuda.empty_cache()
+    # One transform before the chain, so no microbatch's latency holds the
+    # stage's first kernels' and libraries' set-up.
+    apply = _pipe_apply(blocks)
+    apply(np.zeros((1, PIPE_SEQ, MODEL_735M["d_model"]), np.float32))
+    _zero_counters()
+    model = _pipe_run(rank, ports[0], apply, inputs,
+                      PIPE_MICRO, (1, PIPE_SEQ, MODEL_735M["d_model"]))
+    torch.cuda.synchronize()
+    model["launches"], model["input_copies"] = _read_counters()
+    model["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return dict(rank=rank, model=model)
+
+
+def _pipe_latency(stages: list, key: str) -> dict:
+    """Per-microbatch latency from the start of stage 0's transform to the
+    end of the last stage's, on the host's monotonic clock (shared by the
+    processes): p50/p99 over the microbatches (a later one's includes its
+    wait behind the earlier ones) and the first's (nothing ahead of it);
+    microbatches/s at the last stage; each stage's share of its run spent
+    inside its transform (the rest is the wait on its links)."""
+    lat = [b - a for a, b in zip(stages[0][key]["starts"],
+                                 stages[-1][key]["ends"])]
+    return {"p50_s": float(np.percentile(lat, 50)),
+            "p99_s": float(np.percentile(lat, 99)), "first_s": lat[0],
+            "microbatches_per_s": stages[-1][key]["mb_per_s"],
+            "transform_share": [s[key]["transform_s"] / s[key]["seconds"]
+                                for s in stages]}
+
+
+def phase_pipe(seed: int) -> dict:
+    """The pipeline workload; returns the flash launches of its model
+    chain, summed over the stages."""
+    t0 = time.perf_counter()
+    benches, bench_wall = _spawn_ranks("pipe_bench", None, seed, PIPE_STAGES)
+    stages, wall = _spawn_ranks("pipe_model", None, seed, PIPE_STAGES)
+    for s, b in zip(stages, benches):
+        s["bench"] = b["bench"]
+    last = stages[-1]
+    params = _bf16_checkpoint(seed)
+    ref = [_pipe_apply(_pipe_blocks(params, range(MODEL_735M["n_layers"])))(
+        x) for x in _pipe_inputs(params, seed)]
+    del params
+    torch.cuda.empty_cache()
+    outs = last["model"].pop("outputs")
+    equal = len(outs) == PIPE_MICRO and all(
+        a.tobytes() == b.tobytes() for a, b in zip(outs, ref))
+    finite = all(np.isfinite(a).all() for a in outs)
+    launches = {k: sum(s["model"]["launches"][k] for s in stages)
+                for k in COUNTERS}
+    per = MODEL_735M["n_layers"] // PIPE_STAGES
+    hop = PIPE_SEQ * MODEL_735M["d_model"] * 4
+    log("pipe", stages=PIPE_STAGES, bench=PIPE_BENCH,
+        bench_env=PIPE_BENCH_ENV, model_env="the transport's defaults",
+        bench_latency=_pipe_latency(stages, "bench"),
+        model_latency=_pipe_latency(stages, "model"),
+        micro=PIPE_MICRO, hop_bytes=hop, bitwise_equal_one_process=equal,
+        per_stage=[{"rank": s["rank"],
+                    **{key: {k: v for k, v in s[key].items()
+                             if k not in ("starts", "ends")}
+                       for key in ("bench", "model")}} for s in stages],
+        launches=launches, rank_wall_s={"bench": bench_wall, "model": wall},
+        wall_s=time.perf_counter() - t0, card=CARD)
+    b = last["bench"]
+    if b.get("outputs") != PIPE_BENCH["n_micro"] or b.get(
+            "verified") != PIPE_BENCH["n_micro"]:
+        raise AssertionError(f"pipe (a): {b.get('verified')} of "
+                             f"{PIPE_BENCH['n_micro']} microbatches verified")
+    for s in stages:
+        sent = s["rank"] < PIPE_STAGES - 1
+        for key, n, size in (("bench", PIPE_BENCH["n_micro"],
+                              PIPE_BENCH["mb_bytes"]),
+                             ("model", PIPE_MICRO, hop)):
+            got = s[key]["isend_bytes" if sent else "irecv_bytes"]
+            if got < n * size:
+                raise AssertionError(f"pipe stage {s['rank']} {key}: "
+                                     f"{got} B moved, want {n * size}")
+        if s["model"]["launches"]["flash_fwd"] != per * PIPE_MICRO or s[
+                "model"]["input_copies"]:
+            raise AssertionError(f"pipe stage {s['rank']}: launches "
+                                 f"{s['model']['launches']}")
+    if not (equal and finite):
+        raise AssertionError("pipe (b): the last stage's outputs differ "
+                             "from one process running the blocks in order")
+    return launches
+
+
 # The paths of the other kernel routes, each a user's training run through
 # the trainer's entry points (create_train_state, make_train_step; adamw,
 # no remat) for PATH_STEPS steps on one batch of random tokens, held to the
@@ -4004,6 +4481,8 @@ def main() -> int:
     by_path = {"train": train_launches, "moe": phase_moe(args.seed),
                "qlora": phase_qlora(args.seed)}
     phase_a2a(args.seed)
+    by_path["sp"] = phase_sp(args.seed)
+    by_path["pipe"] = phase_pipe(args.seed)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []

@@ -128,9 +128,17 @@ def _collectives_worker(rank, world, q, port):
         out["a2a_typed"] = comm.all_to_all_typed(a2a_in)
         out["dcn_a2a"] = interop.dcn_all_to_all(
             torch.from_numpy(a2a_in)).numpy()
-        with pytest.raises(NotImplementedError, match="sequence-parallel"):
-            comm.neighbor_exchange(np.zeros(2, np.float32))
+        # The ring shift (ported with the sequence-parallel slice): rank r
+        # receives rank r - 1's message, any dtype.
+        out["nx"] = comm.neighbor_exchange(i64)
+        out["dcn_nx"] = interop.dcn_neighbor_exchange(
+            torch.from_numpy(f32).to(torch.bfloat16)).float().numpy()
         interop.dcn_barrier()
+        # Messages of unequal sizes fail on both ends: the larger one
+        # overflows rank 0's buffer, the smaller one is short at rank 1.
+        with pytest.raises(RuntimeError,
+                           match="size mismatch|exceeds posted recv"):
+            comm.neighbor_exchange(np.zeros(2 + rank, np.float32))
         distributed.finalize()
         assert not distributed.is_initialized()
         return out
@@ -186,6 +194,10 @@ def test_collectives_match_numpy_2proc():
         want_a2a = np.stack([_a2a_blocks(j, world)[r] for j in range(world)])
         for key in ("a2a", "a2a_typed", "dcn_a2a"):
             np.testing.assert_array_equal(got[key], want_a2a, err_msg=key)
+        prev = data[(r - 1) % world]
+        np.testing.assert_array_equal(got["nx"], prev[1])
+        np.testing.assert_array_equal(got["dcn_nx"], torch.from_numpy(
+            prev[0]).to(torch.bfloat16).float().numpy())
         np.testing.assert_array_equal(got["ticket"][0], f32_sum)
         np.testing.assert_array_equal(got["ticket"][1],
                                       data[0][0] * 2 + data[1][0] * 2)
@@ -283,15 +295,42 @@ def test_later_slice_collectives_raise(name, slice_):
     from tpunet_torch import interop
 
     # hierarchical_psum's DCN tier is ported; its in-pod tier (a mesh
-    # axis) waits for the mesh of ROADMAP A.6.
+    # axis) waits for the mesh of ROADMAP A.6b. The all-to-all (MoE slice)
+    # and the neighbor exchange (sequence-parallel slice) are ported.
     if slice_ is None:
         _dcn_all_to_all_parity()
+        return
+    if name == "dcn_neighbor_exchange":
+        _dcn_neighbor_exchange_parity()
         return
     kw = {"axis_name": "ici"} if name == "hierarchical_psum" else {}
     with pytest.raises(NotImplementedError, match=slice_) as err:
         getattr(interop, name)(torch.ones(2), **kw)
     if kw:
         assert "A.6" in str(err.value)
+
+
+def _dcn_neighbor_exchange_parity():
+    """dcn_neighbor_exchange at world 1 (the message comes back from this
+    process itself), any dtype, against the communicator's own call and
+    the JAX package's Communicator on the same numpy input."""
+    from tpunet.collectives import Communicator as JaxCommunicator
+    from tpunet_torch import distributed, interop
+
+    comm = distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        x = torch.arange(12, dtype=torch.int16).reshape(3, 4)
+        got = interop.dcn_neighbor_exchange(x)
+        assert got.dtype == torch.int16 and torch.equal(got, x)
+        assert got.data_ptr() != x.data_ptr()
+        np.testing.assert_array_equal(comm.neighbor_exchange(x.numpy()),
+                                      got.numpy())
+        with JaxCommunicator(f"127.0.0.1:{free_port()}", 0, 1) as theirs:
+            assert theirs.neighbor_exchange(x.numpy()).tobytes() == (
+                got.numpy().tobytes())
+        assert interop.dcn_reduce_stats()["neighbor_exchange"]["bytes"] >= 24
+    finally:
+        distributed.finalize()
 
 
 def _dcn_all_to_all_parity():
@@ -311,6 +350,108 @@ def _dcn_all_to_all_parity():
             interop.dcn_all_to_all(torch.ones(2, 3))
     finally:
         distributed.finalize()
+
+
+# dcn_* call -> the call on a world-1 tensor `x` (leading axis 1).
+UNDIFFERENTIABLE = {
+    "dcn_all_gather": lambda i, x: i.dcn_all_gather(x),
+    "dcn_reduce_scatter": lambda i, x: i.dcn_reduce_scatter(x),
+    "dcn_broadcast": lambda i, x: i.dcn_broadcast(x),
+    "dcn_all_to_all": lambda i, x: i.dcn_all_to_all(x),
+    "dcn_neighbor_exchange": lambda i, x: i.dcn_neighbor_exchange(x),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNDIFFERENTIABLE))
+def test_backward_through_a_collective_without_jax_vjp_raises(name):
+    """The JAX package's dcn_* collectives other than dcn_all_reduce are
+    io_callback or FFI calls with no VJP, so jax.grad through them raises.
+    The port's refuse a backward too, where a silent cut would drop the
+    exchanged term: loss = (2x).sum() + collective(x).sum() at world 1
+    must not back-propagate a gradient of 2. The forward under grad mode
+    still runs, as model.apply does in JAX, and dcn_all_reduce keeps its
+    gradient."""
+    from tpunet_torch import distributed, interop
+
+    distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        x = torch.arange(6, dtype=torch.float32).reshape(1, 2, 3)
+        x.requires_grad_()
+        y = UNDIFFERENTIABLE[name](interop, x)
+        assert torch.equal(y.detach().reshape(x.shape), x.detach())
+        loss = (2 * x).sum() + y.sum()
+        with pytest.raises(RuntimeError, match="JAX package"):
+            loss.backward()
+        with torch.no_grad():
+            assert UNDIFFERENTIABLE[name](interop, x).grad_fn is None
+        (g,) = torch.autograd.grad(interop.dcn_psum(x).sum(), x)
+        assert torch.equal(g, torch.ones_like(x))
+    finally:
+        distributed.finalize()
+
+
+def _broadcast_soak(q, tries, nbytes):
+    """tries x (two thread ranks, fresh loopback comms, one broadcast of
+    `nbytes`) under the armed QoS wire window on two data streams, in a
+    process of its own: the window is read once, at a process's first
+    engine. Reports the tries that failed."""
+    import os
+    import threading
+
+    os.environ.update({"TPUNET_QOS_INFLIGHT_BYTES": "wire=256K",
+                       "TPUNET_QOS_WEIGHTS": "latency=8,bulk=1",
+                       "TPUNET_NSTREAMS": "2",
+                       "TPUNET_PROGRESS_TIMEOUT_MS": "5000"})
+
+    def body():
+        from tpunet_torch.collectives import Communicator
+
+        wire = np.random.default_rng(0).integers(0, 256, nbytes, np.uint8)
+        failed = []
+        for t in range(tries):
+            port, box = free_port(), {}
+
+            def rank(r):
+                try:
+                    with Communicator(f"127.0.0.1:{port}", r, 2,
+                                      wire_dtype="f32", algo="tree",
+                                      traffic_class="bulk") as comm:
+                        buf = wire.copy() if r == 0 else np.zeros_like(wire)
+                        comm.broadcast(buf, root=0, out=buf)
+                        box[r] = buf.tobytes() == wire.tobytes()
+                except Exception as e:  # noqa: BLE001 — reported below
+                    box[r] = repr(e)
+
+            threads = [threading.Thread(target=rank, args=(r,))
+                       for r in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=30)
+            if box.get(0) is not True or box.get(1) is not True:
+                failed.append((t, box))
+        return failed
+
+    _report(q, 0, body)
+
+
+def test_broadcast_under_the_qos_wire_window_does_not_stall():
+    """C.12's guard: an 8 MiB Communicator.broadcast (8 native 1 MiB pieces
+    in one call) between two loopback ranks under an armed 256K wire
+    window on two data streams, 20 times; the progress watchdog (5 s)
+    bounds a stalled try. Every try must deliver the root's bytes."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=_broadcast_soak, args=(q, 20, 8 << 20))
+    p.start()
+    try:
+        _, status, failed = q.get(timeout=240)
+    finally:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.kill()
+    assert status == "OK", failed
+    assert failed == [], failed
 
 
 # -- the cross-host train step ---------------------------------------------

@@ -24,6 +24,10 @@ CUDA kernel where the JAX package has a Pallas kernel. Layers, bottom up:
 - ``serve``  — the disaggregated prefill/decode tier over the transport,
   with re-admission of recovered decode hosts and live weight updates
   (``WeightPublisher``/``WeightReceiver``: version-pinned hot swap).
+- ``parallel`` — sequence parallelism across processes: ring, zigzag and
+  Ulysses attention over the DCN collectives;
+- ``workloads`` — the MoE dispatcher over the all-to-all and the pipeline
+  stage driver over per-stage P2P links.
 
 Entry points run on the GPU unless given ``device="cpu"``.
 """

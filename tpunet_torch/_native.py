@@ -160,8 +160,9 @@ def load() -> ctypes.CDLL:
         "tpunet_c_codec_wire_bytes": ([i32, u64], u64),
         "tpunet_c_codec_encode": ([i32, vp, u64, vp, u64], i32),
         "tpunet_c_codec_decode": ([i32, vp, u64, vp], i32),
-        # Ring communicator (the data-parallel step's collectives and the
-        # all-to-alls of expert parallelism).
+        # Ring communicator (the data-parallel step's collectives, the
+        # all-to-alls of expert parallelism and the ring shift of sequence
+        # parallelism).
         "tpunet_comm_create_ex": ([ctypes.c_char_p, i32, i32,
                                    ctypes.c_char_p, ctypes.c_char_p,
                                    ctypes.c_char_p, P(u)], i32),
@@ -178,6 +179,8 @@ def load() -> ctypes.CDLL:
         "tpunet_comm_all_to_all": ([u, vp, vp, u64], i32),
         "tpunet_comm_all_to_all_typed": ([u, vp, vp, u64, i32], i32),
         "tpunet_comm_iall_to_all": ([u, vp, vp, u64, P(u64)], i32),
+        "tpunet_comm_neighbor_exchange": ([u, vp, u64, vp, u64, P(u64)],
+                                          i32),
         "tpunet_comm_barrier": ([u], i32),
     }
     for name, (argtypes, restype) in sigs.items():

@@ -14,9 +14,8 @@ tensor: its ``data_ptr()`` goes to the native layer with dtype code 2. Ops:
 sum, prod, min, max. ``all_gather``, ``broadcast``, ``all_to_all`` and
 ``iall_to_all`` move raw bytes, so they take any dtype;
 ``all_to_all_typed`` takes the reductions' dtypes and compresses float32
-blocks on a bf16 or int8 wire.
-
-``neighbor_exchange`` waits for the sequence-parallel slice (ROADMAP A.6).
+blocks on a bf16 or int8 wire. ``neighbor_exchange``, the ring shift of
+sequence parallelism, moves raw bytes too.
 """
 
 from __future__ import annotations
@@ -309,10 +308,22 @@ class Communicator:
             ctypes.byref(ticket)), "iall_to_all")
         return AsyncResult(self, ticket.value, buf.obj, out.obj)
 
-    def neighbor_exchange(self, arr: Any):
-        raise NotImplementedError(
-            "neighbor_exchange belongs to the sequence-parallel slice of the "
-            "port (ROADMAP A.6)")
+    def neighbor_exchange(self, arr: Any, out: Any = None):
+        """Send `arr` to rank (rank+1) % W and return the same-shaped
+        message from rank (rank-1+W) % W: the ring shift of sequence
+        parallelism, written into `out` when given (a C-contiguous buffer
+        of arr's shape and dtype). Moves raw bytes: any dtype. A message of
+        another size than `arr`'s raises RuntimeError."""
+        buf = _Buf(arr, typed=False)
+        out = _out_buf(buf, buf.shape, out)
+        got = ctypes.c_uint64(0)
+        _native.check(self._lib.tpunet_comm_neighbor_exchange(
+            self._id, buf.ptr, buf.nbytes, out.ptr, out.nbytes,
+            ctypes.byref(got)), "neighbor_exchange")
+        if got.value != buf.nbytes:
+            raise RuntimeError(f"neighbor_exchange size mismatch: sent "
+                               f"{buf.nbytes}, got {got.value}")
+        return out.obj
 
     def barrier(self) -> None:
         _native.check(self._lib.tpunet_comm_barrier(self._id), "barrier")

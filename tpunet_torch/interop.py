@@ -16,14 +16,18 @@ second one:
 PyTorch runs eagerly, so collectives are ordered by program order on every
 rank and the JAX package's ``after=`` ordering operands have no
 counterpart. ``dcn_all_reduce(sum)`` is differentiable: the gradient of a
-sum all-reduce is a sum all-reduce of the gradient. ``dcn_reduce_stats()``
-counts the blocking all-reduces and the host wall time they took: in all,
-in the device-to-host staging, and in the collective itself; and, under
-their own keys, the same for the reduce-scatters and all-gathers (ZeRO's
-two halves of the all-reduce).
+sum all-reduce is a sum all-reduce of the gradient. The other collectives
+are not, as in the JAX package, where they are io_callback or FFI calls
+with no VJP: their forward runs under grad mode, and a backward through
+them raises instead of dropping their term from the gradient.
+``dcn_reduce_stats()`` counts the blocking all-reduces and the host wall
+time they took: in all, in the device-to-host staging, and in the
+collective itself; and, under their own keys, the same for the
+reduce-scatters and all-gathers (ZeRO's two halves of the all-reduce), the
+all-to-alls and the neighbor exchanges (sequence parallelism's).
 
 ``hierarchical_psum`` ports the DCN tier only: the in-pod psum over a mesh
-axis waits for the port's mesh (ROADMAP A.6).
+axis waits for the port's mesh (ROADMAP A.6b).
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 _ZERO_STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "to_host_seconds": 0.0,
                "collective_seconds": 0.0}
 _reduce_stats = dict(_ZERO_STATS)
-_other_stats = {"reduce_scatter": dict(_ZERO_STATS),
-                "all_gather": dict(_ZERO_STATS)}
+_other_stats = {name: dict(_ZERO_STATS) for name in (
+    "reduce_scatter", "all_gather", "all_to_all", "neighbor_exchange")}
 
 
 def dcn_reduce_stats() -> dict:
@@ -73,8 +77,8 @@ def dcn_reduce_stats() -> dict:
     (the input's) and host wall seconds: `seconds` in all (staging, the
     collective, queueing the copy back), `to_host_seconds` staging the
     input to host memory (finished), `collective_seconds` the native
-    collective. The keys "reduce_scatter" and "all_gather" hold the same
-    five counts for dcn_reduce_scatter and dcn_all_gather."""
+    collective. The keys "reduce_scatter", "all_gather", "all_to_all"
+    and "neighbor_exchange" hold the same five counts for those calls."""
     return dict(_reduce_stats,
                 **{k: dict(v) for k, v in _other_stats.items()})
 
@@ -223,13 +227,32 @@ def dcn_all_reduce_finish(ticket: int, like: torch.Tensor | None = None):
     return _to_device(res.wait(), device)
 
 
-# -- other collectives ------------------------------------------------------
+# -- other collectives: no gradient ----------------------------------------
+
+
+class _NoVjp(torch.autograd.Function):
+    """A collective the JAX package cannot differentiate: the forward runs
+    it, a backward through it raises."""
+
+    @staticmethod
+    def forward(ctx, x, name, run):
+        ctx.name = name
+        return run(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            f"{ctx.name} is not differentiable: in the JAX package it is an "
+            "io_callback or XLA FFI call with no VJP, so jax.grad through it "
+            "raises too. Only dcn_all_reduce has a gradient; detach the "
+            "input or run under torch.no_grad()")
 
 
 def dcn_all_gather(x: torch.Tensor) -> torch.Tensor:
     """Gather `x` from every process: result shape (world, *x.shape)."""
-    return _staged(_other_stats["all_gather"], x, _comm().all_gather,
-                   (distributed.world_size(), *x.shape))
+    return _NoVjp.apply(x, "dcn_all_gather", lambda t: _staged(
+        _other_stats["all_gather"], t, _comm().all_gather,
+        (distributed.world_size(), *t.shape)))
 
 
 def dcn_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -239,13 +262,16 @@ def dcn_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     if x.shape[0] % w:
         raise ValueError(f"leading axis {x.shape[0]} not divisible by world "
                          f"size {w}")
-    return _staged(_other_stats["reduce_scatter"], x,
-                   lambda host, out: _comm().reduce_scatter(host, op, out),
-                   (x.shape[0] // w, *x.shape[1:]))
+    return _NoVjp.apply(x, "dcn_reduce_scatter", lambda t: _staged(
+        _other_stats["reduce_scatter"], t,
+        lambda host, out: _comm().reduce_scatter(host, op, out),
+        (t.shape[0] // w, *t.shape[1:])))
 
 
 def dcn_broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
-    return _to_device(_comm().broadcast(_to_host(x), root), x.device)
+    """Root's `x` on every process."""
+    return _NoVjp.apply(x, "dcn_broadcast", lambda t: _to_device(
+        _comm().broadcast(_to_host(t), root), t.device))
 
 
 def dcn_barrier() -> None:
@@ -262,13 +288,20 @@ def dcn_all_to_all(x: torch.Tensor) -> torch.Tensor:
     if x.dim() == 0 or x.shape[0] != w:
         raise ValueError(f"leading axis must equal world size {w}, got "
                          f"{tuple(x.shape)}")
-    return _to_device(_comm().all_to_all(_to_host(x)), x.device)
+    return _NoVjp.apply(x, "dcn_all_to_all", lambda t: _staged(
+        _other_stats["all_to_all"], t,
+        lambda host, _: _comm().all_to_all(host)))
 
 
 def dcn_neighbor_exchange(x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "dcn_neighbor_exchange belongs to the sequence-parallel slice of the "
-        "port (ROADMAP A.6)")
+    """Send `x` to process (rank+1) % world and return the same-shaped
+    message from process (rank-1+world) % world: the ring shift of ring
+    attention across processes (raw bytes, any dtype). A CUDA tensor is
+    staged through pinned host memory, the message received into a pinned
+    buffer, and the result comes back on its device."""
+    return _NoVjp.apply(x, "dcn_neighbor_exchange", lambda t: _staged(
+        _other_stats["neighbor_exchange"], t,
+        lambda host, out: _comm().neighbor_exchange(host, out), t.shape))
 
 
 def hierarchical_psum(x: torch.Tensor, axis_name: str | None = None):
@@ -281,7 +314,7 @@ def hierarchical_psum(x: torch.Tensor, axis_name: str | None = None):
         raise NotImplementedError(
             f"hierarchical_psum(axis_name={axis_name!r}): the in-pod psum "
             "over a mesh axis belongs to a later training slice of the "
-            "port, the mesh and smap of ROADMAP A.6")
+            "port, the mesh and smap of ROADMAP A.6b")
     if distributed.world_size() > 1:
         x = dcn_all_reduce(x, "sum")
     return x

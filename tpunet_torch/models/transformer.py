@@ -56,9 +56,18 @@ and ``capacity_factor``; the trainer adds the blocks' load-balancing loss
 dense layer (q, k, v, out, gate, up, down, lm_head) a ``LoraDense``, over
 an int8 base too (QLoRA); ``models.lora`` holds the workflow around it.
 
-Options of the flax model that belong to later slices of the port (the
-sequence-parallel attention impls, ``mesh``) raise NotImplementedError
-naming ROADMAP A.6.
+Sequence parallelism across processes: ``attn_impl`` "dcn_ring",
+"dcn_zigzag" or "dcn_ulysses" runs each process's model on its sequence
+shard (contiguous, or the zigzag chunk pair of ``parallel.to_zigzag``)
+with rotary at the shard's global positions, k/v repeated to the q heads
+after rotary, and attention through ``tpunet_torch.parallel`` over the
+DCN collectives (``distributed`` initialized). They are inference paths,
+as in JAX: the exchange has no gradient, and the decode cache and
+``attn_window`` refuse them with the flax model's ValueErrors.
+
+Options of the flax model that belong to a later slice of the port (the
+in-pod sequence-parallel impls "ring", "zigzag" and "ulysses", ``mesh``)
+raise NotImplementedError naming ROADMAP A.6b.
 """
 
 from __future__ import annotations
@@ -72,10 +81,15 @@ from torch import nn
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from tpunet_torch import _device
+from tpunet_torch import _device, distributed
 from tpunet_torch.models import _bind
 from tpunet_torch.ops.flash_attention import (_repeat_kv, attention_reference,
                                               flash_attention)
+from tpunet_torch.parallel import (dcn_ring_attention, dcn_ulysses_attention,
+                                   dcn_zigzag_attention, zigzag_positions)
+
+# The sequence-parallel impls across processes.
+DCN_IMPLS = ("dcn_ring", "dcn_zigzag", "dcn_ulysses")
 
 
 def rotary_embed(x, base: float = 10000.0, pos_offset: int = 0,
@@ -232,16 +246,51 @@ class SelfAttention(nn.Module):
     def forward(self, x, cache=None, prefill=False, prefix=""):
         b, s, _ = x.shape
         h, kv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+        if self.attn_window is not None and self.attn_impl in DCN_IMPLS:
+            raise ValueError(
+                f"attn_window is only supported by attn_impl 'reference'/"
+                f"'flash', not {self.attn_impl!r}")
         q = self.q(x).reshape(b, s, h, dh)
         k = self.k(x).reshape(b, s, kv, dh)
         v = self.v(x).reshape(b, s, kv, dh)
         if cache is not None:
+            if self.attn_impl in DCN_IMPLS:
+                # The cached step is dense local attention: wrong for a
+                # sequence shard whose k/v live on other processes.
+                raise ValueError(
+                    f"decode=True does not support attn_impl="
+                    f"{self.attn_impl!r}; decode on the full sequence with "
+                    "attn_impl='reference' (e.g. model.clone("
+                    "attn_impl='reference') before generate())")
             o = self._cached(q, k, v, cache, prefill, prefix)
+        elif self.attn_impl in DCN_IMPLS:
+            o = self._sequence_parallel(q, k, v)
         else:
             q, k = rotary_embed(q), rotary_embed(k)
             o = _causal_kernel_attention(q, k, v, self.attn_impl,
                                          self.attn_window)
         return self.out(o.reshape(b, s, h * dh))
+
+    def _sequence_parallel(self, q, k, v):
+        """Causal attention of this process's sequence shard across the
+        processes: rotary at the shard's global positions (rank * s, or
+        the zigzag pair's), k/v repeated to q's heads after rotary."""
+        s = q.shape[1]
+        w, rank = distributed.world_size(), distributed.rank()
+        if self.attn_impl == "dcn_zigzag":
+            pos = zigzag_positions(w, w * s, rank).to(q.device).float()
+            q = rotary_embed(q, positions=pos)
+            k = rotary_embed(k, positions=pos)
+        else:
+            q = rotary_embed(q, pos_offset=rank * s)
+            k = rotary_embed(k, pos_offset=rank * s)
+        group = self.n_heads // self.n_kv_heads
+        k, v = _repeat_kv(k, group), _repeat_kv(v, group)
+        if self.attn_impl == "dcn_ring":
+            return dcn_ring_attention(q, k, v, causal=True)
+        if self.attn_impl == "dcn_zigzag":
+            return dcn_zigzag_attention(q, k, v)
+        return dcn_ulysses_attention(q, k, v, causal=True)
 
     def _cached(self, q, k, v, cache, prefill, prefix):
         """The decode-cache step (flax SelfAttention's decode branch). Writes
@@ -506,8 +555,8 @@ class Block(nn.Module):
 # Options of the flax model queued for later slices (ROADMAP.md queue A):
 # name -> (the only value this slice takes, the slice that brings it).
 _LATER = {
-    "mesh": (None, "mesh-sharded attention (sequence-parallel slice, "
-                   "ROADMAP A.6)"),
+    "mesh": (None, "mesh-sharded attention (the in-pod mesh tier, "
+                   "ROADMAP A.6b)"),
 }
 
 _aten = torch.ops.aten
@@ -567,11 +616,11 @@ class Transformer(nn.Module):
             if value != default:
                 raise NotImplementedError(
                     f"{what} ({name}={value!r}) is a later slice of the port")
-        if attn_impl not in ("reference", "flash"):
+        if attn_impl not in ("reference", "flash") + DCN_IMPLS:
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: the sequence-parallel attention "
-                "impls are a later slice of the port (sequence-parallel "
-                "slice, ROADMAP A.6)")
+                f"attn_impl={attn_impl!r}: the in-pod sequence-parallel "
+                "attention impls over a mesh axis are a later slice of the "
+                "port (the in-pod mesh tier, ROADMAP A.6b)")
         device = _device.resolve(device)
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads, self.d_ff = n_heads, d_ff
