@@ -319,14 +319,48 @@ Phases (each raises on failure; the script then exits non-zero):
            each stage's seconds inside its transform against its whole
            run (what is left is the wait on its links), and the
            isend/irecv byte counters per stage
+  mesh     the in-pod mesh tier in ONE spawn of 4 ranks on this card (a
+           mesh device is a rank; three meshes over the same ranks): (a)
+           the train phase's model, seed, ramps and batch (8 x 2048, 4 a
+           dp rank) with tensor parallelism over {dp: 2, mdl: 2}: bf16
+           over f32 masters, flash on each rank's 8 of 16 heads, remat,
+           adamw 3e-4, 3 fit() steps, the gradients meaned over dp only.
+           Gates: the dp replicas of each mdl rank bitwise equal (CRC32C);
+           the first loss (the mean over dp) within 2e-3 relative of the
+           train phase's; the loss finite and falling; flash 24 / 12 / 12
+           launches a rank-step, no input copy; the peak a rank within the
+           TP shard's params, its adamw state, two gradient-sized buffers,
+           the gathered f32 logits and 1 GB. (b) gpipe over {pp: 4}: 3
+           blocks of the training widths a stage (f32 masters, bf16,
+           flash), 8 microbatches of (1, 2048, 2048), forward and backward
+           of mean(out ** 2): the output bitwise the 12 blocks run in
+           order on one process over the same microbatches, each stage's
+           gradients within 1e-1 of max(1, max|ref|) of that run's (the
+           bits reported), 24 / 24 / 24 launches a stage (a stage computes
+           its 8 ticks only), no copy. (c) {dp: 2, sp: 2} at the serve
+           widths (16 heads, 4 kv heads, D 128): ring, zigzag and Ulysses
+           on 8,192 tokens a dp replica, 4,096 a rank, forward and
+           backward in bf16 against the one-process flash attention of
+           the replica's sequence (outputs within 5e-2 x max(1, max|ref|),
+           dq, dk, dv within 1e-1 relative), forward in f32 at 2,048
+           tokens a replica within 1e-3 x max(1, max|ref|) of
+           attention_reference, and a planted fault (no k/v crosses the
+           ring) above the bf16 limit; then VGG16 (the vgg phase's
+           defaults, dropout 0, deterministic cuDNN) with its classifier
+           split over (a)'s mdl axis, 2 steps: the dp replicas bitwise,
+           the first loss within 2e-3 relative of the vgg phase's. Reports
+           each part's seconds, each axis collective's calls, bytes and
+           seconds, the dp all-reduce's, step times and the peaks. The
+           kernel phases hold the TP path's attention shape (bf16 B4 S2048
+           8 heads, 8 kv heads, D128 causal) forward and backward
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
 at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
 heads 1 kv head D320), with the tensor-core instructions of the function
 each runs, and for the bf16 kernels the launches on each path (train,
-moe, qlora, sp's one-process reference, pipe); and, last, the device
-line.
+moe, qlora, sp's one-process reference, pipe, mesh's TP x DP run);
+and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are False), so f32 references are true f32.
@@ -2627,7 +2661,7 @@ def _rank_bodies() -> dict:
             "qlora": _qlora_rank_body, "a2a": _a2a_rank_body,
             "moe_bench": _moe_bench_rank_body, "sp": _sp_rank_body,
             "pipe_bench": _pipe_bench_rank_body,
-            "pipe_model": _pipe_model_rank_body}
+            "pipe_model": _pipe_model_rank_body, "mesh": _mesh_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
@@ -2656,8 +2690,18 @@ def _spawn_ranks(kind: str, path: str, seed: int,
         p.start()
     res = {}
     try:
-        for _ in procs:
-            rank, status, payload = q.get(timeout=900)
+        deadline = time.monotonic() + 900
+        while len(res) < world:
+            try:
+                rank, status, payload = q.get(timeout=5)
+            except queue.Empty:
+                # A rank that died without reporting (a crash in its
+                # start-up) fails the phase now, not at the deadline.
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(f"{kind} ranks: {len(res)} of {world} "
+                                       f"reported, exit codes {dead}")
+                continue
             if status != "OK":
                 raise RuntimeError(f"{kind} rank {rank} failed:\n{payload}")
             res[rank] = payload
@@ -3259,7 +3303,7 @@ def _vgg_steady(ranks: list, run: str) -> float:
                           for r in ranks]))
 
 
-def phase_vgg(seed: int) -> None:
+def phase_vgg(seed: int) -> dict:
     """benchmarks/vgg_synthetic.py -n 2 on this card: VGG16 data-parallel
     on VGG_RANKS spawned ranks (VGG_RUNS), held to a single process that
     applies the mean of the two half-batch gradients; reports img/s, MFU,
@@ -3346,6 +3390,7 @@ def phase_vgg(seed: int) -> None:
     if any(a == r["losses"][:VGG_DROPOUT_STEPS]
            for a, r in zip(drop["dropout_a"], runs["flat"])):
         raise AssertionError("dropout changed no loss")
+    return summary
 
 
 # The moe phase: benchmarks/lm_synthetic.py --experts 4 --moe-top-k 2 at its
@@ -4335,6 +4380,402 @@ def phase_pipe(seed: int) -> dict:
                              "from one process running the blocks in order")
     return launches
 
+# The mesh phase (ROADMAP A.6b): the in-pod mesh tier in ONE spawn of
+# MESH_RANKS ranks on this card, a mesh device being a rank. (a) the train
+# phase's model, data and seed under tensor parallelism over {dp: 2, mdl:
+# 2} for MESH_STEPS steps; (b) GPipe over {pp: 4}, 3 blocks of the
+# training widths a stage, MESH_PIPE_MICRO microbatches of (1, TRAIN_SEQ,
+# d); (c) ring, zigzag and Ulysses attention over {dp: 2, sp: 2} at the
+# serve widths (16 heads, 4 kv heads, D 128) on MESH_SP_SEQ tokens a dp
+# replica (MESH_SP_F32_SEQ in f32), and VGG16's TP classifier over (a)'s
+# mesh for MESH_VGG_STEPS steps.
+MESH_RANKS, MESH_STEPS, MESH_VGG_STEPS = 4, 3, 2
+MESH_LOSS_RTOL = 2e-3
+MESH_PIPE_MICRO = 8
+MESH_SP_SEQ, MESH_SP_F32_SEQ = 8192, 2048
+MESH_SP_GRAD_TOL = 1e-1
+# The TP x DP path's attention: a rank's 8 of the 16 heads at the training
+# shape, as (b, sq, sk, h, hk, causal, window, dtype, d); held to the plain
+# versions in the kernels phases.
+MESH_CASES = [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 8, True, None, BF16,
+               128)]
+
+
+def _mesh_tp(mesh, path: str, seed: int) -> dict:
+    """(a): make_train_step over the TP model, fit() on dp rank d's train
+    batches; the train phase's measurements plus the axis collectives."""
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.parallel import smap
+    from tpunet_torch.train import adamw, create_train_state, make_train_step
+
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", remat=True,
+                        mesh=mesh, tp_axis="mdl", device="meta",
+                        **MODEL_TRAIN)
+    tx = adamw(TRAIN_LR)
+    state, _ = create_train_state(model, seed, None, tx, device=DEVICE)
+    step = make_train_step(model, tx)
+    dp = mesh.axis_index("dp")
+    smap.axis_stats_reset()
+    state, out = _fit_measured(state, step, _train_batches(path, dp, seed),
+                               MESH_STEPS)
+    out.update(axis=smap.axis_stats(), dp=dp, mdl=mesh.axis_index("mdl"))
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gpipe(mesh, seed: int) -> dict:
+    """(b): gpipe over pp of this stage's 3 blocks (f32 masters, bf16
+    compute, flash), forward and backward of mean(out ** 2); then the 12
+    blocks in order on this process over the same microbatches (in
+    reverse order, the order autograd sums the pipeline's ticks in)."""
+    import torch.nn.functional as F
+    from torch import nn
+    from torch.func import functional_call
+
+    from tpunet_torch.models import Transformer, init_params
+    from tpunet_torch.parallel import gpipe, smap
+
+    meta = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
+                       **MODEL_TRAIN)
+    p32 = init_params(meta, seed=seed, device=DEVICE)
+    per = MODEL_TRAIN["n_layers"] // mesh.shape["pp"]
+    stage = mesh.axis_index("pp")
+    seq = nn.Sequential(*(getattr(meta, f"block{i}") for i in range(per)))
+
+    def stage_params(s: int) -> dict:
+        return {f"{i - s * per}.{n.split('.', 1)[1]}": t
+                for n, t in p32.items() for i in range(s * per, (s + 1) * per)
+                if n.startswith(f"block{i}.")}
+
+    def stage_fn(params, x):
+        return functional_call(seq, params, (x,))
+
+    toks = np.random.default_rng(seed + 18).integers(
+        0, MODEL_TRAIN["vocab"], (MESH_PIPE_MICRO, TRAIN_SEQ))
+    x = F.embedding(torch.as_tensor(toks, device=DEVICE),
+                    p32["embed"]).to(BF16)
+    local = {k: v[None].clone().requires_grad_()
+             for k, v in stage_params(stage).items()}
+    smap.axis_stats_reset()
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = gpipe(stage_fn, local, x, mesh, MESH_PIPE_MICRO)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    (y.float() ** 2).mean().backward()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches, copies = _read_counters()
+    out = dict(seconds=sec, forward_s=fwd_s, launches=launches,
+               input_copies=copies, axis=smap.axis_stats(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # The reference: microbatch by microbatch through the 12 blocks.
+    mine = {k: v.detach().clone().requires_grad_()
+            for k, v in stage_params(stage).items()}
+    params = [mine if s == stage else stage_params(s)
+              for s in range(mesh.shape["pp"])]
+    ref = [None] * MESH_PIPE_MICRO
+    for m in reversed(range(MESH_PIPE_MICRO)):
+        h = x[m:m + 1]
+        for s, p in enumerate(params):
+            h = stage_fn(p, h)
+        (h.float() ** 2).sum().div(y.numel()).backward()
+        ref[m] = h.detach()
+    ref = torch.cat(ref)
+    out["forward_bitwise"] = bool(torch.equal(y.detach(), ref))
+    out["forward_max_abs_err"] = float((y.detach().float()
+                                        - ref.float()).abs().max())
+    errs, bitwise = {}, True
+    for k, v in mine.items():
+        g, want = local[k].grad[0], v.grad
+        bitwise &= bool(torch.equal(g, want))
+        errs[k] = float((g - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+    out["grad_rel_err"] = max(errs.values())
+    out["grad_bitwise"] = bitwise
+    del p32, x, y, ref, local, mine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rows(x, n: int, i: int, zigzag: bool):
+    """Rank i's rows (axis 1) of `x` over n sequence ranks: contiguous, or
+    its zigzag chunk pair (sp_shards.shard's rule, on the card)."""
+    if zigzag:
+        c = x.shape[1] // (2 * n)
+        lo, hi = i * c, (2 * n - 1 - i) * c
+        return torch.cat([x[:, lo:lo + c], x[:, hi:hi + c]], dim=1)
+    s = x.shape[1] // n
+    return x[:, i * s:(i + 1) * s]
+
+
+def _mesh_sp(mesh, seed: int) -> dict:
+    """(c): ring, zigzag and Ulysses over sp, forward and backward in bf16
+    against the one-process flash attention of the dp replica's whole
+    sequence (each rank computes it), forward in f32 against
+    attention_reference, and the planted fault (no k/v crosses)."""
+    from tpunet_torch.ops.flash_attention import (_repeat_kv,
+                                                  attention_reference,
+                                                  flash_attention)
+    from tpunet_torch.parallel import (ring_self_attention, smap,
+                                       ulysses_self_attention,
+                                       zigzag_self_attention)
+
+    h, hk, d = MODEL_735M["n_heads"], MODEL_735M["n_kv_heads"], 128
+    n, i = mesh.shape["sp"], mesh.axis_index("sp")
+    dp = mesh.axis_index("dp")
+
+    def data(seq, dt):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + 19 + dp)
+        shapes = ((1, seq, h, d), (1, seq, hk, d), (1, seq, hk, d),
+                  (1, seq, h, d))
+        return [torch.randn(s, generator=gen, device=DEVICE).to(dt)
+                for s in shapes]
+
+    def run(impl, q, k, v):
+        k, v = _repeat_kv(k, h // hk), _repeat_kv(v, h // hk)
+        if impl == "zigzag":
+            return zigzag_self_attention(q, k, v, mesh)
+        fn = ring_self_attention if impl == "ring" else ulysses_self_attention
+        return fn(q, k, v, mesh, causal=True)
+
+    out = {"bf16": {}, "f32": {}, "fault": {}}
+    q, k, v, w = data(MESH_SP_SEQ, BF16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref = flash_attention(*leaves, True)
+    (o_ref.float() * w.float()).sum().backward()
+    ref = {"out": o_ref.detach(), "dq": leaves[0].grad,
+           "dk": leaves[1].grad, "dv": leaves[2].grad}
+    scale = {key: max(1.0, float(t.float().abs().max()))
+             for key, t in ref.items()}
+    del leaves, o_ref
+    for impl in ("ring", "zigzag", "ulysses"):
+        zig = impl == "zigzag"
+        mine = [_mesh_rows(t, n, i, zig).contiguous().requires_grad_()
+                for t in (q, k, v)]
+        smap.axis_stats_reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        o = run(impl, *mine)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        (o.float() * _mesh_rows(w, n, i, zig).float()).sum().backward()
+        torch.cuda.synchronize()
+        got = {"out": o.detach(), "dq": mine[0].grad, "dk": mine[1].grad,
+               "dv": mine[2].grad}
+        out["bf16"][impl] = dict(
+            forward_s=fwd_s, seconds=time.perf_counter() - t0,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            axis=smap.axis_stats(), finite=all(
+                bool(torch.isfinite(t).all()) for t in got.values()),
+            err={key: float((got[key].float() - _mesh_rows(
+                ref[key], n, i, zig).float()).abs().max()) / (
+                    1.0 if key == "out" else scale[key])
+                for key in got})
+        del o, mine, got
+        torch.cuda.empty_cache()
+    # The planted fault: every ring step hands a rank its own block back.
+    permute = smap._permute
+    smap._permute = lambda x, *args: x.clone()
+    try:
+        with torch.no_grad():
+            for impl in ("ring", "zigzag"):
+                zig = impl == "zigzag"
+                o = run(impl, *(_mesh_rows(t, n, i, zig) for t in (q, k, v)))
+                out["fault"][impl] = float((o.float() - _mesh_rows(
+                    ref["out"], n, i, zig).float()).abs().max())
+    finally:
+        smap._permute = permute
+    out["scale"] = scale
+    del q, k, v, w, ref
+    torch.cuda.empty_cache()
+    q, k, v, _ = data(MESH_SP_F32_SEQ, F32)
+    with torch.no_grad():
+        want = attention_reference(q, _repeat_kv(k, h // hk),
+                                   _repeat_kv(v, h // hk), True)
+        out["f32_scale"] = max(1.0, float(want.abs().max()))
+        for impl in ("ring", "zigzag", "ulysses"):
+            zig = impl == "zigzag"
+            o = run(impl, *(_mesh_rows(t, n, i, zig) for t in (q, k, v)))
+            out["f32"][impl] = float((o - _mesh_rows(want, n, i,
+                                                     zig)).abs().max())
+    return out
+
+
+def _mesh_vgg(mesh, seed: int) -> dict:
+    """VGG16 (the vgg phase's configuration) with its classifier over
+    mdl, data over dp, deterministic cuDNN, dp rank d on the vgg phase's
+    rank-d batch."""
+    from tpunet_torch.models import VGG, VGG16_CFG
+    from tpunet_torch.parallel import smap
+    from tpunet_torch.train import create_train_state, make_train_step, sgd
+
+    _cudnn(True)
+    model = VGG(VGG16_CFG, num_classes=VGG_CLASSES, hidden=VGG_HIDDEN,
+                compute_dtype=BF16, classifier_dropout=0.0,
+                image_size=VGG_IMAGE, mesh=mesh, tp_axis="mdl",
+                device="meta")
+    state, _ = create_train_state(model, seed, None,
+                                  sgd(VGG_LR, momentum=0.9), device=DEVICE)
+    step = make_train_step(model)
+    dp = mesh.axis_index("dp")
+    smap.axis_stats_reset()
+    state, out = _fit_measured(state, step,
+                               itertools.repeat(_vgg_batch(seed, dp)),
+                               MESH_VGG_STEPS)
+    out.update(axis=smap.axis_stats(), dp=dp, mdl=mesh.axis_index("mdl"))
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    """The three meshes over this spawn's ranks, built in one order on
+    every rank, and the parts (a), (b), (c) in turn."""
+    from tpunet_torch import distributed
+    from tpunet_torch.parallel import make_named_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, MESH_RANKS)
+    t0 = time.perf_counter()
+    tp = make_named_mesh({"dp": 2, "mdl": 2})
+    pp = make_named_mesh({"pp": 4})
+    sp = make_named_mesh({"dp": 2, "sp": 2})
+    out = {"rank": rank, "wire_s": time.perf_counter() - t0, "seconds": {}}
+    for part, fn, mesh, arg in (("tp", _mesh_tp, tp, path),
+                                ("pipe", _mesh_gpipe, pp, None),
+                                ("sp", _mesh_sp, sp, None),
+                                ("vgg", _mesh_vgg, tp, None)):
+        distributed.global_communicator().barrier()
+        t0 = time.perf_counter()
+        out[part] = fn(mesh, arg, seed) if arg else fn(mesh, seed)
+        out["seconds"][part] = time.perf_counter() - t0
+    for m in (tp, pp, sp):
+        m.close()
+    distributed.finalize()
+    return out
+
+
+def phase_mesh(seed: int, train: dict, vgg: dict) -> dict:
+    """The in-pod mesh tier on MESH_RANKS ranks; returns the flash
+    launches of (a), the TP x DP training path, summed over the ranks."""
+    t0 = time.perf_counter()
+    ranks, wall = _spawn_ranks("mesh", _ramp_data(seed), seed, MESH_RANKS)
+    tp = [r["tp"] for r in ranks]
+    n_local = [p["params"] for p in tp]
+    logits_bytes = 4 * TRAIN_BATCH * TRAIN_SEQ * MODEL_TRAIN["vocab"]
+    limits = [(3 * 4 * n + p["opt_state_bytes"] + logits_bytes) / 1e9
+              + TRAIN_MEM_SLACK_GB for n, p in zip(n_local, tp)]
+    # The global loss: the mean over dp of each dp group's (mdl 0's).
+    by_dp = {p["dp"]: p["losses"] for p in tp if p["mdl"] == 0}
+    losses = [float(np.mean(x)) for x in zip(*by_dp.values())]
+    vg = [r["vgg"] for r in ranks]
+    vgg_by_dp = {p["dp"]: p["losses"] for p in vg if p["mdl"] == 0}
+    vgg_losses = [float(np.mean(x)) for x in zip(*vgg_by_dp.values())]
+    pipe = [r["pipe"] for r in ranks]
+    sp = [r["sp"] for r in ranks]
+    tol = {"bf16": SP_TOL[BF16] * max(r["scale"]["out"] for r in sp),
+           "f32": SP_TOL[F32] * max(r["f32_scale"] for r in sp)}
+    summary = dict(
+        ranks=MESH_RANKS, wall_s=time.perf_counter() - t0, ranks_wall_s=wall,
+        part_s=[r["seconds"] for r in ranks],
+        wire_s=[r["wire_s"] for r in ranks],
+        tp=dict(mesh={"dp": 2, "mdl": 2}, steps=MESH_STEPS, losses=losses,
+                rank_losses=[p["losses"] for p in tp],
+                train_first_loss=train["losses"][0],
+                first_loss_rel=abs(losses[0] - train["losses"][0])
+                / abs(train["losses"][0]),
+                crc=[p["crc"] for p in tp], params=n_local,
+                step_s=[p["step_s"] for p in tp],
+                launches=[p["launches"] for p in tp],
+                input_copies=[p["input_copies"] for p in tp],
+                peak_mem_gb=[p["peak_mem_gb"] for p in tp],
+                peak_mem_limit_gb=limits,
+                dp_all_reduce=[p["all_reduce"] for p in tp],
+                axis=[p["axis"] for p in tp]),
+        pipe=dict(mesh={"pp": 4}, microbatches=MESH_PIPE_MICRO,
+                  **{k: [p[k] for p in pipe] for k in pipe[0]}),
+        sp=dict(mesh={"dp": 2, "sp": 2}, seq=MESH_SP_SEQ,
+                f32_seq=MESH_SP_F32_SEQ, tol=tol,
+                grad_tol=MESH_SP_GRAD_TOL,
+                bf16=[r["bf16"] for r in sp], f32=[r["f32"] for r in sp],
+                planted_fault_err=[r["fault"] for r in sp]),
+        vgg=dict(mesh={"dp": 2, "mdl": 2}, steps=MESH_VGG_STEPS,
+                 losses=vgg_losses, vgg_first_loss=vgg["losses"][0],
+                 first_loss_rel=abs(vgg_losses[0] - vgg["losses"][0])
+                 / abs(vgg["losses"][0]),
+                 crc=[p["crc"] for p in vg],
+                 step_s=[p["step_s"] for p in vg],
+                 peak_mem_gb=[p["peak_mem_gb"] for p in vg],
+                 axis=[p["axis"] for p in vg]),
+        card=CARD)
+    log("mesh", **summary)
+    s = summary["tp"]
+    for a in range(2):
+        for b in range(2, 4):
+            if tp[a]["mdl"] == tp[b]["mdl"] and tp[a]["crc"] != tp[b]["crc"]:
+                raise AssertionError(f"mesh (a): the dp replicas of mdl "
+                                     f"{tp[a]['mdl']} differ")
+    if s["first_loss_rel"] > MESH_LOSS_RTOL:
+        raise AssertionError(f"mesh (a): first loss {losses[0]} off the "
+                             f"train phase's {train['losses'][0]}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"mesh (a): loss not finite and falling: "
+                             f"{losses}")
+    want = _want_launches(1, MESH_STEPS)
+    for p, limit in zip(tp, limits):
+        if p["launches"] != want or p["input_copies"]:
+            raise AssertionError(f"mesh (a): launches {p['launches']} "
+                                 f"(want {want}), copies "
+                                 f"{p['input_copies']}")
+        if p["peak_mem_gb"] > limit:
+            raise AssertionError(f"mesh (a): peak {p['peak_mem_gb']} GB "
+                                 f"above {limit} GB")
+    per_stage = MESH_PIPE_MICRO * MODEL_TRAIN["n_layers"] // 4
+    for p in pipe:
+        if not p["forward_bitwise"]:
+            raise AssertionError("mesh (b): the pipeline's output is not "
+                                 "the sequential run's, bitwise")
+        if p["grad_rel_err"] > BWD_TOL[BF16]:
+            raise AssertionError(f"mesh (b): stage gradients off by "
+                                 f"{p['grad_rel_err']}")
+        if p["launches"] != {k: per_stage for k in COUNTERS} or (
+                p["input_copies"]):
+            raise AssertionError(f"mesh (b): launches {p['launches']}, "
+                                 f"want {per_stage} each")
+    for r in sp:
+        for impl, row in r["bf16"].items():
+            e = row["err"]
+            if not row["finite"] or e["out"] > tol["bf16"] or max(
+                    e["dq"], e["dk"], e["dv"]) > MESH_SP_GRAD_TOL:
+                raise AssertionError(f"mesh (c): bf16 {impl} off: {e}")
+        for impl, err in r["f32"].items():
+            if err > tol["f32"]:
+                raise AssertionError(f"mesh (c): f32 {impl} off: {err}")
+    # A causal ring's first rank folds only its own block: the fault shows
+    # on the others.
+    for impl in ("ring", "zigzag"):
+        err = max(r["fault"][impl] for r in sp)
+        if not err > tol["bf16"]:
+            raise AssertionError(f"mesh (c): the check cannot see a planted "
+                                 f"{impl} fault ({err})")
+    v = summary["vgg"]
+    for a in range(2):
+        for b in range(2, 4):
+            if vg[a]["mdl"] == vg[b]["mdl"] and vg[a]["crc"] != vg[b]["crc"]:
+                raise AssertionError("mesh vgg: the dp replicas differ")
+    if v["first_loss_rel"] > MESH_LOSS_RTOL or not all(
+            np.isfinite(vgg_losses)):
+        raise AssertionError(f"mesh vgg: first loss {vgg_losses} off the "
+                             f"vgg phase's {vgg['losses'][0]}")
+    return {k: sum(p["launches"][k] for p in tp) for k in COUNTERS}
+
 
 # The paths of the other kernel routes, each a user's training run through
 # the trainer's entry points (create_train_state, make_train_step; adamw,
@@ -4366,9 +4807,10 @@ PATH_CASES = [(b, s, s, MODEL_WIDE["n_heads"], MODEL_WIDE["n_kv_heads"],
 
 
 def _kernel_cases(cases) -> list:
-    """PATH_CASES, then `cases` with their 16 q heads, as (b, sq, sk, h,
-    hk, causal, window, dtype, d)."""
-    return PATH_CASES + [(b, sq, sk, 16, *rest) for b, sq, sk, *rest in cases]
+    """PATH_CASES, then `cases` with their 16 q heads, then MESH_CASES, as
+    (b, sq, sk, h, hk, causal, window, dtype, d)."""
+    return (PATH_CASES + [(b, sq, sk, 16, *rest) for b, sq, sk, *rest in cases]
+            + MESH_CASES)
 
 
 def _path_losses(cfg, dt, shape, impl, seed) -> list:
@@ -4477,12 +4919,13 @@ def main() -> int:
     phase_elastic(args.seed, train)
     phase_zero(args.seed, train)
     phase_remat(args.seed)
-    phase_vgg(args.seed)
+    vgg = phase_vgg(args.seed)
     by_path = {"train": train_launches, "moe": phase_moe(args.seed),
                "qlora": phase_qlora(args.seed)}
     phase_a2a(args.seed)
     by_path["sp"] = phase_sp(args.seed)
     by_path["pipe"] = phase_pipe(args.seed)
+    by_path["mesh"] = phase_mesh(args.seed, train, vgg)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []

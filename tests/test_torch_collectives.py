@@ -294,20 +294,26 @@ def test_psum_requires_initialize():
 def test_later_slice_collectives_raise(name, slice_):
     from tpunet_torch import interop
 
-    # hierarchical_psum's DCN tier is ported; its in-pod tier (a mesh
-    # axis) waits for the mesh of ROADMAP A.6b. The all-to-all (MoE slice)
-    # and the neighbor exchange (sequence-parallel slice) are ported.
+    # Every one of them is ported now: the all-to-all (MoE slice), the
+    # neighbor exchange (sequence-parallel slice) and hierarchical_psum's
+    # in-pod tier over a mesh axis (the mesh slice, ROADMAP A.6b;
+    # tests/test_torch_tp.py holds it over a mesh of 4 ranks).
     if slice_ is None:
         _dcn_all_to_all_parity()
         return
     if name == "dcn_neighbor_exchange":
         _dcn_neighbor_exchange_parity()
         return
-    kw = {"axis_name": "ici"} if name == "hierarchical_psum" else {}
-    with pytest.raises(NotImplementedError, match=slice_) as err:
-        getattr(interop, name)(torch.ones(2), **kw)
-    if kw:
-        assert "A.6" in str(err.value)
+    from tpunet_torch.parallel import make_named_mesh
+
+    # A mesh of one rank needs no world: its psum over "ici" and over the
+    # rest of the mesh is the identity; the axis resolves against the
+    # active mesh only.
+    x = torch.tensor([1.0, -2.5])
+    with make_named_mesh({"ici": 1, "dp": 1}):
+        assert torch.equal(interop.hierarchical_psum(x, axis_name="ici"), x)
+    with pytest.raises(RuntimeError, match="no active mesh"):
+        interop.hierarchical_psum(x, axis_name="ici")
 
 
 def _dcn_neighbor_exchange_parity():
@@ -436,8 +442,8 @@ def _broadcast_soak(q, tries, nbytes):
 
 
 def test_broadcast_under_the_qos_wire_window_does_not_stall():
-    """C.12's guard: an 8 MiB Communicator.broadcast (8 native 1 MiB pieces
-    in one call) between two loopback ranks under an armed 256K wire
+    """C.12's guard: an 8 MiB Communicator.broadcast (8 native calls of one
+    1 MiB piece each) between two loopback ranks under an armed 256K wire
     window on two data streams, 20 times; the progress watchdog (5 s)
     bounds a stalled try. Every try must deliver the root's bytes."""
     ctx = mp.get_context("spawn")

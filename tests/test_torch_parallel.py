@@ -14,9 +14,11 @@ the full problem (atol = rtol = 2e-5, as tests/test_dcn_ring_attention.py
 and tests/test_ulysses.py hold JAX's), and the tiny Transformer on its
 token shard against the flax model with attn_impl="reference" on the full
 sequence, params carried across by from_flax (1e-4 ring and Ulysses, 3e-5
-zigzag). Refusals: Ulysses heads not divisible by the world, an odd zigzag
-shard, a backward through the exchange, attn_window and the decode cache
-with a dcn impl, and the in-pod impls (ROADMAP A.6b).
+zigzag). The in-pod impls "ring", "zigzag" and "ulysses" run the same
+model cases over a mesh {sp: 2} of the two ranks. Refusals: Ulysses heads
+not divisible by the world, an odd zigzag shard, a backward through the
+exchange, attn_window and the decode cache with a dcn impl, and an in-pod
+impl without a mesh.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ ATTENTION = {2: [("ring", False), ("ring", True), ("zigzag", True),
                  ("ulysses", False), ("ulysses", True)],
              4: [("ring", True), ("zigzag", True), ("ulysses", True)]}
 IMPLS = ("dcn_ring", "dcn_zigzag", "dcn_ulysses")
+IN_POD_IMPLS = ("ring", "zigzag", "ulysses")
 # case name -> (the exception the ranks must raise, its message).
 REFUSALS = {"ulysses_heads": ("ValueError", "not divisible by world"),
             "zigzag_odd_shard": ("ValueError", "must be even"),
@@ -106,7 +109,7 @@ def _cases(world: int) -> dict:
     if world == 2:
         for name in MODEL_CFGS:
             params, toks, _ = _model_setup(name)
-            for impl in IMPLS:
+            for impl in IMPLS + IN_POD_IMPLS:
                 cases[f"{impl}-{name}"] = ("model", impl, MODEL_CFGS[name],
                                            params, toks)
         cases["ulysses_heads"] = ("attention", "ulysses", True,
@@ -247,10 +250,25 @@ def test_window_and_cache_refuse_dcn_impls(impl):
         model(toks, cache=init_cache(model, 1, 8, device="cpu"))
 
 
-@pytest.mark.parametrize("impl", ["ring", "zigzag", "ulysses"])
+@pytest.mark.parametrize("impl", IN_POD_IMPLS)
 def test_in_pod_impls_wait_for_the_mesh(impl):
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    """The in-pod impls run over the port's mesh (ROADMAP A.6b): over a
+    mesh {sp: 2} of the spawn's two ranks, each rank's logits on its token
+    shard equal the flax reference model's on the full sequence at the
+    shard's rows, MHA and GQA, at the dcn impls' tolerances. Without a
+    mesh they raise the flax model's ValueError."""
+    with pytest.raises(ValueError, match="requires a mesh"):
         Transformer(attn_impl=impl, device="cpu", **MODEL_CFGS["mha"])
+    res = _ranks(2)
+    for cfg in sorted(MODEL_CFGS):
+        _, _, want = _model_setup(cfg)
+        for rank in range(2):
+            got = res[rank][f"{impl}-{cfg}"]
+            assert isinstance(got, np.ndarray), got
+            tol = MODEL_TOL[f"dcn_{impl}"]
+            np.testing.assert_allclose(
+                got, shard(want, 2, rank, impl == "zigzag"), rtol=tol,
+                atol=tol, err_msg=f"{cfg} rank {rank}")
 
 
 # -- on spawned port ranks ---------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under tpunet_torch/ (nor chip_smoke.py
-and chip_compare.py) imports JAX, flax, optax, orbax or the JAX package,
+"""The port stands alone: nothing under tpunet_torch/ (nor chip_smoke.py,
+chip_compare.py and chip_broadcast_soak.py) imports JAX, flax, optax, orbax or the JAX package,
 importing the port leaves them out of sys.modules, and its entry points
 refuse to fall back to the CPU when no GPU is present."""
 
@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpunet")
 
 def _port_files():
     return sorted((REPO / "tpunet_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "chip_compare.py"]
+        REPO / "chip_smoke.py", REPO / "chip_compare.py",
+        REPO / "chip_broadcast_soak.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

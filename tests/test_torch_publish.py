@@ -458,21 +458,25 @@ def test_publish_abandons_wedged_broadcast_thread(monkeypatch):
 
 
 def test_broadcast_calls_carry_one_native_piece(monkeypatch):
-    """Whatever the chunk size, every broadcast call of a publication moves
-    at most one 1 MiB native pipeline piece, on the publisher and on the
-    receiver alike: a call of several pieces lets a later piece hold the
-    QoS wire credit the receiver's awaited piece needs, and both ends park
-    until the watchdog. A 2.5 MiB chunk that is no whole number of pieces
-    still gives the receiver the sent wire byte for byte (real loopback
-    comms, receiver on a thread)."""
-    sizes: dict[int, list[int]] = {0: [], 1: []}
-    bcast = publish.Communicator.broadcast
+    """Whatever the chunk size, every native broadcast call of a
+    publication moves at most one 1 MiB pipeline piece, on the publisher
+    and on the receiver alike (``Communicator.broadcast`` splits its
+    buffer): a call of several pieces lets a later piece hold the QoS wire
+    credit the receiver's awaited piece needs, and both ends park until
+    the watchdog. A 2.5 MiB chunk that is no whole number of pieces still
+    gives the receiver the sent wire byte for byte (real loopback comms,
+    receiver on a thread)."""
+    from tpunet_torch import _native
 
-    def spy(self, arr, root=0, out=None):
-        sizes[self.rank].append(int(np.asarray(arr).nbytes))
-        return bcast(self, arr, root=root, out=out)
+    sizes: dict[int, list[int]] = {}
+    lib = _native.load()
+    native = lib.tpunet_comm_broadcast
 
-    monkeypatch.setattr(publish.Communicator, "broadcast", spy)
+    def spy(comm, buf, nbytes, root):
+        sizes.setdefault(comm, []).append(int(nbytes))
+        return native(comm, buf, nbytes, root)
+
+    monkeypatch.setattr(lib, "tpunet_comm_broadcast", spy)
     nelems = (5 << 20) // 4 + 61  # 2.5 MiB + 122 B of bf16 wire
     wire = np.random.default_rng(0).integers(
         0, 256, transport.codec_wire_bytes("bf16", nelems)).astype(np.uint8)
@@ -512,7 +516,7 @@ def test_broadcast_calls_carry_one_native_piece(monkeypatch):
     assert box["wire"].tobytes() == wire.tobytes()
     mib = 1 << 20
     tail = wire.size - 5 * mib // 2
-    assert sizes[0] == sizes[1] == [mib, mib, mib // 2, tail]
+    assert list(sizes.values()) == [[mib, mib, mib // 2, tail]] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -226,14 +226,33 @@ def test_greedy_generate_matches_jax_where_margin_allows():
 
 
 def test_unported_options_raise_not_implemented():
-    """The sequence-parallel impls and the mesh are later slices (ROADMAP
-    A.6); int8 weights, the ring decode cache, MoE and LoRA are ported
-    (their parity tests are test_torch_quant.py, test_torch_ring_cache.py,
-    test_torch_moe.py and test_torch_lora.py)."""
-    for kw in ({"attn_impl": "ring"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4,
-                        d_ff=64, device="cpu", **kw)
+    """Every option of the flax model is ported: the in-pod sequence
+    parallel impls and the mesh (ROADMAP A.6b; their parity tests are
+    test_torch_inpod_attention.py and test_torch_tp.py), int8 weights, the
+    ring decode cache, MoE and LoRA (test_torch_quant.py,
+    test_torch_ring_cache.py, test_torch_moe.py and test_torch_lora.py).
+    An in-pod impl without a mesh is the flax model's ValueError; a model
+    over a {dp: 2, mdl: 2} mesh takes each rank's blocks."""
+    from tpunet_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="requires a mesh"):
+        Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4, d_ff=64,
+                    device="cpu", attn_impl="ring")
+    mesh = Mesh(np.arange(4).reshape(2, 2), ("dp", "mdl"), rank=3)
+    tp = Transformer(vocab=64, d_model=32, n_layers=1, n_heads=4, d_ff=64,
+                     device="meta", mesh=mesh, tp_axis="mdl")
+    full = init_params(Transformer(vocab=64, d_model=32, n_layers=1,
+                                   n_heads=4, d_ff=64, device="cpu"),
+                       seed=0, device="cpu")
+    local = tp.local_params(full)
+    assert tuple(local["block0.attn.q.weight"].shape) == (16, 32)
+    assert torch.equal(local["block0.mlp.down.weight"],
+                       full["block0.mlp.down.weight"][:, 32:])
+    assert torch.equal(local["embed"], full["embed"][32:])
+    assert local["norm_f.scale"] is full["norm_f.scale"]
+    bound = tp.bind(local)
+    assert bound.block0.attn.q.kind() == "column"
+    assert bound.block0.attn.out.kind() == "row"
     moe = Transformer(vocab=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,
                       device="cpu", n_experts=4, lora_rank=2)
     assert moe.block1.is_moe and not moe.block0.is_moe

@@ -1,0 +1,315 @@
+"""The spawned ranks of the port's mesh tests (test_torch_mesh.py,
+test_torch_inpod_attention.py, test_torch_gpipe.py, test_torch_tp.py and
+the in-pod model cases of test_torch_parallel.py), in a module that
+imports no JAX, so that they start fast: every case of one world size runs
+in one spawn. A mesh device is a rank, so a mesh of N devices takes N of
+them; the meshes a spawn needs are built once, in case order, on every
+rank.
+
+Each case takes the test process's GLOBAL inputs (numpy), gives every rank
+its block (``parallel.shard``), runs the port on it, gathers the blocks
+back (``parallel.unshard``) and reports the global results by name, or the
+type and message of the exception it raised."""
+
+from __future__ import annotations
+
+import socket
+import traceback
+
+import numpy as np
+import torch
+
+_meshes: dict = {}
+
+
+def _mesh(axes: tuple):
+    from tpunet_torch.parallel import make_named_mesh
+
+    if axes not in _meshes:
+        _meshes[axes] = make_named_mesh(dict(axes))
+    return _meshes[axes]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(t):
+    return t.detach().float().numpy() if t.dtype == torch.bfloat16 else (
+        t.detach().numpy())
+
+
+# -- cases --------------------------------------------------------------------
+
+
+def attention(kind, axes, qkv, causal=True, dp_axis=None, sp_axis="sp",
+              tp_axis=None, grad=False, dtype="float32", permute=True):
+    """`kind` ("ring", "zigzag", "ulysses") attention over the mesh on the
+    global q/k/v (natural order; zigzag ones are permuted here unless
+    `permute` is False); returns the global output (and, with `grad`, the
+    gradients of sum(out ** 2)) in natural order."""
+    from tpunet_torch.parallel import (P, from_zigzag, ring_self_attention,
+                                       shard, to_zigzag, ulysses_self_attention,
+                                       unshard, zigzag_self_attention)
+
+    mesh = _mesh(axes)
+    spec = P(dp_axis, sp_axis, tp_axis)
+    w = mesh.shape[sp_axis]
+    zig = kind == "zigzag" and permute
+    dt = getattr(torch, dtype)
+    glob = [_t(a).to(dt) for a in qkv]
+    if zig:
+        glob = [to_zigzag(x, w) for x in glob]
+    local = [shard(x, mesh, spec).requires_grad_(grad) for x in glob]
+    if kind == "zigzag":
+        out = zigzag_self_attention(*local, mesh, dp_axis=dp_axis,
+                                    sp_axis=sp_axis, tp_axis=tp_axis)
+    else:
+        fn = ring_self_attention if kind == "ring" else ulysses_self_attention
+        out = fn(*local, mesh, causal=causal, dp_axis=dp_axis,
+                 sp_axis=sp_axis, tp_axis=tp_axis)
+    res = {"out": out}
+    if grad:
+        (out.float() ** 2).sum().backward()
+        res.update(dq=local[0].grad, dk=local[1].grad, dv=local[2].grad)
+    back = {}
+    for k, t in res.items():
+        g = unshard(t.detach(), mesh, spec)
+        back[k] = _np(from_zigzag(g, w) if zig else g)
+    return back
+
+
+def model(axes, impl, cfg, params, tokens, dp_axis="dp", sp_axis="sp",
+          tp_axis=None):
+    """The port's Transformer over the mesh (`params` full, port layout)
+    on the global `tokens`; returns the global logits (natural order)."""
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.parallel import P, from_zigzag, shard, to_zigzag, unshard
+
+    mesh = _mesh(axes)
+    tm = Transformer(compute_dtype=torch.float32, attn_impl=impl, mesh=mesh,
+                     dp_axis=dp_axis, sp_axis=sp_axis, tp_axis=tp_axis,
+                     device="meta", **cfg)
+    sharded_seq = impl in ("ring", "zigzag", "ulysses")
+    spec = P(dp_axis, sp_axis if sharded_seq else None)
+    toks = _t(tokens).long()
+    w = mesh.shape.get(sp_axis, 1)
+    if impl == "zigzag":
+        toks = to_zigzag(toks, w)
+    net = tm.bind(tm.local_params({n: _t(a) for n, a in params.items()}))
+    logits = unshard(net(shard(toks, mesh, spec)), mesh, spec)
+    return {"logits": _np(from_zigzag(logits, w) if impl == "zigzag"
+                          else logits)}
+
+
+def gpipe(axes, stacked, x, microbatches, dp_axis=None, remat=False,
+          grad=False):
+    """The port's gpipe of a residual MLP stage over the mesh: the global
+    output and, with `grad`, the gradients of sum(out ** 2) with respect to
+    the stacked params and x."""
+    from tpunet_torch.parallel import P, gpipe as port_gpipe, shard, unshard
+
+    mesh = _mesh(axes)
+    params = {k: shard(_t(v), mesh, P("pp")).requires_grad_(grad)
+              for k, v in stacked.items()}
+    xg = _t(x)
+    xs = xg.reshape((microbatches, -1) + tuple(xg.shape[1:]))
+    dspec = P(None, dp_axis)
+    xl = shard(xs, mesh, dspec).reshape((-1,) + tuple(xg.shape[1:]))
+    xl.requires_grad_(grad)
+    y = port_gpipe(_stage_fn, params, xl, mesh, microbatches,
+                   dp_axis=dp_axis, remat_stages=remat)
+    res = {}
+    if grad:
+        (y ** 2).sum().backward()
+        for k, p in params.items():
+            res[f"d{k}"] = _np(unshard(p.grad, mesh, P("pp")))
+        res["dx"] = _np(unshard(xl.grad.reshape(microbatches, -1,
+                                                *xg.shape[1:]),
+                                mesh, dspec).reshape(xg.shape))
+    mb = y.reshape((microbatches, -1) + tuple(xg.shape[1:]))
+    res["out"] = _np(unshard(mb.detach(), mesh, dspec).reshape(xg.shape))
+    return res
+
+
+def _stage_fn(params, x):
+    """tests/test_pipeline.py's residual MLP block."""
+    h = torch.nn.functional.gelu(x @ params["w1"], approximate="tanh")
+    return x + h @ params["w2"]
+
+
+def train_step(axes, family, cfg, params, inputs, labels, tx, steps=1,
+               dp_axis="dp", tp_axis="mdl", rng=None):
+    """`steps` of the port's train step on a `family` ("transformer" or
+    "vgg") model over the mesh, from the full `params`; returns the step
+    losses (the mean over the data axes) and the global params."""
+    from tpunet_torch.models import VGG, Transformer
+    from tpunet_torch.parallel import P, shard, unshard
+    from tpunet_torch.parallel.mesh import shard_params
+    from tpunet_torch.train import (adamw, create_train_state,
+                                    make_train_step, sgd)
+
+    mesh = _mesh(axes)
+    cls = Transformer if family == "transformer" else VGG
+    m = cls(compute_dtype=torch.float32, mesh=mesh, dp_axis=dp_axis,
+            tp_axis=tp_axis, device="meta", **cfg)
+    opt = adamw(tx[1]) if tx[0] == "adamw" else sgd(tx[1], momentum=tx[2])
+    full = {n: _t(a) for n, a in params.items()}
+    state, _ = create_train_state(m, 0, None, opt, params=full,
+                                  device="cpu")
+    step = make_train_step(m, opt)
+    spec = P(dp_axis)
+    x, y = shard(_t(inputs), mesh, spec), shard(_t(labels), mesh, spec)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, x, y, rng)
+        losses.append(float(loss))
+    specs, _ = shard_params(full, mesh, m.partition_rules())
+    from tpunet_torch.parallel.smap import psum
+
+    n = mesh.axis_size(dp_axis)
+    means = [float(psum(torch.tensor(v), dp_axis, mesh=mesh)) / n
+             for v in losses]
+    return {"losses": np.array(means), **{
+        f"param:{k}": _np(unshard(t.detach(), mesh, specs[k]))
+        for k, t in state.params.items()}}
+
+
+def vgg_forward(axes, cfg, params, images, rng, tp_axis="mdl"):
+    """A training-mode forward (dropout from seed `rng`) of the VGG over
+    the mesh with its classifier split over `tp_axis`, every rank on the
+    whole batch (dp_axis None): the logits."""
+    from tpunet_torch.models import VGG
+
+    mesh = _mesh(axes)
+    vm = VGG(compute_dtype=torch.float32, mesh=mesh, dp_axis=None,
+             tp_axis=tp_axis, device="meta", **cfg)
+    net = vm.bind(vm.local_params({n: _t(a) for n, a in params.items()}))
+    return {"logits": _np(net(_t(images), train=True, rng=rng))}
+
+
+def hierarchical(axes):
+    """hierarchical_psum over "mdl" of x = arange(3) * (rank + 1) + rank."""
+    from tpunet_torch import interop
+
+    with _mesh(axes) as mesh:
+        r = mesh.rank
+        x = torch.arange(3, dtype=torch.float32) * (r + 1) + r
+        return {"total": _np(interop.hierarchical_psum(x, "mdl"))}
+
+
+def collectives(axes):
+    """Every axis collective, forward and backward, on rank-tagged inputs
+    (x = rank + arange): results from every rank, gathered."""
+    from tpunet_torch import interop
+    from tpunet_torch.parallel import P, unshard
+    from tpunet_torch.parallel import smap
+
+    with _mesh(axes) as mesh:
+        return _collectives(mesh, interop, unshard, P, smap)
+
+
+def _collectives(mesh, interop, unshard, P, smap):
+    r = mesh.rank
+    res = {}
+
+    def gathered(name, t):
+        # (world, ...) in world-rank order
+        res[name] = _np(unshard(t.detach()[None], mesh,
+                                P(tuple(mesh.axis_names))))
+
+    for ax in mesh.axis_names:
+        w = mesh.shape[ax]
+        x = (torch.arange(2 * w, dtype=torch.float32) + 10 * r).reshape(
+            w, 2).requires_grad_()
+        y = smap.psum(x, ax)
+        (y * (1 + torch.arange(2 * w).reshape(w, 2))).sum().backward()
+        gathered(f"psum:{ax}", y)
+        gathered(f"psum_grad:{ax}", x.grad)
+        x.grad = None
+        y = smap.pvary(x, ax)
+        (y * (r + 1)).sum().backward()
+        gathered(f"pvary:{ax}", y)
+        gathered(f"pvary_grad:{ax}", x.grad)
+        x.grad = None
+        perm = [(i, (i + 1) % w) for i in range(w)]
+        y = smap.ppermute(x, ax, perm)
+        (y * (r + 1)).sum().backward()
+        gathered(f"ppermute:{ax}", y)
+        gathered(f"ppermute_grad:{ax}", x.grad)
+        x.grad = None
+        back = [(i, (i - 1) % w) for i in range(w)]
+        y = smap.ppermute(x, ax, back)
+        (y * (r + 1)).sum().backward()
+        gathered(f"ppermute_back:{ax}", y)
+        gathered(f"ppermute_back_grad:{ax}", x.grad)
+        x.grad = None
+        y = smap.all_to_all(x, ax, split_axis=0, concat_axis=1)
+        (y * (r + 1)).sum().backward()
+        gathered(f"all_to_all:{ax}", y)
+        gathered(f"all_to_all_grad:{ax}", x.grad)
+        x.grad = None
+        y = smap.all_gather(x, ax, axis=1, tiled=True)
+        (y * (1 + torch.arange(y.numel()).reshape(y.shape))).sum().backward()
+        gathered(f"all_gather:{ax}", y)
+        gathered(f"all_gather_grad:{ax}", x.grad)
+        gathered(f"axis_index:{ax}", torch.tensor([smap.axis_index(ax, mesh)
+                                                   ]).float())
+        gathered(f"hierarchical_psum:{ax}", interop.hierarchical_psum(
+            torch.tensor([1.0, float(r)]), ax))
+    return res
+
+
+CASES = {f.__name__: f for f in (attention, model, gpipe, train_step,
+                                 vgg_forward, hierarchical, collectives)}
+
+
+def rank_worker(rank, world, port, q, cases):
+    """cases: {name: (case function name, kwargs)}; reports {name: {key:
+    array}, or "raised <type>: <message>"} in case order."""
+    try:
+        from tpunet_torch import distributed
+
+        torch.set_num_threads(1)
+        distributed.initialize(f"127.0.0.1:{port}", rank, world)
+        out = {}
+        for name, (fn, kw) in cases.items():
+            try:
+                out[name] = CASES[fn](**kw)
+            except Exception as e:  # noqa: BLE001 — the refusals' cases
+                out[name] = f"raised {type(e).__name__}: {e}"
+        for m in _meshes.values():
+            m.close()
+        _meshes.clear()
+        distributed.finalize()
+        q.put((rank, "OK", out))
+    except Exception:  # noqa: BLE001 — reported to the test process
+        q.put((rank, "FAIL", traceback.format_exc()))
+
+
+def spawn(world: int, cases: dict, timeout: float = 240.0) -> dict:
+    """Every case in one spawn of `world` port ranks: {rank: {case:
+    result}}."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=rank_worker, args=(r, world, port, q, cases))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:
+            rank, status, payload = q.get(timeout=timeout)
+            assert status == "OK", f"rank {rank}: {payload}"
+            out[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return out

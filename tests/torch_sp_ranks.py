@@ -3,7 +3,8 @@ no JAX, so they start faster: every sequence-parallel case of one world
 size runs in one spawn. Each rank takes its shard of the full inputs the
 test process made (contiguous, or the zigzag chunk pair; `sp_shards.shard`
 at the repo's root), runs the port's function on it and reports its
-output, or the type of the exception it raised, by case name."""
+output, or the type of the exception it raised, by case name. The in-pod
+impls run over a mesh {sp: world} of the spawn's ranks."""
 
 from __future__ import annotations
 
@@ -31,14 +32,26 @@ def _attention(kind: str, causal: bool, qkv, whole: bool, world: int,
     return dcn_ulysses_attention(q, k, v, causal=causal)
 
 
+_meshes: dict = {}
+
+
 def _model(impl: str, cfg: dict, params: dict, tokens, world: int,
            rank: int):
+    """The tiny Transformer on this rank's token shard: across processes
+    (the dcn impls) or over a mesh {sp: world} (the in-pod impls)."""
     from tpunet_torch.models import Transformer
+    from tpunet_torch.parallel import make_named_mesh
 
+    mesh_kw = {}
+    if not impl.startswith("dcn_"):
+        if world not in _meshes:
+            _meshes[world] = make_named_mesh({"sp": world})
+        mesh_kw = dict(mesh=_meshes[world], dp_axis=None)
     model = Transformer(compute_dtype=torch.float32, attn_impl=impl,
-                        device="meta", **cfg).bind(
+                        device="meta", **cfg, **mesh_kw).bind(
         {n: torch.from_numpy(a) for n, a in params.items()})
-    toks = torch.from_numpy(shard(tokens, world, rank, impl == "dcn_zigzag"))
+    toks = torch.from_numpy(shard(tokens, world, rank,
+                                  impl.endswith("zigzag")))
     return model(toks.long())
 
 
@@ -80,6 +93,9 @@ def rank_worker(rank, world, port, q, cases):
                 out[name] = None if y is None else y.detach().numpy()
             except Exception as e:  # noqa: BLE001 — the refusals' cases
                 out[name] = f"raised {type(e).__name__}: {e}"
+        for m in _meshes.values():
+            m.close()
+        _meshes.clear()
         distributed.finalize()
         q.put((rank, "OK", out))
     except Exception:  # noqa: BLE001 — reported to the test process

@@ -30,6 +30,20 @@ import torch
 from tpunet_torch import _native
 
 _OPS = {"sum": 0, "prod": 1, "min": 2, "max": 3}
+
+# The native tree and ring broadcasts cut a call into 1 MiB pieces
+# (cpp/src/coll_comm.h kBcastChunk). The root posts every piece of a call
+# at once, spread round-robin over the data streams, while a receiver posts
+# them one at a time. Under an armed QoS wire window
+# (TPUNET_QOS_INFLIGHT_BYTES wire=...), a stream writer keeps its wire
+# credit through a blocking write. A later piece that fills a socket the
+# receiver has not posted to yet then holds the credit the earlier,
+# awaited piece needs, and both ends park until the progress watchdog
+# fails the broadcast (ROADMAP C.12). So ``Communicator.broadcast`` makes
+# one native call a piece: one message in flight on each edge, and the wire
+# carries the same 1 MiB messages either way, so a JAX peer on the other
+# end sees no difference.
+BCAST_PIECE = 1 << 20
 _NUMPY_CODES = {np.dtype(np.float32): 0, np.dtype(np.float64): 1,
                 np.dtype(np.int32): 3, np.dtype(np.int64): 4,
                 np.dtype(np.uint8): 5}
@@ -249,7 +263,8 @@ class Communicator:
         """Returns root's buffer on every rank: a copy, `arr` left as it
         was, or written into `out` when given (a C-contiguous buffer of
         arr's shape and dtype; `out` may be `arr` itself). Moves raw bytes:
-        any dtype."""
+        any dtype, one native call a BCAST_PIECE (an empty buffer, one
+        empty call)."""
         src = _Buf(arr, typed=False)
         out = _out_buf(src, src.shape, out)
         if out.obj is not src.obj:
@@ -257,8 +272,11 @@ class Communicator:
                 out.obj.copy_(src.obj)
             else:
                 out.obj[...] = src.obj
-        _native.check(self._lib.tpunet_comm_broadcast(
-            self._id, out.ptr, out.nbytes, root), "broadcast")
+        for lo in range(0, max(out.nbytes, 1), BCAST_PIECE):
+            n = min(BCAST_PIECE, out.nbytes - lo)
+            _native.check(self._lib.tpunet_comm_broadcast(
+                self._id, out.ptr + lo if n else out.ptr, n, root),
+                "broadcast")
         return out.obj
 
     def _a2a_bufs(self, arr: Any, typed: bool) -> tuple[_Buf, _Buf]:

@@ -26,8 +26,8 @@ collective itself; and, under their own keys, the same for the
 reduce-scatters and all-gathers (ZeRO's two halves of the all-reduce), the
 all-to-alls and the neighbor exchanges (sequence parallelism's).
 
-``hierarchical_psum`` ports the DCN tier only: the in-pod psum over a mesh
-axis waits for the port's mesh (ROADMAP A.6b).
+``hierarchical_psum`` with an axis sums over the in-pod mesh tier first
+(``tpunet_torch.parallel.smap``), then over the rest of the mesh.
 """
 
 from __future__ import annotations
@@ -148,16 +148,17 @@ def dcn_pmean(x: torch.Tensor) -> torch.Tensor:
     return dcn_all_reduce(x, "sum") / distributed.world_size()
 
 
-def _all_reduce_into_(x: torch.Tensor) -> torch.Tensor:
+def _all_reduce_into_(x: torch.Tensor, comm=None) -> torch.Tensor:
     """Sum-all-reduce the contiguous tensor `x` INTO ITS OWN MEMORY and
     return it: staged through pinned host memory, reduced there in place,
     copied back into `x`. No second device buffer exists, and there is no
-    autograd. Counted in dcn_reduce_stats() as the blocking all-reduce."""
+    autograd. `comm`: another communicator than the global one (a mesh
+    group's). Counted in dcn_reduce_stats() as the blocking all-reduce."""
     if not x.is_contiguous():
         raise ValueError("_all_reduce_into_ needs a contiguous tensor")
 
     def collective(host, _):
-        _comm().all_reduce(host, "sum", inplace=True)
+        (comm or _comm()).all_reduce(host, "sum", inplace=True)
         if host is not x:
             x.copy_(host, non_blocking=True)
         return x
@@ -305,16 +306,24 @@ def dcn_neighbor_exchange(x: torch.Tensor) -> torch.Tensor:
 
 
 def hierarchical_psum(x: torch.Tensor, axis_name: str | None = None):
-    """Two-tier psum, the DCN tier: a sum all-reduce across processes when
-    the world has more than one (``world_size()`` raises if
-    ``initialize()`` was skipped, as the JAX version does, which bakes the
-    decision in at trace time). The JAX version first sums over the in-pod
-    mesh axis `axis_name` (ICI); that tier waits for the port's mesh."""
+    """Two-tier psum. With `axis_name`: ``smap.psum`` over that axis of the
+    active mesh (``with mesh:`` or ``shard_map``), then a sum over the
+    complementary group (the
+    ranks that share this rank's coordinate on `axis_name`), so each
+    rank's value counts once: the total over the mesh, which spans the
+    world (the JAX version's total over the pod's devices and the hosts).
+    Without it: a sum all-reduce across processes when the world has more
+    than one (``world_size()`` raises if ``initialize()`` was skipped, as
+    the JAX version does, which bakes the decision in at trace time)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            f"hierarchical_psum(axis_name={axis_name!r}): the in-pod psum "
-            "over a mesh axis belongs to a later training slice of the "
-            "port, the mesh and smap of ROADMAP A.6b")
+        from tpunet_torch.parallel import smap
+        from tpunet_torch.parallel.mesh import active_mesh
+
+        mesh = active_mesh()
+        x = smap.psum(x, axis_name, mesh=mesh)
+        rest = tuple(a for a in mesh.axis_names
+                     if a not in mesh.canonical(axis_name))
+        return smap.psum(x, rest, mesh=mesh) if rest else x
     if distributed.world_size() > 1:
         x = dcn_all_reduce(x, "sum")
     return x

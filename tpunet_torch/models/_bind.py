@@ -3,6 +3,7 @@ shared by the model families."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 
@@ -21,7 +22,29 @@ def bind(net: nn.Module, params: dict, trainable: bool) -> nn.Module:
         if plain:
             raise TypeError(f"bind(trainable=True) takes nn.Parameter "
                             f"tensors; {plain[:3]} are not")
+    if getattr(net, "mesh", None) is not None:
+        _adopt_block_shapes(net, params)
     net.load_state_dict(params, strict=True, assign=True)
     for p in net.parameters():
         p.requires_grad_(trainable and p.is_floating_point())
     return net
+
+
+def _adopt_block_shapes(net: nn.Module, params: dict) -> None:
+    """Give the weightless module of a mesh model the shapes of this rank's
+    blocks (``parallel.shard_params``'s `local`): a leaf whose given shape
+    differs from the full one must divide it dim by dim."""
+    own = dict(net.named_parameters())
+    for name, t in params.items():
+        full = own.get(name)
+        if full is None or tuple(full.shape) == tuple(t.shape):
+            continue
+        if t.dim() != full.dim() or any(
+                f % b for f, b in zip(full.shape, t.shape)):
+            raise ValueError(f"{name}: {tuple(t.shape)} is no block of "
+                             f"{tuple(full.shape)}")
+        mod_name, _, leaf = name.rpartition(".")
+        mod = net.get_submodule(mod_name) if mod_name else net
+        setattr(mod, leaf, nn.Parameter(
+            torch.empty(t.shape, dtype=full.dtype, device="meta"),
+            requires_grad=full.requires_grad))

@@ -65,9 +65,25 @@ DCN collectives (``distributed`` initialized). They are inference paths,
 as in JAX: the exchange has no gradient, and the decode cache and
 ``attn_window`` refuse them with the flax model's ValueErrors.
 
-Options of the flax model that belong to a later slice of the port (the
-in-pod sequence-parallel impls "ring", "zigzag" and "ulysses", ``mesh``)
-raise NotImplementedError naming ROADMAP A.6b.
+On a mesh (``mesh``, ``dp_axis``, ``sp_axis``, ``tp_axis``; the port's
+mesh is a set of ranks, ``tpunet_torch.parallel.mesh``) each rank runs the
+model on its own block: its batch rows (over ``dp_axis``) and, with the
+in-pod sequence-parallel ``attn_impl`` "ring", "zigzag" or "ulysses", its
+sequence shard over ``sp_axis`` (contiguous, or the zigzag chunk pair),
+with rotary at the shard's global positions, as the dcn impls do. Tensor
+parallelism follows the parameters' blocks, as XLA follows shardings:
+``transformer_partition_rules`` and ``parallel.shard_params`` give each
+rank its blocks, ``bind`` takes them, and each layer reads its block's
+shape. A column-parallel q/k/v or up/gate (output dim sharded) takes its
+input through ``pvary`` (one for q, k and v together), a row-parallel out
+or down (input dim sharded) ends in ``psum``, the vocab-sharded embedding
+masks the ids outside its rows, looks up and sums, and the vocab-sharded
+lm_head's logits are gathered (``all_gather``) before the loss. A leaf
+left replicated (an axis that does not divide its dim) runs whole, with no
+collective. Under TP the attention kernels run on the rank's local heads.
+TP serving (the decode cache), TP int8 and LoRA layers, MoE over an expert
+axis and ``features_only`` under TP are ROADMAP A.6c and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -86,10 +102,16 @@ from tpunet_torch.models import _bind
 from tpunet_torch.ops.flash_attention import (_repeat_kv, attention_reference,
                                               flash_attention)
 from tpunet_torch.parallel import (dcn_ring_attention, dcn_ulysses_attention,
-                                   dcn_zigzag_attention, zigzag_positions)
+                                   dcn_zigzag_attention, ring_self_attention,
+                                   ulysses_self_attention,
+                                   zigzag_positions, zigzag_self_attention)
+from tpunet_torch.parallel.mesh import P
+from tpunet_torch.parallel.smap import all_gather, psum, pvary
 
-# The sequence-parallel impls across processes.
+# The sequence-parallel impls across processes, and over a mesh axis.
 DCN_IMPLS = ("dcn_ring", "dcn_zigzag", "dcn_ulysses")
+IN_POD_IMPLS = ("ring", "zigzag", "ulysses")
+SP_IMPLS = DCN_IMPLS + IN_POD_IMPLS
 
 
 def rotary_embed(x, base: float = 10000.0, pos_offset: int = 0,
@@ -132,15 +154,49 @@ class Dense(nn.Module):
     weight stored (out, in) like ``nn.Linear``; input and weight cast to
     the compute dtype at use."""
 
+    tp = None  # (mesh, axis) of a model over a mesh with tensor parallelism
+
     def __init__(self, in_features: int, features: int, dtype, device=None):
         super().__init__()
         self.compute_dtype = dtype
+        self.full = (features, in_features)
         self.weight = nn.Parameter(
             torch.empty(features, in_features, device=device))
 
+    def kind(self) -> str | None:
+        """"column" when this rank holds a block of the output dim, "row"
+        of the input dim, None when the weight is whole."""
+        if self.tp is None:
+            return None
+        if self.weight.shape[0] != self.full[0]:
+            return "column"
+        if self.weight.shape[1] != self.full[1]:
+            return "row"
+        return None
+
     def forward(self, x):
+        """A column block's input is the caller's, cast by it (``pvary``);
+        a row block's partial products are summed over the axis."""
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt))
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        if self.kind() == "row":
+            y = psum(y, self.tp[1], mesh=self.tp[0])
+        return y
+
+
+def _tp_input(x, *layers):
+    """x as the input of `layers`: through ``pvary`` when they are
+    column-parallel blocks (they must agree), as it is when whole."""
+    kinds = {getattr(m, "kind", lambda: None)() for m in layers}
+    if len(kinds) > 1:
+        raise ValueError(
+            "tensor parallelism: the layers reading one input must all be "
+            "sharded or all whole (e.g. n_kv_heads divisible by the tp "
+            f"axis), got {sorted(map(str, kinds))}")
+    if kinds == {"column"}:
+        mesh, axis = layers[0].tp
+        return pvary(x, axis, mesh=mesh)
+    return x
 
 
 class QuantDense(nn.Module):
@@ -223,6 +279,9 @@ def _causal_kernel_attention(q, k, v, attn_impl, window):
 
 
 class SelfAttention(nn.Module):
+    # (mesh, dp_axis, sp_axis, tp_axis) of a model over a mesh.
+    mesh = None
+
     def __init__(self, d_model, n_heads, head_dim, compute_dtype, attn_impl,
                  n_kv_heads, attn_window, decode_ring_cache=True,
                  weight_quant=None, lora=(0, None), device=None):
@@ -245,16 +304,24 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, cache=None, prefill=False, prefix=""):
         b, s, _ = x.shape
-        h, kv, dh = self.n_heads, self.n_kv_heads, self.head_dim
-        if self.attn_window is not None and self.attn_impl in DCN_IMPLS:
+        dh = self.head_dim
+        if self.attn_window is not None and self.attn_impl in SP_IMPLS:
             raise ValueError(
                 f"attn_window is only supported by attn_impl 'reference'/"
                 f"'flash', not {self.attn_impl!r}")
-        q = self.q(x).reshape(b, s, h, dh)
-        k = self.k(x).reshape(b, s, kv, dh)
-        v = self.v(x).reshape(b, s, kv, dh)
+        x = _tp_input(x, self.q, self.k, self.v)
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        # This rank's heads: all of them, or its block under TP.
+        h, kv = q.shape[-1] // dh, k.shape[-1] // dh
+        q = q.reshape(b, s, h, dh)
+        k = k.reshape(b, s, kv, dh)
+        v = v.reshape(b, s, kv, dh)
         if cache is not None:
-            if self.attn_impl in DCN_IMPLS:
+            if h != self.n_heads:
+                raise NotImplementedError(
+                    "decoding under tensor parallelism (TP serving) is "
+                    "ROADMAP A.6c")
+            if self.attn_impl in SP_IMPLS:
                 # The cached step is dense local attention: wrong for a
                 # sequence shard whose k/v live on other processes.
                 raise ValueError(
@@ -263,7 +330,7 @@ class SelfAttention(nn.Module):
                     "attn_impl='reference' (e.g. model.clone("
                     "attn_impl='reference') before generate())")
             o = self._cached(q, k, v, cache, prefill, prefix)
-        elif self.attn_impl in DCN_IMPLS:
+        elif self.attn_impl in SP_IMPLS:
             o = self._sequence_parallel(q, k, v)
         else:
             q, k = rotary_embed(q), rotary_embed(k)
@@ -272,25 +339,37 @@ class SelfAttention(nn.Module):
         return self.out(o.reshape(b, s, h * dh))
 
     def _sequence_parallel(self, q, k, v):
-        """Causal attention of this process's sequence shard across the
-        processes: rotary at the shard's global positions (rank * s, or
-        the zigzag pair's), k/v repeated to q's heads after rotary."""
+        """Causal attention of this rank's sequence shard, across the
+        processes (dcn impls) or over the mesh's sp axis (in-pod impls):
+        rotary at the shard's global positions (index * s, or the zigzag
+        pair's), k/v repeated to q's heads after rotary."""
         s = q.shape[1]
-        w, rank = distributed.world_size(), distributed.rank()
-        if self.attn_impl == "dcn_zigzag":
+        impl = self.attn_impl
+        if impl in IN_POD_IMPLS:
+            mesh, dp_axis, sp_axis, tp_axis = self.mesh
+            w, rank = mesh.axis_size(sp_axis), mesh.axis_index(sp_axis)
+        else:
+            w, rank = distributed.world_size(), distributed.rank()
+        if impl in ("dcn_zigzag", "zigzag"):
             pos = zigzag_positions(w, w * s, rank).to(q.device).float()
             q = rotary_embed(q, positions=pos)
             k = rotary_embed(k, positions=pos)
         else:
             q = rotary_embed(q, pos_offset=rank * s)
             k = rotary_embed(k, pos_offset=rank * s)
-        group = self.n_heads // self.n_kv_heads
+        group = q.shape[2] // k.shape[2]
         k, v = _repeat_kv(k, group), _repeat_kv(v, group)
-        if self.attn_impl == "dcn_ring":
+        if impl == "dcn_ring":
             return dcn_ring_attention(q, k, v, causal=True)
-        if self.attn_impl == "dcn_zigzag":
+        if impl == "dcn_zigzag":
             return dcn_zigzag_attention(q, k, v)
-        return dcn_ulysses_attention(q, k, v, causal=True)
+        if impl == "dcn_ulysses":
+            return dcn_ulysses_attention(q, k, v, causal=True)
+        axes = dict(dp_axis=dp_axis, sp_axis=sp_axis, tp_axis=tp_axis)
+        if impl == "zigzag":
+            return zigzag_self_attention(q, k, v, mesh, **axes)
+        fn = ring_self_attention if impl == "ring" else ulysses_self_attention
+        return fn(q, k, v, mesh, causal=True, **axes)
 
     def _cached(self, q, k, v, cache, prefill, prefix):
         """The decode-cache step (flax SelfAttention's decode branch). Writes
@@ -429,6 +508,8 @@ class Mlp(nn.Module):
         self.down = _dense(d_ff, d_model, dt, device, wq, *lora)
 
     def forward(self, x):
+        x = _tp_input(x, *([self.gate] if self.mlp_impl == "swiglu" else []),
+                      self.up)
         if self.mlp_impl == "swiglu":
             h = F.silu(self.gate(x)) * self.up(x)
         else:
@@ -552,13 +633,6 @@ class Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-# Options of the flax model queued for later slices (ROADMAP.md queue A):
-# name -> (the only value this slice takes, the slice that brings it).
-_LATER = {
-    "mesh": (None, "mesh-sharded attention (the in-pod mesh tier, "
-                   "ROADMAP A.6b)"),
-}
-
 _aten = torch.ops.aten
 # remat_policy -> the ops whose outputs a rematerialized block saves.
 REMAT_POLICIES = {
@@ -588,7 +662,9 @@ class Transformer(nn.Module):
                  weight_quant: str | None = None, n_experts: int = 0,
                  moe_every: int = 2, moe_top_k: int = 1,
                  capacity_factor: float = 1.25, lora_rank: int = 0,
-                 lora_alpha: float | None = None, device=None, **later):
+                 lora_alpha: float | None = None, mesh=None,
+                 dp_axis: str | None = "dp", sp_axis: str = "sp",
+                 tp_axis: str | None = None, device=None):
         super().__init__()
         self._kwargs = dict(
             vocab=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
@@ -599,7 +675,8 @@ class Transformer(nn.Module):
             remat_policy=remat_policy, weight_quant=weight_quant,
             n_experts=n_experts, moe_every=moe_every, moe_top_k=moe_top_k,
             capacity_factor=capacity_factor, lora_rank=lora_rank,
-            lora_alpha=lora_alpha)
+            lora_alpha=lora_alpha, mesh=mesh, dp_axis=dp_axis,
+            sp_axis=sp_axis, tp_axis=tp_axis)
         if remat_policy not in REMAT_POLICIES:
             # Validated even when remat is off, like the flax model.
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
@@ -609,19 +686,18 @@ class Transformer(nn.Module):
             raise ValueError(
                 "weight_quant does not cover MoE expert einsum weights; "
                 "use a dense model or weight_quant=None")
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"unknown Transformer option {name!r}")
-            default, what = _LATER[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"{what} ({name}={value!r}) is a later slice of the port")
-        if attn_impl not in ("reference", "flash") + DCN_IMPLS:
+        if attn_impl not in ("reference", "flash") + SP_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if attn_impl in IN_POD_IMPLS and mesh is None:
+            raise ValueError(f"attn_impl={attn_impl!r} requires a mesh")
+        if mesh is not None and tp_axis is not None and (
+                weight_quant is not None or lora_rank > 0 or n_experts > 0):
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: the in-pod sequence-parallel "
-                "attention impls over a mesh axis are a later slice of the "
-                "port (the in-pod mesh tier, ROADMAP A.6b)")
+                "tensor parallelism of int8, LoRA and MoE layers (TP QLoRA "
+                "and int8 training, expert parallelism) is ROADMAP A.6c")
         device = _device.resolve(device)
+        self.mesh = mesh
+        self.dp_axis, self.sp_axis, self.tp_axis = dp_axis, sp_axis, tp_axis
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads, self.d_ff = n_heads, d_ff
         self.n_kv_heads = n_kv_heads
@@ -651,6 +727,32 @@ class Transformer(nn.Module):
         self.norm_f = RMSNorm(d_model, device=device)
         self.lm_head = _dense(d_model, vocab, compute_dtype, device,
                               weight_quant, *lora)
+        if mesh is not None:
+            for mod in self.modules():
+                if isinstance(mod, Dense) and tp_axis is not None:
+                    mod.tp = (mesh, tp_axis)
+                elif isinstance(mod, SelfAttention):
+                    mod.mesh = (mesh, dp_axis, sp_axis, tp_axis)
+
+    def partition_rules(self) -> list:
+        """This model's ``transformer_partition_rules`` over its tp_axis."""
+        return transformer_partition_rules(tp_axis=self.tp_axis)
+
+    def local_params(self, params: dict) -> dict:
+        """This rank's blocks of the full state_dict `params` under the
+        partition rules (``parallel.shard_params``)."""
+        from tpunet_torch.parallel.mesh import shard_params
+
+        return shard_params(params, self.mesh, self.partition_rules())[1]
+
+    def data_axes(self) -> tuple:
+        """The mesh axes the data is sharded over: dp_axis, and sp_axis
+        under an in-pod sequence-parallel impl (the axes whose gradients
+        the trainer means over)."""
+        axes = [self.dp_axis]
+        if self.attn_impl in IN_POD_IMPLS:
+            axes.append(self.sp_axis)
+        return tuple(a for a in axes if a is not None and a in self.mesh.shape)
 
     @property
     def head_dim(self) -> int:
@@ -691,7 +793,7 @@ class Transformer(nn.Module):
                 "lm_head adapters would be silently dropped) - merge_lora "
                 "first, or train without fused xent")
         dt = self.compute_dtype
-        x = F.embedding(tokens, self.embed).to(dt)
+        x = self._embed(tokens)
         saved = REMAT_POLICIES[self.remat_policy]
         kw = {}
         if saved:
@@ -708,9 +810,34 @@ class Transformer(nn.Module):
                 if moe_aux is not None:
                     moe_aux.append(aux)
         x = self.norm_f(x)
+        head_tp = getattr(self.lm_head, "kind", lambda: None)()
         if features_only:
+            if head_tp is not None:
+                raise NotImplementedError(
+                    "features_only under tensor parallelism (the fused "
+                    "cross-entropy over a vocab-sharded lm_head) is ROADMAP "
+                    "A.6c")
             return x.to(dt)
-        return self.lm_head(x).float()
+        logits = self.lm_head(_tp_input(x, self.lm_head))
+        if head_tp == "column":  # vocab-sharded: every rank's block
+            logits = all_gather(logits, self.tp_axis, axis=-1, tiled=True,
+                                mesh=self.mesh)
+        return logits.float()
+
+    def _embed(self, tokens):
+        """The embedding lookup in the compute dtype; a vocab-sharded table
+        looks up the ids in its rows (zeros elsewhere) and sums over the
+        axis, one nonzero term an id: bitwise the whole table's lookup."""
+        dt = self.compute_dtype
+        rows = self.embed.shape[0]
+        if self.mesh is None or self.tp_axis is None or rows == self.vocab:
+            return F.embedding(tokens, self.embed).to(dt)
+        lo = self.mesh.axis_index(self.tp_axis) * rows
+        mine = (tokens >= lo) & (tokens < lo + rows)
+        x = F.embedding((tokens - lo).clamp(0, rows - 1), self.embed).to(dt)
+        x = torch.where(mine[..., None], x, torch.zeros((), dtype=dt,
+                                                        device=x.device))
+        return psum(x, self.tp_axis, mesh=self.mesh)
 
 
     def init_params(self, *, seed: int, device=None) -> dict:
@@ -731,6 +858,63 @@ class Transformer(nn.Module):
         applied, e.g. ``clone(weight_quant="int8")`` for the int8
         self-draft or ``clone(decode_ring_cache=False)``."""
         return Transformer(**{**self._kwargs, **overrides}, device="meta")
+
+
+def transformer_partition_rules(tp_axis: str | None = "mdl",
+                                ep_axis: str | None = None) -> list:
+    """Path-regex -> PartitionSpec rules over the flax path, in flax's
+    layout (first match wins; no match = replicated): the JAX package's
+    table verbatim (``parallel.shard_params`` maps it onto the port's
+    state_dict). Megatron TP over `tp_axis` (None = no TP); MoE experts
+    over `ep_axis` (None = experts replicated)."""
+    ep = ep_axis
+    return [
+        (r".*attn/(q|k|v)/kernel", P(None, tp_axis)),
+        (r".*attn/out/kernel", P(tp_axis, None)),
+        (r".*mlp/(up|gate)/kernel", P(None, tp_axis)),
+        (r".*mlp/down/kernel", P(tp_axis, None)),
+        (r".*moe/router", P()),
+        (r".*moe/wi", P(ep, None, tp_axis)),
+        (r".*moe/wo", P(ep, tp_axis, None)),
+        (r".*embed", P(tp_axis, None)),
+        (r".*lm_head/kernel", P(None, tp_axis)),
+        # weight_quant="int8" trees: q shards like its kernel; the
+        # per-output-channel scale shards with the OUTPUT dim (replicated
+        # for row-parallel kernels, whose output dim is whole).
+        (r".*attn/(q|k|v)/q", P(None, tp_axis)),
+        (r".*attn/(q|k|v)/scale", P(tp_axis)),
+        (r".*attn/out/q", P(tp_axis, None)),
+        (r".*attn/out/scale", P()),
+        (r".*mlp/(up|gate)/q", P(None, tp_axis)),
+        (r".*mlp/(up|gate)/scale", P(tp_axis)),
+        (r".*mlp/down/q", P(tp_axis, None)),
+        (r".*mlp/down/scale", P()),
+        (r".*lm_head/q", P(None, tp_axis)),
+        (r".*lm_head/scale", P(tp_axis)),
+        # lora_rank>0 trees: base kernels one level deeper ("base/"), the
+        # same specs; for a column-parallel W, A (in, r) replicates and B
+        # (r, out) shards its output dim; for a row-parallel W, A shards
+        # its input dim and B replicates.
+        (r".*attn/(q|k|v)/base/kernel", P(None, tp_axis)),
+        (r".*attn/out/base/kernel", P(tp_axis, None)),
+        (r".*mlp/(up|gate)/base/kernel", P(None, tp_axis)),
+        (r".*mlp/down/base/kernel", P(tp_axis, None)),
+        (r".*lm_head/base/kernel", P(None, tp_axis)),
+        (r".*attn/(q|k|v)/base/q", P(None, tp_axis)),
+        (r".*attn/(q|k|v)/base/scale", P(tp_axis)),
+        (r".*attn/out/base/q", P(tp_axis, None)),
+        (r".*attn/out/base/scale", P()),
+        (r".*mlp/(up|gate)/base/q", P(None, tp_axis)),
+        (r".*mlp/(up|gate)/base/scale", P(tp_axis)),
+        (r".*mlp/down/base/q", P(tp_axis, None)),
+        (r".*mlp/down/base/scale", P()),
+        (r".*lm_head/base/q", P(None, tp_axis)),
+        (r".*lm_head/base/scale", P(tp_axis)),
+        (r".*(attn/(q|k|v)|mlp/(up|gate)|lm_head)/lora_a", P()),
+        (r".*(attn/(q|k|v)|mlp/(up|gate)|lm_head)/lora_b", P(None, tp_axis)),
+        (r".*(attn/out|mlp/down)/lora_a", P(tp_axis, None)),
+        (r".*(attn/out|mlp/down)/lora_b", P()),
+    ]
 
 
 def _fan_in(name: str, shape) -> int:

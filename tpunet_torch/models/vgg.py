@@ -24,6 +24,16 @@ Dropout (training only) draws its keep-masks from a ``torch.Generator`` on
 the input's device seeded with ``forward``'s ``rng`` (the train step's rng,
 JAX's dropout key), keeps each entry with probability 1 - rate and scales
 it by 1 / (1 - rate), as flax does; the masks are not JAX's bits.
+
+Tensor parallelism of the classifier (``mesh`` and ``tp_axis``, with
+``vgg_partition_rules`` through ``parallel.shard_params``; the JAX model
+gets it from the shardings alone): fc1 column-parallel with its bias
+sharded (its input through ``pvary``), fc2 row-parallel (its partial
+products summed over the axis, its bias added once after the sum), head
+column-parallel with its logits gathered. Each layer reads its block's
+shape, as the Transformer's do. Dropout draws the full hidden-wide mask
+and keeps the rank's columns, so a TP run equals the unsharded one for
+one seed.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ from torch import nn
 
 from tpunet_torch import _device
 from tpunet_torch.models import _bind
+from tpunet_torch.parallel.mesh import P, vgg_partition_rules
+from tpunet_torch.parallel.smap import all_gather, psum, pvary
 
 # Channel plan per block; "M" = 2x2 max-pool. The classic 16-layer config.
 VGG16_CFG: tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512,
@@ -78,16 +90,20 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-def _dropout(x, rate: float, gen: torch.Generator | None):
-    """flax ``nn.Dropout`` in training (no generator: off)."""
+def _dropout(x, rate: float, gen: torch.Generator | None, width=None,
+             cols=slice(None)):
+    """flax ``nn.Dropout`` in training (no generator: off). Under TP x is a
+    block of `cols` of a `width`-wide activation: the full mask is drawn
+    and its block kept."""
     if gen is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob,
-                                                            generator=gen)
-    return torch.where(keep.bool(), x / keep_prob, 0.0)
+    shape = x.shape[:-1] + (width or x.shape[-1],)
+    keep = torch.empty(shape, device=x.device).bernoulli_(keep_prob,
+                                                          generator=gen)
+    return torch.where(keep[..., cols].bool(), x / keep_prob, 0.0)
 
 
 class VGG(nn.Module):
@@ -107,14 +123,17 @@ class VGG(nn.Module):
                  width_mult: float = 1.0, hidden: int = 4096,
                  compute_dtype=torch.bfloat16,
                  classifier_dropout: float = 0.5, *, image_size: int = 224,
-                 in_channels: int = 3, device=None):
+                 in_channels: int = 3, mesh=None, dp_axis: str | None = "dp",
+                 tp_axis: str | None = None, device=None):
         super().__init__()
         self._kwargs = dict(
             cfg=tuple(cfg), num_classes=num_classes, width_mult=width_mult,
             hidden=hidden, compute_dtype=compute_dtype,
             classifier_dropout=classifier_dropout, image_size=image_size,
-            in_channels=in_channels)
+            in_channels=in_channels, mesh=mesh, dp_axis=dp_axis,
+            tp_axis=tp_axis)
         device = _device.resolve(device)
+        self.mesh, self.dp_axis, self.tp_axis = mesh, dp_axis, tp_axis
         self.cfg = tuple(cfg)
         self.num_classes, self.width_mult = num_classes, width_mult
         self.compute_dtype = compute_dtype
@@ -165,9 +184,65 @@ class VGG(nn.Module):
                 x = F.relu(getattr(self, f"conv{i}")(x))
                 i += 1
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = _dropout(F.relu(self.fc1(x)), self.classifier_dropout, gen)
-        x = _dropout(F.relu(self.fc2(x)), self.classifier_dropout, gen)
-        return self.head(x).float()
+        if self._tp("fc1") is None:
+            x = _dropout(F.relu(self.fc1(x)), self.classifier_dropout, gen)
+            x = _dropout(F.relu(self.fc2(x)), self.classifier_dropout, gen)
+            return self.head(x).float()
+        return self._tp_classifier(x, gen)
+
+    def _tp(self, name: str) -> str | None:
+        """"column" or "row" for a classifier layer held as a block under
+        tensor parallelism, None when whole."""
+        w = getattr(self, name).weight
+        full = (self.hidden if name != "head" else self.num_classes,
+                self.fc1.weight.shape[1] if name == "fc1" else self.hidden)
+        if self.mesh is None or self.tp_axis is None:
+            return None
+        if w.shape[0] != full[0]:
+            return "column"
+        if w.shape[1] != full[1]:
+            return "row"
+        return None
+
+    def _tp_classifier(self, x, gen):
+        """fc1 column, fc2 row, head column, over the tp axis."""
+        if (self._tp("fc1"), self._tp("fc2")) != ("column", "row"):
+            raise ValueError("tensor parallelism: fc1 must be column- and "
+                             "fc2 row-parallel (vgg_partition_rules)")
+        mesh, axis, dt = self.mesh, self.tp_axis, self.compute_dtype
+        rate = self.classifier_dropout
+        n = self.fc1.weight.shape[0]
+        i = mesh.axis_index(axis)
+        x = pvary(x.to(dt), axis, mesh=mesh)
+        x = F.relu(self.fc1(x))
+        x = _dropout(x, rate, gen, self.hidden, slice(i * n, (i + 1) * n))
+        x = psum(F.linear(x.to(dt), self.fc2.weight.to(dt)), axis, mesh=mesh)
+        x = _dropout(F.relu(x + self.fc2.bias.to(dt)), rate, gen)
+        if self._tp("head") != "column":
+            return self.head(x).float()
+        y = self.head(pvary(x, axis, mesh=mesh))
+        return all_gather(y, axis, axis=-1, tiled=True, mesh=mesh).float()
+
+    def partition_rules(self) -> list:
+        """``vgg_partition_rules`` over this model's tp_axis (none without
+        one)."""
+        if self.tp_axis is None:
+            return []
+        return [(pat, P(*(self.tp_axis if a == "mdl" else a for a in spec)))
+                for pat, spec in vgg_partition_rules()]
+
+    def local_params(self, params: dict) -> dict:
+        """This rank's blocks of the full state_dict `params` under the
+        partition rules (``parallel.shard_params``)."""
+        from tpunet_torch.parallel.mesh import shard_params
+
+        return shard_params(params, self.mesh, self.partition_rules())[1]
+
+    def data_axes(self) -> tuple:
+        """The mesh axes the images are sharded over (the trainer's
+        gradient mean)."""
+        return tuple(a for a in (self.dp_axis,)
+                     if a is not None and a in self.mesh.shape)
 
     def init_params(self, *, seed: int, device=None) -> dict:
         """This family's ``init_params`` (the trainer's init, as flax's

@@ -1,26 +1,70 @@
 """Ulysses sequence parallelism across processes: all-to-all head/sequence
 re-sharding.
 
-The port of ``dcn_ulysses_attention`` from ``tpunet/parallel/ulysses.py``.
-Instead of rotating k/v blocks around a ring, two all-to-alls re-shard the
+The port of ``tpunet/parallel/ulysses.py``. Instead of rotating k/v blocks around a ring, two all-to-alls re-shard the
 tensors so that each process sees the FULL sequence for a SUBSET of heads:
 
     (b, S/P, H, d) --all_to_all--> (b, S, H/P, d)   attention   --back-->
 
-Attention itself then needs no communication. The all-to-alls are
-``interop.dcn_all_to_all`` (CUDA tensors staged through pinned host
-memory); q, k and v travel stacked in ONE of them. An inference path: the
-all-to-all has no gradient, in JAX as here. The in-pod
-``ulysses_attention`` and ``ulysses_self_attention`` over a mesh axis wait
-for the port's mesh (ROADMAP A.6b).
+Attention itself then needs no communication. Two tiers:
+
+  * in-pod: ``ulysses_attention`` and ``ulysses_self_attention`` over a
+    mesh axis, on ``smap.all_to_all`` (differentiable, as XLA's);
+  * across processes: ``dcn_ulysses_attention`` on
+    ``interop.dcn_all_to_all``, an inference path: the all-to-all has no
+    gradient, in JAX as here.
+
+Both stage CUDA tensors through pinned host memory, and q, k and v travel
+stacked in ONE all-to-all (JAX's in-pod tier runs three).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from tpunet_torch import distributed, interop
 from tpunet_torch.ops.flash_attention import attention_reference
+
+
+def ulysses_attention(q, k, v, axis_name: str, causal: bool = False):
+    """Per-shard Ulysses attention; call inside ``shard_map``.
+
+    q/k/v: this rank's sequence shard (batch, s_local, heads, head_dim),
+    the sequence sharded over `axis_name` in ring order, heads divisible
+    by the axis size. Returns the local shard of the output, q-shaped."""
+    from tpunet_torch.parallel.smap import all_to_all, axis_size
+
+    w = axis_size(axis_name)
+    h = q.shape[2]
+    if h % w != 0:
+        raise ValueError(f"heads {h} not divisible by '{axis_name}' size {w}")
+    # seq-sharded -> head-sharded: split the heads across the axis and
+    # concatenate the received sequence chunks in axis order (global
+    # sequence order, so the causal mask stays plain).
+    qkv = all_to_all(torch.stack([q, k, v]), axis_name, split_axis=3,
+                     concat_axis=2)
+    o = attention_reference(qkv[0], qkv[1], qkv[2], causal)
+    # head-sharded -> seq-sharded: the inverse re-shard.
+    return all_to_all(o, axis_name, split_axis=1, concat_axis=2)
+
+
+def ulysses_self_attention(q, k, v, mesh, causal: bool = False,
+                           dp_axis: str | None = "dp", sp_axis: str = "sp",
+                           tp_axis: str | None = None):
+    """The entry point over a mesh (mirror of ``ring_self_attention``):
+    q/k/v are THIS RANK'S blocks of (batch, seq, heads, head_dim) tensors,
+    batch over `dp_axis`, sequence over `sp_axis`, optionally heads over
+    `tp_axis`; returns this rank's block of the output."""
+    from tpunet_torch.parallel.mesh import P
+    from tpunet_torch.parallel.smap import shard_map
+
+    spec = P(dp_axis, sp_axis, tp_axis, None)
+    fn = shard_map(functools.partial(ulysses_attention, axis_name=sp_axis,
+                                     causal=causal),
+                   mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)
+    return fn(q, k, v)
 
 
 def dcn_ulysses_attention(q, k, v, causal: bool = False):

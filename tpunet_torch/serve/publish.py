@@ -15,8 +15,8 @@ vector (``flatten_params``: the JAX package's leaf order and layout, so the
 same checkpoint is the same bytes in both packages), encoded once under
 the bf16 wire codec, and chunk-streamed through a binomial-tree
 ``Communicator.broadcast`` wired on the bulk QoS class
-(``TPUNET_PUBLISH_CLASS``), one native pipeline piece (1 MiB) per call
-(see ``_pieces``). On both sides the transfer runs on a thread
+(``TPUNET_PUBLISH_CLASS``), which makes one native call a 1 MiB pipeline
+piece (``collectives.BCAST_PIECE``). On both sides the transfer runs on a thread
 of its own while the serving loop keeps going: the publisher pumps
 ``Router.poll``, a decode rank polls its receiver once per serve-loop pass.
 The collectives and bytes on the wire are the JAX package's.
@@ -85,27 +85,6 @@ _ERR = _native.TPUNET_ERR_WEIGHT_SWAP
 # collective in an accept even close() cannot end; that must cost one
 # leaked thread, never the serving loop.
 _CAST_ABANDON_GRACE_S = 5.0
-
-
-# The native tree and ring broadcasts cut a call into 1 MiB pieces
-# (cpp/src/coll_comm.h kBcastChunk). The root posts every piece of a call
-# at once, spread round-robin over the data streams, while a receiver posts
-# them one at a time. Under an armed QoS wire window
-# (TPUNET_QOS_INFLIGHT_BYTES wire=...), a stream writer keeps its wire
-# credit through a blocking write. A later piece that fills a socket the
-# receiver has not posted to yet then holds the credit the earlier,
-# awaited piece needs, and both ends park until the progress watchdog
-# fails the publication. One piece per call leaves one message in flight
-# on each edge, and the wire carries the same 1 MiB messages either way, so
-# a JAX publisher or receiver on the other end sees no difference.
-_BCAST_PIECE = 1 << 20
-
-
-def _pieces(lo: int, hi: int) -> list[tuple[int, int]]:
-    """The broadcast calls of the wire chunk [lo, hi): at most one native
-    piece each, an empty chunk one empty call."""
-    return [(a, min(hi, a + _BCAST_PIECE))
-            for a in range(lo, max(hi, lo + 1), _BCAST_PIECE)]
 
 
 # -- scripted swap chaos -----------------------------------------------------
@@ -446,9 +425,8 @@ class WeightReceiver:
             wire = np.empty(self._nwire, np.uint8)
             step = max(1, ann.chunk_bytes)
             for lo in range(0, max(1, self._nwire), step):
-                for a, b in _pieces(lo, min(self._nwire, lo + step)):
-                    part = wire[a:b]
-                    comm.broadcast(part, root=0, out=part)
+                part = wire[lo:lo + step]
+                comm.broadcast(part, root=0, out=part)
             telemetry.swap_observe("broadcast", self._lap())
             if self.corrupt:
                 wire[0] ^= 0xFF
@@ -601,8 +579,7 @@ class WeightPublisher:
                         f"TPUNET_SWAP_TIMEOUT_MS={self.timeout_ms} at chunk "
                         f"{c}/{nchunks}")
                 lo = c * self.chunk_bytes
-                for a, b in _pieces(lo, min(nwire, lo + self.chunk_bytes)):
-                    comm.broadcast(wire[a:b], root=0)
+                comm.broadcast(wire[lo:lo + self.chunk_bytes], root=0)
                 _dbg(f"chunk {c}/{nchunks} sent")
                 pump()  # the latency tier keeps draining between chunks
             self.phase = "verify"

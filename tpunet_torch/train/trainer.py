@@ -22,6 +22,18 @@ state stays valid, at twice the memory).
     submits byte-bounded same-dtype buckets in backward order as
     nonblocking all-reduces and then collects them all.
 
+A model over a mesh (``mesh`` set; ``tpunet_torch.parallel``) trains on
+each rank's blocks: ``create_train_state`` takes (or inits) the FULL
+params and keeps this rank's blocks under the model's partition rules, and
+the step means the gradients over the group of the model's data axes
+(``data_axes()``: dp, and sp when the sequence is sharded), the sum XLA
+inserts from the batch sharding in JAX, in one flat vector over that
+group's communicator. A tensor-parallel block is not reduced over the tp
+axis, and a leaf replicated under TP (the norm scales) gets the same
+gradient on every rank of it with no collective. The mesh already spans
+the world, so ``cross_host=True`` and ZeRO-1 refuse a mesh model
+(ROADMAP A.6c), as does ``accum_steps``.
+
 ZeRO-1 (``create_zero_train_state``, ``make_zero_train_step``) keeps the
 params replicated and shards the optimizer: its state is built over ONE
 flat f32 parameter, this rank's 1/world slice of the zero-padded flat
@@ -109,6 +121,8 @@ def create_train_state(model, rng: int, sample_input, tx, *, params=None,
     dev = _device.resolve(device)
     if params is None:
         params = model.init_params(seed=int(rng), device=dev)
+    if getattr(model, "mesh", None) is not None:
+        params = model.local_params(params)
     params = {k: _master(t, dev) for k, t in params.items()}
     state = TrainState(params, tx.init(params), 0)
     return state, model.bind(params, trainable=True)
@@ -203,6 +217,32 @@ def _flat_dcn_pmean(grads: dict, compression: str | None,
     return {n: seg.view(s) for n, seg, s in zip(names, segs, shapes)}
 
 
+def _flat_group_pmean(grads: dict, mesh, axes: tuple) -> dict:
+    """Mean the gradients over the group of `axes` of `mesh` as ONE flat
+    vector, in its own memory (``_flat_dcn_pmean`` over the group's
+    communicator)."""
+    from tpunet_torch.interop import _all_reduce_into_
+
+    comm = mesh.comm(axes)
+    if comm is None:
+        return grads
+    names = list(grads)
+    shapes = [grads[n].shape for n in names]
+    flat = torch.cat([grads[n].reshape(-1) for n in names])
+    grads.clear()
+    _all_reduce_into_(flat, comm).div_(mesh.axis_size(axes))
+    segs = torch.split(flat, [s.numel() for s in shapes])
+    return {n: seg.view(s) for n, seg, s in zip(names, segs, shapes)}
+
+
+def _refuse_mesh(model, what: str) -> None:
+    if getattr(model, "mesh", None) is not None:
+        raise ValueError(
+            f"{what} on a model over a mesh: the mesh already spans the "
+            "world, and its step means the gradients over its data axes "
+            "(ZeRO-1 and cross_host on a mesh are ROADMAP A.6c)")
+
+
 def _wire_handles_bf16() -> bool:
     """True when the native communicator already compresses f32 payloads to
     bf16 ON THE WIRE (wire_dtype="bf16"): the trainer then ships f32
@@ -223,6 +263,32 @@ def _pick(logits, labels):
     valid = (labels >= 0) & (labels < vocab)
     picked = logits.gather(-1, labels.clamp(0, vocab - 1)[..., None])[..., 0]
     return torch.where(valid, picked, float("nan"))
+
+
+class _Xent(torch.autograd.Function):
+    """Per-row (nll, lse) of logits over integer labels: lse = logsumexp,
+    nll = lse - logits[label] (``_pick``'s semantics). The backward forms
+    softmax(logits) once and edits it in place into d(nll, lse)/d logits,
+    (softmax * (g_nll + g_lse) - onehot * g_nll), so it holds one
+    logits-sized buffer beside the saved logits where autograd's
+    logsumexp and gather backwards hold several at once."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lse = torch.logsumexp(logits, dim=-1)
+        vocab = logits.shape[-1]
+        idx = torch.where(labels < 0, labels + vocab, labels).clamp(
+            0, vocab - 1)
+        ctx.save_for_backward(logits, lse, idx)
+        return lse - _pick(logits, labels), lse
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse):
+        logits, lse, idx = ctx.saved_tensors
+        d = torch.sub(logits, lse[..., None]).exp_()
+        d.mul_((g_nll + g_lse)[..., None])
+        d.scatter_add_(-1, idx[..., None], -g_nll[..., None])
+        return d, None
 
 
 def _check_fused(model, fused_xent_block: int | None) -> None:
@@ -262,8 +328,8 @@ def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0,
             if z_loss:
                 loss = loss + z_loss * torch.mean(torch.square(lse))
             return loss
-        lse = torch.logsumexp(out, dim=-1)
-        loss = (lse - _pick(out, labels)).mean()
+        nll, lse = _Xent.apply(out, labels)
+        loss = nll.mean()
         if z_loss:
             loss = loss + z_loss * torch.mean(torch.square(lse.float()))
         return loss
@@ -356,6 +422,14 @@ def make_train_step(model, tx=None, cross_host: bool = False,
     if bucket_bytes is not None and not cross_host:
         raise ValueError("bucket_bytes requires cross_host=True")
     _check_fused(model, fused_xent_block)
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        if cross_host:
+            _refuse_mesh(model, "cross_host=True")
+        if accum_steps not in (None, 1):
+            raise NotImplementedError(
+                "accum_steps on a mesh model is ROADMAP A.6c")
+        data_axes = model.data_axes()
     if cross_host:
         from tpunet_torch import distributed
 
@@ -379,6 +453,8 @@ def make_train_step(model, tx=None, cross_host: bool = False,
                                             grad_compression, world)
             else:
                 grads = _flat_dcn_pmean(grads, grad_compression, world)
+        elif mesh is not None and data_axes:
+            grads = _flat_group_pmean(grads, mesh, data_axes)
         for name in list(grads):
             params[name].grad = grads.pop(name)
         state.opt_state.step()
@@ -455,6 +531,7 @@ def create_zero_train_state(model, rng: int, sample_input, tx, *,
     this rank's slice of it."""
     from tpunet_torch import distributed
 
+    _refuse_mesh(model, "ZeRO-1")
     world = distributed.world_size()  # raises if initialize() was skipped
     rank = distributed.rank()
     if device is None:
@@ -511,6 +588,7 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
     if grad_compression not in (None, "bf16"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     _check_fused(model, fused_xent_block)
+    _refuse_mesh(model, "ZeRO-1")
     from tpunet_torch import distributed
     from tpunet_torch.interop import dcn_all_gather, dcn_reduce_scatter
 
