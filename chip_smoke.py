@@ -353,13 +353,58 @@ Phases (each raises on failure; the script then exits non-zero):
            seconds, the dp all-reduce's, step times and the peaks. The
            kernel phases hold the TP path's attention shape (bf16 B4 S2048
            8 heads, 8 kv heads, D128 causal) forward and backward
+  mesh6c   the mesh options of ROADMAP A.6c in ONE spawn of 4 ranks on
+           this card over {dp: 2, mdl: 2}, random weights from --seed: (a)
+           TP serving of the serve configuration (bf16, flash on each
+           rank's 8 heads and 2 kv heads, the decode cache of its kv
+           heads): generate on 4 of the serve phase's prompt lengths cut
+           to the shortest (2 rows a dp rank), 64 greedy tokens; the
+           serve phase's 8 requests of 128..512 x 64 greedy tokens through
+           the plain BatchServer (slots 8, every rank the whole server)
+           and the int8 self-draft one (gamma 4). Gates: every rank of a
+           tp group holds the same tokens; each run's tokens equal the
+           one-process port's (generate; the plain BatchServer for both
+           servers) or a row diverges only at a tie (the spec phase's
+           rule, the path under test's half on the ranks, the
+           reference's here; at the first generated column the prefills'
+           logits); flash launched once a layer a prefill on (8, 2) heads,
+           no copy; the peak a rank within 8 GB; the self-draft commits
+           more than one token a round. (b) the qlora phase's
+           configuration over the mesh (int8 q and scale and the adapters
+           split by the partition rules), lora_optimizer(adamw(2e-4)), 4
+           rows a dp rank of the train batches, 3 fit() steps, then 32
+           greedy tokens of int8 generate under TP on (a)'s prompts.
+           Gates: the dp replicas bitwise; the first loss within 2e-3
+           relative of the qlora phase's; every frozen leaf bitwise its
+           start; every lora_b off zero; flash 24 / 12 / 12 a rank-step;
+           the int8 tokens in [0, vocab) with one flash launch a layer.
+           (c) the moe phase's configuration (1,339,131,904 params) with
+           its experts over ep = dp and their FFN over mdl, accum_steps 2,
+           fused_xent_block 8192, 4 rows a dp rank, 3 fit() steps. Gates:
+           the leaves replicated over dp bitwise equal across it; the
+           first loss within 2e-3 relative of one process's no-grad
+           forward of the same two global microbatches on the whole
+           model; the losses and every block's aux finite; each block's
+           dropped (token, choice)s exactly a one-process recount of the
+           global microbatch's routing the ranks chose (flax's
+           choice-major slots at the global capacity; against the
+           one-process forward's own routing, which bf16 TP rounding
+           flips for a few tokens at near-ties, the counts are
+           reported); every psum_scatter on dp moving one whole (e, cap,
+           d) bf16 buffer and every all_gather half of one. Reports tokens/s beside the
+           one-process references', the acceptance, step seconds, each
+           axis collective's calls, bytes and seconds, and the peaks. The
+           kernel phases hold the rank's GQA shapes (bf16 8 heads, 2 kv
+           heads, D128 causal: B4 S2048 forward and backward, B1 S512
+           forward)
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
 at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
 heads 1 kv head D320), with the tensor-core instructions of the function
 each runs, and for the bf16 kernels the launches on each path (train,
-moe, qlora, sp's one-process reference, pipe, mesh's TP x DP run);
+moe, qlora, sp's one-process reference, pipe, mesh's TP x DP run, and
+mesh6c's three parts);
 and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
@@ -1156,7 +1201,8 @@ def phase_kernels(seed: int) -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     rows, first = [], {}
-    for b, sq, sk, h, hk, causal, window, dt, d in _kernel_cases(FWD_CASES):
+    for b, sq, sk, h, hk, causal, window, dt, d in _kernel_cases(
+            FWD_CASES, forward=True):
         q, k, v = _qkv(gen, b, sq, sk, h, hk, d, dt)
         rows.append(_fwd_row(q, k, v, causal, window, d))
         first.setdefault(_entry("flash_fwd", dt, d), rows[-1])
@@ -2166,8 +2212,10 @@ class _Teacher:
     """One decode path fed given tokens: `model` with a cache of capacity
     `cap` (per row or lockstep) that holds each row's prompt, prefilled
     as the path under test prefills (the rows of one prompt length
-    together). Step k feeds each row's column plens + k."""
+    together); `first` holds the prefills' last logits (b, vocab). Step k
+    feeds each row's column plens + k."""
 
+    @torch.no_grad()
     def __init__(self, model, params, seqs, plens, cap, per_row, gamma):
         from tpunet_torch.models import init_cache
         from tpunet_torch.models.generate import _prefill, _set_cache_index
@@ -2179,15 +2227,21 @@ class _Teacher:
         self.plens = torch.as_tensor(plens, device=DEVICE)
         self.cache = init_cache(model, seqs.shape[0], cap, per_row=per_row,
                                 device=DEVICE)
+        self.first = None
         for plen in sorted(set(int(x) for x in plens)):
             if not per_row:  # lockstep: one prompt length, every row
-                self.cache, _ = _prefill(self.net, self.cache,
-                                         self.seqs[:, :plen], None)
+                self.cache, last = _prefill(self.net, self.cache,
+                                            self.seqs[:, :plen], None)
+                self.first = last.float()
                 continue
             rows = torch.nonzero(self.plens == plen)[:, 0]
             row = _set_cache_index({k: v[rows] for k, v in
                                     self.cache.items()}, 0)
-            row, _ = _prefill(self.net, row, self.seqs[rows, :plen], None)
+            row, last = _prefill(self.net, row, self.seqs[rows, :plen], None)
+            if self.first is None:
+                self.first = last.new_zeros((seqs.shape[0], last.shape[-1]),
+                                            dtype=torch.float32)
+            self.first[rows] = last.float()
             for k, v in self.cache.items():
                 v[rows] = row[k]
 
@@ -2211,15 +2265,24 @@ def _tie_gaps(ref_path, alt_path, cols: dict, plens, gamma) -> dict:
     """The tie rule, fixed before the phase's first run. For each row r
     whose tokens first differ at column c = cols[r]: gap, the reference
     path's top-2 logit gap at the position predicting c (its one-token
-    step), and delta, the largest |logit difference| there between the
-    reference and the path under test on the same prefix, each with its
-    own cache (capacity, row mode): the latter's (b, gamma + 1) verify
-    block at every alignment that holds position c - 1, or, with gamma
-    None, its one-token step. A divergence is a tie when gap <= delta."""
+    step, or its prefill for the first generated column), and delta, the
+    largest |logit difference| there between the reference and the path
+    under test on the same prefix, each with its own cache (capacity, row
+    mode): the latter's (b, gamma + 1) verify block at every alignment
+    that holds position c - 1, or, with gamma None, its one-token step. A
+    divergence is a tie when gap <= delta. The two halves (`_alt_logits`,
+    `_ref_gaps`) may run in different processes."""
+    return _ref_gaps(ref_path, cols, plens,
+                     _alt_logits(alt_path, cols, plens, gamma))
+
+
+@torch.no_grad()
+def _alt_logits(alt_path, cols: dict, plens, gamma) -> dict:
+    """The path under test's half of `_tie_gaps`: {row: [logit rows]} at
+    the position predicting each row's first differing column."""
     due = {r: c - 1 - int(plens[r]) for r, c in cols.items()}
-    out = {r: (float("inf"), 0.0) for r, d in due.items() if d < 0}
+    seen = {r: [alt_path.first[r]] if d < 0 else [] for r, d in due.items()}
     due = {r: d for r, d in due.items() if d >= 0}
-    seen = {r: [] for r in due}
     for k in range(max(due.values(), default=-1) + 1):
         if gamma is not None:
             js = {r: d - k for r, d in due.items() if 0 <= d - k <= gamma}
@@ -2228,13 +2291,30 @@ def _tie_gaps(ref_path, alt_path, cols: dict, plens, gamma) -> dict:
                 for r, j in js.items():
                     seen[r].append(blk[r, j])
         other = alt_path.step(k)
+        for r in (r for r, d in due.items() if d == k and gamma is None):
+            seen[r].append(other[r])
+    return seen
+
+
+@torch.no_grad()
+def _ref_gaps(ref_path, cols: dict, plens, seen: dict) -> dict:
+    """The reference's half of `_tie_gaps`: {row: (gap, delta)} against
+    the path under test's logit rows `seen` (`_alt_logits`)."""
+    due = {r: c - 1 - int(plens[r]) for r, c in cols.items()}
+
+    def gap_delta(step, xs):
+        top2 = torch.topk(step, 2).values
+        return (float(top2[0] - top2[1]),
+                max(float((torch.as_tensor(x, device=step.device)
+                           - step).abs().max()) for x in xs))
+
+    out = {r: gap_delta(ref_path.first[r], seen[r])
+           for r, d in due.items() if d < 0}
+    due = {r: d for r, d in due.items() if d >= 0}
+    for k in range(max(due.values(), default=-1) + 1):
         step = ref_path.step(k)
         for r in (r for r, d in due.items() if d == k):
-            if gamma is None:
-                seen[r].append(other[r])
-            top2 = torch.topk(step[r], 2).values
-            out[r] = (float(top2[0] - top2[1]),
-                      max(float((x - step[r]).abs().max()) for x in seen[r]))
+            out[r] = gap_delta(step[r], seen[r])
     return out
 
 
@@ -2661,7 +2741,8 @@ def _rank_bodies() -> dict:
             "qlora": _qlora_rank_body, "a2a": _a2a_rank_body,
             "moe_bench": _moe_bench_rank_body, "sp": _sp_rank_body,
             "pipe_bench": _pipe_bench_rank_body,
-            "pipe_model": _pipe_model_rank_body, "mesh": _mesh_rank_body}
+            "pipe_model": _pipe_model_rank_body, "mesh": _mesh_rank_body,
+            "mesh6c": _mesh6c_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
@@ -3443,17 +3524,25 @@ def _moe_setup(seed: int):
     return model, state
 
 
-def _record_moe(records: list) -> None:
+def _record_moe(records: list, choices: list | None = None):
     """Wrap Transformer.forward in this process so each forward that hands
     out its MoE blocks' aux losses (the trainer's) appends a (2, blocks)
     tensor to `records`: the aux losses and the dropped shares, read
-    before the backward's recompute."""
-    from tpunet_torch.models import Transformer
+    before the backward's recompute. With `choices`, each MoE layer's
+    routing in those forwards (its (tokens, top_k) experts, recomputed from
+    its input by the layer's own ops) is appended too, in call order.
+    Returns a function that undoes the wrapping."""
+    from tpunet_torch.models import MoeMlp, Transformer
 
-    forward = Transformer.forward
+    forward, moe_forward = Transformer.forward, MoeMlp.forward
+    inside = [False]
 
     def recorded(self, *args, **kwargs):
-        out = forward(self, *args, **kwargs)
+        inside[0] = True
+        try:
+            out = forward(self, *args, **kwargs)
+        finally:
+            inside[0] = False
         if kwargs.get("moe_aux"):
             dropped = [b.moe.dropped for b in self.children()
                        if getattr(b, "is_moe", False)]
@@ -3461,7 +3550,23 @@ def _record_moe(records: list) -> None:
                                         torch.stack(dropped)]).detach())
         return out
 
+    def routed(self, x):
+        if inside[0]:
+            with torch.no_grad():
+                probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                      @ self.router.float(), dim=-1)
+                choices.append(torch.topk(probs, self.top_k, dim=-1)
+                               .indices.to(torch.int8).cpu().numpy())
+        return moe_forward(self, x)
+
     Transformer.forward = recorded
+    if choices is not None:
+        MoeMlp.forward = routed
+
+    def undo():
+        Transformer.forward, MoeMlp.forward = forward, moe_forward
+
+    return undo
 
 
 def _moe_rank_body(rank: int, ports, path: str, seed: int) -> dict:
@@ -3657,7 +3762,8 @@ def phase_qlora(seed: int) -> dict:
     gradients; before training the grafted model must be the int8 base
     (B = 0), after it every frozen leaf bitwise its start; then greedy
     generate with the adapted model. Returns the summed kernel launch
-    counts of the ranks' fit() runs."""
+    counts of the ranks' fit() runs and the first step's loss (the mean
+    over the ranks)."""
     from tpunet_torch.models import Transformer
 
     path = _ramp_data(seed)
@@ -3739,7 +3845,7 @@ def phase_qlora(seed: int) -> dict:
     if not (gen["shapes_ok"] and gen["in_vocab"]):
         raise AssertionError("adapted generate gave tokens outside the "
                              "vocab or of the wrong shape")
-    return launches
+    return launches, losses[0]
 
 
 def _a2a_send(seed: int, rank: int) -> np.ndarray:
@@ -4777,6 +4883,541 @@ def phase_mesh(seed: int, train: dict, vgg: dict) -> dict:
     return {k: sum(p["launches"][k] for p in tp) for k in COUNTERS}
 
 
+# -- mesh6c: the mesh options of ROADMAP A.6c --------------------------------
+
+# One spawn of MESH_RANKS ranks over {dp: 2, mdl: 2}: (a) TP serving of the
+# serve configuration (generate on MESH6C_GEN_ROWS prompts cut to one
+# length, rows over dp, MESH6C_GEN_NEW greedy tokens; the serve phase's 8
+# requests through the plain and the int8 self-draft BatchServer); (b) the
+# qlora phase's configuration trained over the mesh for MESH6C_STEPS steps,
+# then MESH6C_INT8_NEW greedy tokens of int8 generate under TP; (c) the moe
+# phase's configuration with the experts over ep = dp, accum_steps
+# MESH6C_ACCUM and the fused cross-entropy (MESH6C_XENT_BLOCK).
+MESH6C_MESH = {"dp": 2, "mdl": 2}
+MESH6C_GEN_ROWS, MESH6C_GEN_NEW, MESH6C_INT8_NEW = 4, 64, 32
+MESH6C_STEPS, MESH6C_ACCUM, MESH6C_XENT_BLOCK = 3, 2, 8192
+# (a)'s peak a rank: its blocks of the bf16 params (0.66 GB), the int8
+# self-draft's, the caches and a prefill's gathered f32 logits, with room.
+MESH6C_SERVE_MEM_GB = 8.0
+# The attention of a rank's 8 of 16 heads and 2 of 4 kv heads (the serve
+# configuration at mdl 2; GQA 4 a kv head): the TP QLoRA training shape
+# (forward and backward) and the TP prefill shape (forward), as (b, sq,
+# sk, h, hk, causal, window, dtype, d).
+MESH6C_CASES = [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 8, 2, True, None, BF16,
+                 128)]
+MESH6C_FWD_CASES = [(1, 512, 512, 8, 2, True, None, BF16, 128)]
+
+
+def _mesh6c_file() -> Path:
+    return (Path(__file__).resolve().parent / "build" / "chip_smoke"
+            / "mesh6c_refs.npz")
+
+
+def _mesh6c_prompts(seed: int, vocab: int) -> np.ndarray:
+    """(a)'s generate prompts: 4 of the serve phase's lengths, cut to the
+    shortest, as one (4, L) batch."""
+    ps = _prompts(seed + 6, MESH6C_GEN_ROWS, vocab)
+    n = min(len(p) for p in ps)
+    return np.stack([p[:n] for p in ps])
+
+
+def _flash_heads(fn):
+    """fn() with every flash_fwd launch's (q heads, kv heads) recorded and
+    the counters zeroed just before and read just after: (fn's result,
+    {"launches", "input_copies", "heads", "s"})."""
+    fa = importlib.import_module("tpunet_torch.ops.flash_attention")
+    launch, heads = fa._launch_fwd, set()
+
+    def rec(q, k, v, causal, window, scale):
+        heads.add((int(q.shape[2]), int(k.shape[2])))
+        return launch(q, k, v, causal, window, scale=scale)
+
+    fa._launch_fwd = rec
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        fa._launch_fwd = launch
+    launches, copies = _read_counters()
+    return out, {"launches": launches, "input_copies": copies,
+                 "heads": sorted(heads), "s": time.perf_counter() - t0}
+
+
+def _mesh6c_held(mesh, name, model, params, ref, got, plens, cap, per_row,
+                 gamma) -> dict:
+    """The path under test's half of the tie rule over the mesh: the tp
+    group's tokens gathered (every rank must hold the same), and, where
+    mdl rank 0's first differ from `ref` ((b, L) numpy), that path's
+    logit rows at each first differing column (`_alt_logits` on a
+    `_Teacher` of the TP model fed `ref`; every rank of the group runs
+    it, since its steps are collective)."""
+    from tpunet_torch.parallel import smap
+
+    mine = torch.as_tensor(got, device=DEVICE)
+    group = smap.all_gather(mine, "mdl", mesh=mesh).cpu().numpy()
+    same = all(np.array_equal(g, group[0]) for g in group)
+    cols = _first_divergence(ref, group[0], plens)
+    seen = {}
+    if cols:
+        teacher = _Teacher(model, params, ref, plens, cap, per_row,
+                           gamma or 0)
+        seen = {r: [x.cpu().numpy() for x in xs] for r, xs in
+                _alt_logits(teacher, cols, plens, gamma).items()}
+        del teacher
+    return {"run": name, "tp_group_equal": same, "cols": cols,
+            "seen": seen if mesh.axis_index("mdl") == 0 else {}}
+
+
+def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
+    """(a): generate, the plain and the speculative BatchServer over the
+    mesh, each against the one-process references of the file the parent
+    wrote."""
+    from tpunet_torch.models import (BatchServer, Transformer, generate,
+                                     quantize_params)
+
+    ref = np.load(_mesh6c_file())
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", mesh=mesh,
+                        tp_axis="mdl", device="meta", **MODEL_735M)
+    full = _bf16_checkpoint(seed)
+    local = model.local_params(full)
+    draft = model.clone(weight_quant="int8")
+    dlocal = draft.local_params(quantize_params(full))
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dp = mesh.axis_index("dp")
+    n = MESH6C_GEN_ROWS // mesh.shape["dp"]
+    rows = slice(dp * n, (dp + 1) * n)
+    prompt = torch.as_tensor(ref["gen_prompts"][rows], device=DEVICE)
+    out = {"dp": dp, "mdl": mesh.axis_index("mdl")}
+    gen, c = _flash_heads(lambda: generate(model, local, prompt,
+                                           MESH6C_GEN_NEW))
+    plen = prompt.shape[1]
+    out["generate"] = dict(c, tokens_per_s=n * MESH6C_GEN_NEW / c["s"],
+                           **_mesh6c_held(
+                               mesh, "generate", model, local,
+                               ref["gen_ref"][rows], gen.cpu().numpy(),
+                               np.full(n, plen), plen + MESH6C_GEN_NEW,
+                               False, None))
+    prompts = [ref[f"srv_prompt{i}"] for i in range(int(ref["n_srv"]))]
+    qlens = np.array([len(q) for q in prompts])
+
+    def serve(**kw):
+        srv = BatchServer(model, local, slots=8, max_len=SPEC_SERVE_MAX_LEN,
+                          device=DEVICE, **kw)
+        ids = [srv.submit(q, SPEC_SERVE_NEW) for q in prompts]
+        res = srv.run()
+        seqs = np.zeros((len(prompts), max(qlens) + SPEC_SERVE_NEW),
+                        np.int32)
+        for i, (q, rid) in enumerate(zip(prompts, ids)):
+            seqs[i, :len(q) + len(res[rid])] = np.concatenate([q, res[rid]])
+        return seqs, srv.stats
+
+    for name, kw, gamma in (
+            ("server", {}, None),
+            ("spec_server", dict(draft_model=draft, draft_params=dlocal,
+                                 gamma=SPEC_GAMMA), SPEC_GAMMA)):
+        (seqs, st), c = _flash_heads(lambda kw=kw: serve(**kw))
+        cap = SPEC_SERVE_MAX_LEN + (gamma + 1 if gamma else 0)
+        ntok = len(prompts) * SPEC_SERVE_NEW
+        out[name] = dict(c, stats=st, tokens_per_s=ntok / c["s"],
+                         **_mesh6c_held(mesh, name, model, local,
+                                        ref["srv_ref"], seqs, qlens, cap,
+                                        True, gamma))
+        if gamma:
+            out[name]["tokens_per_round"] = (
+                st["spec_committed"] / max(st["spec_rounds"], 1))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del local, dlocal
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh6c_qlora(mesh, path: str, seed: int) -> dict:
+    """(b): the qlora phase's model over the mesh, MESH6C_STEPS fit()
+    steps on dp rank d's train batches, then int8 generate under TP."""
+    from tpunet_torch.models import (Transformer, generate, graft_base,
+                                     init_params, lora_optimizer,
+                                     quantize_params)
+    from tpunet_torch.parallel import smap
+    from tpunet_torch.train import adamw, create_train_state, make_train_step
+
+    base = Transformer(compute_dtype=torch.float32, device="meta",
+                       **MODEL_735M)
+    qbase = quantize_params(init_params(base, seed=seed, device=DEVICE))
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", remat=True,
+                        mesh=mesh, tp_axis="mdl", device="meta",
+                        **MODEL_735M, **QLORA_OPTIONS)
+    params = graft_base(init_params(model, seed=seed + 1, device=DEVICE),
+                        qbase)
+    state, _ = create_train_state(
+        model, seed, None, lora_optimizer(adamw(QLORA_LR), params),
+        params=params, device=DEVICE)
+    del params
+    torch.cuda.empty_cache()
+    crc0 = _params_crc(_frozen(state.params))
+    step = make_train_step(model)
+    dp = mesh.axis_index("dp")
+    smap.axis_stats_reset()
+    state, out = _fit_measured(state, step, _train_batches(path, dp, seed),
+                               MESH6C_STEPS)
+    out.update(
+        dp=dp, mdl=mesh.axis_index("mdl"), axis=smap.axis_stats(),
+        frozen_crc=[crc0, _params_crc(_frozen(state.params))],
+        lora_b_off_zero=all(bool(v.detach().abs().max() > 0)
+                            for k, v in state.params.items()
+                            if k.endswith(".lora_b")))
+    del state, step
+    torch.cuda.empty_cache()
+    qmodel = Transformer(compute_dtype=BF16, attn_impl="flash", mesh=mesh,
+                         tp_axis="mdl", weight_quant="int8", device="meta",
+                         **MODEL_735M)
+    qlocal = qmodel.local_params(qbase)
+    del qbase
+    n = MESH6C_GEN_ROWS // mesh.shape["dp"]
+    prompt = torch.as_tensor(np.load(_mesh6c_file())["gen_prompts"][
+        dp * n:(dp + 1) * n], device=DEVICE)
+    toks, c = _flash_heads(lambda: generate(qmodel, qlocal, prompt,
+                                            MESH6C_INT8_NEW))
+    new = toks[:, prompt.shape[1]:]
+    out["int8_generate"] = dict(
+        c, tokens_per_s=n * MESH6C_INT8_NEW / c["s"],
+        shape=list(toks.shape),
+        in_vocab=bool(((new >= 0) & (new < model.vocab)).all()),
+        first_tokens=new[:, :8].tolist())
+    del qlocal
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh6c_moe(mesh, path: str, seed: int) -> dict:
+    """(c): the moe phase's model over the mesh, experts over ep = dp,
+    accum_steps and the fused cross-entropy, MESH6C_STEPS fit() steps on
+    dp rank d's train batches; each microbatch's aux losses and dropped
+    shares recorded (`_record_moe`)."""
+    from tpunet_torch.models import Transformer, transformer_partition_rules
+    from tpunet_torch.parallel import smap
+    from tpunet_torch.train import adamw, create_train_state, make_train_step
+    from tpunet_torch.train.trainer import _reduce_groups
+
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", remat=True,
+                        mesh=mesh, tp_axis="mdl", device="meta",
+                        **MODEL_TRAIN, **MOE_OPTIONS)
+    rules = transformer_partition_rules(tp_axis="mdl", ep_axis="dp")
+    state, _ = create_train_state(model, seed, None, adamw(TRAIN_LR),
+                                  device=DEVICE, rules=rules)
+    step = make_train_step(model, moe_aux_weight=MOE_AUX_WEIGHT,
+                           accum_steps=MESH6C_ACCUM,
+                           fused_xent_block=MESH6C_XENT_BLOCK)
+    records, choices = [], []
+    _record_moe(records, choices)
+    dp = mesh.axis_index("dp")
+    smap.axis_stats_reset()
+    state, out = _fit_measured(state, step, _train_batches(path, dp, seed),
+                               MESH6C_STEPS)
+    n_moe = MODEL_TRAIN["n_layers"] // MOE_OPTIONS["moe_every"]
+    replicated = _reduce_groups(model, ("dp",)).get(("dp",), set())
+    out.update(
+        dp=dp, mdl=mesh.axis_index("mdl"), axis=smap.axis_stats(),
+        dp_replicated_crc=_params_crc({k: v for k, v in state.params.items()
+                                       if k in replicated}),
+        expert_shape=list(state.params["block1.moe.wi"].shape),
+        aux=[r[0].tolist() for r in records],
+        dropped=[r[1].tolist() for r in records],
+        choices=choices[:MESH6C_ACCUM * n_moe])
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh6c_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    """One {dp: 2, mdl: 2} mesh over this spawn's ranks and the parts
+    (a), (b), (c) in turn."""
+    from tpunet_torch import distributed
+    from tpunet_torch.parallel import make_named_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, MESH_RANKS)
+    mesh = make_named_mesh(MESH6C_MESH)
+    out = {"rank": rank, "seconds": {}}
+    for part, fn in (("serve", _mesh6c_serve), ("qlora", _mesh6c_qlora),
+                     ("moe", _mesh6c_moe)):
+        distributed.global_communicator().barrier()
+        t0 = time.perf_counter()
+        out[part] = fn(mesh, path, seed)
+        out["seconds"][part] = time.perf_counter() - t0
+    mesh.close()
+    distributed.finalize()
+    return out
+
+
+def _mesh6c_references(seed: int) -> dict:
+    """The one-process port on (a)'s inputs: generate's tokens and the
+    plain BatchServer's on the serve phase's requests, written to the
+    file the ranks read; returns their timings."""
+    from tpunet_torch.models import BatchServer, Transformer, generate
+
+    model = Transformer(compute_dtype=BF16, attn_impl="flash",
+                        device="meta", **MODEL_735M)
+    params = _bf16_checkpoint(seed)
+    prompts4 = _mesh6c_prompts(seed, model.vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = generate(model, params, torch.as_tensor(prompts4, device=DEVICE),
+                   MESH6C_GEN_NEW).cpu().numpy()
+    gen_s = time.perf_counter() - t0
+    prompts = _prompts(seed + 2, 8, model.vocab)
+    qlens = np.array([len(q) for q in prompts])
+    srv = BatchServer(model, params, slots=8, max_len=SPEC_SERVE_MAX_LEN,
+                      device=DEVICE)
+    t0 = time.perf_counter()
+    ids = [srv.submit(q, SPEC_SERVE_NEW) for q in prompts]
+    res = srv.run()
+    srv_s = time.perf_counter() - t0
+    seqs = np.zeros((len(prompts), max(qlens) + SPEC_SERVE_NEW), np.int32)
+    for i, (q, rid) in enumerate(zip(prompts, ids)):
+        seqs[i, :len(q) + len(res[rid])] = np.concatenate([q, res[rid]])
+    _mesh6c_file().parent.mkdir(parents=True, exist_ok=True)
+    np.savez(_mesh6c_file(), gen_prompts=prompts4, gen_ref=gen,
+             srv_ref=seqs, n_srv=len(prompts),
+             **{f"srv_prompt{i}": q for i, q in enumerate(prompts)})
+    del params, srv
+    torch.cuda.empty_cache()
+    return {"generate_tokens_per_s": prompts4.shape[0] * MESH6C_GEN_NEW
+            / gen_s, "server_tokens_per_s": len(prompts) * SPEC_SERVE_NEW
+            / srv_s, "prompt_len": prompts4.shape[1]}
+
+
+@torch.no_grad()
+def _mesh6c_moe_reference(path: str, seed: int) -> dict:
+    """One process, the whole moe model at (c)'s init, no grad: the loss
+    of the first step's two global microbatches (the two dp ranks' first
+    batches stacked, microbatch j its rows j::2) under make_train_step's
+    objective, and each microbatch's aux losses and dropped shares."""
+    from tpunet_torch.models import Transformer, init_params
+    from tpunet_torch.train.trainer import _as_batch, _make_loss_fn
+
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
+                        **MODEL_TRAIN, **MOE_OPTIONS)
+    net = model.bind(init_params(model, seed=seed, device=DEVICE))
+    batches = [next(_train_batches(path, d, seed))
+               for d in range(MESH6C_MESH["dp"])]
+    x, y = (torch.cat([_as_batch(b[i], DEVICE) for b in batches])
+            for i in (0, 1))
+    loss_fn = _make_loss_fn(MESH6C_XENT_BLOCK, moe_aux_weight=MOE_AUX_WEIGHT,
+                            model=model)
+    records, choices = [], []
+    undo = _record_moe(records, choices)
+    try:
+        losses = [float(loss_fn(net, x[j::MESH6C_ACCUM],
+                                y[j::MESH6C_ACCUM]))
+                  for j in range(MESH6C_ACCUM)]
+    finally:
+        undo()
+    del net
+    torch.cuda.empty_cache()
+    return {"loss": float(np.mean(losses)), "microbatch_losses": losses,
+            "aux": [r[0].tolist() for r in records],
+            "dropped": [r[1].tolist() for r in records], "choices": choices}
+
+
+def _dropped_count(choices: np.ndarray, cap: int) -> int:
+    """The (token, choice)s over capacity when `choices` ((t, k) experts,
+    flax's global token order) claim slots choice-major: flax MoeMlp's
+    rule, counted in one process."""
+    e = MOE_OPTIONS["n_experts"]
+    oh = (choices.T.reshape(-1)[:, None] == np.arange(e)).astype(np.int64)
+    return int(((np.cumsum(oh, 0) * oh).sum(-1) > cap).sum())
+
+
+def _mesh6c_ties(ranks: list, seed: int, errors: list) -> None:
+    """(a)'s tie rule, the reference's half in this process: each mdl-0
+    rank's divergences against the one-process references, gap against
+    delta; adds `divergences` to each run's row."""
+    from tpunet_torch.models import Transformer
+
+    model = Transformer(compute_dtype=BF16, attn_impl="flash",
+                        device="meta", **MODEL_735M)
+    params = _bf16_checkpoint(seed)
+    ref = np.load(_mesh6c_file())
+    n = MESH6C_GEN_ROWS // MESH6C_MESH["dp"]
+    plen = ref["gen_prompts"].shape[1]
+    qlens = np.array([len(ref[f"srv_prompt{i}"])
+                      for i in range(int(ref["n_srv"]))])
+    for r in ranks:
+        s = r["serve"]
+        for name in ("generate", "server", "spec_server"):
+            row = s[name]
+            row["divergences"] = []
+            if not row["tp_group_equal"]:
+                errors.append(f"(a) {name}: the ranks of rank "
+                              f"{r['rank']}'s tp group differ")
+            if s["mdl"] != 0 or not row["cols"]:
+                continue
+            if name == "generate":
+                rows = slice(s["dp"] * n, (s["dp"] + 1) * n)
+                plens = np.full(n, plen)
+                teacher = _Teacher(model, params, ref["gen_ref"][rows],
+                                   plens, plen + MESH6C_GEN_NEW, False, 0)
+            else:
+                plens = qlens
+                teacher = _Teacher(model, params, ref["srv_ref"], qlens,
+                                   SPEC_SERVE_MAX_LEN, True, 0)
+            gaps = _ref_gaps(teacher, row["cols"], plens, row["seen"])
+            del teacher
+            row["divergences"] = [{"row": k, "col": c, "gap": gaps[k][0],
+                                   "delta": gaps[k][1]}
+                                  for k, c in sorted(row["cols"].items())]
+            bad = [d for d in row["divergences"]
+                   if not d["gap"] <= d["delta"]]
+            if bad:
+                errors.append(f"(a) {name} on dp {s['dp']}: divergences "
+                              f"that are no tie: {bad}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
+    """The mesh options of ROADMAP A.6c on MESH_RANKS ranks; returns the
+    flash launches of its three parts, summed over the ranks."""
+    t0 = time.perf_counter()
+    path = _ramp_data(seed)
+    refs = _mesh6c_references(seed)
+    ranks, wall = _spawn_ranks("mesh6c", path, seed, MESH_RANKS)
+    errors = []
+    _mesh6c_ties(ranks, seed, errors)
+    layers = MODEL_735M["n_layers"]
+    n_lens = int(np.load(_mesh6c_file())["n_srv"])
+    want = {"generate": layers, "server": n_lens * layers,
+            "spec_server": 2 * n_lens * layers}
+    for r in ranks:
+        s = r["serve"]
+        for name, n_fwd in want.items():
+            row = s[name]
+            if (row["launches"] != {"flash_fwd": n_fwd, "flash_dq": 0,
+                                    "flash_dkv": 0} or row["input_copies"]
+                    or row["heads"] != [(8, 2)]):
+                errors.append(f"(a) {name}: launches {row['launches']} "
+                              f"(want {n_fwd} forwards), heads "
+                              f"{row['heads']}, copies "
+                              f"{row['input_copies']}")
+        if s["peak_mem_gb"] > MESH6C_SERVE_MEM_GB:
+            errors.append(f"(a): peak {s['peak_mem_gb']} GB above "
+                          f"{MESH6C_SERVE_MEM_GB} GB")
+        if not s["spec_server"]["tokens_per_round"] > 1:
+            errors.append(f"(a) spec_server: "
+                          f"{s['spec_server']['tokens_per_round']} tokens "
+                          f"a round")
+    # (b) TP QLoRA and int8 generate.
+    ql = [r["qlora"] for r in ranks]
+    by_dp = {p["dp"]: p["losses"] for p in ql if p["mdl"] == 0}
+    q_losses = [float(np.mean(x)) for x in zip(*by_dp.values())]
+    q_rel = abs(q_losses[0] - qlora_first_loss) / abs(qlora_first_loss)
+    for a in ql:
+        if any(a["mdl"] == b["mdl"] and a["crc"] != b["crc"] for b in ql):
+            errors.append("(b): the dp replicas of an mdl rank differ")
+        if a["frozen_crc"][0] != a["frozen_crc"][1]:
+            errors.append(f"(b): a frozen leaf moved on dp {a['dp']} mdl "
+                          f"{a['mdl']}")
+        if not a["lora_b_off_zero"]:
+            errors.append("(b): a lora_b stayed at zero")
+        if a["launches"] != _want_launches(1, MESH6C_STEPS) or (
+                a["input_copies"]):
+            errors.append(f"(b): launches {a['launches']}, copies "
+                          f"{a['input_copies']}")
+        g = a["int8_generate"]
+        if not g["in_vocab"] or g["launches"]["flash_fwd"] != layers or (
+                g["heads"] != [(8, 2)] or g["input_copies"]):
+            errors.append(f"(b) int8 generate: in vocab {g['in_vocab']}, "
+                          f"launches {g['launches']}, heads {g['heads']}")
+    if not q_rel <= MESH_LOSS_RTOL or not all(np.isfinite(q_losses)):
+        errors.append(f"(b): first loss {q_losses} off the qlora phase's "
+                      f"{qlora_first_loss} ({q_rel})")
+    # (c) EP MoE with accum_steps and the fused cross-entropy.
+    moe_ref = _mesh6c_moe_reference(path, seed)
+    mo = [r["moe"] for r in ranks]
+    by_dp = {p["dp"]: p["losses"] for p in mo if p["mdl"] == 0}
+    m_losses = [float(np.mean(x)) for x in zip(*by_dp.values())]
+    m_rel = abs(m_losses[0] - moe_ref["loss"]) / abs(moe_ref["loss"])
+    e, d = MOE_OPTIONS["n_experts"], MODEL_TRAIN["d_model"]
+    tokens = TRAIN_BATCH * MESH6C_MESH["dp"] // MESH6C_ACCUM * TRAIN_SEQ
+    cap = int(np.ceil(MOE_OPTIONS["moe_top_k"] * tokens / e
+                      * MOE_OPTIONS["capacity_factor"]))
+    buf = e * cap * d * 2   # the (e, cap, d) bf16 dispatch buffer
+    # Each MoE layer's routing of a global microbatch: the mdl-0 ranks'
+    # choices in dp order (flax's token order), recounted in one process;
+    # the one-process forward's own routing, and how many choices differ.
+    n_moe = len(moe_ref["dropped"][0])
+    firsts = [p["choices"] for p in sorted(
+        (p for p in mo if p["mdl"] == 0), key=lambda p: p["dp"])]
+    routing = [np.concatenate([c[i] for c in firsts])
+               for i in range(MESH6C_ACCUM * n_moe)]
+    recount = [[_dropped_count(routing[j * n_moe + i], cap)
+                for i in range(n_moe)] for j in range(MESH6C_ACCUM)]
+    ref_counts = [[_dropped_count(moe_ref["choices"][j * n_moe + i], cap)
+                   for i in range(n_moe)] for j in range(MESH6C_ACCUM)]
+    flipped = [[int((np.sort(routing[j * n_moe + i], 1) != np.sort(
+        moe_ref["choices"][j * n_moe + i], 1)).any(1).sum())
+                for i in range(n_moe)] for j in range(MESH6C_ACCUM)]
+    for a in mo:
+        if any(a["mdl"] == b["mdl"]
+               and a["dp_replicated_crc"] != b["dp_replicated_crc"]
+               for b in mo):
+            errors.append("(c): the dp replicas of an mdl rank differ")
+        dp_ax = a["axis"].get("dp", {})
+        ps, ag = dp_ax.get("psum_scatter"), dp_ax.get("all_gather")
+        if not ps or not ag or ps["calls"] != ag["calls"] or (
+                ps["bytes"] != ps["calls"] * buf
+                or ag["bytes"] != ag["calls"] * buf // MESH6C_MESH["dp"]):
+            errors.append(f"(c): dp psum_scatter {ps} / all_gather {ag}, "
+                          f"want whole (e, cap, d) buffers of {buf} B")
+        counts = np.rint(np.array(a["dropped"][:MESH6C_ACCUM])
+                         * MOE_OPTIONS["moe_top_k"] * tokens).astype(int)
+        if counts.tolist() != recount:
+            errors.append(f"(c): dropped choices {counts.tolist()}, the "
+                          f"global recount of the ranks' routing {recount}")
+        if not np.isfinite(a["aux"]).all() or not all(
+                np.isfinite(a["losses"])):
+            errors.append("(c): a loss or an aux loss is not finite")
+    if not m_rel <= MESH_LOSS_RTOL:
+        errors.append(f"(c): first loss {m_losses[0]} off the one-process "
+                      f"forward's {moe_ref['loss']} ({m_rel})")
+    for r in ranks:
+        for name in ("generate", "server", "spec_server"):
+            r["serve"][name].pop("seen", None)
+        r["moe"].pop("choices")
+    moe_ref.pop("choices")
+    summary = dict(
+        ranks=MESH_RANKS, mesh=MESH6C_MESH, wall_s=time.perf_counter() - t0,
+        ranks_wall_s=wall, part_s=[r["seconds"] for r in ranks],
+        serve=dict(reference=refs, runs=[r["serve"] for r in ranks]),
+        qlora=dict(steps=MESH6C_STEPS, losses=q_losses,
+                   qlora_first_loss=qlora_first_loss, first_loss_rel=q_rel,
+                   ranks=ql),
+        moe=dict(steps=MESH6C_STEPS, accum_steps=MESH6C_ACCUM,
+                 fused_xent_block=MESH6C_XENT_BLOCK, losses=m_losses,
+                 reference=moe_ref, first_loss_rel=m_rel, capacity=cap,
+                 dispatch_buffer_bytes=buf, dropped_recount=recount,
+                 reference_dropped_count=ref_counts,
+                 tokens_routed_differently=flipped, ranks=mo),
+        card=CARD)
+    log("mesh6c", **summary)
+    if errors:
+        raise AssertionError("mesh6c phase: " + "; ".join(errors))
+    launches = {k: 0 for k in COUNTERS}
+    for r in ranks:
+        for row in (r["serve"]["generate"], r["serve"]["server"],
+                    r["serve"]["spec_server"], r["qlora"],
+                    r["qlora"]["int8_generate"], r["moe"]):
+            for k in COUNTERS:
+                launches[k] += row["launches"][k]
+    return launches
+
+
 # The paths of the other kernel routes, each a user's training run through
 # the trainer's entry points (create_train_state, make_train_step; adamw,
 # no remat) for PATH_STEPS steps on one batch of random tokens, held to the
@@ -4806,11 +5447,13 @@ PATH_CASES = [(b, s, s, MODEL_WIDE["n_heads"], MODEL_WIDE["n_kv_heads"],
               for b, s in [PATHS["wide"][2]] for dt in (BF16, F16, F32)]
 
 
-def _kernel_cases(cases) -> list:
-    """PATH_CASES, then `cases` with their 16 q heads, then MESH_CASES, as
-    (b, sq, sk, h, hk, causal, window, dtype, d)."""
+def _kernel_cases(cases, forward: bool = False) -> list:
+    """PATH_CASES, then `cases` with their 16 q heads, then MESH_CASES and
+    MESH6C_CASES (and, for the forward, MESH6C_FWD_CASES), as (b, sq, sk,
+    h, hk, causal, window, dtype, d)."""
     return (PATH_CASES + [(b, sq, sk, 16, *rest) for b, sq, sk, *rest in cases]
-            + MESH_CASES)
+            + MESH_CASES + MESH6C_CASES
+            + (MESH6C_FWD_CASES if forward else []))
 
 
 def _path_losses(cfg, dt, shape, impl, seed) -> list:
@@ -4920,12 +5563,13 @@ def main() -> int:
     phase_zero(args.seed, train)
     phase_remat(args.seed)
     vgg = phase_vgg(args.seed)
-    by_path = {"train": train_launches, "moe": phase_moe(args.seed),
-               "qlora": phase_qlora(args.seed)}
+    by_path = {"train": train_launches, "moe": phase_moe(args.seed)}
+    by_path["qlora"], qlora_first_loss = phase_qlora(args.seed)
     phase_a2a(args.seed)
     by_path["sp"] = phase_sp(args.seed)
     by_path["pipe"] = phase_pipe(args.seed)
     by_path["mesh"] = phase_mesh(args.seed, train, vgg)
+    by_path["mesh6c"] = phase_mesh6c(args.seed, qlora_first_loss)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []

@@ -21,8 +21,8 @@ weights (flax init carried by ``from_flax``, then the port's
   under TP bitwise the unsharded port's for one seed;
 - ``hierarchical_psum`` over "mdl" (then "dp"): the total over the mesh,
   JAX's ``psum`` over both axes;
-- the trainer's refusals on a mesh model (ZeRO-1, cross_host, accum_steps)
-  and the TP options queued for ROADMAP A.6c.
+- the trainer's refusals on a mesh model (ZeRO-1, cross_host: ROADMAP
+  A.6d) and the options A.6c ported, built in place.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from tpunet.train import TrainState as JaxTrainState
 from tpunet.train import create_train_state as jax_create_train_state
 from tpunet.train import make_train_step as jax_make_train_step
 from tpunet_torch.models import VGG, Transformer, from_flax
-from tpunet_torch.parallel import Mesh
+from tpunet_torch.parallel import Mesh, make_named_mesh
 from tpunet_torch.train import (adamw, create_train_state,
                                 create_zero_train_state, make_train_step,
                                 make_zero_train_step)
@@ -280,24 +280,32 @@ def test_hierarchical_psum_over_an_axis_matches_jax():
 
 def test_mesh_refusals_and_later_options():
     """ZeRO-1 and cross_host refuse a mesh model (the mesh spans the
-    world), accum_steps on a mesh and the TP options of ROADMAP A.6c raise
-    NotImplementedError, all before any collective."""
+    world; a mesh over a subset of it is ROADMAP A.6d), before any
+    collective. The options that A.6c ported build in place: int8, LoRA
+    and MoE layers under a tp_axis, accum_steps on a mesh, and
+    features_only under TP (run here on a mesh of one rank; the spawned
+    cases of test_torch_tp_serve.py, test_torch_tp_quant_lora.py and
+    test_torch_ep_moe.py hold them to JAX over 4 ranks)."""
     mesh = Mesh(np.arange(4).reshape(2, 2), ("dp", "mdl"), rank=0)
     cfg = dict(MODELS["gelu-mha"], compute_dtype=torch.float32)
     m = Transformer(mesh=mesh, tp_axis="mdl", device="meta", **cfg)
     tx = adamw(LR)
-    with pytest.raises(ValueError, match="mesh already spans"):
+    with pytest.raises(ValueError, match="mesh already spans.*A.6d"):
         make_train_step(m, tx, cross_host=True)
-    with pytest.raises(ValueError, match="mesh already spans"):
+    with pytest.raises(ValueError, match="mesh already spans.*A.6d"):
         make_zero_train_step(m, tx)
-    with pytest.raises(ValueError, match="mesh already spans"):
+    with pytest.raises(ValueError, match="mesh already spans.*A.6d"):
         create_zero_train_state(m, 0, None, tx, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6c"):
-        make_train_step(m, tx, accum_steps=2)
+    make_train_step(m, tx, accum_steps=2)
     for kw in ({"weight_quant": "int8"}, {"lora_rank": 2},
                {"n_experts": 2}):
-        with pytest.raises(NotImplementedError, match="A.6c"):
-            Transformer(mesh=mesh, tp_axis="mdl", device="meta", **cfg, **kw)
+        tm = Transformer(mesh=mesh, tp_axis="mdl", device="meta", **cfg,
+                         **kw)
+        blocks = tm.local_params(tm.init_params(seed=0, device="cpu"))
+        assert any(tuple(t.shape) != tuple(p.shape) for t, (_, p) in zip(
+            blocks.values(), tm.named_parameters()))
+    with pytest.warns(UserWarning, match="TP head speedup is lost"):
+        make_train_step(m, tx, fused_xent_block=16)
     with pytest.raises(ValueError, match="requires a mesh"):
         Transformer(attn_impl="ring", device="meta", **cfg)
     # A mesh without a tp axis keeps every leaf whole and trains as DP.
@@ -306,3 +314,10 @@ def test_mesh_refusals_and_later_options():
     state, _ = create_train_state(dp_only, 0, None, tx, device="cpu")
     assert all(tuple(t.shape) == tuple(p.shape) for t, (_, p) in zip(
         state.params.values(), dp_only.named_parameters()))
+    # features_only under TP returns the features (a mesh of one rank:
+    # every collective is the identity).
+    one = make_named_mesh({"dp": 1, "mdl": 1})
+    tm = Transformer(mesh=one, tp_axis="mdl", device="meta", **cfg)
+    net = tm.bind(tm.local_params(tm.init_params(seed=0, device="cpu")))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    assert net(toks, features_only=True).shape == (1, 4, cfg["d_model"])

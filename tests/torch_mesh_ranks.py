@@ -1,6 +1,7 @@
 """The spawned ranks of the port's mesh tests (test_torch_mesh.py,
-test_torch_inpod_attention.py, test_torch_gpipe.py, test_torch_tp.py and
-the in-pod model cases of test_torch_parallel.py), in a module that
+test_torch_inpod_attention.py, test_torch_gpipe.py, test_torch_tp.py,
+test_torch_tp_serve.py, test_torch_tp_quant_lora.py, test_torch_ep_moe.py
+and the in-pod model cases of test_torch_parallel.py), in a module that
 imports no JAX, so that they start fast: every case of one world size runs
 in one spawn. A mesh device is a rank, so a mesh of N devices takes N of
 them; the meshes a spawn needs are built once, in case order, on every
@@ -79,27 +80,89 @@ def attention(kind, axes, qkv, causal=True, dp_axis=None, sp_axis="sp",
     return back
 
 
-def model(axes, impl, cfg, params, tokens, dp_axis="dp", sp_axis="sp",
-          tp_axis=None):
-    """The port's Transformer over the mesh (`params` full, port layout)
-    on the global `tokens`; returns the global logits (natural order)."""
+def _rules(tp_axis, ep_axis):
+    from tpunet_torch.models import transformer_partition_rules
+
+    return transformer_partition_rules(tp_axis=tp_axis, ep_axis=ep_axis)
+
+
+def _model(axes, cfg, tp_axis="mdl", dp_axis="dp", **kw):
     from tpunet_torch.models import Transformer
+
+    return Transformer(compute_dtype=torch.float32, mesh=_mesh(axes),
+                       dp_axis=dp_axis, tp_axis=tp_axis, device="meta",
+                       **cfg, **kw)
+
+
+def model(axes, impl, cfg, params, tokens, dp_axis="dp", sp_axis="sp",
+          tp_axis=None, ep_axis=None):
+    """The port's Transformer over the mesh (`params` full, port layout;
+    experts over `ep_axis` when given) on the global `tokens`; returns the
+    global logits (natural order), each MoE block's dropped share and the
+    forward's axis collectives ("axis:name")."""
     from tpunet_torch.parallel import P, from_zigzag, shard, to_zigzag, unshard
+    from tpunet_torch.parallel import smap
 
     mesh = _mesh(axes)
-    tm = Transformer(compute_dtype=torch.float32, attn_impl=impl, mesh=mesh,
-                     dp_axis=dp_axis, sp_axis=sp_axis, tp_axis=tp_axis,
-                     device="meta", **cfg)
+    tm = _model(axes, cfg, tp_axis, dp_axis, attn_impl=impl,
+                sp_axis=sp_axis)
     sharded_seq = impl in ("ring", "zigzag", "ulysses")
     spec = P(dp_axis, sp_axis if sharded_seq else None)
     toks = _t(tokens).long()
     w = mesh.shape.get(sp_axis, 1)
     if impl == "zigzag":
         toks = to_zigzag(toks, w)
-    net = tm.bind(tm.local_params({n: _t(a) for n, a in params.items()}))
-    logits = unshard(net(shard(toks, mesh, spec)), mesh, spec)
+    full = {n: _t(a) for n, a in params.items()}
+    net = tm.bind(tm.local_params(full, _rules(tp_axis, ep_axis)))
+    smap.axis_stats_reset()
+    out = net(shard(toks, mesh, spec))
+    ran = sorted(f"{a}:{c}" for a, d in smap.axis_stats().items() for c in d)
+    logits = unshard(out, mesh, spec)
+    dropped = [float(m.moe.dropped) for m in net.modules()
+               if getattr(m, "is_moe", False)]
     return {"logits": _np(from_zigzag(logits, w) if impl == "zigzag"
-                          else logits)}
+                          else logits), "dropped": np.array(dropped),
+            "collectives": ran}
+
+
+def generate(axes, cfg, params, prompt, max_new, temperature=0.0,
+             top_k=None, seed=0, tp_axis="mdl"):
+    """The port's generate on the rank's prompt rows over dp (a generator
+    of `seed` on every rank when sampling): the global tokens and this
+    rank's own rows."""
+    from tpunet_torch.models import generate as port_generate
+    from tpunet_torch.parallel import P, shard, unshard
+
+    mesh = _mesh(axes)
+    tm = _model(axes, cfg, tp_axis)
+    local = tm.local_params({n: _t(a) for n, a in params.items()})
+    gen = torch.Generator().manual_seed(seed)
+    out = port_generate(tm, local, shard(_t(prompt), mesh, P("dp")), max_new,
+                        temperature=temperature, top_k=top_k, generator=gen)
+    return {"tokens": _np(unshard(out, mesh, P("dp"))), "local": _np(out)}
+
+
+def serve(axes, cfg, params, requests, server, draft_params=None,
+          tp_axis="mdl", pipeline=2):
+    """A BatchServer over the mesh (every rank the whole server; with
+    `draft_params` the int8 self-draft): {"req<i>": tokens}."""
+    from tpunet_torch.models import BatchServer
+
+    tm = _model(axes, cfg, tp_axis)
+    local = tm.local_params({n: _t(a) for n, a in params.items()})
+    kw = dict(server)
+    if draft_params is not None:
+        dm = tm.clone(weight_quant="int8")
+        kw.update(draft_model=dm, draft_params=dm.local_params(
+            {n: _t(a) for n, a in draft_params.items()}))
+    srv = BatchServer(tm, local, device="cpu", **kw)
+    ids = [srv.submit(p, m) for p, m in requests]
+    res = srv.run(pipeline=pipeline)
+    out = {f"req{i}": res[rid] for i, rid in enumerate(ids)}
+    if draft_params is not None:
+        out["committed_per_round"] = np.array(
+            srv.stats["spec_committed"] / max(srv.stats["spec_rounds"], 1))
+    return out
 
 
 def gpipe(axes, stacked, x, microbatches, dp_axis=None, remat=False,
@@ -139,11 +202,15 @@ def _stage_fn(params, x):
 
 
 def train_step(axes, family, cfg, params, inputs, labels, tx, steps=1,
-               dp_axis="dp", tp_axis="mdl", rng=None):
+               dp_axis="dp", tp_axis="mdl", rng=None, ep_axis=None,
+               lora=False, **step_kw):
     """`steps` of the port's train step on a `family` ("transformer" or
-    "vgg") model over the mesh, from the full `params`; returns the step
-    losses (the mean over the data axes) and the global params."""
+    "vgg") model over the mesh, from the full `params` (experts over
+    `ep_axis`; `lora`: lora_optimizer over tx); returns the step losses
+    (the mean over the data axes) and the global params. `step_kw` goes to
+    make_train_step (accum_steps, fused_xent_block)."""
     from tpunet_torch.models import VGG, Transformer
+    from tpunet_torch.models.lora import lora_optimizer
     from tpunet_torch.parallel import P, shard, unshard
     from tpunet_torch.parallel.mesh import shard_params
     from tpunet_torch.train import (adamw, create_train_state,
@@ -153,11 +220,16 @@ def train_step(axes, family, cfg, params, inputs, labels, tx, steps=1,
     cls = Transformer if family == "transformer" else VGG
     m = cls(compute_dtype=torch.float32, mesh=mesh, dp_axis=dp_axis,
             tp_axis=tp_axis, device="meta", **cfg)
-    opt = adamw(tx[1]) if tx[0] == "adamw" else sgd(tx[1], momentum=tx[2])
+    opt = {"adamw": lambda: adamw(tx[1]),
+           "adam": lambda: adamw(tx[1], weight_decay=0.0),
+           "sgd": lambda: sgd(tx[1], momentum=tx[2])}[tx[0]]()
     full = {n: _t(a) for n, a in params.items()}
+    if lora:
+        opt = lora_optimizer(opt, full)
+    rules = _rules(tp_axis, ep_axis) if family == "transformer" else None
     state, _ = create_train_state(m, 0, None, opt, params=full,
-                                  device="cpu")
-    step = make_train_step(m, opt)
+                                  device="cpu", rules=rules)
+    step = make_train_step(m, opt, **step_kw)
     spec = P(dp_axis)
     x, y = shard(_t(inputs), mesh, spec), shard(_t(labels), mesh, spec)
     losses = []
@@ -260,8 +332,9 @@ def _collectives(mesh, interop, unshard, P, smap):
     return res
 
 
-CASES = {f.__name__: f for f in (attention, model, gpipe, train_step,
-                                 vgg_forward, hierarchical, collectives)}
+CASES = {f.__name__: f for f in (attention, model, generate, serve, gpipe,
+                                 train_step, vgg_forward, hierarchical,
+                                 collectives)}
 
 
 def rank_worker(rank, world, port, q, cases):

@@ -25,5 +25,6 @@ from tpunet_torch.models.transformer import (  # noqa: F401
     QuantDense,
     Transformer,
     init_params,
+    transformer_partition_rules,
 )
 from tpunet_torch.models.vgg import VGG, VGG16, VGG16_CFG, vgg16  # noqa: F401

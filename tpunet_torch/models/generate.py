@@ -15,6 +15,14 @@ probability is never drawn, and a NaN-poisoned row (an idle serving slot
 parked past its capacity) draws garbage instead of raising, as
 ``jax.random.categorical`` does.
 
+On a mesh (a ``Transformer`` with ``mesh`` and ``tp_axis``, its params the
+rank's blocks) every entry point runs on the rank's rows of the batch over
+the data axis (JAX's ``batch_sharding`` of the prompt) and returns them;
+the cache holds the rank's kv heads, and the logits are gathered over the
+tp axis, so every rank of a tp group picks its tokens from the same
+logits: greedy needs nothing more, and sampled decoding draws the same
+tokens when the ranks of a group pass generators of one seed.
+
 KV leaf order is a wire contract: the serving tier ships a request's K/V
 as the cached_key/cached_value leaves in the order `_kv_leaves` yields,
 which is the flax tree-flatten order of the JAX package (dict keys sorted,
@@ -35,9 +43,11 @@ def init_cache(model, batch: int, max_len: int, *, per_row: bool = False,
                device=None) -> dict:
     """Allocate a zeroed decode cache for `batch` sequences of capacity
     `max_len` (prompt + generated). A windowed model on the ring cache
-    gets leaves of min(window, max_len) positions."""
+    gets leaves of min(window, max_len) positions. A model over a mesh
+    with tensor parallelism holds the rank's kv heads
+    (``Transformer.local_kv_heads``)."""
     dev = _device.resolve(device)
-    kv = model.n_kv_heads or model.n_heads
+    kv = model.local_kv_heads()
     length = max_len
     if model.attn_window is not None and model.decode_ring_cache:
         length = min(model.attn_window, max_len)

@@ -25,6 +25,13 @@ draft cache rides the same slot lifecycle (a refill prefills both). Both
 caches hold gamma + 1 positions of slack past `max_len`, and idle rows
 park at that capacity.
 
+On a mesh (a model with ``mesh`` and ``tp_axis``, its params the rank's
+blocks) every rank runs the whole server: all slots, the same submissions
+and admissions, so the same tokens, with the layers split over the tp
+axis and each dp replica repeating its group's work (JAX's dry run
+shards only the params; GSPMD then replicates the slots and the cache
+over dp). ``submit_kv`` stays single-rank.
+
 Device work is issued asynchronously; the host reads a window's tokens
 back once (`run(pipeline=2)` keeps a second window in flight meanwhile).
 The cache is updated in place.
@@ -45,6 +52,16 @@ from tpunet_torch.models.generate import (_get_cache_index, _kv_leaves,
                                           _set_cache_index, _spec_ring_ok,
                                           _validate_sampling, filtered_logits,
                                           init_cache, make_sampler)
+
+
+def refuse_mesh(model, what: str) -> None:
+    """The disaggregated serving tiers and their KV shipping are
+    single-rank: a model over a mesh raises."""
+    if getattr(model, "mesh", None) is not None:
+        raise NotImplementedError(
+            f"{what} with a model over a mesh: the disaggregated serving "
+            "tiers are single-rank (the multichip dry run is ROADMAP A.8b); "
+            "serve a mesh model with BatchServer on every rank")
 
 
 class BatchServer:
@@ -270,6 +287,7 @@ class BatchServer:
         prefill rank) and shipped here: `kv_rows` are numpy arrays matching
         kv_leaf_shapes(len(prompt)), `last_logits` the prefill's
         final-position logit row (vocab,)."""
+        refuse_mesh(self.model, "submit_kv")
         if self._draft is not None:
             raise ValueError(
                 "submit_kv requires a non-speculative server: the draft "

@@ -80,10 +80,13 @@ or down (input dim sharded) ends in ``psum``, the vocab-sharded embedding
 masks the ids outside its rows, looks up and sums, and the vocab-sharded
 lm_head's logits are gathered (``all_gather``) before the loss. A leaf
 left replicated (an axis that does not divide its dim) runs whole, with no
-collective. Under TP the attention kernels run on the rank's local heads.
-TP serving (the decode cache), TP int8 and LoRA layers, MoE over an expert
-axis and ``features_only`` under TP are ROADMAP A.6c and raise
-NotImplementedError.
+collective. Under TP the attention kernels run on the rank's local heads,
+the decode cache holds the rank's kv heads (``local_kv_heads``), and int8
+and LoRA layers split as their base (``QuantDense``, ``LoraDense``).
+``features_only`` returns the features on every rank of the tp axis. An
+MoE layer on a mesh routes the global batch of the data axes and may hold
+its experts' block over an ``ep`` axis of the partition rules given to
+``local_params`` (``MoeMlp``).
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ from tpunet_torch.parallel import (dcn_ring_attention, dcn_ulysses_attention,
                                    ulysses_self_attention,
                                    zigzag_positions, zigzag_self_attention)
 from tpunet_torch.parallel.mesh import P
-from tpunet_torch.parallel.smap import all_gather, psum, pvary
+from tpunet_torch.parallel.smap import all_gather, psum, psum_scatter, pvary
 
 # The sequence-parallel impls across processes, and over a mesh axis.
 DCN_IMPLS = ("dcn_ring", "dcn_zigzag", "dcn_ulysses")
@@ -149,6 +152,36 @@ class RMSNorm(nn.Module):
         return (norm * self.scale).to(x.dtype)
 
 
+def _kind(tp, shape, full) -> str | None:
+    """"column" when this rank holds a block of a dense layer's output dim,
+    "row" of its input dim, None when the (out, in) weight is whole."""
+    if tp is None:
+        return None
+    if shape[0] != full[0]:
+        return "column"
+    if shape[1] != full[1]:
+        return "row"
+    return None
+
+
+def _row_sum(layer, y):
+    """A row block's partial product summed over the tp axis; any other
+    layer's product as it is."""
+    if layer.kind() == "row":
+        return psum(y, layer.tp[1], mesh=layer.tp[0])
+    return y
+
+
+def _whole(layer, w, kind: str):
+    """A whole leaf `w` of a TP layer of `kind` that meets the rank's
+    block: through ``pvary``, so that its gradient sums the blocks'
+    partials (the cast JAX inserts where a replicated value meets a
+    varying one); as it is otherwise."""
+    if layer.kind() == kind:
+        return pvary(w, layer.tp[1], mesh=layer.tp[0])
+    return w
+
+
 class Dense(nn.Module):
     """Bias-free dense layer, flax ``nn.Dense(use_bias=False, dtype=dt)``:
     weight stored (out, in) like ``nn.Linear``; input and weight cast to
@@ -164,24 +197,17 @@ class Dense(nn.Module):
             torch.empty(features, in_features, device=device))
 
     def kind(self) -> str | None:
-        """"column" when this rank holds a block of the output dim, "row"
-        of the input dim, None when the weight is whole."""
-        if self.tp is None:
-            return None
-        if self.weight.shape[0] != self.full[0]:
-            return "column"
-        if self.weight.shape[1] != self.full[1]:
-            return "row"
-        return None
+        return _kind(self.tp, self.weight.shape, self.full)
+
+    def partial(self, x):
+        """This rank's product: the whole one, or a row block's partial."""
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt))
 
     def forward(self, x):
         """A column block's input is the caller's, cast by it (``pvary``);
         a row block's partial products are summed over the axis."""
-        dt = self.compute_dtype
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        if self.kind() == "row":
-            y = psum(y, self.tp[1], mesh=self.tp[0])
-        return y
+        return _row_sum(self, self.partial(x))
 
 
 def _tp_input(x, *layers):
@@ -206,19 +232,33 @@ class QuantDense(nn.Module):
     scaled by the scale in the compute dtype, in the flax order. The
     parameters come from ``quant.quantize_params``; a fresh init is a
     zero skeleton. The int8 leaf takes no gradient (it is created with
-    requires_grad=False and ``bind`` keeps integer leaves frozen)."""
+    requires_grad=False and ``bind`` keeps integer leaves frozen).
+
+    Under TP a column block holds q and scale split by output; a row block
+    holds q split by input and the whole scale, which distributes over the
+    sum, so the local product is scaled before the psum."""
+
+    tp = None  # as Dense's
 
     def __init__(self, in_features: int, features: int, dtype, device=None):
         super().__init__()
         self.compute_dtype = dtype
+        self.full = (features, in_features)
         self.q = nn.Parameter(
             torch.zeros(features, in_features, dtype=torch.int8,
                         device=device), requires_grad=False)
         self.scale = nn.Parameter(torch.ones(features, device=device))
 
-    def forward(self, x):
+    def kind(self) -> str | None:
+        return _kind(self.tp, self.q.shape, self.full)
+
+    def partial(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.q.to(dt)) * self.scale.to(dt)
+        scale = _whole(self, self.scale, "row")
+        return F.linear(x.to(dt), self.q.to(dt)) * scale.to(dt)
+
+    def forward(self, x):
+        return _row_sum(self, self.partial(x))
 
 
 class LoraDense(nn.Module):
@@ -228,7 +268,15 @@ class LoraDense(nn.Module):
     under ``.base`` with its ordinary leaves; ``lora_a`` (in, r) and
     ``lora_b`` (r, out) are f32 in flax's layout (x · A, not a torch
     weight). B starts at zero, so a freshly adapted model is bitwise the
-    base model; ``models.lora`` trains only A and B."""
+    base model; ``models.lora`` trains only A and B.
+
+    Under TP it follows its base: column-parallel, A is whole and B split
+    by output, and the input's one ``pvary`` (the caller's) serves both;
+    row-parallel, A is split by input and B whole, and the adapter's
+    partial joins the base's before the layer's one psum (the same sum in
+    another order). The whole factor goes through ``pvary`` (its gradient
+    is the sum of the blocks' partials: one all-reduce of A or B, in the
+    backward only)."""
 
     def __init__(self, in_features: int, features: int, rank: int, dtype,
                  alpha: float | None = None, quant: bool = False,
@@ -244,10 +292,19 @@ class LoraDense(nn.Module):
         scale = (alpha if alpha is not None else rank) / rank
         self.scale = float(torch.tensor(scale, dtype=dtype))
 
+    @property
+    def tp(self):
+        return self.base.tp
+
+    def kind(self) -> str | None:
+        return self.base.kind()
+
     def forward(self, x):
         dt = self.compute_dtype
-        delta = (x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
-        return self.base(x) + delta * self.scale
+        a = _whole(self, self.lora_a, "column")
+        b = _whole(self, self.lora_b, "row")
+        delta = (x.to(dt) @ a.to(dt)) @ b.to(dt)
+        return _row_sum(self.base, self.base.partial(x) + delta * self.scale)
 
 
 def _dense(in_features, features, dtype, device=None, weight_quant=None,
@@ -317,10 +374,6 @@ class SelfAttention(nn.Module):
         k = k.reshape(b, s, kv, dh)
         v = v.reshape(b, s, kv, dh)
         if cache is not None:
-            if h != self.n_heads:
-                raise NotImplementedError(
-                    "decoding under tensor parallelism (TP serving) is "
-                    "ROADMAP A.6c")
             if self.attn_impl in SP_IMPLS:
                 # The cached step is dense local attention: wrong for a
                 # sequence shard whose k/v live on other processes.
@@ -468,7 +521,7 @@ class SelfAttention(nn.Module):
         against (b, K, kv, dh) keys, so the group-repeated K/V never
         exists."""
         b, s, h, dh = q.shape
-        kv = self.n_kv_heads
+        kv = att_k.shape[2]  # this rank's kv heads
         qg = q.reshape(b, s, kv, h // kv, dh).float()
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                               att_k.float()) / math.sqrt(dh)
@@ -542,7 +595,34 @@ class MoeMlp(nn.Module):
     directly, one choice at a time: D (0/1: the dispatch) and C (the
     gate-weighted combine). Each holds one nonzero a (token, choice), so
     they are bitwise flax's k-summed tensors; every contraction is a
-    plain matrix product."""
+    plain matrix product.
+
+    On a mesh (``mesh`` set by the Transformer) the layer is flax's over the
+    GLOBAL batch, whose tokens lie on the ranks of the data axes (rows over
+    dp, sequence shards over an in-pod sp): t, and so cap, count the global
+    tokens; a (token, choice)'s slot is its rank in flax's choice-major
+    order over the global (b, s), from an exclusive prefix of the
+    per-(choice, row, sequence segment, expert) counts of every rank (one
+    psum of the small count tensor, with the aux's sums); aux uses the
+    global means, and its gradient counts once a rank of the data group
+    (every rank holds the same aux and the trainer means the group's
+    gradients). ``rows`` overrides this rank's global rows (the trainer's
+    strided microbatches). Experts split over an ``ep`` axis (``ep_axis``,
+    from the partition rules) dispatch at the global capacity: where ep is
+    a data axis, the local (e, cap, d) buffer is reduce-scattered over ep
+    onto the rank's experts (``psum_scatter``; other ranks' slots never
+    overlap, so no sum over the other data axes is needed: each holds its
+    own tokens' rows) and the experts' outputs all-gathered back before
+    the combine; otherwise the rank dispatches to its own experts' columns
+    only and the combine's partial is summed over ep. The expert FFN split
+    over ``ffn_tp`` (wi's output, wo's input) is column- then row-parallel:
+    ``pvary`` in, ``psum`` out."""
+
+    # (mesh, dp_axis, sp_axis, zigzag) of a model over a mesh: the axes its
+    # tokens lie on (None where they do not), and the sp shards' layout.
+    mesh = None
+    ep_axis = ffn_tp = None  # the axes wi's experts and its f dim split over
+    rows = None  # (this rank's global row ids, the global row count)
 
     def __init__(self, d_model, n_experts, d_ff, capacity_factor=1.25,
                  compute_dtype=torch.bfloat16, top_k=1, device=None):
@@ -564,11 +644,15 @@ class MoeMlp(nn.Module):
         return max(1, int(math.ceil(self.top_k * tokens / self.n_experts
                                     * self.capacity_factor)))
 
+    def data_axes(self) -> tuple:
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in self.mesh[1:3] if a is not None)
+
     def forward(self, x):
         b, s, d = x.shape
-        e, k, dt = self.n_experts, self.top_k, self.compute_dtype
+        e, k = self.n_experts, self.top_k
         t = b * s
-        cap = self.capacity(t)
         xt = x.reshape(t, d)
         probs = torch.softmax(xt.float() @ self.router.float(), dim=-1)
         experts = torch.topk(probs.detach(), k, dim=-1).indices   # (t, k)
@@ -578,27 +662,107 @@ class MoeMlp(nn.Module):
         gates = (probs[:, None, :] * onehot).sum(-1)                # (t, k)
         if k > 1:
             gates = gates / gates.sum(-1, keepdim=True)
-        aux = e * torch.sum(onehot[:, 0, :].mean(0) * probs.mean(0))
-        # Slots: a cumulative count over the choice-major (k·t, e) rows,
-        # 1-based; a choice keeps its slot when it is within capacity.
-        oh = onehot.transpose(0, 1).to(torch.int32)                 # (k, t, e)
-        pos = (torch.cumsum(oh.reshape(k * t, e), 0, dtype=torch.int32)
-               .reshape(k, t, e) * oh).sum(-1)                      # (k, t)
-        keep = pos <= cap
-        self.dropped = (~keep).float().mean().detach()
-        cols = torch.arange(e * cap, device=x.device)
+        if self.data_axes():
+            pos, cap, aux = self._global_slots(onehot, probs, b, s)
+        else:
+            cap = self.capacity(t)
+            aux = e * torch.sum(onehot[:, 0, :].mean(0) * probs.mean(0))
+            # Slots: a cumulative count over the choice-major (k·t, e)
+            # rows, 1-based.
+            oh = onehot.transpose(0, 1).to(torch.int32)             # (k, t, e)
+            pos = (torch.cumsum(oh.reshape(k * t, e), 0, dtype=torch.int32)
+                   .reshape(k, t, e) * oh).sum(-1)                  # (k, t)
+            self.dropped = (pos > cap).float().mean().detach()
+        # A choice keeps its slot when it is within capacity.
+        y = self._dispatch(xt, experts, gates, pos, pos <= cap, cap)
+        return y.reshape(b, s, d), aux
+
+    def _global_slots(self, onehot, probs, b, s):
+        """(pos (k, t), cap, aux) of this rank's tokens in the global batch
+        over the data axes (the class docstring), and ``dropped``."""
+        mesh, dp, sp, zigzag = self.mesh
+        e, k = self.n_experts, self.top_k
+        dev = onehot.device
+        if self.rows is not None:
+            rows, n_rows = self.rows
+            rows = torch.as_tensor(rows, device=dev)
+        elif dp is not None:
+            n_rows = b * mesh.axis_size(dp)
+            rows = mesh.axis_index(dp) * b + torch.arange(b, device=dev)
+        else:
+            rows, n_rows = torch.arange(b, device=dev), b
+        # This rank's sequence segments, in the global position order.
+        n_sp = mesh.axis_size(sp) if sp is not None else 1
+        i = mesh.axis_index(sp) if sp is not None else 0
+        segs = [i, 2 * n_sp - 1 - i] if zigzag else [i]
+        n_segs = n_sp * len(segs)
+        seg = s // len(segs)
+        segs = torch.as_tensor(segs, device=dev)
+        tokens = n_rows * n_segs * seg
+        cap = self.capacity(tokens)
+        oh = onehot.transpose(0, 1).reshape(k, b, len(segs), seg, e)
+        counts = torch.zeros((k, n_rows, n_segs, e), device=dev)
+        counts[:, rows[:, None], segs[None, :]] = oh.sum(3)
+        # One psum: the aux's sums and every rank's counts (each entry is
+        # one rank's, so the sum places them).
+        stats = psum(torch.cat([onehot[:, 0, :].sum(0), probs.sum(0),
+                                counts.reshape(-1)]),
+                     self.data_axes(), mesh=mesh)
+        aux = e * torch.sum((stats[:e] / tokens) * (stats[e:2 * e] / tokens))
+        # Every rank of the group holds this aux, and the trainer means the
+        # group's gradients: its gradient counts once a rank.
+        n = mesh.axis_size(self.data_axes())
+        aux = aux.detach() + n * (aux - aux.detach())
+        counts = stats[2 * e:].detach().round().long().reshape(counts.shape)
+        flat = counts.reshape(-1, e)
+        before = (torch.cumsum(flat, 0) - flat).reshape(counts.shape)
+        mine = before[:, rows[:, None], segs[None, :]]            # (k,b,nl,e)
+        ohi = oh.long()
+        pos = ((mine[:, :, :, None, :] + torch.cumsum(ohi, 3)) * ohi).sum(-1)
+        # An expert keeps its first cap (token, choice)s.
+        over = (counts.sum((0, 1, 2)) - cap).clamp(min=0).sum()
+        self.dropped = (over.float() / (k * tokens)).detach()
+        return pos.reshape(k, b * s), cap, aux
+
+    def _dispatch(self, xt, experts, gates, pos, keep, cap):
+        """The experts' output for the tokens `xt` (t, d): dispatch at
+        `cap`, the expert FFN, the combine (the class docstring)."""
+        e, k, dt = self.n_experts, self.top_k, self.compute_dtype
+        t, d = xt.shape
+        e_here = self.wi.shape[0]
+        mesh = self.mesh[0] if self.mesh is not None else None
+        ep = self.ep_axis if e_here != e else None
+        scatter = ep is not None and ep in self.data_axes()
+        own = ep is not None and not scatter  # this rank's experts' columns
+        lo = mesh.axis_index(ep) * e_here if own else 0
+        if own:  # ep-invariant in, ep-varying columns
+            xt, gates = pvary(xt, ep, mesh=mesh), pvary(gates, ep, mesh=mesh)
+        cols = torch.arange(lo * cap, (lo + (e_here if own else e)) * cap,
+                            device=xt.device)
         dispatch = combine = None
         for j in range(k):
-            # This choice's (t, e·cap) one-hot; a dropped choice's row is 0.
+            # This choice's (t, cols) one-hot; a dropped choice's row is 0.
             where = torch.where(keep[j], experts[:, j] * cap + pos[j] - 1, -1)
             p = (where[:, None] == cols).to(dt)
             g = p * gates[:, j, None].to(dt)
             dispatch = p if dispatch is None else dispatch + p
             combine = g if combine is None else combine + g
-        xe = (dispatch.t() @ xt.to(dt)).reshape(e, cap, d)
+        xe = (dispatch.t() @ xt.to(dt)).reshape(-1, cap, d)
+        if scatter:
+            xe = psum_scatter(xe, ep, tiled=True, mesh=mesh)
+        tp = self.ffn_tp if self.wi.shape[2] != self.d_ff else None
+        if tp:
+            xe = pvary(xe, tp, mesh=mesh)
         hdn = F.gelu(torch.bmm(xe, self.wi.to(dt)), approximate="tanh")
-        ye = torch.bmm(hdn, self.wo.to(dt)).reshape(e * cap, d)
-        return (combine @ ye).reshape(b, s, d), aux
+        ye = torch.bmm(hdn, self.wo.to(dt))
+        if tp:
+            ye = psum(ye, tp, mesh=mesh)
+        if scatter:
+            ye = all_gather(ye, ep, tiled=True, varying=True, mesh=mesh)
+        y = combine @ ye.reshape(-1, d)
+        if own:
+            y = psum(y, ep, mesh=mesh)
+        return y
 
 
 class Block(nn.Module):
@@ -690,11 +854,6 @@ class Transformer(nn.Module):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if attn_impl in IN_POD_IMPLS and mesh is None:
             raise ValueError(f"attn_impl={attn_impl!r} requires a mesh")
-        if mesh is not None and tp_axis is not None and (
-                weight_quant is not None or lora_rank > 0 or n_experts > 0):
-            raise NotImplementedError(
-                "tensor parallelism of int8, LoRA and MoE layers (TP QLoRA "
-                "and int8 training, expert parallelism) is ROADMAP A.6c")
         device = _device.resolve(device)
         self.mesh = mesh
         self.dp_axis, self.sp_axis, self.tp_axis = dp_axis, sp_axis, tp_axis
@@ -728,22 +887,72 @@ class Transformer(nn.Module):
         self.lm_head = _dense(d_model, vocab, compute_dtype, device,
                               weight_quant, *lora)
         if mesh is not None:
+            sp = sp_axis if attn_impl in IN_POD_IMPLS else None
+            tokens = tuple(a if a is not None and a in mesh.shape else None
+                           for a in (dp_axis, sp))
             for mod in self.modules():
-                if isinstance(mod, Dense) and tp_axis is not None:
+                if isinstance(mod, (Dense, QuantDense)) and tp_axis:
                     mod.tp = (mesh, tp_axis)
                 elif isinstance(mod, SelfAttention):
                     mod.mesh = (mesh, dp_axis, sp_axis, tp_axis)
+                elif isinstance(mod, MoeMlp):
+                    mod.mesh = (mesh, *tokens, attn_impl == "zigzag")
+            self._apply_rules()
+
+    #: The partition rules this model's blocks were cut by (None: its
+    #: ``transformer_partition_rules`` over tp_axis, experts replicated).
+    rules = None
 
     def partition_rules(self) -> list:
-        """This model's ``transformer_partition_rules`` over its tp_axis."""
+        """The rules this model's blocks are cut by: the ones given to
+        ``local_params``, else ``transformer_partition_rules`` over its
+        tp_axis."""
+        if self.rules is not None:
+            return self.rules
         return transformer_partition_rules(tp_axis=self.tp_axis)
 
-    def local_params(self, params: dict) -> dict:
+    def _apply_rules(self) -> None:
+        """Tell each MoE layer which axes its experts and FFN split over:
+        the spec the rules give its ``wi`` (e, d, f) (an axis that does not
+        divide its dim leaves it whole, as ``shard_params`` does)."""
+        from tpunet_torch.parallel.mesh import leaf_spec
+
+        rules = self.partition_rules()
+        for name, mod in self.named_modules():
+            if isinstance(mod, MoeMlp):
+                spec = tuple(leaf_spec(name + ".wi", tuple(mod.wi.shape),
+                                       self.mesh, rules)) + (None,) * 3
+                mod.ep_axis, mod.ffn_tp = spec[0], spec[2]
+
+    def local_params(self, params: dict, rules=None) -> dict:
         """This rank's blocks of the full state_dict `params` under the
-        partition rules (``parallel.shard_params``)."""
+        partition rules (``parallel.shard_params``). `rules` (e.g.
+        ``transformer_partition_rules(tp_axis="mdl", ep_axis="dp")`` for
+        experts over dp) replaces this model's and stays with it and its
+        clones, as a sharding stays with a JAX array, so that its layers
+        know which axis each block is split over."""
         from tpunet_torch.parallel.mesh import shard_params
 
+        if rules is not None:
+            self.rules = list(rules)
+            self._apply_rules()
         return shard_params(params, self.mesh, self.partition_rules())[1]
+
+    def local_kv_heads(self) -> int:
+        """The kv heads this rank's attention holds: all of them, or its
+        block of them when the partition rules split the k projection
+        over tp_axis (the decode cache's width)."""
+        kv = self.n_kv_heads or self.n_heads
+        if self.mesh is None or self.tp_axis is None:
+            return kv
+        from tpunet_torch.parallel.mesh import leaf_spec
+
+        name, p = next((n, p) for n, p in self.named_parameters()
+                       if n.startswith("block0.attn.k."))
+        spec = leaf_spec(name, tuple(p.shape), self.mesh,
+                         self.partition_rules())
+        split = any(a is not None for a in spec)
+        return kv // self.mesh.axis_size(self.tp_axis) if split else kv
 
     def data_axes(self) -> tuple:
         """The mesh axes the data is sharded over: dp_axis, and sp_axis
@@ -810,14 +1019,9 @@ class Transformer(nn.Module):
                 if moe_aux is not None:
                     moe_aux.append(aux)
         x = self.norm_f(x)
-        head_tp = getattr(self.lm_head, "kind", lambda: None)()
         if features_only:
-            if head_tp is not None:
-                raise NotImplementedError(
-                    "features_only under tensor parallelism (the fused "
-                    "cross-entropy over a vocab-sharded lm_head) is ROADMAP "
-                    "A.6c")
             return x.to(dt)
+        head_tp = self.lm_head.kind()
         logits = self.lm_head(_tp_input(x, self.lm_head))
         if head_tp == "column":  # vocab-sharded: every rank's block
             logits = all_gather(logits, self.tp_axis, axis=-1, tiled=True,
@@ -857,7 +1061,11 @@ class Transformer(nn.Module):
         """A weightless (meta) copy of this architecture with `overrides`
         applied, e.g. ``clone(weight_quant="int8")`` for the int8
         self-draft or ``clone(decode_ring_cache=False)``."""
-        return Transformer(**{**self._kwargs, **overrides}, device="meta")
+        out = Transformer(**{**self._kwargs, **overrides}, device="meta")
+        if self.rules is not None and out.mesh is not None:
+            out.rules = self.rules
+            out._apply_rules()
+        return out
 
 
 def transformer_partition_rules(tp_axis: str | None = "mdl",

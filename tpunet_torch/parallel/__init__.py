@@ -7,7 +7,7 @@ one card, so a mesh of N devices needs N processes. ``mesh.py`` lays the
 ranks out over named axes and wires one tpunet communicator a group of
 ranks along a set of axes; ``smap.py`` runs ``shard_map`` over the ranks'
 own blocks and the differentiable collectives over an axis (psum, pvary,
-ppermute, all_to_all, all_gather). On them: ``ring_attention``,
+ppermute, all_to_all, all_gather, psum_scatter). On them: ``ring_attention``,
 ``zigzag_ring_attention`` and ``ulysses_attention`` with their
 ``*_self_attention`` entry points, and ``gpipe``. Every entry point takes
 and returns the rank's own block where JAX's takes global arrays.

@@ -22,7 +22,10 @@ differentiates its collectives, and so do these, with JAX's transposes:
   * ``ppermute``: backward is the inverse permutation;
   * ``all_to_all``: backward is the inverse all-to-all;
   * ``all_gather``: backward takes this rank's slice of the cotangent with
-    no communication (every rank already holds the whole cotangent);
+    no communication (every rank already holds the whole cotangent), or,
+    with ``varying=True`` (the gathered value feeds work that differs
+    across the axis: a data axis), JAX's transpose, ``psum_scatter``;
+  * ``psum_scatter``: reduce-scatter forward, ``all_gather`` backward;
   * ``axis_index`` and ``axis_size``.
 
 A collective's backward is itself collective, so every rank of the group
@@ -139,6 +142,26 @@ def _a2a(x, mesh, axes, split_axis, concat_axis):
     return torch.cat(list(got.unbind(0)), dim=concat_axis)
 
 
+def _reduce_scatter(x, mesh, axes):
+    """Sum over the group, this rank's block of dim 0 (divisible by the
+    group's size) back."""
+    comm = mesh.comm(axes)
+    w = mesh.axis_size(axes)
+    if x.shape[0] % w:
+        raise ValueError(f"psum_scatter: dim 0 of {tuple(x.shape)} not "
+                         f"divisible by {'+'.join(axes)}={w}")
+    if comm is None:
+        return x.clone()
+    t0 = time.perf_counter()
+    out = None
+    if x.device.type != "cpu":
+        out = torch.empty((x.shape[0] // w,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, pin_memory=True)
+    out = _back(comm.reduce_scatter(_host(x), "sum", out), x)
+    _count(axes, "psum_scatter", x, t0)
+    return out
+
+
 def _gather(x, mesh, axes):
     comm = mesh.comm(axes)
     if comm is None:
@@ -208,13 +231,31 @@ class _AllToAll(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.my = mesh.axis_index(axes)
+    def forward(ctx, x, mesh, axes, varying):
+        ctx.my, ctx.args = mesh.axis_index(axes), (mesh, axes, varying)
         return _gather(x.contiguous(), mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.my], None, None
+        mesh, axes, varying = ctx.args
+        if varying:  # (group, *x.shape): the group dim is dim 0
+            g = _reduce_scatter(g.contiguous(), mesh, axes)[0]
+        else:
+            g = g[ctx.my]
+        return g, None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _reduce_scatter(x.contiguous(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        blocks = _gather(g.contiguous(), mesh, axes)
+        return blocks.reshape((-1,) + tuple(g.shape[1:])), None, None
 
 
 class _Sink(torch.autograd.Function):
@@ -288,14 +329,34 @@ def all_to_all(x: torch.Tensor, axis_name, split_axis: int, concat_axis: int,
 
 
 def all_gather(x: torch.Tensor, axis_name, axis: int = 0, tiled: bool = False,
-               mesh: Mesh | None = None):
+               mesh: Mesh | None = None, varying: bool = False):
     """``lax.all_gather``: every rank's x along a new dim `axis` in axis
-    order, or concatenated on dim `axis` with `tiled`."""
+    order, or concatenated on dim `axis` with `tiled`. `varying`: the
+    result feeds work that differs across the axis (each rank's own
+    tokens), so the backward sums the ranks' cotangents (``psum_scatter``)
+    instead of taking this rank's slice of an axis-invariant one."""
     mesh, axes = _resolve(axis_name, mesh)
-    y = _taped(_AllGather.apply(_recorded(x), mesh, axes))
+    y = _taped(_AllGather.apply(_recorded(x), mesh, axes, varying))
     if tiled:
         return torch.cat(list(y.unbind(0)), dim=axis)
     return y.movedim(0, axis)
+
+
+def psum_scatter(x: torch.Tensor, axis_name, scatter_dimension: int = 0,
+                 tiled: bool = False, mesh: Mesh | None = None):
+    """``lax.psum_scatter``: the sum over the axis, of which this rank
+    keeps block `axis_index` of dim `scatter_dimension` (a dim of the
+    axis' size, dropped, or with `tiled` any multiple of it, cut in equal
+    blocks). The backward all-gathers the cotangent."""
+    mesh, axes = _resolve(axis_name, mesh)
+    dim = scatter_dimension % x.dim()
+    w = mesh.axis_size(axes)
+    if not tiled and x.shape[dim] != w:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} is "
+                         f"not the axis size {w} (tiled=False)")
+    y = _taped(_PsumScatter.apply(_recorded(x.movedim(dim, 0)), mesh, axes))
+    y = y.movedim(0, dim)
+    return y if tiled else y.squeeze(dim)
 
 
 def axis_index(axis_name, mesh: Mesh | None = None) -> int:

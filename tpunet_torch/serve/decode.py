@@ -35,7 +35,7 @@ from functools import partial
 import numpy as np
 
 from tpunet_torch import telemetry, transport
-from tpunet_torch.models.serve import BatchServer
+from tpunet_torch.models.serve import BatchServer, refuse_mesh
 from tpunet_torch.serve import kv as kv_mod
 from tpunet_torch.serve import protocol as proto
 from tpunet_torch.serve import publish as publish_mod
@@ -48,6 +48,7 @@ class DecodeWorker:
     def __init__(self, model, params, link: proto.FrameLink, *,
                  slots: int, max_len: int, kv_codec: str = "int8",
                  weight_version: int = 0, **server_kwargs):
+        refuse_mesh(model, "DecodeWorker")
         if kv_codec not in kv_mod.KV_CODECS:
             raise ValueError(f"unknown KV wire codec {kv_codec!r}")
         self._net = None  # set by connect(): the engine this worker owns

@@ -16,6 +16,7 @@ import torch
 from tpunet_torch import _device
 from tpunet_torch.models.generate import (_kv_leaves, _prefill,
                                           _set_cache_index, init_cache)
+from tpunet_torch.models.serve import refuse_mesh
 
 
 class PrefillEngine:
@@ -24,6 +25,7 @@ class PrefillEngine:
 
     def __init__(self, model, params, *, max_len: int,
                  prefill_chunk: int | None = None, device=None):
+        refuse_mesh(model, "PrefillEngine")
         if getattr(model, "n_experts", 0):
             raise ValueError("PrefillEngine requires a dense model")
         if model.attn_window is not None:

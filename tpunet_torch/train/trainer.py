@@ -30,9 +30,21 @@ the step means the gradients over the group of the model's data axes
 inserts from the batch sharding in JAX, in one flat vector over that
 group's communicator. A tensor-parallel block is not reduced over the tp
 axis, and a leaf replicated under TP (the norm scales) gets the same
-gradient on every rank of it with no collective. The mesh already spans
-the world, so ``cross_host=True`` and ZeRO-1 refuse a mesh model
-(ROADMAP A.6c), as does ``accum_steps``.
+gradient on every rank of it with no collective. A leaf split over a data
+axis (MoE experts over ep = dp: its gradient already sums every rank's
+tokens, through the dispatch's collectives) is summed over the data axes
+it is replicated over only, and divided by the whole group's size.
+``accum_steps`` takes JAX's strided microbatches of the GLOBAL batch:
+microbatch j is the global rows r with r % accum_steps == j, so a rank
+takes its rows (offset + i) with that residue; where its block is not a
+multiple of accum_steps the ranks' shares differ, and each microbatch's
+loss is weighted by the rank's share, so that it is the global mean.
+``fused_xent_block`` under TP gathers the vocab-split lm_head weight over
+the tp axis (its gradient comes back to each rank's block once) and warns,
+as JAX does, that the head's TP speedup is lost. The mesh already spans
+the world, so ``cross_host=True`` and ZeRO-1 refuse a mesh model (a mesh
+over a subset of the world with the DCN tier across meshes is ROADMAP
+A.6d).
 
 ZeRO-1 (``create_zero_train_state``, ``make_zero_train_step``) keeps the
 params replicated and shards the optimizer: its state is built over ONE
@@ -57,6 +69,7 @@ from __future__ import annotations
 import copy
 import inspect
 import re
+import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -106,7 +119,7 @@ class sgd:  # noqa: N801 — named after the optax factory it stands for
 
 
 def create_train_state(model, rng: int, sample_input, tx, *, params=None,
-                       device=None) -> tuple[TrainState, Any]:
+                       device=None, rules=None) -> tuple[TrainState, Any]:
     """Initialize f32 trainable params (integer leaves kept as they are,
     frozen) and the optimizer. Returns (state, apply_fn), apply_fn being
     the trainable module bound to them.
@@ -114,7 +127,9 @@ def create_train_state(model, rng: int, sample_input, tx, *, params=None,
     rng: the init seed (the model family's ``init_params``); `params`
     overrides the init with a given state_dict (e.g. ``from_flax`` of a
     flax init). device: where the params live; default the sample input's
-    device when it is a tensor, else the GPU."""
+    device when it is a tensor, else the GPU. rules: a mesh model's
+    partition rules when they are not its own (``local_params``; e.g.
+    experts over ep = dp), kept by the model for its steps."""
     if device is None:
         device = (sample_input.device
                   if isinstance(sample_input, torch.Tensor) else None)
@@ -122,7 +137,8 @@ def create_train_state(model, rng: int, sample_input, tx, *, params=None,
     if params is None:
         params = model.init_params(seed=int(rng), device=dev)
     if getattr(model, "mesh", None) is not None:
-        params = model.local_params(params)
+        params = (model.local_params(params, rules) if rules is not None
+                  else model.local_params(params))
     params = {k: _master(t, dev) for k, t in params.items()}
     state = TrainState(params, tx.init(params), 0)
     return state, model.bind(params, trainable=True)
@@ -217,22 +233,44 @@ def _flat_dcn_pmean(grads: dict, compression: str | None,
     return {n: seg.view(s) for n, seg, s in zip(names, segs, shapes)}
 
 
-def _flat_group_pmean(grads: dict, mesh, axes: tuple) -> dict:
-    """Mean the gradients over the group of `axes` of `mesh` as ONE flat
+def _flat_group_pmean(grads: dict, mesh, axes: tuple,
+                      n: int | None = None) -> dict:
+    """Sum the gradients over the group of `axes` of `mesh` as ONE flat
     vector, in its own memory (``_flat_dcn_pmean`` over the group's
-    communicator)."""
+    communicator), and divide by `n` (default the group's size: the
+    mean)."""
     from tpunet_torch.interop import _all_reduce_into_
 
     comm = mesh.comm(axes)
-    if comm is None:
+    n = mesh.axis_size(axes) if n is None else n
+    if comm is None and n == 1:
         return grads
     names = list(grads)
     shapes = [grads[n].shape for n in names]
     flat = torch.cat([grads[n].reshape(-1) for n in names])
     grads.clear()
-    _all_reduce_into_(flat, comm).div_(mesh.axis_size(axes))
+    if comm is not None:
+        _all_reduce_into_(flat, comm)
+    flat.div_(n)
     segs = torch.split(flat, [s.numel() for s in shapes])
     return {n: seg.view(s) for n, seg, s in zip(names, segs, shapes)}
+
+
+def _reduce_groups(model, data_axes: tuple) -> dict:
+    """{data axes a leaf is replicated over: [leaf names]} under the
+    model's partition rules: a leaf's gradient is summed over the data axes
+    its spec does not split it over (all of them, but for experts split
+    over ep = dp), in one flat vector a group."""
+    from tpunet_torch.parallel.mesh import _axes, leaf_spec
+
+    rules = model.partition_rules()
+    groups: dict = {}
+    for name, p in model.named_parameters():
+        spec = leaf_spec(name, tuple(p.shape), model.mesh, rules)
+        split = {a for entry in spec for a in _axes(entry)}
+        axes = tuple(a for a in data_axes if a not in split)
+        groups.setdefault(axes, set()).add(name)
+    return groups
 
 
 def _refuse_mesh(model, what: str) -> None:
@@ -240,7 +278,8 @@ def _refuse_mesh(model, what: str) -> None:
         raise ValueError(
             f"{what} on a model over a mesh: the mesh already spans the "
             "world, and its step means the gradients over its data axes "
-            "(ZeRO-1 and cross_host on a mesh are ROADMAP A.6c)")
+            "(ZeRO-1 and cross_host over a mesh of a subset of the world "
+            "are ROADMAP A.6d)")
 
 
 def _wire_handles_bf16() -> bool:
@@ -321,7 +360,7 @@ def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0,
             from tpunet_torch.ops import blockwise_cross_entropy
 
             nll, lse = blockwise_cross_entropy(
-                out.reshape(-1, out.shape[-1]), net.lm_head.weight.t(),
+                out.reshape(-1, out.shape[-1]), _head_weight(net).t(),
                 labels.reshape(-1), block_vocab=fused_xent_block,
                 return_lse=True)
             loss = nll.mean()
@@ -334,18 +373,37 @@ def _make_loss_fn(fused_xent_block: int | None = None, z_loss: float = 0.0,
             loss = loss + z_loss * torch.mean(torch.square(lse.float()))
         return loss
 
-    def loss_fn(net, inputs, labels, rng=None):
+    def loss_fn(net, inputs, labels, rng=None, weight: float = 1.0):
+        """`weight` scales the cross-entropy (a rank's share of a global
+        microbatch), not the MoE aux loss (every rank holds the global
+        one)."""
         aux: list = []
         kw = {"features_only": True} if fused else {}
         if has_moe:
             kw["moe_aux"] = aux
         loss = xent(net, net(inputs, train=True, rng=rng, **kw), labels)
+        if weight != 1.0:
+            loss = loss * weight
         if aux:
             loss = loss + moe_aux_weight * (sum(aux) / len(aux)).to(
                 loss.dtype)
         return loss
 
     return loss_fn
+
+
+def _head_weight(net) -> torch.Tensor:
+    """The lm_head's (vocab, d) weight; a vocab-split block under TP is
+    gathered over the tp axis (every rank of it computes the same loss, so
+    the gather's backward hands each rank its block's gradient once)."""
+    head = net.lm_head
+    w = head.weight
+    if getattr(head, "kind", lambda: None)() == "column":
+        from tpunet_torch.parallel.smap import all_gather
+
+        mesh, axis = head.tp
+        w = all_gather(w, axis, axis=0, tiled=True, mesh=mesh)
+    return w
 
 
 def _split_rng(rng, n: int) -> list:
@@ -357,35 +415,73 @@ def _split_rng(rng, n: int) -> list:
             for s in np.random.SeedSequence(int(rng)).spawn(n)]
 
 
+def _microbatches(batch: int, accum_steps: int, rows) -> list:
+    """[(rows of the local batch, cross-entropy weight, MoE rows)] of each
+    strided microbatch. `rows` = (offset, global batch) on a mesh: this
+    rank holds global rows offset + i, and microbatch j takes those with
+    (offset + i) % accum_steps == j, at their place in the global
+    microbatch, weighted by the rank's share (1 when the shares are
+    equal)."""
+    if rows is None:
+        if batch % accum_steps:
+            raise ValueError(f"batch {batch} not divisible by accum_steps "
+                             f"{accum_steps}")
+        return [(slice(j, None, accum_steps), 1.0, None)
+                for j in range(accum_steps)]
+    offset, total = rows
+    if total % accum_steps:
+        raise ValueError(f"global batch {total} not divisible by "
+                         f"accum_steps {accum_steps}")
+    out = []
+    for j in range(accum_steps):
+        mine = [i for i in range(batch) if (offset + i) % accum_steps == j]
+        if not mine:
+            raise ValueError(
+                f"accum_steps {accum_steps} leaves microbatch {j} no row of "
+                f"this rank's {batch}: every rank needs a row of each")
+        even = batch % accum_steps == 0 and offset % accum_steps == 0
+        take = slice(j, None, accum_steps) if even else mine
+        out.append((take, accum_steps * len(mine) / batch,
+                    ([(offset + i) // accum_steps for i in mine],
+                     total // accum_steps)))
+    return out
+
+
 def _value_and_grads(net, params: dict, inputs, labels, loss_fn,
-                     accum_steps: int | None, rng=None):
+                     accum_steps: int | None, rng=None, rows=None):
     """(mean loss, {name: mean grad}) for the batch: one backward, or (with
     accum_steps=k) k microbatches whose activations are freed in between.
     Microbatches are STRIDED (row r -> microbatch r % k), as in the JAX
     trainer; any equal-size grouping keeps the mean of means equal to the
     full-batch mean (an MoE model routes, and sizes its capacity, per
-    microbatch, as JAX's does). `rng` seeds the dropout; each microbatch
-    gets its own seed derived from it, as JAX splits the key. Only the
-    floating leaves get a gradient (integer leaves are frozen)."""
+    microbatch, as JAX's does). On a mesh `rows` = (offset, global batch)
+    places the rank's rows in the global batch (``_microbatches``). `rng`
+    seeds the dropout; each microbatch gets its own seed derived from it,
+    as JAX splits the key. Only the floating leaves get a gradient (integer
+    leaves are frozen)."""
     names = [n for n, t in params.items() if t.is_floating_point()]
     tensors = [params[n] for n in names]
     if accum_steps is None or accum_steps == 1:
         loss = loss_fn(net, inputs, labels, rng)
         grads = torch.autograd.grad(loss, tensors)
         return loss.detach(), dict(zip(names, grads))
-    batch = inputs.shape[0]
-    if batch % accum_steps:
-        raise ValueError(f"batch {batch} not divisible by accum_steps "
-                         f"{accum_steps}")
+    from tpunet_torch.models.transformer import MoeMlp
+
+    moes = [m for m in net.modules() if isinstance(m, MoeMlp)]
     loss_sum = torch.zeros((), device=inputs.device)
     grad_sum = None
-    for j, seed in enumerate(_split_rng(rng, accum_steps)):
-        loss = loss_fn(net, inputs[j::accum_steps], labels[j::accum_steps],
-                       seed)
+    plan = _microbatches(inputs.shape[0], accum_steps, rows)
+    for (take, weight, moe_rows), seed in zip(
+            plan, _split_rng(rng, accum_steps)):
+        for m in moes:
+            m.rows = moe_rows
+        loss = loss_fn(net, inputs[take], labels[take], seed, weight)
         grads = torch.autograd.grad(loss, tensors)
         loss_sum = loss_sum + loss.detach()
         grad_sum = (list(grads) if grad_sum is None
                     else [a + g for a, g in zip(grad_sum, grads)])
+    for m in moes:
+        m.rows = None
     return loss_sum / accum_steps, {n: g / accum_steps
                                     for n, g in zip(names, grad_sum)}
 
@@ -422,14 +518,20 @@ def make_train_step(model, tx=None, cross_host: bool = False,
     if bucket_bytes is not None and not cross_host:
         raise ValueError("bucket_bytes requires cross_host=True")
     _check_fused(model, fused_xent_block)
+    if fused_xent_block is not None and getattr(model, "tp_axis", None):
+        warnings.warn(
+            "fused_xent_block with a tensor-parallel lm head replicates the "
+            "head compute (kernel is gathered); the TP head speedup is lost",
+            stacklevel=2)
     mesh = getattr(model, "mesh", None)
     if mesh is not None:
         if cross_host:
             _refuse_mesh(model, "cross_host=True")
-        if accum_steps not in (None, 1):
-            raise NotImplementedError(
-                "accum_steps on a mesh model is ROADMAP A.6c")
         data_axes = model.data_axes()
+        reduce_over = _reduce_groups(model, data_axes)
+        n_data = mesh.axis_size(data_axes)
+        dp = getattr(model, "dp_axis", None)
+        dp = dp if dp in data_axes else None
     if cross_host:
         from tpunet_torch import distributed
 
@@ -445,8 +547,13 @@ def make_train_step(model, tx=None, cross_host: bool = False,
         dev = next(iter(params.values())).device
         inputs, labels = _as_batch(inputs, dev), _as_batch(labels, dev)
         net = model.bind(params, trainable=True)
+        rows = None
+        if mesh is not None:
+            b = inputs.shape[0]
+            n_dp = mesh.axis_size(dp) if dp else 1
+            rows = ((mesh.axis_index(dp) if dp else 0) * b, b * n_dp)
         loss, grads = _value_and_grads(net, params, inputs, labels, loss_fn,
-                                       accum_steps, rng)
+                                       accum_steps, rng, rows)
         if cross_host:
             if bucket_bytes is not None:
                 grads = _bucketed_dcn_pmean(grads, bucket_bytes,
@@ -454,7 +561,11 @@ def make_train_step(model, tx=None, cross_host: bool = False,
             else:
                 grads = _flat_dcn_pmean(grads, grad_compression, world)
         elif mesh is not None and data_axes:
-            grads = _flat_group_pmean(grads, mesh, data_axes)
+            reduced = {}
+            for axes, names in reduce_over.items():
+                part = {k: grads.pop(k) for k in list(grads) if k in names}
+                reduced.update(_flat_group_pmean(part, mesh, axes, n_data))
+            grads = reduced
         for name in list(grads):
             params[name].grad = grads.pop(name)
         state.opt_state.step()
