@@ -117,8 +117,9 @@ Phases (each raises on failure; the script then exits non-zero):
            peak memory and flash_fwd launches per process and version
   spec     speculative serving, bf16, flash prefill, random weights from
            --seed: (a) benchmarks/chip_session.py's decode_spec, the 735M
-           MHA target (d2048, 12 layers, 16 heads, ff 8192, vocab 32000)
-           with a random draft of its widths at 2 layers, batch 8, prompt
+           MHA target's widths (d2048, 16 heads, ff 8192, vocab 32000) at
+           6 of its 12 layers, with a random draft of its widths at 2
+           layers, batch 8, prompt
            512, 256 new tokens, gamma 4, greedy, lockstep and per row; (b)
            decode_bench.py --spec-draft quant: quantize_params of the
            target as its int8 self-draft, per row, greedy, then sampled
@@ -353,11 +354,35 @@ Phases (each raises on failure; the script then exits non-zero):
            seconds, the dp all-reduce's, step times and the peaks. The
            kernel phases hold the TP path's attention shape (bf16 B4 S2048
            8 heads, 8 kv heads, D128 causal) forward and backward
+  dcn_mesh the DCN tier across meshes (ROADMAP A.6d) in ONE spawn of 4
+           ranks on this card: 2 "hosts" of {mdl: 2}, each host a mesh
+           and each mesh position's 2 ranks a DCN group (TP inside a host,
+           DP across hosts). The train phase's model, seed and ramps (bf16
+           over f32 masters, flash on each rank's 8 of 16 heads, remat,
+           adamw 3e-4), host h on the train phase's rank-h batches (4 x
+           2048: the global batch is train's), 3 fit() steps of
+           make_train_step(cross_host=True) (the flat vector over the DCN
+           group), then, from the same init and with the first state
+           freed, 3 of ZeRO-1 (reduce-scatter and all-gather over the DCN
+           group). Gates: the first loss (the mean over the hosts) within
+           2e-3 relative of the train phase's; the losses finite and
+           falling; the two hosts' blocks of each mdl rank bitwise equal;
+           ZeRO's blocks (CRC32C) and losses bitwise cross_host's; the
+           DCN calls one all-reduce a step (cross_host), one
+           reduce-scatter and one all-gather a step and no all-reduce
+           (ZeRO); ZeRO's adamw moments at most half of cross_host's plus
+           padding; cross_host's peak within the mesh phase's (a) limit;
+           cross_host's losses within 2e-3 relative of the mesh phase's
+           (a), which runs the same global batch with dp inside one host
+           (bitwise or not, with the gap, reported); flash 24 / 12 / 12 a
+           rank-step, no copy. Reports step seconds, the DCN group's
+           calls, bytes and seconds (staging, collective) and their share
+           of fit(), the mdl collectives, peaks and optimizer bytes
   mesh6c   the mesh options of ROADMAP A.6c in ONE spawn of 4 ranks on
            this card over {dp: 2, mdl: 2}, random weights from --seed: (a)
-           TP serving of the serve configuration (bf16, flash on each
-           rank's 8 heads and 2 kv heads, the decode cache of its kv
-           heads): generate on 4 of the serve phase's prompt lengths cut
+           TP serving of the serve configuration at 6 of its 12 layers
+           (bf16, flash on each rank's 8 heads and 2 kv heads, the decode
+           cache of its kv heads): generate on 4 of the serve phase's prompt lengths cut
            to the shortest (2 rows a dp rank), 64 greedy tokens; the
            serve phase's 8 requests of 128..512 x 64 greedy tokens through
            the plain BatchServer (slots 8, every rank the whole server)
@@ -403,8 +428,8 @@ _wide routes (launches from the paths phase; times from the kernel case
 at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
 heads 1 kv head D320), with the tensor-core instructions of the function
 each runs, and for the bf16 kernels the launches on each path (train,
-moe, qlora, sp's one-process reference, pipe, mesh's TP x DP run, and
-mesh6c's three parts);
+moe, qlora, sp's one-process reference, pipe, mesh's TP x DP run,
+dcn_mesh's two runs, and mesh6c's three parts);
 and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
@@ -1604,12 +1629,13 @@ SWAP_PUBLISH_SPEC = "swap:at_step=1:action=publish;swap:at_step=2:action=publish
 SWAP_CORRUPT_SPEC = "swap:at_step=1:action=corrupt"
 
 
-def _bf16_checkpoint(seed: int) -> dict:
-    """phase_model's bf16 parameters for `seed` (norm scales stay f32)."""
+def _bf16_checkpoint(seed: int, cfg: dict | None = None) -> dict:
+    """phase_model's bf16 parameters for `seed` (norm scales stay f32), of
+    the configuration `cfg` (default MODEL_735M)."""
     from tpunet_torch.models import Transformer, init_params
 
     meta = Transformer(compute_dtype=torch.float32, device="meta",
-                       **MODEL_735M)
+                       **(cfg or MODEL_735M))
     p32 = init_params(meta, seed=seed, device=DEVICE)
     return {k: (t if k.endswith(".scale") else t.to(torch.bfloat16))
             for k, t in p32.items()}
@@ -2156,6 +2182,18 @@ SPEC_SAMPLING = dict(temperature=0.8, top_k=50)
 SPEC_SERVE_NEW, SPEC_SERVE_MAX_LEN = 64, 1024
 
 
+def _spec_model() -> dict:
+    """(a)-(c)'s target: the training configuration's widths at half its
+    depth (6 of 12 layers). Its decode steps are host-bound, and the
+    whole script shares one time limit."""
+    return dict(MODEL_TRAIN, n_layers=MODEL_TRAIN["n_layers"] // 2)
+
+
+# The 735,102,976 params of MODEL_TRAIN less 6 of its 12 layers of
+# 50,335,744 (attention 4 x 2048^2, the MLP 2 x 2048 x 8192, two norms).
+SPEC_TARGET_PARAMS = 735_102_976 - 6 * 50_335_744
+
+
 def _spec_run(fn):
     """Run fn with the flash counters zeroed just before and read just
     after; also record the window of every flash_fwd launch and the KV
@@ -2347,7 +2385,7 @@ def phase_spec(seed: int, params_serve) -> None:
     b, p, new, g = SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA
     length = p + new  # generate's cache capacity; speculation adds g + 1
     meta = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
-                       **MODEL_TRAIN)
+                       **_spec_model())
     params = init_params(meta, seed=seed + 3, device=DEVICE, dtype=BF16)
     n_params = sum(t.numel() for t in params.values())
     draft = meta.clone(n_layers=SPEC_DRAFT_LAYERS)
@@ -2483,8 +2521,9 @@ def phase_spec(seed: int, params_serve) -> None:
         prompt=p, new=new, gamma=g, window=SPEC_WINDOW,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         wall_s=time.perf_counter() - t_phase, card=CARD)
-    if n_params != 735_102_976:
-        errors.append(f"target has {n_params} params")
+    if n_params != SPEC_TARGET_PARAMS:
+        errors.append(f"target has {n_params} params, want "
+                      f"{SPEC_TARGET_PARAMS}")
     if errors:
         raise AssertionError("spec phase: " + "; ".join(errors))
 
@@ -2742,7 +2781,7 @@ def _rank_bodies() -> dict:
             "moe_bench": _moe_bench_rank_body, "sp": _sp_rank_body,
             "pipe_bench": _pipe_bench_rank_body,
             "pipe_model": _pipe_model_rank_body, "mesh": _mesh_rank_body,
-            "mesh6c": _mesh6c_rank_body}
+            "dcn_mesh": _dcn_mesh_rank_body, "mesh6c": _mesh6c_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
@@ -2949,7 +2988,7 @@ def _timed_checkpoints(record: list) -> None:
             torch.cuda.synchronize()
             record.append({"op": op, "step": int(step),
                            "seconds": time.perf_counter() - t0,
-                           "bytes": self._path(step).stat().st_size})
+                           "bytes": self._path(step, state).stat().st_size})
             return res
         return run
 
@@ -4768,9 +4807,10 @@ def _mesh_rank_body(rank: int, ports, path: str, seed: int) -> dict:
     return out
 
 
-def phase_mesh(seed: int, train: dict, vgg: dict) -> dict:
+def phase_mesh(seed: int, train: dict, vgg: dict) -> tuple[dict, list]:
     """The in-pod mesh tier on MESH_RANKS ranks; returns the flash
-    launches of (a), the TP x DP training path, summed over the ranks."""
+    launches of (a), the TP x DP training path, summed over the ranks, and
+    (a)'s global losses."""
     t0 = time.perf_counter()
     ranks, wall = _spawn_ranks("mesh", _ramp_data(seed), seed, MESH_RANKS)
     tp = [r["tp"] for r in ranks]
@@ -4880,7 +4920,169 @@ def phase_mesh(seed: int, train: dict, vgg: dict) -> dict:
             np.isfinite(vgg_losses)):
         raise AssertionError(f"mesh vgg: first loss {vgg_losses} off the "
                              f"vgg phase's {vgg['losses'][0]}")
-    return {k: sum(p["launches"][k] for p in tp) for k in COUNTERS}
+    return {k: sum(p["launches"][k] for p in tp) for k in COUNTERS}, losses
+
+
+# -- dcn_mesh: the DCN tier across meshes (ROADMAP A.6d) ---------------------
+
+# One spawn of MESH_RANKS ranks on this card as DCN_MESH_HOSTS "hosts" of
+# DCN_MESH (a mesh is one host's ranks): TP over mdl inside a host, DP
+# across the hosts over each position's DCN group. Host h trains on the
+# train phase's rank-h batches (TRAIN_BATCH x TRAIN_SEQ), so the global
+# batch is the train phase's; MESH_STEPS steps of cross_host=True (the flat
+# vector), then ZeRO-1 from the same init.
+DCN_MESH_HOSTS, DCN_MESH = 2, {"mdl": 2}
+DCN_MESH_RUNS = ("cross_host", "zero")
+
+
+def _dcn_mesh_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    """Both runs on this rank's host mesh; the first state is freed
+    before the second is made."""
+    from tpunet_torch import distributed
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.parallel import make_named_mesh, smap
+    from tpunet_torch.train import (adamw, create_train_state,
+                                    create_zero_train_state, make_train_step,
+                                    make_zero_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, MESH_RANKS)
+    t0 = time.perf_counter()
+    mesh = make_named_mesh(DCN_MESH)
+    out = {"rank": rank, "host": mesh.host, "mdl": mesh.axis_index("mdl"),
+           "wire_s": time.perf_counter() - t0,
+           "dcn_wire": mesh.dcn_comm().wire_dtype}
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", remat=True,
+                        mesh=mesh, tp_axis="mdl", device="meta",
+                        **MODEL_TRAIN)
+    tx = adamw(TRAIN_LR)
+    for run in DCN_MESH_RUNS:
+        zero = run == "zero"
+        create = create_zero_train_state if zero else create_train_state
+        state, _ = create(model, seed, None, tx, device=DEVICE)
+        step = (make_zero_train_step(model, tx) if zero
+                else make_train_step(model, tx, cross_host=True))
+        distributed.global_communicator().barrier()
+        smap.axis_stats_reset()
+        state, out[run] = _fit_measured(
+            state, step, _train_batches(path, mesh.host, seed), MESH_STEPS)
+        out[run]["axis"] = smap.axis_stats()
+        del state, step
+        torch.cuda.empty_cache()
+    mesh.close()
+    distributed.finalize()
+    return out
+
+
+def _dcn_calls(stats: dict) -> dict:
+    """{collective: {calls, bytes, staging, collective and all seconds}}
+    of a rank's dcn_reduce_stats()."""
+    kinds = {"all_reduce": stats, "reduce_scatter": stats["reduce_scatter"],
+             "all_gather": stats["all_gather"]}
+    return {k: {f: v[f] for f in ("calls", "bytes", "to_host_seconds",
+                                  "collective_seconds", "seconds")}
+            for k, v in kinds.items()}
+
+
+def phase_dcn_mesh(seed: int, train: dict, mesh_losses: list) -> dict:
+    """The DCN tier across host meshes on MESH_RANKS ranks, held to the
+    train line `train` and the mesh phase's (a) losses; returns the flash
+    launches of both runs, summed over the ranks."""
+    t0 = time.perf_counter()
+    ranks, wall = _spawn_ranks("dcn_mesh", _ramp_data(seed), seed,
+                               MESH_RANKS)
+    torch.cuda.empty_cache()
+    runs = {}
+    for run in DCN_MESH_RUNS:
+        rs = [r[run] for r in ranks]
+        # The global loss: the mean over the hosts of each host's (its mdl
+        # ranks hold the same loss).
+        by_host = {r["host"]: r[run]["losses"] for r in ranks if r["mdl"] == 0}
+        losses = [float(np.mean(x)) for x in zip(*by_host.values())]
+        dcn = [_dcn_calls(p["all_reduce"]) for p in rs]
+        tier = [sum(d[k]["seconds"] for k in d) for d in dcn]
+        runs[run] = dict(
+            losses=losses, rank_losses=[p["losses"] for p in rs],
+            crc=[p["crc"] for p in rs], params=[p["params"] for p in rs],
+            step_s=[p["step_s"] for p in rs],
+            fit_wall_s=[p["fit_wall_s"] for p in rs], dcn=dcn,
+            dcn_share=[t / p["fit_wall_s"] for t, p in zip(tier, rs)],
+            launches=[p["launches"] for p in rs],
+            input_copies=[p["input_copies"] for p in rs],
+            peak_mem_gb=[p["peak_mem_gb"] for p in rs],
+            opt_state_bytes=[p["opt_state_bytes"] for p in rs],
+            axis=[p["axis"] for p in rs])
+    ch, zr = runs["cross_host"], runs["zero"]
+    logits_bytes = 4 * TRAIN_BATCH * TRAIN_SEQ * MODEL_TRAIN["vocab"]
+    limits = [(3 * 4 * n + o + logits_bytes) / 1e9 + TRAIN_MEM_SLACK_GB
+              for n, o in zip(ch["params"], ch["opt_state_bytes"])]
+    first_rel = abs(ch["losses"][0] - train["losses"][0]) / abs(
+        train["losses"][0])
+    mesh_gap = [abs(a - b) for a, b in zip(ch["losses"], mesh_losses)]
+    summary = dict(
+        hosts=DCN_MESH_HOSTS, mesh=DCN_MESH, ranks=MESH_RANKS,
+        steps=MESH_STEPS, wall_s=time.perf_counter() - t0, ranks_wall_s=wall,
+        wire_s=[r["wire_s"] for r in ranks],
+        dcn_wire=[r["dcn_wire"] for r in ranks],
+        host=[r["host"] for r in ranks], mdl=[r["mdl"] for r in ranks],
+        train_first_loss=train["losses"][0], first_loss_rel=first_rel,
+        mesh_losses=mesh_losses, mesh_bitwise=ch["losses"] == mesh_losses,
+        mesh_gap=mesh_gap,
+        zero_bitwise=zr["crc"] == ch["crc"] and zr["losses"] == ch["losses"],
+        peak_mem_limit_gb=limits, card=CARD, **runs)
+    log("dcn_mesh", **summary)
+    if first_rel > MESH_LOSS_RTOL:
+        raise AssertionError(f"dcn_mesh: first loss {ch['losses'][0]} off "
+                             f"the train phase's {train['losses'][0]}")
+    want = _want_launches(1, MESH_STEPS)
+    for run, r in runs.items():
+        if not all(np.isfinite(r["losses"])) or (
+                r["losses"][-1] >= r["losses"][0]):
+            raise AssertionError(f"dcn_mesh {run}: loss not finite and "
+                                 f"falling: {r['losses']}")
+        # The ranks of one position in the two hosts: the DCN tier keeps
+        # their blocks equal.
+        for a, b in itertools.combinations(range(MESH_RANKS), 2):
+            if ranks[a]["mdl"] == ranks[b]["mdl"] and (
+                    r["crc"][a] != r["crc"][b]):
+                raise AssertionError(f"dcn_mesh {run}: the hosts' blocks of "
+                                     f"mdl {ranks[a]['mdl']} differ")
+        if any(n != want for n in r["launches"]) or any(r["input_copies"]):
+            raise AssertionError(f"dcn_mesh {run}: launches {r['launches']} "
+                                 f"(want {want} a rank), copies "
+                                 f"{r['input_copies']}")
+    # A DCN group's collectives: one all-reduce a step for cross_host; one
+    # reduce-scatter and one all-gather a step, and no all-reduce, for
+    # ZeRO (no data axis inside a host: no in-host mean).
+    for run, calls in (("cross_host", (MESH_STEPS, 0, 0)),
+                       ("zero", (0, MESH_STEPS, MESH_STEPS))):
+        for d in runs[run]["dcn"]:
+            got = tuple(d[k]["calls"] for k in ("all_reduce",
+                                                "reduce_scatter",
+                                                "all_gather"))
+            if got != calls:
+                raise AssertionError(f"dcn_mesh {run}: DCN calls (all-reduce, "
+                                     f"reduce-scatter, all-gather) {got}, "
+                                     f"want {calls}")
+    if not summary["zero_bitwise"]:
+        raise AssertionError(f"dcn_mesh: ZeRO's CRCs {zr['crc']} and losses "
+                             f"{zr['losses']} are not cross_host's "
+                             f"{ch['crc']} {ch['losses']}")
+    pad = 2 * 4 * DCN_MESH_HOSTS  # two f32 moments of < H padding elements
+    for got, full in zip(zr["opt_state_bytes"], ch["opt_state_bytes"]):
+        if got > full / DCN_MESH_HOSTS + pad:
+            raise AssertionError(f"dcn_mesh: ZeRO optimizer state {got} B a "
+                                 f"rank, cross_host {full} B")
+    for got, limit in zip(ch["peak_mem_gb"], limits):
+        if got > limit:
+            raise AssertionError(f"dcn_mesh: peak {got} GB above {limit} GB")
+    if any(g > MESH_LOSS_RTOL * abs(m) for g, m in zip(mesh_gap,
+                                                      mesh_losses)):
+        raise AssertionError(f"dcn_mesh: cross_host losses {ch['losses']} "
+                             f"off the mesh phase's (a) {mesh_losses}")
+    return {k: sum(p[k] for r in runs.values() for p in r["launches"])
+            for k in COUNTERS}
 
 
 # -- mesh6c: the mesh options of ROADMAP A.6c --------------------------------
@@ -4899,6 +5101,14 @@ MESH6C_STEPS, MESH6C_ACCUM, MESH6C_XENT_BLOCK = 3, 2, 8192
 # (a)'s peak a rank: its blocks of the bf16 params (0.66 GB), the int8
 # self-draft's, the caches and a prefill's gathered f32 logits, with room.
 MESH6C_SERVE_MEM_GB = 8.0
+
+
+def _mesh6c_serve_model() -> dict:
+    """(a)'s configuration: the serve configuration's widths at half its
+    depth (6 of 12 layers, its own weights from the seed). A TP decode
+    step waits on host-staged collectives a layer, and the whole script
+    shares one time limit."""
+    return dict(MODEL_735M, n_layers=MODEL_735M["n_layers"] // 2)
 # The attention of a rank's 8 of 16 heads and 2 of 4 kv heads (the serve
 # configuration at mdl 2; GQA 4 a kv head): the TP QLoRA training shape
 # (forward and backward) and the TP prefill shape (forward), as (b, sq,
@@ -4979,9 +5189,10 @@ def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
                                      quantize_params)
 
     ref = np.load(_mesh6c_file())
+    cfg = _mesh6c_serve_model()
     model = Transformer(compute_dtype=BF16, attn_impl="flash", mesh=mesh,
-                        tp_axis="mdl", device="meta", **MODEL_735M)
-    full = _bf16_checkpoint(seed)
+                        tp_axis="mdl", device="meta", **cfg)
+    full = _bf16_checkpoint(seed, cfg)
     local = model.local_params(full)
     draft = model.clone(weight_quant="int8")
     dlocal = draft.local_params(quantize_params(full))
@@ -5161,9 +5372,10 @@ def _mesh6c_references(seed: int) -> dict:
     file the ranks read; returns their timings."""
     from tpunet_torch.models import BatchServer, Transformer, generate
 
+    cfg = _mesh6c_serve_model()
     model = Transformer(compute_dtype=BF16, attn_impl="flash",
-                        device="meta", **MODEL_735M)
-    params = _bf16_checkpoint(seed)
+                        device="meta", **cfg)
+    params = _bf16_checkpoint(seed, cfg)
     prompts4 = _mesh6c_prompts(seed, model.vocab)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5240,9 +5452,10 @@ def _mesh6c_ties(ranks: list, seed: int, errors: list) -> None:
     delta; adds `divergences` to each run's row."""
     from tpunet_torch.models import Transformer
 
+    cfg = _mesh6c_serve_model()
     model = Transformer(compute_dtype=BF16, attn_impl="flash",
-                        device="meta", **MODEL_735M)
-    params = _bf16_checkpoint(seed)
+                        device="meta", **cfg)
+    params = _bf16_checkpoint(seed, cfg)
     ref = np.load(_mesh6c_file())
     n = MESH6C_GEN_ROWS // MESH6C_MESH["dp"]
     plen = ref["gen_prompts"].shape[1]
@@ -5290,10 +5503,11 @@ def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
     ranks, wall = _spawn_ranks("mesh6c", path, seed, MESH_RANKS)
     errors = []
     _mesh6c_ties(ranks, seed, errors)
-    layers = MODEL_735M["n_layers"]
+    layers, serve_layers = (MODEL_735M["n_layers"],
+                            _mesh6c_serve_model()["n_layers"])
     n_lens = int(np.load(_mesh6c_file())["n_srv"])
-    want = {"generate": layers, "server": n_lens * layers,
-            "spec_server": 2 * n_lens * layers}
+    want = {"generate": serve_layers, "server": n_lens * serve_layers,
+            "spec_server": 2 * n_lens * serve_layers}
     for r in ranks:
         s = r["serve"]
         for name, n_fwd in want.items():
@@ -5568,7 +5782,8 @@ def main() -> int:
     phase_a2a(args.seed)
     by_path["sp"] = phase_sp(args.seed)
     by_path["pipe"] = phase_pipe(args.seed)
-    by_path["mesh"] = phase_mesh(args.seed, train, vgg)
+    by_path["mesh"], mesh_losses = phase_mesh(args.seed, train, vgg)
+    by_path["dcn_mesh"] = phase_dcn_mesh(args.seed, train, mesh_losses)
     by_path["mesh6c"] = phase_mesh6c(args.seed, qlora_first_loss)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}

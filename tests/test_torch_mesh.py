@@ -13,7 +13,8 @@ with the fallback to replication where an axis does not divide a dim;
 ranks (tests/torch_mesh_ranks.py, torch only) runs every axis collective
 on the meshes {dp: 2, sp: 2} and {pp: 4}, forward and backward, held
 exactly to the transposes the module docstring of smap.py states, and
-``hierarchical_psum`` over an axis (the total over the world).
+``hierarchical_psum`` over an axis (JAX's psum over that axis: the mesh
+spans the world, one host).
 """
 
 from __future__ import annotations
@@ -245,7 +246,7 @@ def _expected(sizes: dict, ax: str) -> dict:
         put("all_gather", r, np.concatenate([x[g] for g in grp], 1))
         put("all_gather_grad", r, wts[:, 2 * i:2 * i + 2])
         put("axis_index", r, [i])
-        put("hierarchical_psum", r, [n, sum(range(n))])
+        put("hierarchical_psum", r, [w, sum(grp)])
     return {k: np.stack(v) for k, v in out.items()}
 
 

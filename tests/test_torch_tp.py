@@ -19,10 +19,11 @@ weights (flax init carried by ``from_flax``, then the port's
 - the VGG's TP classifier (fc1 column, fc2 row, head column): logits and
   2 steps of sgd(momentum 0.9) within 1e-5 relative of JAX's; dropout
   under TP bitwise the unsharded port's for one seed;
-- ``hierarchical_psum`` over "mdl" (then "dp"): the total over the mesh,
-  JAX's ``psum`` over both axes;
-- the trainer's refusals on a mesh model (ZeRO-1, cross_host: ROADMAP
-  A.6d) and the options A.6c ported, built in place.
+- ``hierarchical_psum`` over "mdl": JAX's ``psum`` over "mdl" alone (a
+  mesh that spans the world is one host: no DCN tier follows);
+- the options A.6c and A.6d ported, built in place on a mesh model
+  (cross_host and ZeRO-1 over the DCN group of a host mesh; the spawned
+  cases of test_torch_dcn_mesh.py hold them to JAX).
 """
 
 from __future__ import annotations
@@ -261,14 +262,14 @@ def test_vgg_tp_dropout_is_the_unsharded_draw():
 
 
 def test_hierarchical_psum_over_an_axis_matches_jax():
-    """hierarchical_psum(x, "mdl") with the mesh active: psum over mdl,
-    then over the rest (dp): every rank holds the total, JAX's psum over
-    both axes of the same blocks."""
+    """hierarchical_psum(x, "mdl") with the mesh active: JAX's
+    hierarchical_psum on one process, lax.psum over "mdl" alone, of the
+    same blocks (the mesh spans the world: one host, no DCN tier)."""
     n = 4
     blocks = np.stack([np.arange(3, dtype=np.float32) * (r + 1) + r
                        for r in range(n)])
     mesh = jax_mesh(TP_MESH)
-    fn = jax_shard_map(lambda b: jax.lax.psum(jax.lax.psum(b, "mdl"), "dp"),
+    fn = jax_shard_map(lambda b: jax.lax.psum(b, "mdl"),
                        mesh=mesh, in_specs=JP(("dp", "mdl")),
                        out_specs=JP(("dp", "mdl")))
     want = np.asarray(jax.jit(fn)(jnp.asarray(blocks.reshape(n * 1, 3))))
@@ -279,23 +280,49 @@ def test_hierarchical_psum_over_an_axis_matches_jax():
 
 
 def test_mesh_refusals_and_later_options():
-    """ZeRO-1 and cross_host refuse a mesh model (the mesh spans the
-    world; a mesh over a subset of it is ROADMAP A.6d), before any
-    collective. The options that A.6c ported build in place: int8, LoRA
-    and MoE layers under a tp_axis, accum_steps on a mesh, and
-    features_only under TP (run here on a mesh of one rank; the spawned
-    cases of test_torch_tp_serve.py, test_torch_tp_quant_lora.py and
-    test_torch_ep_moe.py hold them to JAX over 4 ranks)."""
+    """The options A.6c and A.6d ported build in place on a mesh model:
+    cross_host=True and ZeRO-1 (over a mesh of one rank in a world of one:
+    one host, so the DCN tier is the identity and each step is the plain
+    mesh step's, bitwise), int8, LoRA and MoE layers under a tp_axis,
+    accum_steps on a mesh, and features_only under TP (the spawned cases
+    of test_torch_dcn_mesh.py, test_torch_tp_serve.py,
+    test_torch_tp_quant_lora.py and test_torch_ep_moe.py hold them to JAX
+    over 4 and 8 ranks). The disaggregated serving tiers still refuse a
+    mesh model, naming the dry run (ROADMAP A.8b)."""
+    from tpunet_torch import distributed
+    from tpunet_torch.serve import PrefillEngine
+
     mesh = Mesh(np.arange(4).reshape(2, 2), ("dp", "mdl"), rank=0)
     cfg = dict(MODELS["gelu-mha"], compute_dtype=torch.float32)
     m = Transformer(mesh=mesh, tp_axis="mdl", device="meta", **cfg)
     tx = adamw(LR)
-    with pytest.raises(ValueError, match="mesh already spans.*A.6d"):
-        make_train_step(m, tx, cross_host=True)
-    with pytest.raises(ValueError, match="mesh already spans.*A.6d"):
-        make_zero_train_step(m, tx)
-    with pytest.raises(ValueError, match="mesh already spans.*A.6d"):
-        create_zero_train_state(m, 0, None, tx, device="cpu")
+    local = m.local_params(m.init_params(seed=0, device="cpu"))
+    with pytest.raises(NotImplementedError, match="A.8b"):
+        PrefillEngine(m, local, max_len=16, device="cpu")
+    distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
+    try:
+        one = make_named_mesh({"dp": 1, "mdl": 1})
+        assert one.n_hosts == 1 and one.dcn_comm() is None
+        tm = Transformer(mesh=one, tp_axis="mdl", device="meta", **cfg)
+        toks = torch.from_numpy(_transformer("gelu-mha")[2]).long()
+        labels = torch.roll(toks, -1, dims=1)
+        runs = {}
+        for name, create, make in (
+                ("plain", create_train_state, make_train_step),
+                ("cross_host", create_train_state,
+                 lambda mm, t: make_train_step(mm, t, cross_host=True)),
+                ("zero", create_zero_train_state, make_zero_train_step)):
+            state, _ = create(tm, 0, None, tx, device="cpu")
+            state, loss = make(tm, tx)(state, toks, labels)
+            runs[name] = (float(loss), torch.cat(
+                [p.detach().reshape(-1) for p in state.params.values()]))
+        for name in ("cross_host", "zero"):
+            assert runs[name][0] == runs["plain"][0]
+            assert torch.equal(runs[name][1], runs["plain"][1]), name
+        assert state.opt_state.param_groups[0]["zero"]["mesh"] == {
+            "dp": 1, "mdl": 1}
+    finally:
+        distributed.finalize()
     make_train_step(m, tx, accum_steps=2)
     for kw in ({"weight_quant": "int8"}, {"lora_rank": 2},
                {"n_experts": 2}):

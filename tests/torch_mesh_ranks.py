@@ -261,7 +261,9 @@ def vgg_forward(axes, cfg, params, images, rng, tp_axis="mdl"):
 
 
 def hierarchical(axes):
-    """hierarchical_psum over "mdl" of x = arange(3) * (rank + 1) + rank."""
+    """hierarchical_psum over "mdl" of x = arange(3) * (rank + 1) + rank:
+    JAX's lax.psum over "mdl" (the mesh spans the world, so it is one host
+    and no DCN tier follows)."""
     from tpunet_torch import interop
 
     with _mesh(axes) as mesh:

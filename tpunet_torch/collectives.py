@@ -196,6 +196,10 @@ class Communicator:
         self._id = cid.value
         self.rank = rank
         self.world_size = world_size
+        #: The algorithm and traffic class asked for (None: the env's), so
+        #: that a communicator derived from this one can ask for the same.
+        self.algo = algo
+        self.traffic_class = traffic_class
         codec = ctypes.c_int32(0)
         _native.check(self._lib.tpunet_comm_wire_dtype(
             self._id, ctypes.byref(codec)), "comm_wire_dtype")

@@ -26,8 +26,18 @@ collective itself; and, under their own keys, the same for the
 reduce-scatters and all-gathers (ZeRO's two halves of the all-reduce), the
 all-to-alls and the neighbor exchanges (sequence parallelism's).
 
-``hierarchical_psum`` with an axis sums over the in-pod mesh tier first
-(``tpunet_torch.parallel.smap``), then over the rest of the mesh.
+The DCN world is the world's processes, or, while a HOST mesh is active
+(``with mesh:`` or ``shard_map`` over a mesh that is one host's ranks of a
+world of several hosts, ``tpunet_torch.parallel.mesh``), that mesh's DCN
+group: the ranks at this rank's coordinates in every host, the port's
+counterpart of the JAX package's processes. Every ``dcn_*`` call then runs
+over the group, `world` is the number of hosts, and the group's calls are
+counted under the same keys. With no mesh active, or a mesh that spans the
+world, they run over the world as before.
+
+``hierarchical_psum`` with an axis sums over that axis of the active mesh
+(``tpunet_torch.parallel.smap``), then across the hosts over the DCN group:
+JAX's ``lax.psum`` over the axis, then its DCN all-reduce across processes.
 """
 
 from __future__ import annotations
@@ -40,8 +50,27 @@ import torch
 from tpunet_torch import distributed
 
 
+def _host_mesh():
+    """The active mesh when it is one host's ranks of several hosts, else
+    None."""
+    from tpunet_torch.parallel.mesh import _active
+
+    return _active[-1] if _active and _active[-1].n_hosts > 1 else None
+
+
 def _comm():
-    return distributed.global_communicator()
+    """The DCN world's communicator: the active host mesh's DCN group, or
+    the world's."""
+    mesh = _host_mesh()
+    return (mesh.dcn_comm() if mesh is not None
+            else distributed.global_communicator())
+
+
+def _world() -> int:
+    """The DCN world's size: the hosts of an active host mesh, or the
+    world's processes (raises if initialize() was skipped)."""
+    mesh = _host_mesh()
+    return mesh.n_hosts if mesh is not None else distributed.world_size()
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
@@ -115,8 +144,8 @@ def _staged(stats: dict, x: torch.Tensor, collective,
     return out
 
 
-def _all_reduce_impl(x: torch.Tensor, op: str) -> torch.Tensor:
-    return _staged(_reduce_stats, x, lambda host, _: _comm().all_reduce(
+def _all_reduce_impl(x: torch.Tensor, op: str, comm) -> torch.Tensor:
+    return _staged(_reduce_stats, x, lambda host, _: comm.all_reduce(
         host, op, inplace=host is not x))
 
 
@@ -126,11 +155,14 @@ class _AllReduce(torch.autograd.Function):
         if op != "sum" and ctx.needs_input_grad[0]:
             raise NotImplementedError(
                 f"gradient of dcn_all_reduce only defined for sum, got {op}")
-        return _all_reduce_impl(x, op)
+        # The backward runs over the forward's DCN world, whatever mesh is
+        # active then.
+        ctx.comm = _comm()
+        return _all_reduce_impl(x, op, ctx.comm)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_impl(g.contiguous(), "sum"), None
+        return _all_reduce_impl(g.contiguous(), "sum", ctx.comm), None
 
 
 def dcn_all_reduce(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -145,7 +177,7 @@ def dcn_psum(x: torch.Tensor) -> torch.Tensor:
 
 def dcn_pmean(x: torch.Tensor) -> torch.Tensor:
     """A mean across processes over DCN: the sum divided by the world."""
-    return dcn_all_reduce(x, "sum") / distributed.world_size()
+    return dcn_all_reduce(x, "sum") / _world()
 
 
 def _all_reduce_into_(x: torch.Tensor, comm=None) -> torch.Tensor:
@@ -153,7 +185,8 @@ def _all_reduce_into_(x: torch.Tensor, comm=None) -> torch.Tensor:
     return it: staged through pinned host memory, reduced there in place,
     copied back into `x`. No second device buffer exists, and there is no
     autograd. `comm`: another communicator than the global one (a mesh
-    group's). Counted in dcn_reduce_stats() as the blocking all-reduce."""
+    group's; default the DCN world's). Counted in dcn_reduce_stats() as
+    the blocking all-reduce."""
     if not x.is_contiguous():
         raise ValueError("_all_reduce_into_ needs a contiguous tensor")
 
@@ -253,13 +286,13 @@ def dcn_all_gather(x: torch.Tensor) -> torch.Tensor:
     """Gather `x` from every process: result shape (world, *x.shape)."""
     return _NoVjp.apply(x, "dcn_all_gather", lambda t: _staged(
         _other_stats["all_gather"], t, _comm().all_gather,
-        (distributed.world_size(), *t.shape)))
+        (_world(), *t.shape)))
 
 
 def dcn_reduce_scatter(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """x: leading axis divisible by world; returns this process's reduced
     shard (shape[0]/world leading axis)."""
-    w = distributed.world_size()
+    w = _world()
     if x.shape[0] % w:
         raise ValueError(f"leading axis {x.shape[0]} not divisible by world "
                          f"size {w}")
@@ -285,7 +318,7 @@ def dcn_all_to_all(x: torch.Tensor) -> torch.Tensor:
     goes to process j, and the result's block j came from process j
     (shape-preserving; raw bytes, any dtype). A CUDA tensor is staged
     through pinned host memory and the result comes back on its device."""
-    w = distributed.world_size()
+    w = _world()
     if x.dim() == 0 or x.shape[0] != w:
         raise ValueError(f"leading axis must equal world size {w}, got "
                          f"{tuple(x.shape)}")
@@ -307,23 +340,24 @@ def dcn_neighbor_exchange(x: torch.Tensor) -> torch.Tensor:
 
 def hierarchical_psum(x: torch.Tensor, axis_name: str | None = None):
     """Two-tier psum. With `axis_name`: ``smap.psum`` over that axis of the
-    active mesh (``with mesh:`` or ``shard_map``), then a sum over the
-    complementary group (the
-    ranks that share this rank's coordinate on `axis_name`), so each
-    rank's value counts once: the total over the mesh, which spans the
-    world (the JAX version's total over the pod's devices and the hosts).
-    Without it: a sum all-reduce across processes when the world has more
-    than one (``world_size()`` raises if ``initialize()`` was skipped, as
-    the JAX version does, which bakes the decision in at trace time)."""
+    active mesh (``with mesh:`` or ``shard_map``), then a sum all-reduce
+    across the hosts over the mesh's DCN group, and nothing else: JAX's
+    ``lax.psum`` over the axis, then its DCN all-reduce across processes.
+    A mesh that spans the world is one host, where this is the psum alone.
+    Without it: a sum all-reduce across the DCN world when it has more
+    than one member (``world_size()`` raises if ``initialize()`` was
+    skipped, as the JAX version does, which bakes the decision in at
+    trace time)."""
     if axis_name is not None:
         from tpunet_torch.parallel import smap
         from tpunet_torch.parallel.mesh import active_mesh
 
         mesh = active_mesh()
         x = smap.psum(x, axis_name, mesh=mesh)
-        rest = tuple(a for a in mesh.axis_names
-                     if a not in mesh.canonical(axis_name))
-        return smap.psum(x, rest, mesh=mesh) if rest else x
-    if distributed.world_size() > 1:
+        if mesh.n_hosts == 1:
+            return x
+        with mesh:
+            return dcn_all_reduce(x, "sum")
+    if _world() > 1:
         x = dcn_all_reduce(x, "sum")
     return x

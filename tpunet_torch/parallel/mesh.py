@@ -8,16 +8,28 @@ tpunet transport does not), and the collectives of an axis are tpunet's
 own over TCP (``smap.py``). A mesh of N devices therefore needs N
 processes, every one of which builds the same mesh.
 
-  * ``Mesh``: axis names and sizes, the ranks laid out as
-    ``np.arange(n).reshape(sizes)`` (axis order outermost first), this
-    rank's coordinates, and one ``Communicator`` for each GROUP: the ranks
-    that differ only along a set of axes. ``make_named_mesh`` wires a
-    group for every set of axes whose ranks number more than one (a tuple
-    such as the data axes ``("dp", "sp")`` is a group too); the whole
-    mesh is the world communicator itself. Wiring is collective: world
-    rank 0 picks a free loopback port for every group, broadcasts them
-    over the world communicator, and every rank joins its groups in one
-    fixed order.
+A mesh is one HOST's ranks. A JAX process drives its host's chips and its
+DCN world is the processes; the port's counterpart of a JAX process is a
+host of N ranks, and a world of H·N ranks holds H hosts: host h is ranks
+``h·N + np.arange(N)``. At H = 1 the mesh spans the world. At H > 1 each
+rank also joins its DCN GROUP: the H ranks at its mesh coordinates, one a
+host, in host order. It is the counterpart of the JAX process's DCN world:
+while a host mesh is active, ``tpunet_torch.interop``'s ``dcn_*`` calls
+run over it (``dcn_comm``, ``n_hosts``, ``host``).
+
+  * ``Mesh``: axis names and sizes, the host's ranks laid out as
+    ``h·N + np.arange(N).reshape(sizes)`` (axis order outermost first),
+    this rank's coordinates, and one ``Communicator`` for each GROUP: the
+    ranks of the host that differ only along a set of axes.
+    ``make_named_mesh`` wires a group for every set of axes whose ranks
+    number more than one (a tuple such as the data axes ``("dp", "sp")``
+    is a group too); at H = 1 the whole mesh is the world communicator
+    itself. The DCN group takes the world communicator's wire codec,
+    algorithm and traffic class, as the JAX process's DCN tier is the
+    world's. Wiring is collective over the world: world rank 0 picks a
+    free loopback port for every group of every host and for every DCN
+    group, broadcasts them over the world communicator, and every rank
+    joins its groups in one fixed order, its DCN group last.
   * ``PartitionSpec`` (``P``): one entry a dim, an axis name, a tuple of
     names, or None.
   * ``shard_params(params, mesh, rules)``: the rules are JAX's own tables
@@ -67,9 +79,10 @@ def _axes(axis) -> tuple:
 
 class Mesh:
     """Named axes over ranks. `devices` is the array of world ranks
-    (``np.arange(n).reshape(sizes)`` from ``make_named_mesh``), `rank` this
-    process's world rank. A mesh built directly is a layout only (its
-    groups are not wired): ``make_named_mesh`` wires them.
+    (``h·n + np.arange(n).reshape(sizes)`` from ``make_named_mesh``),
+    `rank` this process's world rank. A mesh built directly is a layout
+    only (its groups are not wired; one host): ``make_named_mesh`` wires
+    them.
 
     ``with mesh:`` makes it the mesh that axis names resolve against
     (``smap.shard_map`` does the same around its function)."""
@@ -89,11 +102,18 @@ class Mesh:
             raise ValueError(f"rank {rank} is not one device of the mesh")
         #: axis name -> this rank's coordinate.
         self.coords = dict(zip(self.axis_names, (int(c) for c in where[0])))
+        #: The hosts of the world (each holds one such mesh) and this one.
+        self.n_hosts = 1
+        self.host = 0
         self._comms: dict = {}
+        self._dcn = None
+        self._opened: list = []
         self._wired = False
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, rank={self.rank})"
+        hosts = f", host={self.host} of {self.n_hosts}" if (
+            self.n_hosts > 1) else ""
+        return f"Mesh({self.shape}, rank={self.rank}{hosts})"
 
     def __enter__(self) -> "Mesh":
         _active.append(self)
@@ -147,6 +167,13 @@ class Mesh:
                 "over its axes")
         return self._comms[axes]
 
+    def dcn_comm(self):
+        """The communicator of this rank's DCN group: the ranks at its
+        coordinates in every host, ranked by host (None at one host)."""
+        if self.n_hosts > 1 and not self._wired:
+            raise RuntimeError(f"{self!r} is not wired")
+        return self._dcn
+
     def _subsets(self) -> list[tuple]:
         """Every set of axes whose groups hold more than one rank, in one
         fixed order (by size, then mesh order)."""
@@ -158,17 +185,22 @@ class Mesh:
         return out
 
     def _wire(self, world_comm, host: str) -> None:
-        """Join one communicator for each of this rank's groups. Collective
-        over the world: every rank must call it, in the same order as
-        every other mesh it builds."""
+        """Join one communicator for each of this rank's groups, then its
+        DCN group. Collective over the world: every rank must call it, in
+        the same order as every other mesh it builds."""
         from tpunet_torch.collectives import Communicator
 
-        # A set of axes spanning every rank is the world itself.
-        subsets = [s for s in self._subsets() if self.axis_size(s) < self.size]
-        # Group j of a subset: the one of world rank r's coordinates off
-        # the subset; rank 0 picks a port for every (subset, group).
+        hosts = self.n_hosts
+        # At one host a set of axes spanning every rank is the world itself.
+        subsets = [s for s in self._subsets()
+                   if hosts > 1 or self.axis_size(s) < self.size]
+        # Group j of a subset in host h: port h·groups + j, j the index of
+        # the rank's coordinates off the subset; then one DCN group a mesh
+        # position. Rank 0 picks every port.
         n_groups = [self.size // self.axis_size(s) for s in subsets]
-        ports = np.zeros(max(1, sum(n_groups)), dtype=np.int64)
+        n_dcn = self.size if hosts > 1 and self.size > 1 else 0
+        ports = np.zeros(max(1, hosts * sum(n_groups) + n_dcn),
+                         dtype=np.int64)
         if self.rank == 0:
             for i in range(len(ports)):
                 ports[i] = _free_port(host)
@@ -181,21 +213,38 @@ class Mesh:
             gid = 0
             for a in others:
                 gid = gid * self.shape[a] + self.coords[a]
+            port = int(ports[base + self.host * n + gid])
             self._comms[sub] = Communicator(
-                f"{host}:{int(ports[base + gid])}", members.index(self.rank),
-                len(members))
-            base += n
+                f"{host}:{port}", members.index(self.rank), len(members))
+            self._opened.append(self._comms[sub])
+            base += hosts * n
+        if n_dcn:
+            position = self.rank - self.host * self.size
+            self._dcn = Communicator(
+                f"{host}:{int(ports[base + position])}", self.host, hosts,
+                wire_dtype=world_comm.wire_dtype, algo=world_comm.algo,
+                traffic_class=world_comm.traffic_class)
+            self._opened.append(self._dcn)
+        elif hosts > 1:
+            # A mesh of one rank a host: its DCN group is the world.
+            self._dcn = world_comm
         for sub in self._subsets():
             self._comms.setdefault(sub, world_comm)
         self._wired = True
 
     def close(self) -> None:
-        """Close the group communicators this mesh opened (not the world
-        communicator)."""
-        for axes, c in self._comms.items():
-            if self.axis_size(axes) < self.size:
-                c.close()
+        """Close the communicators this mesh opened (not the world
+        communicator), dropping the DCN group's pending async tickets."""
+        import sys
+
+        interop = sys.modules.get("tpunet_torch.interop")
+        for c in self._opened:
+            if interop is not None and c is self._dcn:
+                interop._drop_pending_for(c)
+            c.close()
+        self._opened.clear()
         self._comms.clear()
+        self._dcn = None
         self._wired = False
 
 
@@ -218,12 +267,15 @@ def make_named_mesh(axis_sizes: dict[str, int], devices=None,
     """A mesh with arbitrary named axes, e.g. {"dp": 2, "tp": 2, "sp": 2},
     over the processes of ``tpunet_torch.distributed`` (initialized; a
     mesh of one device needs no world). Axis order is the dict order,
-    outermost first; rank r sits at ``np.unravel_index(r, sizes)``.
+    outermost first. A world of H·n ranks, n the mesh's size, is H hosts:
+    rank r is host r // n, at ``np.unravel_index(r % n, sizes)`` of its
+    host's mesh, and joins its DCN group (the module docstring). A world
+    that n does not divide raises.
 
     Collective: every rank of the world builds the same meshes in the
     same order. `devices`, JAX's argument, is the world's ranks
-    (``range(world)``) if given. `host`: the address the group
-    communicators listen on (the ranks of a mesh share one host)."""
+    (``range(world)``) if given. `host`: the address the communicators
+    listen on (every rank of the world runs on this machine)."""
     from tpunet_torch import distributed
 
     sizes = tuple(int(s) for s in axis_sizes.values())
@@ -236,10 +288,12 @@ def make_named_mesh(axis_sizes: dict[str, int], devices=None,
     if devices is not None and list(devices) != list(range(world)):
         raise ValueError("a port mesh's devices are the world's ranks, "
                          f"range({world})")
-    if world != n:
-        raise ValueError(f"mesh {axis_sizes} needs {n} ranks, the world has "
-                         f"{world}")
-    mesh = Mesh(np.arange(n).reshape(sizes), tuple(axis_sizes), rank)
+    if world % n:
+        raise ValueError(f"mesh {axis_sizes} of {n} ranks does not divide "
+                         f"the world of {world} into hosts")
+    h = rank // n
+    mesh = Mesh(h * n + np.arange(n).reshape(sizes), tuple(axis_sizes), rank)
+    mesh.n_hosts, mesh.host = world // n, h
     mesh._wire(world_comm, host)
     return mesh
 

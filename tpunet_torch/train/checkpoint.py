@@ -19,6 +19,23 @@ no shard. Restoring a ZeRO checkpoint into a state of another world size
 (or another rank) raises: a world change invalidates the sharded state
 (the elastic caveat of ``make_zero_train_step``).
 
+A state over a mesh (``parallel.mesh``; either kind) holds this rank's
+BLOCKS, which differ across the mesh, so its files carry the mesh
+coordinates and the host: ``<step>.mesh-dp=0,mdl=1,host=0.pt`` and, for
+ZeRO, ``<step>.mesh-dp=0,mdl=1,host=0.zero-<host>-of-<hosts>.pt`` (the
+shard's index in its DCN group). Each rank of a mesh writes files of its
+own, so ranks that share a directory never write one file (a step's file
+that a peer wrote first would make a save raise StepAlreadyExistsError).
+The payload records the mesh's shape and the coordinates, and a restore
+into another shape or other coordinates raises, as a ZeRO restore into
+another host count does. A replicated state restores into fewer hosts
+(its blocks do not depend on the host count; each host reads its own
+file) and raises for a host that wrote none. This is the other way round
+from orbax, whose store is free of the layout (it gathers each leaf and
+re-slices it on restore): that would make every save a collective over
+the mesh that gathers the whole model on each rank, where a file of one's
+own position is written by each rank alone, from what it holds.
+
 ``save_pytree`` / ``restore_pytree`` save and restore one tree in one file:
 a ``TrainState`` (replicated or ZeRO) or nested dicts, lists and tuples of
 tensors, numpy arrays and scalars; restore takes the structure, dtypes and
@@ -39,7 +56,7 @@ from torch import nn
 
 from tpunet_torch.train.trainer import TrainState, _zero_layout
 
-_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+_STEP_FILE = re.compile(r"^(\d+)(?:\.mesh-[^.]*)?\.pt$")
 
 
 class StepAlreadyExistsError(ValueError):
@@ -50,6 +67,41 @@ def _zero_geometry(opt) -> dict | None:
     """{rank, world, n} of a ZeRO optimizer shard, None for a replicated
     optimizer."""
     return opt.param_groups[0].get("zero")
+
+
+def _layout(opt) -> dict | None:
+    """{mesh, coords, host} of a state over a mesh (which blocks it holds:
+    the mesh's shape and this rank's coordinates; and its host), None off
+    a mesh."""
+    group = opt.param_groups[0]
+    src = group.get("zero") or group.get("mesh")
+    if src is None or "mesh" not in src:
+        return None
+    return {"mesh": dict(src["mesh"]), "coords": dict(src["coords"]),
+            "host": int(src["host"])}
+
+
+def _tag(layout: dict | None) -> str:
+    """The file-name infix of a mesh layout: ".mesh-dp=0,mdl=1,host=0"."""
+    if layout is None:
+        return ""
+    return ".mesh-" + ",".join(
+        f"{a}={c}" for a, c in (*layout["coords"].items(),
+                                ("host", layout["host"])))
+
+
+def _check_layout(saved: dict | None, target_opt) -> None:
+    """Raise unless a checkpoint holds the blocks the target holds: the
+    same mesh shape and coordinates, or both off a mesh."""
+    def blocks(layout):
+        return layout and {k: layout[k] for k in ("mesh", "coords")}
+
+    saved, want = blocks(saved), blocks(_layout(target_opt))
+    if saved != want:
+        raise ValueError(
+            f"the checkpoint holds the blocks of {saved or 'no mesh'} and "
+            f"the target those of {want or 'no mesh'}: a mesh state "
+            "restores only into the same mesh shape and coordinates")
 
 
 def _atomic_save(payload, path: Path) -> None:
@@ -66,6 +118,7 @@ def _state_payload(state: TrainState, with_opt: bool = True) -> dict:
     zero = _zero_geometry(state.opt_state)
     if zero is not None:
         payload["zero"] = {"world": zero["world"], "n": zero["n"]}
+    payload["layout"] = _layout(state.opt_state)
     return payload
 
 
@@ -105,6 +158,7 @@ def _restore_state(payload: dict, opt_payload: dict,
     them out); `target` is not modified."""
     if set(payload["params"]) != set(target.params):
         raise KeyError("checkpoint parameters differ from the target's")
+    _check_layout(payload.get("layout"), target.opt_state)
     _check_zero(opt_payload["param_groups"][0].get("zero"), target.opt_state)
     zero = _zero_geometry(target.opt_state)
     dev = next(iter(target.params.values())).device
@@ -143,23 +197,25 @@ class CheckpointManager:
         self._dir.mkdir(parents=True, exist_ok=True)
         self._max_to_keep = max_to_keep
 
-    def _path(self, step: int) -> Path:
-        return self._dir / f"{int(step)}.pt"
+    def _path(self, step: int, state: TrainState) -> Path:
+        """The step's file of `state`'s layout."""
+        return self._dir / f"{int(step)}{_tag(_layout(state.opt_state))}.pt"
 
-    def _shard_path(self, step: int, zero: dict) -> Path:
-        return self._dir / (f"{int(step)}.zero-{zero['rank']}-of-"
-                            f"{zero['world']}.pt")
+    def _shard_path(self, step: int, state: TrainState) -> Path:
+        zero = _zero_geometry(state.opt_state)
+        return self._dir / (f"{int(step)}{_tag(_layout(state.opt_state))}"
+                            f".zero-{zero['rank']}-of-{zero['world']}.pt")
 
     def has(self, step: int, state: TrainState) -> bool:
-        """Whether `state`'s checkpoint of `step` exists: the step's file,
-        and for a ZeRO state this rank's shard (other ranks may have
-        written the step's file already)."""
+        """Whether `state`'s checkpoint of `step` exists: the step's file
+        of its layout, and for a ZeRO state this rank's shard (other ranks
+        may have written the step's file already)."""
         zero = _zero_geometry(state.opt_state)
-        return self._path(step).exists() and (
-            zero is None or self._shard_path(step, zero).exists())
+        return self._path(step, state).exists() and (
+            zero is None or self._shard_path(step, state).exists())
 
     def save(self, step: int, state: TrainState, force: bool = False) -> bool:
-        path = self._path(step)
+        path = self._path(step, state)
         if not force and self.has(step, state):
             raise StepAlreadyExistsError(
                 f"checkpoint for step {step} already exists in {self._dir}")
@@ -168,28 +224,36 @@ class CheckpointManager:
             # The shard first: a step's file never names a shard that was
             # not written.
             _atomic_save(state.opt_state.state_dict(),
-                         self._shard_path(step, zero))
+                         self._shard_path(step, state))
         _atomic_save(_state_payload(state, with_opt=zero is None), path)
         if self._max_to_keep is not None:
             for old in self.all_steps()[:-self._max_to_keep]:
-                self._path(old).unlink(missing_ok=True)
-                for f in self._dir.glob(f"{old}.zero-*.pt"):
+                for f in (self._dir / f"{old}.pt",
+                          *self._dir.glob(f"{old}.*.pt")):
                     f.unlink(missing_ok=True)
         return True
 
     def restore(self, step: int, target: TrainState) -> TrainState:
         """Restore a specific step into NEW tensors on the target's device
         and a new optimizer of the target's kind (and, for a ZeRO target,
-        its shard geometry); `target` is not modified."""
+        its shard geometry); `target` is not modified. A mesh target reads
+        the file of its own coordinates; one of another mesh shape, or
+        none, raises."""
         dev = next(iter(target.params.values())).device
-        payload = torch.load(self._path(step), map_location=dev,
-                             weights_only=True)
+        path = self._path(step, target)
+        if not path.exists():
+            have = sorted(f.name for f in self._dir.glob(f"{int(step)}.*")
+                          if _STEP_FILE.match(f.name))
+            raise FileNotFoundError(
+                f"no checkpoint of step {step} for the target's layout "
+                f"({path.name}) in {self._dir}; it holds {have}")
+        payload = torch.load(path, map_location=dev, weights_only=True)
         _check_zero(payload.get("zero"), target.opt_state)
         zero = _zero_geometry(target.opt_state)
         if zero is None:
             opt_payload = payload["opt_state"]
         else:
-            shard = self._shard_path(step, zero)
+            shard = self._shard_path(step, target)
             if not shard.exists():
                 raise FileNotFoundError(
                     f"no optimizer shard {shard.name} for step {step} in "
@@ -208,8 +272,8 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def all_steps(self) -> list[int]:
-        return sorted(int(m.group(1)) for f in self._dir.iterdir()
-                      if (m := _STEP_FILE.match(f.name)))
+        return sorted({int(m.group(1)) for f in self._dir.iterdir()
+                       if (m := _STEP_FILE.match(f.name))})
 
     def wait_until_finished(self) -> None:
         """Saves are synchronous; nothing to wait for."""
@@ -278,8 +342,9 @@ def _from_payload(saved, target, where: str):
 
 def save_pytree(path: str | Path, tree: Any) -> None:
     """One-shot save of `tree` (no manager, no retention) to the file
-    `path`. A ZeRO state's file records its shard's (rank, world): at a
-    world above 1 each rank saves to its own path."""
+    `path`. A ZeRO state's file records its shard's (rank, world), and a
+    mesh state's its mesh shape and coordinates: such ranks save to paths
+    of their own (a restore of another rank's file raises)."""
     path = Path(path).absolute()
     path.parent.mkdir(parents=True, exist_ok=True)
     _atomic_save(_to_payload(tree), path)

@@ -41,17 +41,30 @@ multiple of accum_steps the ranks' shares differ, and each microbatch's
 loss is weighted by the rank's share, so that it is the global mean.
 ``fused_xent_block`` under TP gathers the vocab-split lm_head weight over
 the tp axis (its gradient comes back to each rank's block once) and warns,
-as JAX does, that the head's TP speedup is lost. The mesh already spans
-the world, so ``cross_host=True`` and ZeRO-1 refuse a mesh model (a mesh
-over a subset of the world with the DCN tier across meshes is ROADMAP
-A.6d).
+as JAX does, that the head's TP speedup is lost.
+
+A mesh is one host's ranks (``parallel.mesh``), the counterpart of a JAX
+process, and the DCN tier runs across hosts over the mesh's DCN group (the
+ranks at this rank's coordinates, one a host). So on a mesh model
+``cross_host=True`` first means the gradients over the in-host data axes,
+as above (XLA's psum in JAX), then means them over the DCN group, divided
+by the number of hosts H: the one flat vector or the ``bucket_bytes``
+buckets, with ``grad_compression`` casting around the DCN tier only. At
+H = 1 the DCN tier is the identity (JAX's ``dcn_pmean`` over a world of
+one), its casts kept.
 
 ZeRO-1 (``create_zero_train_state``, ``make_zero_train_step``) keeps the
 params replicated and shards the optimizer: its state is built over ONE
 flat f32 parameter, this rank's 1/world slice of the zero-padded flat
 parameter vector. ``create_zero_train_state`` lays the params out as views
 of one flat buffer, so that slice IS the params' memory and the shard costs
-no copy.
+no copy. On a mesh model the params are the rank's blocks, the DCN world
+is its DCN group (world H, rank its host), and the step means over the
+in-host data axes before the reduce-scatter. The shard's geometry ({rank,
+world, n}, and on a mesh its shape and coordinates) travels in the
+optimizer's ``param_groups[0]["zero"]``; a replicated state over a mesh
+carries the mesh's shape and coordinates in ``param_groups[0]["mesh"]``,
+so that a checkpoint keeps each rank's blocks apart.
 
 An MoE model (``n_experts > 0``) adds ``moe_aux_weight`` times the mean of
 its blocks' load-balancing losses to the objective, per (micro)batch.
@@ -66,6 +79,7 @@ cannot hold them).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import inspect
 import re
@@ -136,12 +150,29 @@ def create_train_state(model, rng: int, sample_input, tx, *, params=None,
     dev = _device.resolve(device)
     if params is None:
         params = model.init_params(seed=int(rng), device=dev)
-    if getattr(model, "mesh", None) is not None:
-        params = (model.local_params(params, rules) if rules is not None
-                  else model.local_params(params))
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        params = _blocks(model, params, rules)
     params = {k: _master(t, dev) for k, t in params.items()}
-    state = TrainState(params, tx.init(params), 0)
+    opt = tx.init(params)
+    if mesh is not None:
+        opt.param_groups[0]["mesh"] = _mesh_layout(mesh)
+    state = TrainState(params, opt, 0)
     return state, model.bind(params, trainable=True)
+
+
+def _blocks(model, params: dict, rules) -> dict:
+    """This rank's blocks of the full `params` of a mesh model, under
+    `rules` when given (the model keeps them)."""
+    return (model.local_params(params, rules) if rules is not None
+            else model.local_params(params))
+
+
+def _mesh_layout(mesh) -> dict:
+    """The mesh's shape, this rank's coordinates (which blocks a state
+    holds) and its host."""
+    return {"mesh": dict(mesh.shape), "coords": dict(mesh.coords),
+            "host": mesh.host}
 
 
 def _master(t: torch.Tensor, device) -> nn.Parameter:
@@ -273,25 +304,68 @@ def _reduce_groups(model, data_axes: tuple) -> dict:
     return groups
 
 
-def _refuse_mesh(model, what: str) -> None:
-    if getattr(model, "mesh", None) is not None:
-        raise ValueError(
-            f"{what} on a model over a mesh: the mesh already spans the "
-            "world, and its step means the gradients over its data axes "
-            "(ZeRO-1 and cross_host over a mesh of a subset of the world "
-            "are ROADMAP A.6d)")
+def _in_host(model) -> tuple:
+    """(rows, mean) of a step on `model`: rows(b) places a rank's b local
+    rows in its host's batch (``_microbatches``; None off a mesh), and
+    mean(grads) means the gradients over the mesh's data axes, each group
+    of leaves (``_reduce_groups``) summed over its axes in one flat vector
+    and divided by the whole data group's size (the identity off a mesh or
+    without a data axis)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return (lambda b: None), (lambda grads: grads)
+    data_axes = model.data_axes()
+    reduce_over = _reduce_groups(model, data_axes)
+    n_data = mesh.axis_size(data_axes)
+    dp = getattr(model, "dp_axis", None)
+    dp = dp if dp in data_axes else None
+
+    def rows(b: int) -> tuple:
+        n_dp = mesh.axis_size(dp) if dp else 1
+        return ((mesh.axis_index(dp) if dp else 0) * b, b * n_dp)
+
+    def mean(grads: dict) -> dict:
+        if not data_axes:
+            return grads
+        reduced = {}
+        for axes, names in reduce_over.items():
+            part = {k: grads.pop(k) for k in list(grads) if k in names}
+            reduced.update(_flat_group_pmean(part, mesh, axes, n_data))
+        return reduced
+
+    return rows, mean
 
 
-def _wire_handles_bf16() -> bool:
-    """True when the native communicator already compresses f32 payloads to
-    bf16 ON THE WIRE (wire_dtype="bf16"): the trainer then ships f32
-    gradients and lets the ring quantize at the hops, with f32
-    accumulation, instead of casting itself."""
+def _dcn_tier(mesh) -> tuple:
+    """(world, rank, context, communicator) of the DCN tier of a step on a
+    model over `mesh` (None: no mesh): the mesh's DCN group, entered as a
+    context so that the interop calls run over it, on a host mesh; the
+    world's processes otherwise. The communicator is None where the tier
+    has no peer to reach (a mesh of one host): the step then runs the
+    identity in its place. Raises if initialize() was skipped."""
     from tpunet_torch import distributed
 
-    if not distributed.is_initialized():
-        return False
-    return distributed.global_communicator().wire_dtype == "bf16"
+    world, rank = distributed.world_size(), distributed.rank()
+    if mesh is None:
+        return (world, rank, contextlib.nullcontext(),
+                distributed.global_communicator())
+    if mesh.n_hosts == 1:
+        return 1, 0, contextlib.nullcontext(), None
+    return mesh.n_hosts, mesh.host, mesh, mesh.dcn_comm()
+
+
+def _wire_handles_bf16(comm=None) -> bool:
+    """True when the DCN tier's communicator (default the world's) already
+    compresses f32 payloads to bf16 ON THE WIRE (wire_dtype="bf16"): the
+    trainer then ships f32 gradients and lets the ring quantize at the
+    hops, with f32 accumulation, instead of casting itself."""
+    from tpunet_torch import distributed
+
+    if comm is None:
+        if not distributed.is_initialized():
+            return False
+        comm = distributed.global_communicator()
+    return comm.wire_dtype == "bf16"
 
 
 def _pick(logits, labels):
@@ -505,11 +579,13 @@ def make_train_step(model, tx=None, cross_host: bool = False,
     the host only when needed: that is a sync point).
 
     cross_host=True adds the DCN gradient mean over the processes of
-    ``tpunet_torch.distributed`` (initialize() first). grad_compression=
-    "bf16" casts the gradient vector to bf16 around the all-reduce, or,
-    when the communicator's wire already compresses to bf16, ships f32 and
-    lets the ring quantize. bucket_bytes (cross_host only): nonblocking
-    byte-bounded buckets instead of one flat vector. `rng` (an int) seeds
+    ``tpunet_torch.distributed`` (initialize() first), or, on a mesh
+    model, over the mesh's DCN group after the in-host mean (module
+    docstring). grad_compression="bf16" casts the gradient vector to bf16
+    around the all-reduce, or, when the DCN tier's wire already compresses
+    to bf16, ships f32 and lets the ring quantize. bucket_bytes
+    (cross_host only): nonblocking byte-bounded buckets instead of one
+    flat vector. `rng` (an int) seeds
     the model's dropout, as JAX's dropout key; fused_xent_block needs a
     model with ``features_only`` (the Transformer family)."""
     del tx  # the optimizer lives in the state (tx.init in create_train_state)
@@ -523,20 +599,10 @@ def make_train_step(model, tx=None, cross_host: bool = False,
             "fused_xent_block with a tensor-parallel lm head replicates the "
             "head compute (kernel is gathered); the TP head speedup is lost",
             stacklevel=2)
-    mesh = getattr(model, "mesh", None)
-    if mesh is not None:
-        if cross_host:
-            _refuse_mesh(model, "cross_host=True")
-        data_axes = model.data_axes()
-        reduce_over = _reduce_groups(model, data_axes)
-        n_data = mesh.axis_size(data_axes)
-        dp = getattr(model, "dp_axis", None)
-        dp = dp if dp in data_axes else None
+    rows, in_host_mean = _in_host(model)
     if cross_host:
-        from tpunet_torch import distributed
-
-        world = distributed.world_size()  # raises if initialize() was skipped
-        if grad_compression == "bf16" and _wire_handles_bf16():
+        world, _, dcn, comm = _dcn_tier(getattr(model, "mesh", None))
+        if grad_compression == "bf16" and _wire_handles_bf16(comm):
             grad_compression = None
     loss_fn = _make_loss_fn(fused_xent_block, z_loss, moe_aux_weight, model)
 
@@ -547,25 +613,21 @@ def make_train_step(model, tx=None, cross_host: bool = False,
         dev = next(iter(params.values())).device
         inputs, labels = _as_batch(inputs, dev), _as_batch(labels, dev)
         net = model.bind(params, trainable=True)
-        rows = None
-        if mesh is not None:
-            b = inputs.shape[0]
-            n_dp = mesh.axis_size(dp) if dp else 1
-            rows = ((mesh.axis_index(dp) if dp else 0) * b, b * n_dp)
         loss, grads = _value_and_grads(net, params, inputs, labels, loss_fn,
-                                       accum_steps, rng, rows)
-        if cross_host:
-            if bucket_bytes is not None:
-                grads = _bucketed_dcn_pmean(grads, bucket_bytes,
-                                            grad_compression, world)
-            else:
-                grads = _flat_dcn_pmean(grads, grad_compression, world)
-        elif mesh is not None and data_axes:
-            reduced = {}
-            for axes, names in reduce_over.items():
-                part = {k: grads.pop(k) for k in list(grads) if k in names}
-                reduced.update(_flat_group_pmean(part, mesh, axes, n_data))
-            grads = reduced
+                                       accum_steps, rng,
+                                       rows(inputs.shape[0]))
+        grads = in_host_mean(grads)
+        if cross_host and comm is not None:
+            with dcn:
+                if bucket_bytes is not None:
+                    grads = _bucketed_dcn_pmean(grads, bucket_bytes,
+                                                grad_compression, world)
+                else:
+                    grads = _flat_dcn_pmean(grads, grad_compression, world)
+        elif cross_host and grad_compression == "bf16":
+            # One host: the DCN tier is the identity between its casts.
+            grads = {k: g.to(torch.bfloat16).to(g.dtype)
+                     for k, g in grads.items()}
         for name in list(grads):
             params[name].grad = grads.pop(name)
         state.opt_state.step()
@@ -628,37 +690,40 @@ def _refuse_integer_leaves(params: dict) -> None:
 
 
 def create_zero_train_state(model, rng: int, sample_input, tx, *,
-                            params=None, device=None
+                            params=None, device=None, rules=None
                             ) -> tuple[TrainState, Any]:
     """ZeRO-1 companion to create_train_state: the optimizer state is built
     on THIS RANK's flat parameter shard (1/world of the elements), not on
     every parameter, so the memory that dominates adamw training (2 f32
     moments per parameter) shrinks by the DCN world size. Requires
     ``tpunet_torch.distributed.initialize()`` first; every rank must call
-    it. rng, params, device: as create_train_state.
+    it. rng, params, device, rules: as create_train_state.
 
     The params are ``nn.Parameter`` views of one flat f32 buffer
     (``_zero_layout``), and the optimizer's one parameter is the view of
-    this rank's slice of it."""
-    from tpunet_torch import distributed
-
-    _refuse_mesh(model, "ZeRO-1")
-    world = distributed.world_size()  # raises if initialize() was skipped
-    rank = distributed.rank()
+    this rank's slice of it. On a mesh model the params are the rank's
+    blocks and the shard its DCN group's: 1/H of the blocks, H hosts."""
+    mesh = getattr(model, "mesh", None)
+    world, rank, _, _ = _dcn_tier(mesh)
     if device is None:
         device = (sample_input.device
                   if isinstance(sample_input, torch.Tensor) else None)
     dev = _device.resolve(device)
     if params is None:
         params = model.init_params(seed=int(rng), device=dev)
+    if mesh is not None:
+        params = _blocks(model, params, rules)
     _refuse_integer_leaves(params)
     views, shard = _zero_layout(params, rank, world, dev)
     opt = tx.init({"zero_shard": shard})
     # The shard's geometry travels with the optimizer (its state_dict
-    # too), so a checkpoint can refuse another rank's or world's shard.
-    opt.param_groups[0]["zero"] = {
-        "rank": rank, "world": world,
-        "n": sum(t.numel() for t in views.values())}
+    # too), so a checkpoint can refuse another rank's, world's or mesh
+    # position's shard.
+    zero = {"rank": rank, "world": world,
+            "n": sum(t.numel() for t in views.values())}
+    if mesh is not None:
+        zero.update(_mesh_layout(mesh))
+    opt.param_groups[0]["zero"] = zero
     return TrainState(views, opt, 0), model.bind(views, trainable=True)
 
 
@@ -671,7 +736,10 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
     ``(state, inputs, labels, rng) -> (state, loss)``.
 
     Instead of all-reducing the full gradient and updating a replicated
-    optimizer (make_train_step cross_host=True), each step:
+    optimizer (make_train_step cross_host=True), each step (on a mesh
+    model, after the gradient mean over the in-host data axes; the DCN
+    world is then the mesh's DCN group, and at one host each collective
+    below is the identity):
       1. reduce-scatters the flat, zero-padded gradient over DCN: each rank
          receives the MEAN of its 1/world shard (the bytes of the ring
          all-reduce's reduce-scatter phase);
@@ -699,15 +767,13 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
     if grad_compression not in (None, "bf16"):
         raise ValueError(f"unknown grad_compression {grad_compression!r}")
     _check_fused(model, fused_xent_block)
-    _refuse_mesh(model, "ZeRO-1")
-    from tpunet_torch import distributed
     from tpunet_torch.interop import dcn_all_gather, dcn_reduce_scatter
 
-    world = distributed.world_size()  # raises if initialize() was skipped
-    rank = distributed.rank()
+    world, rank, dcn, comm = _dcn_tier(getattr(model, "mesh", None))
+    rows, in_host_mean = _in_host(model)
     # One cast path (see make_train_step): the native wire codec quantizes
     # the reduce-scatter's hops itself, with f32 accumulation.
-    if grad_compression == "bf16" and _wire_handles_bf16():
+    if grad_compression == "bf16" and _wire_handles_bf16(comm):
         grad_compression = None
     loss_fn = _make_loss_fn(fused_xent_block, z_loss, moe_aux_weight, model)
 
@@ -740,22 +806,32 @@ def make_zero_train_step(model, tx=None, donate: bool = True,
         inputs, labels = _as_batch(inputs, dev), _as_batch(labels, dev)
         net = model.bind(params, trainable=True)
         loss, grads = _value_and_grads(net, params, inputs, labels, loss_fn,
-                                       accum_steps, rng)
+                                       accum_steps, rng,
+                                       rows(inputs.shape[0]))
+        grads = in_host_mean(grads)
         parts = [grads[k].reshape(-1) for k in params]
         gflat = torch.cat(parts + [parts[0].new_zeros(padded - n)])
         del parts
         grads.clear()  # the flat copy is all the reduce-scatter needs
         if grad_compression == "bf16":
             gflat = gflat.to(torch.bfloat16)
-        shard.grad = dcn_reduce_scatter(gflat).to(torch.float32) / world
+        if comm is not None:
+            with dcn:
+                gflat = dcn_reduce_scatter(gflat)
+        shard.grad = gflat.to(torch.float32) / world
         del gflat
         state.opt_state.step()
         shard.grad = None
-        gathered = dcn_all_gather(shard.detach()).reshape(-1)
+        gathered = shard.detach()
+        if comm is not None:
+            with dcn:
+                gathered = dcn_all_gather(gathered).reshape(-1)
         with torch.no_grad():
             off = 0
             for p in params.values():
-                p.copy_(gathered[off:off + p.numel()].view(p.shape))
+                src = gathered[off:off + p.numel()]
+                if src.data_ptr() != p.data_ptr():
+                    p.copy_(src.view(p.shape))
                 off += p.numel()
         del gathered
         return TrainState(params, state.opt_state, state.step + 1), loss
