@@ -120,7 +120,8 @@ Phases (each raises on failure; the script then exits non-zero):
            MHA target's widths (d2048, 16 heads, ff 8192, vocab 32000) at
            6 of its 12 layers, with a random draft of its widths at 2
            layers, batch 8, prompt
-           512, 256 new tokens, gamma 4, greedy, lockstep and per row; (b)
+           512, 64 new tokens (cut from 256 for the script's time),
+           gamma 4, greedy, lockstep and per row; (b)
            decode_bench.py --spec-draft quant: quantize_params of the
            target as its int8 self-draft, per row, greedy, then sampled
            (temperature 0.8, top_k 50) twice from one generator seed; (c)
@@ -422,6 +423,32 @@ Phases (each raises on failure; the script then exits non-zero):
            kernel phases hold the rank's GQA shapes (bf16 8 heads, 2 kv
            heads, D128 causal: B4 S2048 forward and backward, B1 S512
            forward)
+  dryrun   the multichip dry run of ROADMAP A.8b in ONE spawn of 8 ranks
+           on this card: (a) tpunet_torch.dryrun's five programs as
+           dryrun_multichip runs them (rank 0 prints JAX's six
+           "dryrun_multichip OK" lines with the port's numbers); (b) the
+           transformer program at full width (d 2048, 16 heads, 4 kv
+           heads, swiglu ff 8192, vocab 32000, cut to 4 layers: 2 MoE
+           layers of dp = 2 experts, top-2), bf16 over f32 masters, ring
+           over sp, TP over mdl, experts over ep = dp, accum_steps 2,
+           batch 4 x 2048 over {dp: 2, sp: 2, mdl: 2}, 2 steps. Gates:
+           each step's loss within 2e-3 relative of one process's same
+           steps (the program's step on the global batch, whose two
+           microbatches are the mesh's); the leaves replicated over dp
+           bitwise equal across it; the losses finite.
+           Reports each MoE block's dropped share, the axis collectives,
+           the peak a rank and the step seconds. (c) the serve program at
+           full width over {dp: 2, mdl: 4}: the serve configuration at 6
+           of 12 layers (16 heads, 4 kv heads: one kv head a rank), bf16,
+           flash, window 256 on the ring cache, 3 requests of 512 / 301 /
+           128 prompt tokens and 32 / 24 / 16 greedy tokens through the
+           plain BatchServer (slots 2, 4 steps a call) and the int8
+           self-draft one (gamma 3), pipeline 2. Gates: every rank of a tp
+           group holds the same tokens, each request's tokens equal the
+           one-process port's or a row diverges only at a tie (mesh6c's
+           rule); flash launched once a layer a prefill on (4, 1) heads,
+           no copy. The kernel phases hold the rank's prefill shape (bf16
+           B1 S512, 4 heads, 1 kv head, D128, causal, window 256)
 Then one JSON line describing each kernel: flash_fwd, flash_dq and
 flash_dkv on the main (train) path, bf16 at D=128, and their _f32 and
 _wide routes (launches from the paths phase; times from the kernel case
@@ -429,7 +456,7 @@ at each path's own shape: the f32 training shape, and bf16 B2 S1024 4
 heads 1 kv head D320), with the tensor-core instructions of the function
 each runs, and for the bf16 kernels the launches on each path (train,
 moe, qlora, sp's one-process reference, pipe, mesh's TP x DP run,
-dcn_mesh's two runs, and mesh6c's three parts);
+dcn_mesh's two runs, mesh6c's three parts and dryrun's servers);
 and, last, the device line.
 
 TF32 is off throughout (torch.backends.cuda.matmul.allow_tf32 and
@@ -2176,7 +2203,9 @@ def phase_swap(seed: int, params_v0) -> None:
 # decode_window (:81-84; window 256), decode_bench.py --spec-draft quant
 # (:142-154; the target's int8 self-draft), serve_bench.py --spec-gamma 4
 # (:112-118; an int8 self-draft BatchServer on the serve phase's model).
-SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 8, 512, 256, 4
+# SPEC_NEW is cut from decode_spec's 256 to 64 for the whole script's
+# time.
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA = 8, 512, 64, 4
 SPEC_DRAFT_LAYERS, SPEC_WINDOW = 2, 256
 SPEC_SAMPLING = dict(temperature=0.8, top_k=50)
 SPEC_SERVE_NEW, SPEC_SERVE_MAX_LEN = 64, 1024
@@ -2781,7 +2810,8 @@ def _rank_bodies() -> dict:
             "moe_bench": _moe_bench_rank_body, "sp": _sp_rank_body,
             "pipe_bench": _pipe_bench_rank_body,
             "pipe_model": _pipe_model_rank_body, "mesh": _mesh_rank_body,
-            "dcn_mesh": _dcn_mesh_rank_body, "mesh6c": _mesh6c_rank_body}
+            "dcn_mesh": _dcn_mesh_rank_body, "mesh6c": _mesh6c_rank_body,
+            "dryrun": _dryrun_rank_body}
 
 
 def _train_rank(kind: str, rank: int, ports, path: str, seed: int,
@@ -5181,12 +5211,91 @@ def _mesh6c_held(mesh, name, model, params, ref, got, plens, cap, per_row,
             "seen": seen if mesh.axis_index("mdl") == 0 else {}}
 
 
+def _server_seqs(model, params, prompts, news, width: int, slots: int,
+                 pipeline: int, **kw):
+    """A BatchServer of `model` (slots `slots`, the spec phase's max_len)
+    on `prompts`, each its `news` greedy tokens, run with `pipeline`
+    windows in flight: ((n, width) prompt + tokens, its stats)."""
+    from tpunet_torch.models import BatchServer
+
+    srv = BatchServer(model, params, slots=slots, max_len=SPEC_SERVE_MAX_LEN,
+                      device=DEVICE, **kw)
+    ids = [srv.submit(q, m) for q, m in zip(prompts, news)]
+    res = srv.run(pipeline=pipeline)
+    seqs = np.zeros((len(prompts), width), np.int32)
+    for i, (q, rid) in enumerate(zip(prompts, ids)):
+        seqs[i, :len(q) + len(res[rid])] = np.concatenate([q, res[rid]])
+    return seqs, srv.stats
+
+
+def _tp_servers(mesh, model, local, draft, dlocal, ref, prompts, news,
+                slots: int, pipeline: int, gamma: int, **plain) -> dict:
+    """The plain (`plain`: its options) and the int8 self-draft (gamma
+    `gamma`) BatchServer over the mesh, each against the one-process
+    references `ref` ((n, L) prompt + tokens) with the path's half of the
+    tie rule: {"server": row, "spec_server": row}."""
+    qlens = np.array([len(q) for q in prompts])
+    out = {}
+    for name, kw, g in (
+            ("server", plain, None),
+            ("spec_server", dict(draft_model=draft, draft_params=dlocal,
+                                 gamma=gamma), gamma)):
+        (seqs, st), c = _flash_heads(lambda kw=kw: _server_seqs(
+            model, local, prompts, news, ref.shape[1], slots, pipeline,
+            **kw))
+        cap = SPEC_SERVE_MAX_LEN + (g + 1 if g else 0)
+        out[name] = dict(c, stats=st, tokens_per_s=sum(news) / c["s"],
+                         **_mesh6c_held(mesh, name, model, local, ref, seqs,
+                                        qlens, cap, True, g))
+        if g:
+            out[name]["tokens_per_round"] = (
+                st["spec_committed"] / max(st["spec_rounds"], 1))
+    return out
+
+
+def _tp_ties(ranks: list, cfg: dict, seed: int, runs, errors: list,
+             part: str) -> None:
+    """The tie rule's reference half in this process, for the serve rows
+    of every mdl-0 rank: `runs(row)` gives {run: (ref, plens, cap,
+    per_row)}, the one-process references that run is held to and how a
+    `_Teacher` steps them (the batch the references were made from).
+    Adds `divergences` to each run's row and an error for a tp group
+    whose ranks differ or a divergence that is no tie."""
+    from tpunet_torch.models import Transformer
+
+    model = Transformer(compute_dtype=BF16, attn_impl="flash",
+                        device="meta", **cfg)
+    params = _bf16_checkpoint(seed, cfg)
+    for r in ranks:
+        s = r["serve"]
+        for name, (ref, plens, cap, per_row) in runs(s).items():
+            row = s[name]
+            row["divergences"] = []
+            if not row["tp_group_equal"]:
+                errors.append(f"{part} {name}: the ranks of rank "
+                              f"{r['rank']}'s tp group differ")
+            if s["mdl"] != 0 or not row["cols"]:
+                continue
+            teacher = _Teacher(model, params, ref, plens, cap, per_row, 0)
+            gaps = _ref_gaps(teacher, row["cols"], plens, row["seen"])
+            del teacher
+            row["divergences"] = [{"row": k, "col": c, "gap": gaps[k][0],
+                                   "delta": gaps[k][1]}
+                                  for k, c in sorted(row["cols"].items())]
+            bad = [d for d in row["divergences"]
+                   if not d["gap"] <= d["delta"]]
+            if bad:
+                errors.append(f"{part} {name} on {s['coords']}: "
+                              f"divergences that are no tie: {bad}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
     """(a): generate, the plain and the speculative BatchServer over the
     mesh, each against the one-process references of the file the parent
     wrote."""
-    from tpunet_torch.models import (BatchServer, Transformer, generate,
-                                     quantize_params)
+    from tpunet_torch.models import Transformer, generate, quantize_params
 
     ref = np.load(_mesh6c_file())
     cfg = _mesh6c_serve_model()
@@ -5203,7 +5312,8 @@ def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
     n = MESH6C_GEN_ROWS // mesh.shape["dp"]
     rows = slice(dp * n, (dp + 1) * n)
     prompt = torch.as_tensor(ref["gen_prompts"][rows], device=DEVICE)
-    out = {"dp": dp, "mdl": mesh.axis_index("mdl")}
+    out = {"dp": dp, "mdl": mesh.axis_index("mdl"),
+           "coords": dict(mesh.coords)}
     gen, c = _flash_heads(lambda: generate(model, local, prompt,
                                            MESH6C_GEN_NEW))
     plen = prompt.shape[1]
@@ -5214,33 +5324,9 @@ def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
                                np.full(n, plen), plen + MESH6C_GEN_NEW,
                                False, None))
     prompts = [ref[f"srv_prompt{i}"] for i in range(int(ref["n_srv"]))]
-    qlens = np.array([len(q) for q in prompts])
-
-    def serve(**kw):
-        srv = BatchServer(model, local, slots=8, max_len=SPEC_SERVE_MAX_LEN,
-                          device=DEVICE, **kw)
-        ids = [srv.submit(q, SPEC_SERVE_NEW) for q in prompts]
-        res = srv.run()
-        seqs = np.zeros((len(prompts), max(qlens) + SPEC_SERVE_NEW),
-                        np.int32)
-        for i, (q, rid) in enumerate(zip(prompts, ids)):
-            seqs[i, :len(q) + len(res[rid])] = np.concatenate([q, res[rid]])
-        return seqs, srv.stats
-
-    for name, kw, gamma in (
-            ("server", {}, None),
-            ("spec_server", dict(draft_model=draft, draft_params=dlocal,
-                                 gamma=SPEC_GAMMA), SPEC_GAMMA)):
-        (seqs, st), c = _flash_heads(lambda kw=kw: serve(**kw))
-        cap = SPEC_SERVE_MAX_LEN + (gamma + 1 if gamma else 0)
-        ntok = len(prompts) * SPEC_SERVE_NEW
-        out[name] = dict(c, stats=st, tokens_per_s=ntok / c["s"],
-                         **_mesh6c_held(mesh, name, model, local,
-                                        ref["srv_ref"], seqs, qlens, cap,
-                                        True, gamma))
-        if gamma:
-            out[name]["tokens_per_round"] = (
-                st["spec_committed"] / max(st["spec_rounds"], 1))
+    out.update(_tp_servers(mesh, model, local, draft, dlocal, ref["srv_ref"],
+                           prompts, [SPEC_SERVE_NEW] * len(prompts), 8, 1,
+                           SPEC_GAMMA))
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del local, dlocal
     torch.cuda.empty_cache()
@@ -5370,7 +5456,7 @@ def _mesh6c_references(seed: int) -> dict:
     """The one-process port on (a)'s inputs: generate's tokens and the
     plain BatchServer's on the serve phase's requests, written to the
     file the ranks read; returns their timings."""
-    from tpunet_torch.models import BatchServer, Transformer, generate
+    from tpunet_torch.models import Transformer, generate
 
     cfg = _mesh6c_serve_model()
     model = Transformer(compute_dtype=BF16, attn_impl="flash",
@@ -5384,20 +5470,16 @@ def _mesh6c_references(seed: int) -> dict:
     gen_s = time.perf_counter() - t0
     prompts = _prompts(seed + 2, 8, model.vocab)
     qlens = np.array([len(q) for q in prompts])
-    srv = BatchServer(model, params, slots=8, max_len=SPEC_SERVE_MAX_LEN,
-                      device=DEVICE)
     t0 = time.perf_counter()
-    ids = [srv.submit(q, SPEC_SERVE_NEW) for q in prompts]
-    res = srv.run()
+    seqs, _ = _server_seqs(model, params, prompts,
+                           [SPEC_SERVE_NEW] * len(prompts),
+                           max(qlens) + SPEC_SERVE_NEW, 8, 1)
     srv_s = time.perf_counter() - t0
-    seqs = np.zeros((len(prompts), max(qlens) + SPEC_SERVE_NEW), np.int32)
-    for i, (q, rid) in enumerate(zip(prompts, ids)):
-        seqs[i, :len(q) + len(res[rid])] = np.concatenate([q, res[rid]])
     _mesh6c_file().parent.mkdir(parents=True, exist_ok=True)
     np.savez(_mesh6c_file(), gen_prompts=prompts4, gen_ref=gen,
              srv_ref=seqs, n_srv=len(prompts),
              **{f"srv_prompt{i}": q for i, q in enumerate(prompts)})
-    del params, srv
+    del params
     torch.cuda.empty_cache()
     return {"generate_tokens_per_s": prompts4.shape[0] * MESH6C_GEN_NEW
             / gen_s, "server_tokens_per_s": len(prompts) * SPEC_SERVE_NEW
@@ -5449,49 +5531,20 @@ def _dropped_count(choices: np.ndarray, cap: int) -> int:
 def _mesh6c_ties(ranks: list, seed: int, errors: list) -> None:
     """(a)'s tie rule, the reference's half in this process: each mdl-0
     rank's divergences against the one-process references, gap against
-    delta; adds `divergences` to each run's row."""
-    from tpunet_torch.models import Transformer
-
-    cfg = _mesh6c_serve_model()
-    model = Transformer(compute_dtype=BF16, attn_impl="flash",
-                        device="meta", **cfg)
-    params = _bf16_checkpoint(seed, cfg)
+    delta (`_tp_ties`); generate's on the dp rank's rows in lockstep."""
     ref = np.load(_mesh6c_file())
     n = MESH6C_GEN_ROWS // MESH6C_MESH["dp"]
     plen = ref["gen_prompts"].shape[1]
     qlens = np.array([len(ref[f"srv_prompt{i}"])
                       for i in range(int(ref["n_srv"]))])
-    for r in ranks:
-        s = r["serve"]
-        for name in ("generate", "server", "spec_server"):
-            row = s[name]
-            row["divergences"] = []
-            if not row["tp_group_equal"]:
-                errors.append(f"(a) {name}: the ranks of rank "
-                              f"{r['rank']}'s tp group differ")
-            if s["mdl"] != 0 or not row["cols"]:
-                continue
-            if name == "generate":
-                rows = slice(s["dp"] * n, (s["dp"] + 1) * n)
-                plens = np.full(n, plen)
-                teacher = _Teacher(model, params, ref["gen_ref"][rows],
-                                   plens, plen + MESH6C_GEN_NEW, False, 0)
-            else:
-                plens = qlens
-                teacher = _Teacher(model, params, ref["srv_ref"], qlens,
-                                   SPEC_SERVE_MAX_LEN, True, 0)
-            gaps = _ref_gaps(teacher, row["cols"], plens, row["seen"])
-            del teacher
-            row["divergences"] = [{"row": k, "col": c, "gap": gaps[k][0],
-                                   "delta": gaps[k][1]}
-                                  for k, c in sorted(row["cols"].items())]
-            bad = [d for d in row["divergences"]
-                   if not d["gap"] <= d["delta"]]
-            if bad:
-                errors.append(f"(a) {name} on dp {s['dp']}: divergences "
-                              f"that are no tie: {bad}")
-    del params
-    torch.cuda.empty_cache()
+
+    def runs(s):
+        server = (ref["srv_ref"], qlens, SPEC_SERVE_MAX_LEN, True)
+        return {"generate": (ref["gen_ref"][s["dp"] * n:(s["dp"] + 1) * n],
+                             np.full(n, plen), plen + MESH6C_GEN_NEW, False),
+                "server": server, "spec_server": server}
+
+    _tp_ties(ranks, _mesh6c_serve_model(), seed, runs, errors, "(a)")
 
 
 def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
@@ -5632,6 +5685,303 @@ def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
     return launches
 
 
+# The multichip dry run (ROADMAP A.8b): one spawn of DRYRUN_RANKS ranks runs
+# (a) tpunet_torch.dryrun's five programs, (b) its transformer program at
+# full width and (c) its serve program at full width.
+DRYRUN_RANKS = 8
+# (b): the transformer program's model at the serve configuration's widths
+# (swiglu, as the program's), cut to 4 layers for the script's time: blocks
+# 1 and 3 are MoE layers of n_experts = dp = 2, top-2. Global batch 4 x 2048
+# over {dp: 2, sp: 2, mdl: 2}: 2 rows of 1,024 tokens a rank, one a
+# microbatch.
+DRYRUN_MODEL = dict(vocab=32000, d_model=2048, n_layers=4, n_heads=16,
+                    n_kv_heads=4, d_ff=8192, mlp_impl="swiglu", moe_every=2)
+DRYRUN_BATCH, DRYRUN_SEQ, DRYRUN_STEPS = 4, 2048, 2
+# (c): the serve program's mesh and servers (slots 2, the plain one 4 steps
+# a call, the self-draft gamma 3, pipeline 2) on the serve configuration
+# at mesh6c (a)'s 6 layers with the spec phase's window on the ring cache;
+# (prompt tokens, new tokens) of its 3 requests.
+DRYRUN_SERVE_MESH = {"dp": 2, "mdl": 4}
+DRYRUN_WINDOW, DRYRUN_SLOTS, DRYRUN_GAMMA = 256, 2, 3
+DRYRUN_REQUESTS = ((512, 32), (301, 24), (128, 16))
+# The rank's prefill attention in (c): 4 of 16 heads, 1 of 4 kv heads.
+DRYRUN_FWD_CASES = [(1, 512, 512, 4, 1, True, DRYRUN_WINDOW, BF16, 128)]
+
+
+def _dryrun_serve_model() -> dict:
+    return dict(_mesh6c_serve_model(), attn_window=DRYRUN_WINDOW)
+
+
+def _dryrun_file() -> Path:
+    return (Path(__file__).resolve().parent / "build" / "chip_smoke"
+            / "dryrun_refs.npz")
+
+
+def _dryrun_tokens():
+    """(b)'s global batch as the transformer program draws it."""
+    toks = np.random.default_rng(0).integers(
+        0, DRYRUN_MODEL["vocab"], size=(DRYRUN_BATCH, DRYRUN_SEQ))
+    return toks, np.roll(toks, -1, axis=1)
+
+
+def _dryrun_programs(rank: int, seed: int) -> dict:
+    """(a): the five programs as dryrun_multichip's ranks run them; rank 0
+    prints their lines."""
+    from tpunet_torch import dryrun
+
+    out = dryrun.run_programs(DRYRUN_RANKS, DEVICE,
+                              printer=(lambda x: print(x, flush=True))
+                              if rank == 0 else None)
+    return {"lines": [x for r in out.values()
+                      for x in r.get("lines", [r.get("line")])],
+            "vgg_loss": out["vgg"]["loss"],
+            "transformer_loss": out["transformer"]["loss"],
+            "pipeline_losses": out["pipeline"]["losses"],
+            "qlora_loss": out["qlora"]["loss"],
+            "tokens_per_round": out["serve"]["tokens_per_round"],
+            "seconds": {k: r["s"] for k, r in out.items()}}
+
+
+def _dryrun_transformer(rank: int, seed: int) -> dict:
+    """(b): the transformer program at DRYRUN_MODEL's widths."""
+    from tpunet_torch import dryrun
+    from tpunet_torch.parallel import smap
+    from tpunet_torch.train.trainer import _reduce_groups
+
+    def inspect(model, state, step):
+        records = []
+        undo = _record_moe(records)
+        smap.axis_stats_reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = model.mesh
+        shared = _reduce_groups(model, model.data_axes())
+        over_dp = {k for axes, names in shared.items() if "dp" in axes
+                   for k in names}
+
+        def after(state):
+            undo()
+            return dict(
+                coords=dict(mesh.coords), axis=smap.axis_stats(),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                aux=[r[0].tolist() for r in records],
+                dropped=[r[1].tolist() for r in records],
+                dp_replicated_crc=_params_crc(
+                    {k: v for k, v in state.params.items() if k in over_dp}),
+                expert_shape=list(state.params["block1.moe.wi"].shape))
+        return after
+
+    out = dryrun.transformer(DRYRUN_RANKS, None, DEVICE, cfg=DRYRUN_MODEL,
+                             dtype=BF16, batch=DRYRUN_BATCH, seq=DRYRUN_SEQ,
+                             steps=DRYRUN_STEPS, inspect=inspect)
+    out.pop("line")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_serve(rank: int, seed: int) -> dict:
+    """(c): the plain and the speculative BatchServer over {dp: 2, mdl:
+    4}, each against the one-process references of the file the parent
+    wrote."""
+    from tpunet_torch.models import Transformer, quantize_params
+    from tpunet_torch.parallel import make_named_mesh
+
+    ref = np.load(_dryrun_file())
+    cfg = _dryrun_serve_model()
+    mesh = make_named_mesh(DRYRUN_SERVE_MESH)
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", mesh=mesh,
+                        dp_axis="dp", tp_axis="mdl", device="meta", **cfg)
+    full = _bf16_checkpoint(seed, cfg)
+    local = model.local_params(full)
+    draft = model.clone(weight_quant="int8")
+    dlocal = draft.local_params(quantize_params(full))
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = [ref[f"prompt{i}"] for i in range(len(DRYRUN_REQUESTS))]
+    out = {"coords": dict(mesh.coords), "mdl": mesh.axis_index("mdl"),
+           "kv_heads": model.local_kv_heads()}
+    out.update(_tp_servers(mesh, model, local, draft, dlocal, ref["ref"],
+                           prompts, [m for _, m in DRYRUN_REQUESTS],
+                           DRYRUN_SLOTS, 2, DRYRUN_GAMMA, steps_per_call=4))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del local, dlocal
+    mesh.close()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_rank_body(rank: int, ports, path: str, seed: int) -> dict:
+    """The parts (a), (b), (c) in turn on this rank of the spawn."""
+    from tpunet_torch import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{ports[0]}", rank, DRYRUN_RANKS)
+    out = {"rank": rank, "seconds": {}}
+    for part, fn in (("programs", _dryrun_programs),
+                     ("transformer", _dryrun_transformer),
+                     ("serve", _dryrun_serve)):
+        distributed.global_communicator().barrier()
+        t0 = time.perf_counter()
+        out[part] = fn(rank, seed)
+        out["seconds"][part] = time.perf_counter() - t0
+    distributed.finalize()
+    return out
+
+
+def _dryrun_references(seed: int) -> dict:
+    """The one-process port on (c)'s requests through the plain
+    BatchServer, written to the file the ranks read; returns its
+    tokens/s."""
+    from tpunet_torch.models import Transformer
+
+    cfg = _dryrun_serve_model()
+    model = Transformer(compute_dtype=BF16, attn_impl="flash",
+                        device="meta", **cfg)
+    params = _bf16_checkpoint(seed, cfg)
+    rng = np.random.default_rng(seed + 20)
+    prompts = [rng.integers(0, model.vocab, n).astype(np.int32)
+               for n, _ in DRYRUN_REQUESTS]
+    news = [m for _, m in DRYRUN_REQUESTS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, _ = _server_seqs(model, params, prompts, news,
+                           max(n + m for n, m in DRYRUN_REQUESTS),
+                           DRYRUN_SLOTS, 2, steps_per_call=4)
+    wall = time.perf_counter() - t0
+    _dryrun_file().parent.mkdir(parents=True, exist_ok=True)
+    np.savez(_dryrun_file(), ref=seqs,
+             **{f"prompt{i}": q for i, q in enumerate(prompts)})
+    del params
+    torch.cuda.empty_cache()
+    return {"server_tokens_per_s": sum(news) / wall}
+
+
+def _dryrun_transformer_reference() -> dict:
+    """One process, (b)'s whole model from the program's init (seed 0):
+    DRYRUN_STEPS steps of the program's own step (adamw 1e-3 with no
+    weight decay, accum_steps 2) on the global batch, whose microbatches
+    are the mesh's global ones (rows j::2). Returns each step's loss and
+    the first step's microbatches' aux losses and dropped shares."""
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.train import adamw, create_train_state, make_train_step
+
+    dp = DRYRUN_RANKS // 4
+    model = Transformer(compute_dtype=BF16, attn_impl="flash", device="meta",
+                        n_experts=dp, moe_top_k=2, **DRYRUN_MODEL)
+    tx = adamw(1e-3, weight_decay=0.0)
+    state, _ = create_train_state(model, 0, None, tx, device=DEVICE)
+    step = make_train_step(model, tx, accum_steps=2)
+    x, y = (torch.as_tensor(a, device=DEVICE) for a in _dryrun_tokens())
+    records, losses = [], []
+    undo = _record_moe(records)
+    try:
+        for _ in range(DRYRUN_STEPS):
+            state, loss = step(state, x, y, 1)
+            losses.append(float(loss))
+    finally:
+        undo()
+    del state, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "aux": [r[0].tolist() for r in records[:2]],
+            "dropped": [r[1].tolist() for r in records[:2]]}
+
+
+def phase_dryrun(seed: int) -> dict:
+    """The multichip dry run on DRYRUN_RANKS ranks of this card; returns
+    the flash launches of (c)'s servers, summed over the ranks."""
+    t0 = time.perf_counter()
+    refs = _dryrun_references(seed)
+    ranks, wall = _spawn_ranks("dryrun", "", seed, DRYRUN_RANKS)
+    errors = []
+    # (a) the five programs: every rank ran them to the end (each raises as
+    # its JAX counterpart does); rank 0 printed the lines.
+    lines = ranks[0]["programs"]["lines"]
+    if len(lines) != 6 or not all(x.startswith("dryrun_multichip OK: ")
+                                  for x in lines):
+        errors.append(f"(a): lines {lines}")
+    # (b) the transformer program at full width, each step's loss against
+    # one process's same steps.
+    ref = _dryrun_transformer_reference()
+    tr = [r["transformer"] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(tr[0]["losses"],
+                                                ref["losses"])]
+    if not all(r <= MESH_LOSS_RTOL for r in rel):
+        errors.append(f"(b): losses {tr[0]['losses']} off one process's "
+                      f"{ref['losses']} ({rel})")
+    for a in tr:
+        if not all(np.isfinite(a["losses"])):
+            errors.append(f"(b): losses {a['losses']} on {a['coords']}")
+        same = [b for b in tr if {k: v for k, v in b["coords"].items()
+                                  if k != "dp"} == {k: v for k, v in
+                                                    a["coords"].items()
+                                                    if k != "dp"}]
+        if any(b["dp_replicated_crc"] != a["dp_replicated_crc"]
+               for b in same):
+            errors.append(f"(b): the dp replicas of {a['coords']} differ")
+    # (c) the serve program at full width.
+    ref_seqs = np.load(_dryrun_file())["ref"]
+    qlens = np.array([n for n, _ in DRYRUN_REQUESTS])
+    server = (ref_seqs, qlens, SPEC_SERVE_MAX_LEN, True)
+    _tp_ties(ranks, _dryrun_serve_model(), seed,
+             lambda s: {"server": server, "spec_server": server}, errors,
+             "(c)")
+    layers = _dryrun_serve_model()["n_layers"]
+    n_req = len(DRYRUN_REQUESTS)
+    want = {"server": n_req * layers, "spec_server": 2 * n_req * layers}
+    for r in ranks:
+        s = r["serve"]
+        if s["kv_heads"] != 1:
+            errors.append(f"(c): {s['kv_heads']} kv heads a rank")
+        for name, n_fwd in want.items():
+            row = s[name]
+            if (row["launches"] != {"flash_fwd": n_fwd, "flash_dq": 0,
+                                    "flash_dkv": 0} or row["input_copies"]
+                    or row["heads"] != [(4, 1)]):
+                errors.append(f"(c) {name}: launches {row['launches']} "
+                              f"(want {n_fwd} forwards), heads "
+                              f"{row['heads']}, copies "
+                              f"{row['input_copies']}")
+    for r in ranks:
+        for name in ("server", "spec_server"):
+            r["serve"][name].pop("seen", None)
+    summary = dict(
+        ranks=DRYRUN_RANKS, wall_s=time.perf_counter() - t0,
+        ranks_wall_s=wall, part_s=[r["seconds"] for r in ranks],
+        programs=ranks[0]["programs"],
+        transformer=dict(model=DRYRUN_MODEL, batch=DRYRUN_BATCH,
+                         seq=DRYRUN_SEQ, steps=DRYRUN_STEPS,
+                         reference=ref, loss_rel=rel, ranks=tr),
+        serve=dict(mesh=DRYRUN_SERVE_MESH, requests=DRYRUN_REQUESTS,
+                   reference=refs, runs=[r["serve"] for r in ranks]),
+        card=CARD)
+    out = _dryrun_file().with_name("dryrun.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(summary, default=str))
+    log("dryrun", **{k: v for k, v in summary.items()
+                     if k not in ("transformer", "serve")},
+        transformer_losses=tr[0]["losses"],
+        reference_losses=ref["losses"], loss_rel=rel,
+        step_s=[a["step_s"] for a in tr],
+        peak_mem_gb=[a["peak_mem_gb"] for a in tr],
+        dropped=tr[0]["dropped"],
+        serve_tokens_per_s={n: [r["serve"][n]["tokens_per_s"] for r in ranks]
+                            for n in want},
+        serve_divergences={n: [r["serve"][n]["divergences"] for r in ranks]
+                           for n in want},
+        tokens_per_round=[r["serve"]["spec_server"]["tokens_per_round"]
+                          for r in ranks])
+    if errors:
+        raise AssertionError("dryrun phase: " + "; ".join(errors))
+    launches = {k: 0 for k in COUNTERS}
+    for r in ranks:
+        for name in want:
+            for k in COUNTERS:
+                launches[k] += r["serve"][name]["launches"][k]
+    return launches
+
+
 # The paths of the other kernel routes, each a user's training run through
 # the trainer's entry points (create_train_state, make_train_step; adamw,
 # no remat) for PATH_STEPS steps on one batch of random tokens, held to the
@@ -5663,11 +6013,11 @@ PATH_CASES = [(b, s, s, MODEL_WIDE["n_heads"], MODEL_WIDE["n_kv_heads"],
 
 def _kernel_cases(cases, forward: bool = False) -> list:
     """PATH_CASES, then `cases` with their 16 q heads, then MESH_CASES and
-    MESH6C_CASES (and, for the forward, MESH6C_FWD_CASES), as (b, sq, sk,
-    h, hk, causal, window, dtype, d)."""
+    MESH6C_CASES (and, for the forward, MESH6C_FWD_CASES and
+    DRYRUN_FWD_CASES), as (b, sq, sk, h, hk, causal, window, dtype, d)."""
     return (PATH_CASES + [(b, sq, sk, 16, *rest) for b, sq, sk, *rest in cases]
             + MESH_CASES + MESH6C_CASES
-            + (MESH6C_FWD_CASES if forward else []))
+            + (MESH6C_FWD_CASES + DRYRUN_FWD_CASES if forward else []))
 
 
 def _path_losses(cfg, dt, shape, impl, seed) -> list:
@@ -5760,31 +6110,45 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_card()
-    phase_build()
-    fwd_rows = phase_kernels(args.seed)
-    bwd_rows = phase_bwd_kernels(args.seed)
-    params = phase_model(args.seed)
-    phase_serve(args.seed, params)
-    phase_swap(args.seed, params)
-    phase_spec(args.seed, params)
+    seconds = {}
+
+    def timed(fn, *a):
+        """fn(*a), its seconds kept under the phase's name."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            seconds[fn.__name__.removeprefix("phase_")] = (
+                time.perf_counter() - t0)
+
+    seed = args.seed
+    timed(phase_card)
+    timed(phase_build)
+    fwd_rows = timed(phase_kernels, seed)
+    bwd_rows = timed(phase_bwd_kernels, seed)
+    params = timed(phase_model, seed)
+    timed(phase_serve, seed, params)
+    timed(phase_swap, seed, params)
+    timed(phase_spec, seed, params)
     del params
     torch.cuda.empty_cache()
-    launches = phase_paths(args.seed)
-    train_launches, train = phase_train(args.seed)
+    launches = timed(phase_paths, seed)
+    train_launches, train = timed(phase_train, seed)
     launches.update(train_launches)
-    phase_elastic(args.seed, train)
-    phase_zero(args.seed, train)
-    phase_remat(args.seed)
-    vgg = phase_vgg(args.seed)
-    by_path = {"train": train_launches, "moe": phase_moe(args.seed)}
-    by_path["qlora"], qlora_first_loss = phase_qlora(args.seed)
-    phase_a2a(args.seed)
-    by_path["sp"] = phase_sp(args.seed)
-    by_path["pipe"] = phase_pipe(args.seed)
-    by_path["mesh"], mesh_losses = phase_mesh(args.seed, train, vgg)
-    by_path["dcn_mesh"] = phase_dcn_mesh(args.seed, train, mesh_losses)
-    by_path["mesh6c"] = phase_mesh6c(args.seed, qlora_first_loss)
+    timed(phase_elastic, seed, train)
+    timed(phase_zero, seed, train)
+    timed(phase_remat, seed)
+    vgg = timed(phase_vgg, seed)
+    by_path = {"train": train_launches, "moe": timed(phase_moe, seed)}
+    by_path["qlora"], qlora_first_loss = timed(phase_qlora, seed)
+    timed(phase_a2a, seed)
+    by_path["sp"] = timed(phase_sp, seed)
+    by_path["pipe"] = timed(phase_pipe, seed)
+    by_path["mesh"], mesh_losses = timed(phase_mesh, seed, train, vgg)
+    by_path["dcn_mesh"] = timed(phase_dcn_mesh, seed, train, mesh_losses)
+    by_path["mesh6c"] = timed(phase_mesh6c, seed, qlora_first_loss)
+    by_path["dryrun"] = timed(phase_dryrun, seed)
+    log("seconds", **seconds)
     src = "tpunet_torch/csrc/"
     rows = {**fwd_rows, **bwd_rows}
     kernels = []

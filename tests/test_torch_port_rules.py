@@ -1,5 +1,6 @@
 """The port stands alone: nothing under tpunet_torch/ (nor chip_smoke.py,
-chip_compare.py and chip_broadcast_soak.py) imports JAX, flax, optax, orbax or the JAX package,
+chip_compare.py, chip_broadcast_soak.py and chip_tp_generate_check.py)
+imports JAX, flax, optax, orbax or the JAX package,
 importing the port leaves them out of sys.modules, and its entry points
 refuse to fall back to the CPU when no GPU is present."""
 
@@ -21,7 +22,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpunet")
 def _port_files():
     return sorted((REPO / "tpunet_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "chip_compare.py",
-        REPO / "chip_broadcast_soak.py"]
+        REPO / "chip_broadcast_soak.py", REPO / "chip_tp_generate_check.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:

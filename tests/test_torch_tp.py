@@ -288,7 +288,7 @@ def test_mesh_refusals_and_later_options():
     of test_torch_dcn_mesh.py, test_torch_tp_serve.py,
     test_torch_tp_quant_lora.py and test_torch_ep_moe.py hold them to JAX
     over 4 and 8 ranks). The disaggregated serving tiers still refuse a
-    mesh model, naming the dry run (ROADMAP A.8b)."""
+    mesh model, naming their item (ROADMAP A.12)."""
     from tpunet_torch import distributed
     from tpunet_torch.serve import PrefillEngine
 
@@ -297,7 +297,7 @@ def test_mesh_refusals_and_later_options():
     m = Transformer(mesh=mesh, tp_axis="mdl", device="meta", **cfg)
     tx = adamw(LR)
     local = m.local_params(m.init_params(seed=0, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.8b"):
+    with pytest.raises(NotImplementedError, match="A.12"):
         PrefillEngine(m, local, max_len=16, device="cpu")
     distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
     try:

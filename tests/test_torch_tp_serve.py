@@ -178,18 +178,18 @@ def test_tp_batch_server_matches_unsharded_generate(case):
 
 def test_single_rank_serving_tiers_refuse_a_mesh_model():
     """The disaggregated tiers (PrefillEngine, DecodeWorker, KV shipping
-    into a BatchServer) stay single-rank: a mesh model raises, naming the
-    dry run's item; a BatchServer over the mesh itself builds."""
+    into a BatchServer) stay single-rank: a mesh model raises, naming their
+    item (ROADMAP A.12); a BatchServer over the mesh itself builds."""
     mesh = Mesh(np.arange(4).reshape(2, 2), ("dp", "mdl"), rank=0)
     m = Transformer(compute_dtype=torch.float32, mesh=mesh, tp_axis="mdl",
                     device="meta", **GQA)
     local = m.local_params(m.init_params(seed=0, device="cpu"))
     assert tuple(local["block0.attn.k.weight"].shape) == (8, 32)
-    with pytest.raises(NotImplementedError, match="A.8b"):
+    with pytest.raises(NotImplementedError, match="A.12"):
         PrefillEngine(m, local, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8b"):
+    with pytest.raises(NotImplementedError, match="A.12"):
         DecodeWorker(m, local, None, slots=1, max_len=16)
     srv = BatchServer(m, local, slots=1, max_len=16, device="cpu")
     assert srv.kv_leaf_shapes(3)[0] == (3, 1, 8)   # one kv head of two
-    with pytest.raises(NotImplementedError, match="A.8b"):
+    with pytest.raises(NotImplementedError, match="A.12"):
         srv.submit_kv(np.arange(3), 2, [], np.zeros(64))

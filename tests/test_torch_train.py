@@ -11,7 +11,10 @@
 - the byte tokenizer equals the JAX package's;
 - checkpoints, ``fit`` (schedule, resume, cadence) and the data pipeline
   (``token_batches`` equals the JAX package's, ``prefetch_to_device`` on the
-  CPU).
+  CPU);
+- two data-parallel ranks that share a checkpoint directory, or keep one
+  each: each step is saved once a directory, and both resume at one step
+  (a spawn of torch-only ranks, tests/torch_mesh_ranks.py).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from tpunet_torch.ops import blockwise_cross_entropy
 from tpunet_torch.train import (CheckpointManager, StepAlreadyExistsError,
                                 adamw, create_train_state, fit,
                                 make_train_step)
+from torch_mesh_ranks import spawn
 
 CFG = dict(vocab=64, d_model=64, n_layers=2, n_heads=4, d_ff=128)
 SMALL = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, d_ff=64)
@@ -340,6 +344,59 @@ def test_fit_logs_evals_prefetch_and_exhaustion(setup, tmp_path):
                    checkpoint_dir=str(tmp_path / "ck0"))
     assert zero.step == 0
     assert CheckpointManager(tmp_path / "ck0").latest_step() == 0
+
+
+STEPS_SAVED = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _replicated_checkpoints(base: str) -> dict:
+    """One spawn of two data-parallel ranks, two cases: each runs
+    fit(checkpoint_every=1) into a shared directory ("shared") or into one
+    a rank ("own"), the second rank reaching each save 0.2 s late, and
+    then resumes from a fresh state."""
+    return spawn(2, {own: ("shared_checkpoint", dict(
+        directory=f"{base}/{own}", cfg=SMALL, steps=STEPS_SAVED,
+        own=own == "own")) for own in ("shared", "own")})
+
+
+def _replicated_checkpoint(tmp_path_factory, case):
+    res = _replicated_checkpoints(str(tmp_path_factory.getbasetemp()
+                                      / "replicated_ckpt"))
+    steps = STEPS_SAVED
+    want = [f"{s}.pt" for s in range(1, steps + 1)]
+    for rank, r in res.items():
+        got = r[case]
+        assert isinstance(got, dict), f"rank {rank}: {got}"
+        assert got["files"] == want
+        assert got["steps"] == list(range(1, steps + 2))
+        assert got["again"] == "raised StepAlreadyExistsError", got["again"]
+        assert got["restored"] == [True] * steps
+        # Every rank resumes at the last step and takes one more.
+        assert list(got["resumed_from"]) == [steps], got["resumed_from"]
+    for k, v in res[0][case].items():
+        if k.startswith("resumed:"):
+            np.testing.assert_array_equal(res[1][case][k], v, err_msg=k)
+    return {rank: r[case] for rank, r in res.items()}, want
+
+
+def test_replicated_checkpoint_in_a_shared_directory(tmp_path_factory):
+    """Ranks that share the directory: rank 0 alone writes each step's
+    one file (a second rank's write of it would raise
+    StepAlreadyExistsError), a second save of a step raises on both, and
+    a restore on each rank gives the params fit() had at that step."""
+    res, want = _replicated_checkpoint(tmp_path_factory, "shared")
+    assert res[0]["writes"] == want + [f"{len(want) + 1}.pt"]
+    assert res[1]["writes"] == []
+
+
+def test_replicated_checkpoint_in_a_directory_a_rank(tmp_path_factory):
+    """Ranks with a directory each (a host's own disk): every rank writes
+    every step into its own, and each resumes from its own at the same
+    step."""
+    res, want = _replicated_checkpoint(tmp_path_factory, "own")
+    for r in res.values():
+        assert r["writes"] == want + [f"{len(want) + 1}.pt"]
 
 
 @pytest.mark.parametrize("world", [1, 2])

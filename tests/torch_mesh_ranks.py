@@ -1,7 +1,8 @@
 """The spawned ranks of the port's mesh tests (test_torch_mesh.py,
 test_torch_inpod_attention.py, test_torch_gpipe.py, test_torch_tp.py,
-test_torch_tp_serve.py, test_torch_tp_quant_lora.py, test_torch_ep_moe.py
-and the in-pod model cases of test_torch_parallel.py), in a module that
+test_torch_tp_serve.py, test_torch_tp_quant_lora.py, test_torch_ep_moe.py,
+test_torch_dryrun.py, the shared checkpoint of test_torch_train.py and the
+in-pod model cases of test_torch_parallel.py), in a module that
 imports no JAX, so that they start fast: every case of one world size runs
 in one spawn. A mesh device is a rank, so a mesh of N devices takes N of
 them; the meshes a spawn needs are built once, in case order, on every
@@ -14,7 +15,10 @@ type and message of the exception it raised."""
 
 from __future__ import annotations
 
+import os
+import pickle
 import socket
+import tempfile
 import traceback
 
 import numpy as np
@@ -139,7 +143,118 @@ def generate(axes, cfg, params, prompt, max_new, temperature=0.0,
     gen = torch.Generator().manual_seed(seed)
     out = port_generate(tm, local, shard(_t(prompt), mesh, P("dp")), max_new,
                         temperature=temperature, top_k=top_k, generator=gen)
-    return {"tokens": _np(unshard(out, mesh, P("dp"))), "local": _np(out)}
+    return {"tokens": _np(unshard(out, mesh, P("dp"))), "local": _np(out),
+            "kv_heads": np.array(tm.local_kv_heads())}
+
+
+def grads(axes, cfg, params, tokens, labels, tp_axis="mdl"):
+    """The mean cross-entropy of the global `tokens` (every rank the whole
+    batch) through the model over the mesh, and its gradient of each full
+    leaf ("grad:<name>", the rank's blocks gathered)."""
+    from tpunet_torch.parallel import unshard
+    from tpunet_torch.parallel.mesh import shard_params
+
+    mesh = _mesh(axes)
+    tm = _model(axes, cfg, tp_axis, dp_axis=None)
+    specs, local = shard_params({n: _t(a) for n, a in params.items()}, mesh,
+                                tm.partition_rules())
+    local = {k: torch.nn.Parameter(v.clone()) for k, v in local.items()}
+    logits = tm.bind(local, trainable=True)(_t(tokens).long())
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), _t(labels).long().reshape(-1))
+    loss.backward()
+    return {"loss": _np(loss), **{
+        f"grad:{k}": _np(unshard(t.grad, mesh, specs[k]))
+        for k, t in local.items()}}
+
+
+def dryrun(program, n, params=None, **kw):
+    """One program of ``tpunet_torch.dryrun`` on the CPU over the world's
+    `n` ranks, from `params` (the port's init without them); `kw` goes to
+    the program (gather, tx)."""
+    from tpunet_torch import dryrun as port_dryrun
+
+    return port_dryrun.PROGRAMS[program](n, params, device="cpu", **kw)
+
+
+def shared_checkpoint(directory, cfg, steps, own=False):
+    """fit() with a checkpoint a step in `directory`, which every rank of
+    the data-parallel world shares (a replicated state off a mesh), or,
+    with `own`, in a directory a rank under it; rank 1 reaches each save
+    0.2 s after the others. Then each rank saves the last step again
+    (StepAlreadyExistsError or not), restores every step, and resumes
+    with a second fit() of one more step from a fresh state. Reports the
+    writes of step files this rank made, the files of its directory after
+    the first run, whether each restore gives the params fit() returned at
+    that step, the second save's outcome, the step the resumed run
+    started from and its params."""
+    import time
+    from pathlib import Path
+
+    from tpunet_torch import distributed
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.train import (CheckpointManager, adamw,
+                                    create_train_state, fit, make_train_step)
+    from tpunet_torch.train import checkpoint as ckpt
+
+    rank = distributed.rank()
+    if own:
+        directory = str(Path(directory) / f"rank{rank}")
+    writes, trained, seen = [], {}, []
+    atomic, save = ckpt._atomic_save, ckpt.CheckpointManager.save
+
+    def counted(payload, path):
+        writes.append(path.name)
+        return atomic(payload, path)
+
+    def late(self, step, state, *a, **kw):
+        if rank == 1:
+            time.sleep(0.2)
+        return save(self, step, state, *a, **kw)
+
+    ckpt._atomic_save, ckpt.CheckpointManager.save = counted, late
+    model = Transformer(compute_dtype=torch.float32, device="meta", **cfg)
+    tx = adamw(1e-2)
+    state, _ = create_train_state(model, 0, None, tx, device="cpu")
+    step = make_train_step(model, tx, cross_host=True)
+    rng = np.random.default_rng(rank)
+    batches = [(_t(x).long(), _t(np.roll(x, -1, axis=1)).long()) for x in (
+        rng.integers(0, cfg["vocab"], (2, 8)) for _ in range(steps + 1))]
+
+    def record(st, *a):
+        seen.append(int(st.step))
+        out = step(st, *a)
+        trained[out[0].step] = {k: v.detach().clone()
+                                for k, v in out[0].params.items()}
+        return out
+
+    try:
+        state = fit(state, record, iter(batches[:steps]), steps=steps,
+                    checkpoint_dir=directory, checkpoint_every=1,
+                    max_to_keep=None, log_every=0)
+        files = sorted(f.name for f in Path(directory).iterdir())
+        mgr = CheckpointManager(directory, max_to_keep=None)
+        try:
+            mgr.save(steps, state)
+            again = "saved"
+        except ckpt.StepAlreadyExistsError:
+            again = "raised StepAlreadyExistsError"
+        distributed.global_communicator().barrier()
+        fresh, _ = create_train_state(model, 9, None, tx, device="cpu")
+        restored = [all(torch.equal(mgr.restore(s, fresh).params[k], v)
+                        for k, v in trained[s].items())
+                    for s in range(1, steps + 1)]
+        del seen[:]
+        resumed = fit(fresh, record, iter(batches), steps=steps + 1,
+                      checkpoint_dir=directory, checkpoint_every=1,
+                      max_to_keep=None, log_every=0,
+                      skip_batches_on_resume=True)
+    finally:
+        ckpt._atomic_save, ckpt.CheckpointManager.save = atomic, save
+    return {"writes": writes, "files": files, "again": again,
+            "restored": restored, "steps": mgr.all_steps(),
+            "resumed_from": seen, **{
+                f"resumed:{k}": _np(v) for k, v in resumed.params.items()}}
 
 
 def serve(axes, cfg, params, requests, server, draft_params=None,
@@ -334,16 +449,21 @@ def _collectives(mesh, interop, unshard, P, smap):
     return res
 
 
-CASES = {f.__name__: f for f in (attention, model, generate, serve, gpipe,
-                                 train_step, vgg_forward, hierarchical,
-                                 collectives)}
+CASES = {f.__name__: f for f in (attention, model, generate, grads, serve,
+                                 gpipe, train_step, vgg_forward, hierarchical,
+                                 collectives, dryrun, shared_checkpoint)}
 
 
 def rank_worker(rank, world, port, q, cases):
-    """cases: {name: (case function name, kwargs)}; reports {name: {key:
-    array}, or "raised <type>: <message>"} in case order."""
+    """cases: {name: (case function name, kwargs)}, or the path of a file
+    that pickles them; reports {name: {key: array}, or "raised <type>:
+    <message>"} in case order."""
     try:
         from tpunet_torch import distributed
+
+        if isinstance(cases, str):
+            with open(cases, "rb") as f:
+                cases = pickle.load(f)
 
         torch.set_num_threads(1)
         distributed.initialize(f"127.0.0.1:{port}", rank, world)
@@ -362,9 +482,10 @@ def rank_worker(rank, world, port, q, cases):
         q.put((rank, "FAIL", traceback.format_exc()))
 
 
-def spawn(world: int, cases: dict, timeout: float = 240.0) -> dict:
-    """Every case in one spawn of `world` port ranks: {rank: {case:
-    result}}."""
+def start(world: int, cases: dict, timeout: float = 240.0):
+    """Start every case in one spawn of `world` port ranks; returns a
+    function that waits for them: {rank: {case: result}}. The test process
+    may work meanwhile."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -372,19 +493,35 @@ def spawn(world: int, cases: dict, timeout: float = 240.0) -> dict:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    procs = [ctx.Process(target=rank_worker, args=(r, world, port, q, cases))
+    # The cases go through a file: a start() whose arguments outgrow the
+    # pipe waits for its child to import this module.
+    fd, path = tempfile.mkstemp(suffix=".pkl")
+    with os.fdopen(fd, "wb") as f:
+        pickle.dump(cases, f)
+    procs = [ctx.Process(target=rank_worker, args=(r, world, port, q, path))
              for r in range(world)]
     for p in procs:
         p.start()
-    out = {}
-    try:
-        for _ in procs:
-            rank, status, payload = q.get(timeout=timeout)
-            assert status == "OK", f"rank {rank}: {payload}"
-            out[rank] = payload
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-    return out
+
+    def collect() -> dict:
+        out = {}
+        try:
+            for _ in procs:
+                rank, status, payload = q.get(timeout=timeout)
+                assert status == "OK", f"rank {rank}: {payload}"
+                out[rank] = payload
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+            os.unlink(path)
+        return out
+
+    return collect
+
+
+def spawn(world: int, cases: dict, timeout: float = 240.0) -> dict:
+    """Every case in one spawn of `world` port ranks: {rank: {case:
+    result}}."""
+    return start(world, cases, timeout)()

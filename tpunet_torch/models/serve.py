@@ -60,7 +60,7 @@ def refuse_mesh(model, what: str) -> None:
     if getattr(model, "mesh", None) is not None:
         raise NotImplementedError(
             f"{what} with a model over a mesh: the disaggregated serving "
-            "tiers are single-rank (the multichip dry run is ROADMAP A.8b); "
+            "tiers are single-rank (their mesh models are ROADMAP A.12); "
             "serve a mesh model with BatchServer on every rank")
 
 

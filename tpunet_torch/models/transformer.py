@@ -210,19 +210,54 @@ class Dense(nn.Module):
         return _row_sum(self, self.partial(x))
 
 
-def _tp_input(x, *layers):
-    """x as the input of `layers`: through ``pvary`` when they are
-    column-parallel blocks (they must agree), as it is when whole."""
-    kinds = {getattr(m, "kind", lambda: None)() for m in layers}
-    if len(kinds) > 1:
-        raise ValueError(
-            "tensor parallelism: the layers reading one input must all be "
-            "sharded or all whole (e.g. n_kv_heads divisible by the tp "
-            f"axis), got {sorted(map(str, kinds))}")
-    if kinds == {"column"}:
-        mesh, axis = layers[0].tp
+def _tp_input(x, layer):
+    """x as the input of `layer` (and of the layers split as it is):
+    through ``pvary`` when it is a column-parallel block, as it is
+    otherwise."""
+    if layer.kind() == "column":
+        mesh, axis = layer.tp
         return pvary(x, axis, mesh=mesh)
     return x
+
+
+def _head_layout(n_heads: int, n_kv: int, head_dim: int, q_block: int,
+                 index: int) -> tuple:
+    """The heads rank `index` of a TP attention computes, from its block of
+    `q_block` of q's output columns: its q columns (c0, c1), the q heads
+    they touch (h0, h1), and the kv heads those read, one entry a local kv
+    head: a run of whole groups, the one head of a part of a group, or
+    (heads that cut groups unevenly) one a q head."""
+    c0 = index * q_block
+    c1 = c0 + q_block
+    h0, h1 = c0 // head_dim, -(-c1 // head_dim)
+    g = n_heads // n_kv
+    if h0 % g == 0 and (h1 - h0) % g == 0:
+        kv = list(range(h0 // g, h1 // g))
+    elif h0 // g == (h1 - 1) // g:
+        kv = [h0 // g]
+    else:
+        kv = [h // g for h in range(h0, h1)]
+    return (c0, c1), (h0, h1), kv
+
+
+def _tp_columns(layer, y, start: int, stop: int, tp):
+    """Columns [start, stop) of the whole output of `layer`, whose output
+    on this rank is `y` (its column block, or the whole output), for work
+    that differs across the tp axis `tp` = (mesh, axis). A block that holds
+    them is sliced; a block that does not is gathered over the axis first
+    (``all_gather`` whose backward is a ``psum_scatter``: each rank's
+    gradient of the others' columns goes to their owner); a whole output
+    goes through ``pvary`` (the ranks' gradients of it are summed)."""
+    mesh, axis = tp
+    if layer.kind() == "column":
+        lo = mesh.axis_index(axis) * y.shape[-1]
+        if lo <= start and stop <= lo + y.shape[-1]:
+            return y[..., start - lo:stop - lo]
+        y = all_gather(y, axis, axis=y.dim() - 1, tiled=True, mesh=mesh,
+                       varying=True)
+    else:
+        y = pvary(y, axis, mesh=mesh)
+    return y[..., start:stop]
 
 
 class QuantDense(nn.Module):
@@ -366,13 +401,8 @@ class SelfAttention(nn.Module):
             raise ValueError(
                 f"attn_window is only supported by attn_impl 'reference'/"
                 f"'flash', not {self.attn_impl!r}")
-        x = _tp_input(x, self.q, self.k, self.v)
-        q, k, v = self.q(x), self.k(x), self.v(x)
-        # This rank's heads: all of them, or its block under TP.
-        h, kv = q.shape[-1] // dh, k.shape[-1] // dh
-        q = q.reshape(b, s, h, dh)
-        k = k.reshape(b, s, kv, dh)
-        v = v.reshape(b, s, kv, dh)
+        q, k, v, keep = self._heads(x)
+        h = q.shape[2]
         if cache is not None:
             if self.attn_impl in SP_IMPLS:
                 # The cached step is dense local attention: wrong for a
@@ -389,7 +419,38 @@ class SelfAttention(nn.Module):
             q, k = rotary_embed(q), rotary_embed(k)
             o = _causal_kernel_attention(q, k, v, self.attn_impl,
                                          self.attn_window)
-        return self.out(o.reshape(b, s, h * dh))
+        return self.out(o.reshape(b, s, h * dh)[..., keep])
+
+    def _heads(self, x):
+        """q (b, s, h, dh) and k, v (b, s, kv, dh) of this rank's heads, and
+        the attention output's columns its out block reads: all of them,
+        or under TP the q heads its block of q's columns touches and the
+        kv heads those read (``_head_layout``), wherever the partition
+        rules cut k and v: whole heads, part of a head (gathered over the
+        tp axis) or not at all."""
+        b, s, _ = x.shape
+        dh = self.head_dim
+        xq = _tp_input(x, self.q)
+        q = self.q(xq)
+        if self.q.kind() != "column":
+            k, v = self.k(x), self.v(x)
+            return (q.reshape(b, s, -1, dh), k.reshape(b, s, -1, dh),
+                    v.reshape(b, s, -1, dh), slice(None))
+        tp = self.q.tp
+        (c0, c1), (h0, h1), kvh = _head_layout(
+            self.n_heads, self.n_kv_heads, dh, q.shape[-1],
+            tp[0].axis_index(tp[1]))
+        q = _tp_columns(self.q, q, h0 * dh, h1 * dh, tp)
+        g0, g1 = min(kvh), max(kvh) + 1
+        out = [q.reshape(b, s, h1 - h0, dh)]
+        for layer in (self.k, self.v):
+            y = layer(xq if layer.kind() == "column" else x)
+            y = _tp_columns(layer, y, g0 * dh, g1 * dh, tp).reshape(
+                b, s, g1 - g0, dh)
+            if len(kvh) != g1 - g0:   # one kv head a q head
+                y = y[:, :, [g - g0 for g in kvh]]
+            out.append(y)
+        return (*out, slice(c0 - h0 * dh, c1 - h0 * dh))
 
     def _sequence_parallel(self, q, k, v):
         """Causal attention of this rank's sequence shard, across the
@@ -561,8 +622,7 @@ class Mlp(nn.Module):
         self.down = _dense(d_ff, d_model, dt, device, wq, *lora)
 
     def forward(self, x):
-        x = _tp_input(x, *([self.gate] if self.mlp_impl == "swiglu" else []),
-                      self.up)
+        x = _tp_input(x, self.up)   # gate, where there is one, splits alike
         if self.mlp_impl == "swiglu":
             h = F.silu(self.gate(x)) * self.up(x)
         else:
@@ -939,20 +999,25 @@ class Transformer(nn.Module):
         return shard_params(params, self.mesh, self.partition_rules())[1]
 
     def local_kv_heads(self) -> int:
-        """The kv heads this rank's attention holds: all of them, or its
-        block of them when the partition rules split the k projection
-        over tp_axis (the decode cache's width)."""
+        """The kv heads this rank's attention holds (the decode cache's
+        width): all of them, or under TP, when the partition rules split
+        the q projection over tp_axis, the kv heads its q heads read
+        (``_head_layout``), wherever the rules cut k and v."""
         kv = self.n_kv_heads or self.n_heads
         if self.mesh is None or self.tp_axis is None:
             return kv
         from tpunet_torch.parallel.mesh import leaf_spec
 
         name, p = next((n, p) for n, p in self.named_parameters()
-                       if n.startswith("block0.attn.k."))
+                       if n.startswith("block0.attn.q."))
         spec = leaf_spec(name, tuple(p.shape), self.mesh,
                          self.partition_rules())
-        split = any(a is not None for a in spec)
-        return kv // self.mesh.axis_size(self.tp_axis) if split else kv
+        if all(a is None for a in spec):
+            return kv
+        width = self.n_heads * self.head_dim // self.mesh.axis_size(
+            self.tp_axis)
+        return len(_head_layout(self.n_heads, kv, self.head_dim, width,
+                                self.mesh.axis_index(self.tp_axis))[2])
 
     def data_axes(self) -> tuple:
         """The mesh axes the data is sharded over: dp_axis, and sp_axis

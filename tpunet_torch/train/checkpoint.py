@@ -19,6 +19,23 @@ no shard. Restoring a ZeRO checkpoint into a state of another world size
 (or another rank) raises: a world change invalidates the sharded state
 (the elastic caveat of ``make_zero_train_step``).
 
+A replicated state off a mesh in a world of more than one rank
+(``tpunet_torch.distributed``) is one state on every rank, and its ranks
+may share a directory or keep one each (a host's disk). Each step is
+saved once a directory: every rank calls ``save``, the lowest rank that
+sees a directory writes ``<step>.pt`` there (and applies ``max_to_keep``),
+and every rank returns once the files are in place, so a restore on any
+rank reads its directory's file. Which ranks share a directory is found
+once a manager, collectively: each rank drops a probe file named by a
+nonce of rank 0 and its rank, and a rank that sees a lower rank's probe
+leaves the writing to it. Whether a step exists is any rank's view, given
+to every rank, so a second save of a step raises StepAlreadyExistsError
+on every rank or on none; ``has`` is a collective for such a state, and
+``latest_step(state)`` is rank 0's view on every rank, so ``fit()``
+resumes every rank at one step. (The JAX package's processes are not one
+``jax.distributed`` world, so each of its orbax managers writes a full
+checkpoint of its own, and two of them in one directory would collide.)
+
 A state over a mesh (``parallel.mesh``; either kind) holds this rank's
 BLOCKS, which differ across the mesh, so its files carry the mesh
 coordinates and the host: ``<step>.mesh-dp=0,mdl=1,host=0.pt`` and, for
@@ -54,6 +71,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpunet_torch import distributed
 from tpunet_torch.train.trainer import TrainState, _zero_layout
 
 _STEP_FILE = re.compile(r"^(\d+)(?:\.mesh-[^.]*)?\.pt$")
@@ -102,6 +120,18 @@ def _check_layout(saved: dict | None, target_opt) -> None:
             f"the checkpoint holds the blocks of {saved or 'no mesh'} and "
             f"the target those of {want or 'no mesh'}: a mesh state "
             "restores only into the same mesh shape and coordinates")
+
+
+def _world(state: TrainState):
+    """The world's communicator when `state` is one replicated state on
+    every rank of a world of more than one (off a mesh, not ZeRO), whose
+    steps are saved once a directory; None otherwise."""
+    if (_zero_geometry(state.opt_state) is not None
+            or _layout(state.opt_state) is not None
+            or not distributed.is_initialized()):
+        return None
+    comm = distributed.global_communicator()
+    return comm if comm.world_size > 1 else None
 
 
 def _atomic_save(payload, path: Path) -> None:
@@ -196,6 +226,9 @@ class CheckpointManager:
         self._dir = Path(directory).absolute()
         self._dir.mkdir(parents=True, exist_ok=True)
         self._max_to_keep = max_to_keep
+        # Whether this rank writes a world-replicated state's steps here:
+        # found by the first save or has() of one (`_writes`).
+        self._writer: bool | None = None
 
     def _path(self, step: int, state: TrainState) -> Path:
         """The step's file of `state`'s layout."""
@@ -206,32 +239,72 @@ class CheckpointManager:
         return self._dir / (f"{int(step)}{_tag(_layout(state.opt_state))}"
                             f".zero-{zero['rank']}-of-{zero['world']}.pt")
 
-    def has(self, step: int, state: TrainState) -> bool:
-        """Whether `state`'s checkpoint of `step` exists: the step's file
-        of its layout, and for a ZeRO state this rank's shard (other ranks
-        may have written the step's file already)."""
+    def _writes(self, comm) -> bool:
+        """Whether this rank writes a world-replicated state's steps into
+        its directory: no lower rank sees the directory. Each rank drops a
+        probe named by rank 0's nonce and its rank, and looks for the
+        lower ranks' probes. A collective, once a manager."""
+        if self._writer is None:
+            nonce = np.frombuffer(os.urandom(8), np.uint64).copy()
+            nonce = int(comm.broadcast(nonce)[0])
+            mine = self._dir / f".probe-{nonce:016x}-{comm.rank}"
+            mine.touch()
+            comm.barrier()
+            self._writer = not any(
+                (self._dir / f".probe-{nonce:016x}-{r}").exists()
+                for r in range(comm.rank))
+            comm.barrier()
+            mine.unlink()
+        return self._writer
+
+    def _found(self, step: int, state: TrainState) -> bool:
         zero = _zero_geometry(state.opt_state)
         return self._path(step, state).exists() and (
             zero is None or self._shard_path(step, state).exists())
 
+    def has(self, step: int, state: TrainState) -> bool:
+        """Whether `state`'s checkpoint of `step` exists: the step's file
+        of its layout, and for a ZeRO state this rank's shard (other ranks
+        may have written the step's file already). For a world-replicated
+        state (``_world``) it is a COLLECTIVE that every rank calls: True
+        on every rank when any rank's directory holds the step."""
+        found = self._found(step, state)
+        world = _world(state)
+        if world is not None:
+            found = bool(world.all_reduce(np.array([found], np.int32),
+                                          op="max")[0])
+        return found
+
     def save(self, step: int, state: TrainState, force: bool = False) -> bool:
-        path = self._path(step, state)
+        """Save `step`; a step that exists raises StepAlreadyExistsError
+        unless `force`. A world-replicated state is saved once a
+        directory, with every rank calling (a collective): it raises on
+        every rank or on none, and every rank returns True once the files
+        are in place."""
+        world = _world(state)
         if not force and self.has(step, state):
             raise StepAlreadyExistsError(
                 f"checkpoint for step {step} already exists in {self._dir}")
+        if world is None or self._writes(world):
+            self._write(step, state)
+        if world is not None:
+            world.barrier()
+        return True
+
+    def _write(self, step: int, state: TrainState) -> None:
         zero = _zero_geometry(state.opt_state)
         if zero is not None:
             # The shard first: a step's file never names a shard that was
             # not written.
             _atomic_save(state.opt_state.state_dict(),
                          self._shard_path(step, state))
-        _atomic_save(_state_payload(state, with_opt=zero is None), path)
+        _atomic_save(_state_payload(state, with_opt=zero is None),
+                     self._path(step, state))
         if self._max_to_keep is not None:
             for old in self.all_steps()[:-self._max_to_keep]:
                 for f in (self._dir / f"{old}.pt",
                           *self._dir.glob(f"{old}.*.pt")):
                     f.unlink(missing_ok=True)
-        return True
 
     def restore(self, step: int, target: TrainState) -> TrainState:
         """Restore a specific step into NEW tensors on the target's device
@@ -263,13 +336,23 @@ class CheckpointManager:
         return _restore_state(payload, opt_payload, target)
 
     def restore_latest(self, target: TrainState) -> TrainState | None:
-        """Resume from the newest checkpoint, or None if none exists."""
-        step = self.latest_step()
+        """Resume from the newest checkpoint, or None if none exists (for
+        a world-replicated target, rank 0's newest on every rank)."""
+        step = self.latest_step(target)
         return None if step is None else self.restore(step, target)
 
-    def latest_step(self) -> int | None:
+    def latest_step(self, state: TrainState | None = None) -> int | None:
+        """The newest step here, or None. Given a world-replicated
+        `state`, a collective: rank 0's newest, on every rank (a rank
+        whose directory lacks it raises on restore)."""
         steps = self.all_steps()
-        return steps[-1] if steps else None
+        latest = steps[-1] if steps else None
+        world = None if state is None else _world(state)
+        if world is not None:
+            got = world.broadcast(np.array(
+                [-1 if latest is None else latest], np.int64))[0]
+            latest = None if got < 0 else int(got)
+        return latest
 
     def all_steps(self) -> list[int]:
         return sorted({int(m.group(1)) for f in self._dir.iterdir()

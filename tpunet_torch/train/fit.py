@@ -58,7 +58,7 @@ def fit(state: TrainState, train_step: Callable, batches: Iterable, *,
             # Adopt the checkpoint only when it is AHEAD of the caller's
             # state: a newer state the caller restored elsewhere must not be
             # rolled back by an older local checkpoint.
-            latest = mgr.latest_step()
+            latest = mgr.latest_step(state)
             if latest is not None and latest > int(state.step):
                 state = mgr.restore(latest, state)
 
