@@ -384,18 +384,30 @@ Phases (each raises on failure; the script then exits non-zero):
            TP serving of the serve configuration at 6 of its 12 layers
            (bf16, flash on each rank's 8 heads and 2 kv heads, the decode
            cache of its kv heads): generate on 4 of the serve phase's prompt lengths cut
-           to the shortest (2 rows a dp rank), 64 greedy tokens; the
-           serve phase's 8 requests of 128..512 x 64 greedy tokens through
-           the plain BatchServer (slots 8, every rank the whole server)
-           and the int8 self-draft one (gamma 4). Gates: every rank of a
-           tp group holds the same tokens; each run's tokens equal the
-           one-process port's (generate; the plain BatchServer for both
-           servers) or a row diverges only at a tie (the spec phase's
-           rule, the path under test's half on the ranks, the
+           to the shortest (2 rows a dp rank), 32 greedy tokens, in f32
+           (the checkpoint widened) and in bf16; the serve phase's 8
+           requests of 128..512 x 64 greedy tokens through the plain
+           BatchServer (slots 8, every rank the whole server) and the
+           int8 self-draft one (gamma 4); then the disaggregated tiers
+           (ROADMAP A.12): the dp-0 group prefills the 8 requests (the
+           Router on its leader) and ships them on the f32 KV wire to the
+           dp-1 group, which decodes (slots 8, max_len 1024). Gates:
+           every rank of a tp group holds the same tokens; f32 generate's
+           tokens bitwise one process's f32 generate of the rank's rows
+           (ROADMAP C.19: a bf16 near-tie may part either way with the
+           batch, so bf16 generate's divergences are reported, not
+           gated); both servers' tokens equal the one-process plain
+           BatchServer's or a row diverges only at a tie (the spec
+           phase's rule, the path under test's half on the ranks, the
            reference's here; at the first generated column the prefills'
-           logits); flash launched once a layer a prefill on (8, 2) heads,
-           no copy; the peak a rank within 8 GB; the self-draft commits
-           more than one token a round. (b) the qlora phase's
+           logits); the tiers' tokens bitwise the dp-1 group's plain
+           server's, one digest of them on both decode ranks, every block
+           adopted and none prefilled there, collectives over mdl alone;
+           flash launched once a layer a prefill on (8, 2) heads (48 on
+           each prefill rank of the tiers, none on a decode rank), no
+           copy; the peak a rank within 8 GB; the self-draft commits
+           more than one token a round. Reports the tiers' seconds,
+           TTFT/TPOT p50 and KV wire bytes. (b) the qlora phase's
            configuration over the mesh (int8 q and scale and the adapters
            split by the partition rules), lora_optimizer(adamw(2e-4)), 4
            rows a dp rank of the train batches, 3 fit() steps, then 32
@@ -5119,14 +5131,16 @@ def phase_dcn_mesh(seed: int, train: dict, mesh_losses: list) -> dict:
 
 # One spawn of MESH_RANKS ranks over {dp: 2, mdl: 2}: (a) TP serving of the
 # serve configuration (generate on MESH6C_GEN_ROWS prompts cut to one
-# length, rows over dp, MESH6C_GEN_NEW greedy tokens; the serve phase's 8
-# requests through the plain and the int8 self-draft BatchServer); (b) the
+# length, rows over dp, MESH6C_GEN_NEW greedy tokens, in bf16 and in f32;
+# the serve phase's 8 requests through the plain and the int8 self-draft
+# BatchServer, and through the disaggregated tiers: the dp-0 group
+# prefills, the dp-1 group decodes, on the f32 KV wire); (b) the
 # qlora phase's configuration trained over the mesh for MESH6C_STEPS steps,
 # then MESH6C_INT8_NEW greedy tokens of int8 generate under TP; (c) the moe
 # phase's configuration with the experts over ep = dp, accum_steps
 # MESH6C_ACCUM and the fused cross-entropy (MESH6C_XENT_BLOCK).
 MESH6C_MESH = {"dp": 2, "mdl": 2}
-MESH6C_GEN_ROWS, MESH6C_GEN_NEW, MESH6C_INT8_NEW = 4, 64, 32
+MESH6C_GEN_ROWS, MESH6C_GEN_NEW, MESH6C_INT8_NEW = 4, 32, 32
 MESH6C_STEPS, MESH6C_ACCUM, MESH6C_XENT_BLOCK = 3, 2, 8192
 # (a)'s peak a rank: its blocks of the bf16 params (0.66 GB), the int8
 # self-draft's, the caches and a prefill's gathered f32 logits, with room.
@@ -5229,11 +5243,13 @@ def _server_seqs(model, params, prompts, news, width: int, slots: int,
 
 
 def _tp_servers(mesh, model, local, draft, dlocal, ref, prompts, news,
-                slots: int, pipeline: int, gamma: int, **plain) -> dict:
+                slots: int, pipeline: int, gamma: int, keep_seqs=False,
+                **plain) -> dict:
     """The plain (`plain`: its options) and the int8 self-draft (gamma
     `gamma`) BatchServer over the mesh, each against the one-process
     references `ref` ((n, L) prompt + tokens) with the path's half of the
-    tie rule: {"server": row, "spec_server": row}."""
+    tie rule: {"server": row, "spec_server": row}; with `keep_seqs` the
+    plain row keeps its (n, L) prompt + tokens under "seqs"."""
     qlens = np.array([len(q) for q in prompts])
     out = {}
     for name, kw, g in (
@@ -5247,6 +5263,8 @@ def _tp_servers(mesh, model, local, draft, dlocal, ref, prompts, news,
         out[name] = dict(c, stats=st, tokens_per_s=sum(news) / c["s"],
                          **_mesh6c_held(mesh, name, model, local, ref, seqs,
                                         qlens, cap, True, g))
+        if keep_seqs and not g:
+            out[name]["seqs"] = seqs
         if g:
             out[name]["tokens_per_round"] = (
                 st["spec_committed"] / max(st["spec_rounds"], 1))
@@ -5254,13 +5272,14 @@ def _tp_servers(mesh, model, local, draft, dlocal, ref, prompts, news,
 
 
 def _tp_ties(ranks: list, cfg: dict, seed: int, runs, errors: list,
-             part: str) -> None:
+             part: str, ungated: tuple = ()) -> None:
     """The tie rule's reference half in this process, for the serve rows
     of every mdl-0 rank: `runs(row)` gives {run: (ref, plens, cap,
     per_row)}, the one-process references that run is held to and how a
     `_Teacher` steps them (the batch the references were made from).
     Adds `divergences` to each run's row and an error for a tp group
-    whose ranks differ or a divergence that is no tie."""
+    whose ranks differ or a divergence that is no tie (a run in
+    `ungated` reports its divergences without that error)."""
     from tpunet_torch.models import Transformer
 
     model = Transformer(compute_dtype=BF16, attn_impl="flash",
@@ -5284,7 +5303,7 @@ def _tp_ties(ranks: list, cfg: dict, seed: int, runs, errors: list,
                                   for k, c in sorted(row["cols"].items())]
             bad = [d for d in row["divergences"]
                    if not d["gap"] <= d["delta"]]
-            if bad:
+            if bad and name not in ungated:
                 errors.append(f"{part} {name} on {s['coords']}: "
                               f"divergences that are no tie: {bad}")
     del params
@@ -5305,6 +5324,9 @@ def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
     local = model.local_params(full)
     draft = model.clone(weight_quant="int8")
     dlocal = draft.local_params(quantize_params(full))
+    model32 = Transformer(compute_dtype=torch.float32, attn_impl="flash",
+                          mesh=mesh, tp_axis="mdl", device="meta", **cfg)
+    local32 = model32.local_params({k: v.float() for k, v in full.items()})
     del full
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5314,6 +5336,17 @@ def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
     prompt = torch.as_tensor(ref["gen_prompts"][rows], device=DEVICE)
     out = {"dp": dp, "mdl": mesh.axis_index("mdl"),
            "coords": dict(mesh.coords)}
+    # C.19: f32 TP decoding is held bitwise to one process's f32 generate.
+    gen32, c = _flash_heads(lambda: generate(model32, local32, prompt,
+                                             MESH6C_GEN_NEW))
+    gen32 = gen32.cpu().numpy()
+    diff = np.argwhere(gen32 != ref["gen_ref_f32"][rows])
+    out["generate_f32"] = dict(
+        c, tokens_per_s=n * MESH6C_GEN_NEW / c["s"],
+        bitwise_equal_one_process=not len(diff),
+        first_difference=diff[0].tolist() if len(diff) else None)
+    del local32
+    torch.cuda.empty_cache()
     gen, c = _flash_heads(lambda: generate(model, local, prompt,
                                            MESH6C_GEN_NEW))
     plen = prompt.shape[1]
@@ -5326,11 +5359,78 @@ def _mesh6c_serve(mesh, path: str, seed: int) -> dict:
     prompts = [ref[f"srv_prompt{i}"] for i in range(int(ref["n_srv"]))]
     out.update(_tp_servers(mesh, model, local, draft, dlocal, ref["srv_ref"],
                            prompts, [SPEC_SERVE_NEW] * len(prompts), 8, 1,
-                           SPEC_GAMMA))
+                           SPEC_GAMMA, keep_seqs=True))
+    out["tiers"] = _mesh6c_tiers(mesh, model, local, prompts)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del local, dlocal
     torch.cuda.empty_cache()
     return out
+
+
+def _mesh6c_tiers(mesh, model, local, prompts) -> dict:
+    """(a)'s tiers part (ROADMAP A.12): the dp-0 group is the prefill tier
+    (the Router on its leader, world rank 0) and ships each of `prompts`
+    (SPEC_SERVE_NEW greedy tokens) on the f32 KV wire to the dp-1 group,
+    which decodes with the plain server's slots and max_len. Each rank:
+    its flash launches around the whole part, its role's stats and the
+    axes its collectives ran over; rank 0 also the tokens, TTFT/TPOT and
+    the wire's bytes."""
+    from tpunet_torch import distributed, serve
+    from tpunet_torch.parallel import smap
+
+    world = distributed.global_communicator()
+    lsock = serve.Router.listen("127.0.0.1:0") if mesh.rank == 0 else None
+    port = int(world.broadcast(np.array(
+        [lsock.getsockname()[1] if lsock else 0], np.int64), 0)[0])
+    dp = mesh.axis_index("dp")
+    routers = []
+
+    def prefill_tier():
+        pe = serve.PrefillEngine(model, local, max_len=SPEC_SERVE_MAX_LEN,
+                                 device=DEVICE)
+        if not pe.group.leader:
+            pe.follow()
+            return {"prefills": pe.stats["prefills"]}
+        # Closed after the world barrier: the decode leader, another
+        # process, must have read its SHUTDOWN frame before the link goes.
+        routers.append(serve.Router(pe, kv_codec="f32"))
+        router = routers[0]
+        try:
+            router.accept_ranks(lsock, 1)
+            lsock.close()
+            t0 = time.perf_counter()
+            ids = [router.submit(q, SPEC_SERVE_NEW) for q in prompts]
+            res = router.run(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            router.shutdown()
+        toks = np.stack([res[i] for i in ids])
+        return dict(_latency(router, int(toks.size), wall),
+                    prefills=pe.stats["prefills"], tokens=toks,
+                    kv_wire_bytes=sum(serve.kv_wire_bytes(
+                        "f32", pe.kv_leaf_shapes(len(q))) for q in prompts))
+
+    def decode_tier():
+        kw = dict(slots=8, max_len=SPEC_SERVE_MAX_LEN, device=DEVICE)
+        if mesh.axis_index("mdl") == 0:
+            worker = serve.connect_decode(f"127.0.0.1:{port}", model, local,
+                                          kv_codec="f32", **kw)
+            try:
+                worker.serve()
+            finally:
+                worker.close()
+        else:
+            worker = serve.follow_decode(model, local, **kw)
+        return {"decode_stats": dict(worker.stats, **{
+            f"srv_{k}": v for k, v in worker.srv.stats.items()})}
+
+    smap.axis_stats_reset()
+    got, c = _flash_heads(prefill_tier if dp == 0 else decode_tier)
+    world.barrier()
+    for router in routers:
+        router.close()
+    return dict(got, **c, role="prefill" if dp == 0 else "decode",
+                axes=sorted(smap.axis_stats()))
 
 
 def _mesh6c_qlora(mesh, path: str, seed: int) -> dict:
@@ -5468,6 +5568,16 @@ def _mesh6c_references(seed: int) -> dict:
     gen = generate(model, params, torch.as_tensor(prompts4, device=DEVICE),
                    MESH6C_GEN_NEW).cpu().numpy()
     gen_s = time.perf_counter() - t0
+    # C.19: the f32 reference, from the same checkpoint widened, on each
+    # dp rank's rows (the batch the rank decodes).
+    model32 = Transformer(compute_dtype=torch.float32, attn_impl="flash",
+                          device="meta", **cfg)
+    params32 = {k: v.float() for k, v in params.items()}
+    n = MESH6C_GEN_ROWS // MESH6C_MESH["dp"]
+    gen32 = np.concatenate([generate(model32, params32, torch.as_tensor(
+        prompts4[d * n:(d + 1) * n], device=DEVICE), MESH6C_GEN_NEW
+    ).cpu().numpy() for d in range(MESH6C_MESH["dp"])])
+    del params32
     prompts = _prompts(seed + 2, 8, model.vocab)
     qlens = np.array([len(q) for q in prompts])
     t0 = time.perf_counter()
@@ -5477,7 +5587,7 @@ def _mesh6c_references(seed: int) -> dict:
     srv_s = time.perf_counter() - t0
     _mesh6c_file().parent.mkdir(parents=True, exist_ok=True)
     np.savez(_mesh6c_file(), gen_prompts=prompts4, gen_ref=gen,
-             srv_ref=seqs, n_srv=len(prompts),
+             gen_ref_f32=gen32, srv_ref=seqs, n_srv=len(prompts),
              **{f"srv_prompt{i}": q for i, q in enumerate(prompts)})
     del params
     torch.cuda.empty_cache()
@@ -5544,7 +5654,10 @@ def _mesh6c_ties(ranks: list, seed: int, errors: list) -> None:
                              np.full(n, plen), plen + MESH6C_GEN_NEW, False),
                 "server": server, "spec_server": server}
 
-    _tp_ties(ranks, _mesh6c_serve_model(), seed, runs, errors, "(a)")
+    # C.19: bf16 TP generate is gated on its tp group's equality alone
+    # (its f32 twin is held bitwise); its divergences are reported.
+    _tp_ties(ranks, _mesh6c_serve_model(), seed, runs, errors, "(a)",
+             ungated=("generate",))
 
 
 def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
@@ -5572,6 +5685,30 @@ def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
                               f"(want {n_fwd} forwards), heads "
                               f"{row['heads']}, copies "
                               f"{row['input_copies']}")
+        g32 = s["generate_f32"]
+        if not g32["bitwise_equal_one_process"] or (
+                g32["launches"] != {"flash_fwd": serve_layers, "flash_dq": 0,
+                                    "flash_dkv": 0}
+                or g32["heads"] != [(8, 2)] or g32["input_copies"]):
+            errors.append(f"(a) f32 generate on {s['coords']}: equal "
+                          f"{g32['bitwise_equal_one_process']} (first "
+                          f"difference {g32['first_difference']}), launches "
+                          f"{g32['launches']}, heads {g32['heads']}")
+        t = s["tiers"]
+        n_fwd = n_lens * serve_layers if t["role"] == "prefill" else 0
+        if (t["launches"] != {"flash_fwd": n_fwd, "flash_dq": 0,
+                              "flash_dkv": 0} or t["input_copies"]
+                or t["heads"] != ([(8, 2)] if n_fwd else [])
+                or t["axes"] != ["mdl"]):
+            errors.append(f"(a) tiers on {s['coords']} ({t['role']}): "
+                          f"launches {t['launches']} (want {n_fwd} "
+                          f"forwards), heads {t['heads']}, copies "
+                          f"{t['input_copies']}, collectives over "
+                          f"{t['axes']}")
+        if t["role"] == "decode" and (
+                t["decode_stats"]["srv_kv_adopts"] != n_lens
+                or t["decode_stats"]["srv_prefills"]):
+            errors.append(f"(a) tiers: decode stats {t['decode_stats']}")
         if s["peak_mem_gb"] > MESH6C_SERVE_MEM_GB:
             errors.append(f"(a): peak {s['peak_mem_gb']} GB above "
                           f"{MESH6C_SERVE_MEM_GB} GB")
@@ -5579,6 +5716,22 @@ def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
             errors.append(f"(a) spec_server: "
                           f"{s['spec_server']['tokens_per_round']} tokens "
                           f"a round")
+    # (a)'s tiers: the dp-1 group's tokens, reported by the router on rank
+    # 0, against the plain mesh server's on the dp-1 ranks; one digest of
+    # the finished tokens on both decode ranks.
+    ref = np.load(_mesh6c_file())
+    qlens = [len(ref[f"srv_prompt{i}"]) for i in range(n_lens)]
+    tier_tokens = ranks[0]["serve"]["tiers"]["tokens"]
+    decoders = [r for r in ranks if r["serve"]["tiers"]["role"] == "decode"]
+    tiers_bitwise = [bool(np.array_equal(
+        tier_tokens[i], r["serve"]["server"]["seqs"][
+            i, qlens[i]:qlens[i] + SPEC_SERVE_NEW]))
+        for r in decoders for i in range(n_lens)]
+    crcs = {r["serve"]["tiers"]["decode_stats"]["tokens_crc"]
+            for r in decoders}
+    if not all(tiers_bitwise) or len(crcs) != 1:
+        errors.append(f"(a) tiers: tokens bitwise the dp-1 plain server's "
+                      f"{tiers_bitwise}, decode ranks' digests {crcs}")
     # (b) TP QLoRA and int8 generate.
     ql = [r["qlora"] for r in ranks]
     by_dp = {p["dp"]: p["losses"] for p in ql if p["mdl"] == 0}
@@ -5656,12 +5809,15 @@ def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
     for r in ranks:
         for name in ("generate", "server", "spec_server"):
             r["serve"][name].pop("seen", None)
+        r["serve"]["server"].pop("seqs")
+        r["serve"]["tiers"].pop("tokens", None)
         r["moe"].pop("choices")
     moe_ref.pop("choices")
     summary = dict(
         ranks=MESH_RANKS, mesh=MESH6C_MESH, wall_s=time.perf_counter() - t0,
         ranks_wall_s=wall, part_s=[r["seconds"] for r in ranks],
-        serve=dict(reference=refs, runs=[r["serve"] for r in ranks]),
+        serve=dict(reference=refs, runs=[r["serve"] for r in ranks],
+                   tiers_bitwise_plain_server=all(tiers_bitwise)),
         qlora=dict(steps=MESH6C_STEPS, losses=q_losses,
                    qlora_first_loss=qlora_first_loss, first_loss_rel=q_rel,
                    ranks=ql),
@@ -5678,7 +5834,7 @@ def phase_mesh6c(seed: int, qlora_first_loss: float) -> dict:
     launches = {k: 0 for k in COUNTERS}
     for r in ranks:
         for row in (r["serve"]["generate"], r["serve"]["server"],
-                    r["serve"]["spec_server"], r["qlora"],
+                    r["serve"]["spec_server"], r["serve"]["tiers"], r["qlora"],
                     r["qlora"]["int8_generate"], r["moe"]):
             for k in COUNTERS:
                 launches[k] += row["launches"][k]

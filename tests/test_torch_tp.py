@@ -287,8 +287,9 @@ def test_mesh_refusals_and_later_options():
     accum_steps on a mesh, and features_only under TP (the spawned cases
     of test_torch_dcn_mesh.py, test_torch_tp_serve.py,
     test_torch_tp_quant_lora.py and test_torch_ep_moe.py hold them to JAX
-    over 4 and 8 ranks). The disaggregated serving tiers still refuse a
-    mesh model, naming their item (ROADMAP A.12)."""
+    over 4 and 8 ranks). The disaggregated serving tiers build on a mesh
+    model too (ROADMAP A.12; test_torch_tp_serve.py runs them over tp
+    groups of ranks)."""
     from tpunet_torch import distributed
     from tpunet_torch.serve import PrefillEngine
 
@@ -297,8 +298,10 @@ def test_mesh_refusals_and_later_options():
     m = Transformer(mesh=mesh, tp_axis="mdl", device="meta", **cfg)
     tx = adamw(LR)
     local = m.local_params(m.init_params(seed=0, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        PrefillEngine(m, local, max_len=16, device="cpu")
+    pe = PrefillEngine(m, local, max_len=16, device="cpu")
+    assert pe.group.size == 2 and pe.group.leader
+    assert pe.kv_leaf_shapes(3)[0] == (3, 4, 8)   # whole heads (MHA)
+    assert m.kv_head_ids() == [0, 1]               # this rank's two
     distributed.initialize(f"127.0.0.1:{free_port()}", 0, 1)
     try:
         one = make_named_mesh({"dp": 1, "mdl": 1})

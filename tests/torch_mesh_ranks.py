@@ -1,8 +1,9 @@
 """The spawned ranks of the port's mesh tests (test_torch_mesh.py,
 test_torch_inpod_attention.py, test_torch_gpipe.py, test_torch_tp.py,
 test_torch_tp_serve.py, test_torch_tp_quant_lora.py, test_torch_ep_moe.py,
-test_torch_dryrun.py, the shared checkpoint of test_torch_train.py and the
-in-pod model cases of test_torch_parallel.py), in a module that
+test_torch_dryrun.py, the shared checkpoint of test_torch_train.py, the
+in-pod model cases of test_torch_parallel.py and the serving tiers over a
+mesh of test_torch_tp_serve.py), in a module that
 imports no JAX, so that they start fast: every case of one world size runs
 in one spawn. A mesh device is a rank, so a mesh of N devices takes N of
 them; the meshes a spawn needs are built once, in case order, on every
@@ -19,6 +20,7 @@ import os
 import pickle
 import socket
 import tempfile
+import time
 import traceback
 
 import numpy as np
@@ -280,6 +282,227 @@ def serve(axes, cfg, params, requests, server, draft_params=None,
     return out
 
 
+def _collective_axes() -> list:
+    from tpunet_torch.parallel import smap
+
+    return sorted(smap.axis_stats())
+
+
+def tier_prefill(axes, cfg, params, prompts, max_len, tp_axis="mdl"):
+    """A PrefillEngine over each tp group of the mesh: the leaders prefill
+    `prompts` ("kv<i>": the whole-head rows stacked, "last<i>": the last
+    logits), the followers follow. Also the axes the ranks ran collectives
+    over."""
+    from tpunet_torch.parallel import smap
+    from tpunet_torch.serve import PrefillEngine
+
+    tm = _model(axes, cfg, tp_axis)
+    local = tm.local_params({n: _t(a) for n, a in params.items()})
+    smap.axis_stats_reset()
+    pe = PrefillEngine(tm, local, max_len=max_len, device="cpu")
+    out = {"kv_heads": np.array(tm.kv_head_ids())}
+    if pe.group.leader:
+        for i, p in enumerate(prompts):
+            rows, last = pe.prefill(p)
+            out[f"kv{i}"], out[f"last{i}"] = np.stack(rows), last
+            out[f"shapes{i}"] = np.array(pe.kv_leaf_shapes(len(p)))
+        pe.close()
+    else:
+        pe.follow()
+    out["prefills"] = np.array(pe.stats["prefills"])
+    out["axes"] = _collective_axes()
+    return out
+
+
+def _threaded(fn, box: dict, key: str):
+    """fn() on a thread; its result or exception lands in box[key]."""
+    import threading
+
+    def run():
+        try:
+            box[key] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised by the case
+            box[key] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _joined(th, box: dict, key: str):
+    th.join(timeout=120)
+    got = box.get(key)
+    if isinstance(got, BaseException):
+        raise got
+    return got
+
+
+def tier(axes, cfg, params, requests, kv_codec="f32", slots=2, max_len=40,
+         prefill="mesh", decode="mesh", reference=False, tp_axis="mdl"):
+    """The disaggregated tiers over the mesh. `prefill` / `decode`:
+    "mesh", the tp group of dp index 0 (prefill) or of the last dp index
+    (decode), or "single", a single-rank tier of the whole params on rank
+    0 in a thread. The Router runs on rank 0 beside the prefill engine.
+    Rank 0 reports the tier's tokens ("tier<i>"), TTFT/TPOT samples and,
+    on the int8 wire, its codec counters; a decode group's ranks their
+    worker's stats; with `reference` every rank first runs a mesh
+    BatchServer on the same requests ("ref<i>")."""
+    from tpunet_torch import distributed, serve, telemetry
+    from tpunet_torch.models import BatchServer, Transformer
+    from tpunet_torch.parallel import smap
+
+    mesh = _mesh(axes)
+    n_dp = mesh.shape.get("dp", 1)
+    dp = mesh.coords.get("dp", 0)
+    tm = _model(axes, cfg, tp_axis)
+    local = tm.local_params({n: _t(a) for n, a in params.items()})
+    whole = {n: _t(a) for n, a in params.items()}
+    single = Transformer(compute_dtype=torch.float32, device="cpu", **cfg)
+    out = {}
+    if reference:
+        srv = BatchServer(tm, local, slots=slots, max_len=max_len,
+                          device="cpu")
+        ids = [srv.submit(p, m) for p, m in requests]
+        res = srv.run()
+        out.update({f"ref{i}": res[rid] for i, rid in enumerate(ids)})
+    rank = distributed.rank()
+    lsock = serve.Router.listen("127.0.0.1:0") if rank == 0 else None
+    port = int(distributed.global_communicator().broadcast(np.array(
+        [lsock.getsockname()[1] if lsock else 0], np.int64), 0)[0])
+    addr = f"127.0.0.1:{port}"
+    in_prefill = prefill == "mesh" and dp == 0
+    in_decode = decode == "mesh" and dp == n_dp - 1
+    smap.axis_stats_reset()
+    if rank == 0 and kv_codec == "int8":
+        telemetry.reset()
+
+    def frontend(engine):
+        # Closed after the world barrier: a decode rank in another process
+        # must have read its SHUTDOWN frame before the link goes.
+        box["router"] = router = serve.Router(engine, kv_codec=kv_codec)
+        try:
+            router.accept_ranks(lsock, 1)
+            lsock.close()
+            rids = [router.submit(p, m) for p, m in requests]
+            got = router.run(timeout=120)
+        finally:
+            router.shutdown()
+        return [got[r] for r in rids], dict(router.samples)
+
+    def decode_leader(model, p):
+        worker = serve.connect_decode(addr, model, p, slots=slots,
+                                      max_len=max_len, kv_codec=kv_codec,
+                                      device="cpu")
+        try:
+            worker.serve()
+        finally:
+            worker.close()
+        return worker
+
+    box, threads = {}, {}
+    if rank == 0 and prefill == "single":
+        threads["front"] = _threaded(lambda: frontend(serve.PrefillEngine(
+            single, whole, max_len=max_len, device="cpu")), box, "front")
+    if rank == 0 and decode == "single":
+        threads["decode"] = _threaded(lambda: decode_leader(single, whole),
+                                      box, "decode")
+    if in_prefill:
+        pe = serve.PrefillEngine(tm, local, max_len=max_len, device="cpu")
+        if pe.group.leader:
+            box["front"] = frontend(pe)
+        else:
+            pe.follow()
+        out["prefills"] = np.array(pe.stats["prefills"])
+    worker = None
+    if in_decode:
+        if mesh.axis_index(tp_axis) == 0:
+            worker = decode_leader(tm, local)
+        else:
+            worker = serve.follow_decode(tm, local, slots=slots,
+                                         max_len=max_len, device="cpu")
+    for key, th in threads.items():
+        got = _joined(th, box, key)
+        if key == "decode":
+            worker = got
+    if rank == 0:
+        tokens, samples = box["front"]
+        out.update({f"tier{i}": t for i, t in enumerate(tokens)})
+        out.update(ttft=np.array(samples["ttft"]),
+                   tpot=np.array(samples["tpot"]))
+        if kv_codec == "int8":
+            m = telemetry.metrics()
+            out["wire_ratio"] = np.array(
+                list(m["tpunet_codec_wire_ratio"].items()), dtype=object)
+            out["int8_tx"] = np.array(sum(
+                v for k, v in m["tpunet_codec_bytes_total"].items()
+                if telemetry.labels(k).get("codec") == "int8"
+                and telemetry.labels(k).get("dir") == "tx"))
+    if worker is not None:
+        out["decode_stats"] = dict(worker.stats, **{
+            f"srv_{k}": v for k, v in worker.srv.stats.items()})
+    out["axes"] = _collective_axes()
+    distributed.global_communicator().barrier()
+    if "router" in box:
+        box["router"].close()
+    return out
+
+
+def tier_swap(axes, cfg, params, slots=2, max_len=40, tp_axis="mdl"):
+    """A SWAP_BEGIN into the decode group of the last dp index from a
+    single-rank router on rank 0: what each rank saw ("leader", "follower":
+    the exception raised; "rank_failures" at the router)."""
+    from tpunet_torch import distributed, serve
+    from tpunet_torch.models import Transformer
+    from tpunet_torch.serve import protocol as proto
+
+    mesh = _mesh(axes)
+    dp, n_dp = mesh.coords.get("dp", 0), mesh.shape.get("dp", 1)
+    tm = _model(axes, cfg, tp_axis)
+    local = tm.local_params({n: _t(a) for n, a in params.items()})
+    rank = distributed.rank()
+    lsock = serve.Router.listen("127.0.0.1:0") if rank == 0 else None
+    port = int(distributed.global_communicator().broadcast(np.array(
+        [lsock.getsockname()[1] if lsock else 0], np.int64), 0)[0])
+    out = {}
+    if rank == 0:
+        single = Transformer(compute_dtype=torch.float32, device="cpu", **cfg)
+        pe = serve.PrefillEngine(single, {n: _t(a) for n, a in
+                                          params.items()},
+                                 max_len=max_len, device="cpu")
+        router = serve.Router(pe, kv_codec="f32")
+        router.accept_ranks(lsock, 1)
+        lsock.close()
+        ann = proto.SwapAnnounce(1, 2, 1, 8, 1024, "bf16", 5000,
+                                 "127.0.0.1:1")
+        router._ranks[0].link.send_frame(proto.T_SWAP_BEGIN, 1 << 32 | 1,
+                                         proto.pack_swap_begin(ann))
+        deadline = time.monotonic() + 60
+        while router._ranks[0].alive and time.monotonic() < deadline:
+            router.poll()
+            time.sleep(0.01)
+        out["rank_failures"] = np.array(router.stats["rank_failures"])
+        router.close()
+    if dp == n_dp - 1:
+        try:
+            if mesh.axis_index(tp_axis) == 0:
+                worker = serve.connect_decode(
+                    f"127.0.0.1:{port}", tm, local, slots=slots,
+                    max_len=max_len, kv_codec="f32", device="cpu")
+                try:
+                    worker.serve()
+                finally:
+                    worker.close()
+            else:
+                serve.follow_decode(tm, local, slots=slots, max_len=max_len,
+                                    device="cpu")
+            seen = "returned"
+        except Exception as e:  # noqa: BLE001 — what the test checks
+            seen = f"{type(e).__name__}: {e}"
+        out["leader" if mesh.axis_index(tp_axis) == 0 else "follower"] = seen
+    distributed.global_communicator().barrier()
+    return out
+
+
 def gpipe(axes, stacked, x, microbatches, dp_axis=None, remat=False,
           grad=False):
     """The port's gpipe of a residual MLP stage over the mesh: the global
@@ -451,7 +674,8 @@ def _collectives(mesh, interop, unshard, P, smap):
 
 CASES = {f.__name__: f for f in (attention, model, generate, grads, serve,
                                  gpipe, train_step, vgg_forward, hierarchical,
-                                 collectives, dryrun, shared_checkpoint)}
+                                 collectives, dryrun, shared_checkpoint,
+                                 tier_prefill, tier, tier_swap)}
 
 
 def rank_worker(rank, world, port, q, cases):

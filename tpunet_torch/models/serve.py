@@ -30,7 +30,9 @@ blocks) every rank runs the whole server: all slots, the same submissions
 and admissions, so the same tokens, with the layers split over the tp
 axis and each dp replica repeating its group's work (JAX's dry run
 shards only the params; GSPMD then replicates the slots and the cache
-over dp). ``submit_kv`` stays single-rank.
+over dp). ``submit_kv`` takes whole-head rows there too and installs
+the rank's kv heads (``Transformer.kv_head_ids``): the KV wire is the
+single-rank tier's.
 
 Device work is issued asynchronously; the host reads a window's tokens
 back once (`run(pipeline=2)` keeps a second window in flight meanwhile).
@@ -55,13 +57,14 @@ from tpunet_torch.models.generate import (_get_cache_index, _kv_leaves,
 
 
 def refuse_mesh(model, what: str) -> None:
-    """The disaggregated serving tiers and their KV shipping are
-    single-rank: a model over a mesh raises."""
-    if getattr(model, "mesh", None) is not None:
+    """What the serving tiers still refuse for a model over a mesh with a
+    tp axis (ROADMAP A.12b): a live weight swap into its tp group."""
+    if (getattr(model, "mesh", None) is not None
+            and getattr(model, "tp_axis", None) is not None):
         raise NotImplementedError(
-            f"{what} with a model over a mesh: the disaggregated serving "
-            "tiers are single-rank (their mesh models are ROADMAP A.12); "
-            "serve a mesh model with BatchServer on every rank")
+            f"{what} with a model over a mesh: a live weight swap into a "
+            "tp group of ranks is not ported (ROADMAP A.12b); restart the "
+            "group on the new weights")
 
 
 class BatchServer:
@@ -276,18 +279,19 @@ class BatchServer:
         return req["id"]
 
     def kv_leaf_shapes(self, plen: int) -> list[tuple]:
-        """Per-leaf KV block shapes `submit_kv` installs for a prompt of
-        length `plen`, in shipping order: (plen, kv_heads, head_dim)."""
-        return [(plen,) + tuple(leaf.shape[2:])
-                for leaf in _kv_leaves(self._cache)]
+        """Per-leaf KV block shapes `submit_kv` takes for a prompt of
+        length `plen`, in shipping order: (plen, kv_heads, head_dim), whole
+        heads on a mesh too."""
+        kv = self.model.n_kv_heads or self.model.n_heads
+        return [(plen, kv, leaf.shape[3]) for leaf in _kv_leaves(self._cache)]
 
     def submit_kv(self, prompt, max_new_tokens: int, kv_rows,
                   last_logits) -> int:
         """Enqueue one request whose prompt K/V was computed elsewhere (a
         prefill rank) and shipped here: `kv_rows` are numpy arrays matching
         kv_leaf_shapes(len(prompt)), `last_logits` the prefill's
-        final-position logit row (vocab,)."""
-        refuse_mesh(self.model, "submit_kv")
+        final-position logit row (vocab,). On a mesh the rows are whole
+        heads; the rank keeps its own (``kv_head_ids``)."""
         if self._draft is not None:
             raise ValueError(
                 "submit_kv requires a non-speculative server: the draft "
@@ -306,6 +310,9 @@ class BatchServer:
             if tuple(blk.shape) != want:
                 raise ValueError(f"KV block {i} has shape "
                                  f"{tuple(blk.shape)}, expected {want}")
+        ids = self.model.kv_head_ids()
+        if ids != list(range(shapes[0][1])):
+            kv_rows = [b[:, ids] for b in kv_rows]
         last_logits = np.asarray(last_logits, np.float32)
         if last_logits.shape != (self.model.vocab,):
             raise ValueError(f"last_logits must be ({self.model.vocab},), "

@@ -998,14 +998,16 @@ class Transformer(nn.Module):
             self._apply_rules()
         return shard_params(params, self.mesh, self.partition_rules())[1]
 
-    def local_kv_heads(self) -> int:
-        """The kv heads this rank's attention holds (the decode cache's
-        width): all of them, or under TP, when the partition rules split
-        the q projection over tp_axis, the kv heads its q heads read
-        (``_head_layout``), wherever the rules cut k and v."""
+    def kv_head_ids(self, index: int | None = None) -> list[int]:
+        """The whole-model kv head of each of a rank's cache heads, in
+        cache order: all of them, or under TP, when the partition rules
+        split the q projection over tp_axis, the kv heads the q heads of
+        the rank at tp index `index` (default this rank) read
+        (``_head_layout``), wherever the rules cut k and v. A head may
+        repeat: split across ranks, or read once a q head."""
         kv = self.n_kv_heads or self.n_heads
         if self.mesh is None or self.tp_axis is None:
-            return kv
+            return list(range(kv))
         from tpunet_torch.parallel.mesh import leaf_spec
 
         name, p = next((n, p) for n, p in self.named_parameters()
@@ -1013,11 +1015,18 @@ class Transformer(nn.Module):
         spec = leaf_spec(name, tuple(p.shape), self.mesh,
                          self.partition_rules())
         if all(a is None for a in spec):
-            return kv
+            return list(range(kv))
+        if index is None:
+            index = self.mesh.axis_index(self.tp_axis)
         width = self.n_heads * self.head_dim // self.mesh.axis_size(
             self.tp_axis)
-        return len(_head_layout(self.n_heads, kv, self.head_dim, width,
-                                self.mesh.axis_index(self.tp_axis))[2])
+        return list(_head_layout(self.n_heads, kv, self.head_dim, width,
+                                 index)[2])
+
+    def local_kv_heads(self) -> int:
+        """The kv heads this rank's attention holds (the decode cache's
+        width): ``len(kv_head_ids())``."""
+        return len(self.kv_head_ids())
 
     def data_axes(self) -> tuple:
         """The mesh axes the data is sharded over: dp_axis, and sp_axis

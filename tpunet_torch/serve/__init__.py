@@ -21,6 +21,20 @@ Minimal setup::
     rid = router.submit(prompt_tokens, max_new_tokens=64)
     tokens = router.run()[rid]
 
+On a mesh model (``tp_axis`` set) each tier is a tp group of ranks: the
+group's tp-index-0 rank (the leader) runs the calls above, the others
+follow it, and the KV wire stays the single-rank tier's (whole kv heads),
+so a group pairs with a single rank or another group::
+
+    # decode group: the leader, then every other rank of its tp group
+    worker = serve.connect_decode(addr, model, local, slots=8, max_len=512)
+    worker.serve(); worker.close()          # close() releases followers
+    serve.follow_decode(model, local, slots=8, max_len=512)
+
+    # prefill group: the leader builds the Router; the others follow
+    pe = serve.PrefillEngine(model, local, max_len=512)
+    pe.follow()                             # on every rank but the leader
+
 Live weight updates (``publish``): ``WeightPublisher(router).publish(v,
 params)`` ships a new checkpoint to every decode rank over a bulk-class
 tree broadcast, flips the fleet behind a fleet-wide CRC32C gate at request
@@ -31,6 +45,7 @@ TPUNET_SWAP_TIMEOUT_MS, TPUNET_SWAP_CHUNK_BYTES, TPUNET_PUBLISH_CLASS.
 """
 
 from tpunet_torch.serve.decode import DecodeWorker, connect as connect_decode  # noqa: F401
+from tpunet_torch.serve.decode import follow_decode  # noqa: F401
 from tpunet_torch.serve.kv import (  # noqa: F401
     KV_CODECS,
     decode_kv_block,

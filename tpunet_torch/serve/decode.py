@@ -22,12 +22,26 @@ prefilled it (the T_BLOCK aux word); old versions serve their pinned
 sessions until the frontend's T_SWAP_RETIRE and the local drain both say
 they are done. Any swap failure reports SWAP_ABORTED and the previous
 version keeps serving.
+
+**On a mesh model** the worker is a tp group of ranks (``serve.group``):
+the leader owns the link and, on every pass that does work, broadcasts a
+header (blocks, step or not, stop, the KV codec) and the raw BLOCK
+payloads it ingested; each follower (``follow``, ``follow_decode``) runs
+the same ``unpack_block`` -> ``decode_kv_block`` -> ``submit_kv`` and the
+same steps, so every rank's BatchServer admits the same requests in the
+same order. Only the leader reports; an idle pass broadcasts nothing. The
+leader's ``close()`` releases its followers, and a leader that fails
+releases them with the error. Not ported (ROADMAP A.12b): a live swap
+into a group (a SWAP_BEGIN raises), and a follower's death, which ends
+the group at its next collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
+import struct
 import threading
 import time
 from functools import partial
@@ -39,7 +53,12 @@ from tpunet_torch.models.serve import BatchServer, refuse_mesh
 from tpunet_torch.serve import kv as kv_mod
 from tpunet_torch.serve import protocol as proto
 from tpunet_torch.serve import publish as publish_mod
+from tpunet_torch.serve.group import tier_group
 from tpunet_torch.serve.publish import WeightReceiver, WeightSwapError
+
+# The stop word of a decode group's pass header: the leader closed, or it
+# failed (its followers raise).
+_STOP_CLOSE, _STOP_FAILED = 1, 2
 
 
 class DecodeWorker:
@@ -48,9 +67,12 @@ class DecodeWorker:
     def __init__(self, model, params, link: proto.FrameLink, *,
                  slots: int, max_len: int, kv_codec: str = "int8",
                  weight_version: int = 0, **server_kwargs):
-        refuse_mesh(model, "DecodeWorker")
         if kv_codec not in kv_mod.KV_CODECS:
             raise ValueError(f"unknown KV wire codec {kv_codec!r}")
+        self.group = tier_group(model)
+        if self.group is not None and (link is None) == self.group.leader:
+            raise ValueError("the leader of a decode group owns its link; "
+                             "its followers have none")
         self._net = None  # set by connect(): the engine this worker owns
         self.link = link
         self.kv_codec = kv_codec
@@ -78,6 +100,15 @@ class DecodeWorker:
         self._swap_step = 0
         self.stats = {"blocks": 0, "results": 0, "swaps": 0,
                       "swap_aborts": 0}
+        self._released = False
+        if self.group is not None:
+            # A running CRC32C of every finished request (local id, tokens)
+            # in finish order: the ranks of a group must agree on it.
+            self.stats["tokens_crc"] = 0
+            shapes = self.group.gather(np.array([slots, max_len], np.int64))
+            if (shapes != shapes[0]).any():
+                raise ValueError(f"the ranks of a decode group disagree on "
+                                 f"(slots, max_len): {shapes.tolist()}")
         telemetry.weight_version(self.version)
 
     @property
@@ -98,35 +129,43 @@ class DecodeWorker:
 
     # -- frame ingestion -----------------------------------------------------
 
-    def _ingest(self) -> tuple[bool, bool]:
-        """Drain available frames; returns (progressed, shutdown_seen)."""
+    def _admit(self, payload: bytes, ver: int, rid: int = 0) -> int:
+        """One BLOCK payload into version `ver`'s server; its local id."""
+        prompt, max_new, n_kv, logits, wire = proto.unpack_block(
+            payload, self.kv_codec)
+        srv = self._servers[ver]
+        shapes = srv.kv_leaf_shapes(len(prompt))
+        if kv_mod.kv_block_elems(shapes) != n_kv:
+            raise proto.TierProtocolError(
+                f"BLOCK for request {rid} carries {n_kv} KV "
+                f"elements; this model/prompt-length expects "
+                f"{kv_mod.kv_block_elems(shapes)}")
+        rows = kv_mod.decode_kv_block(wire, self.kv_codec, shapes)
+        self.stats["blocks"] += 1
+        return srv.submit_kv(prompt, max_new, rows, logits)
+
+    def _ingest(self) -> tuple[bool, bool, list[bytes]]:
+        """Drain available frames; returns (progressed, shutdown_seen, the
+        BLOCK payloads admitted, kept for a group's followers)."""
         progressed = shutdown = False
+        blocks = []
         while True:
             frame = self.link.poll()
             if frame is None:
-                return progressed, shutdown
+                return progressed, shutdown, blocks
             progressed = True
             ftype, rid, payload, aux = frame
             if ftype == proto.T_BLOCK:
-                prompt, max_new, n_kv, logits, wire = proto.unpack_block(
-                    payload, self.kv_codec)
                 # aux pins the request to the version that prefilled it;
                 # fall back to current if that version already retired here
                 # (the router places onto resident versions; this keeps a
                 # request from being dropped when none holds it).
                 ver = aux if aux in self._servers else self.version
-                srv = self._servers[ver]
-                shapes = srv.kv_leaf_shapes(len(prompt))
-                if kv_mod.kv_block_elems(shapes) != n_kv:
-                    raise proto.TierProtocolError(
-                        f"BLOCK for request {rid} carries {n_kv} KV "
-                        f"elements; this model/prompt-length expects "
-                        f"{kv_mod.kv_block_elems(shapes)}")
-                rows = kv_mod.decode_kv_block(wire, self.kv_codec, shapes)
-                local = srv.submit_kv(prompt, max_new, rows, logits)
-                self._router_id[(ver, local)] = rid
-                self.stats["blocks"] += 1
+                self._router_id[(ver, self._admit(payload, ver, rid))] = rid
+                if self.group is not None:
+                    blocks.append(payload)
             elif ftype == proto.T_SWAP_BEGIN:
+                refuse_mesh(self._model, "a live weight swap (SWAP_BEGIN)")
                 self._begin_swap(rid, payload)
             elif ftype == proto.T_SWAP_RETIRE:
                 self._retiring.add(aux)
@@ -135,6 +174,77 @@ class DecodeWorker:
             else:
                 raise proto.TierProtocolError(
                     f"decode tier got unexpected frame type {ftype}")
+
+    def _digest(self, finished: list[dict]) -> None:
+        if self.group is not None:
+            for rec in finished:
+                self.stats["tokens_crc"] = transport.crc32c(
+                    struct.pack("<q", rec["id"]) + rec["tokens"].tobytes(),
+                    self.stats["tokens_crc"])
+
+    def _step(self) -> list[tuple[int, list[dict]]]:
+        """One window of every resident version with work, as (version,
+        finished) pairs."""
+        guard = (self.group.tp_only() if self.group is not None
+                 else contextlib.nullcontext())
+        out = []
+        with guard:
+            for ver, srv in list(self._servers.items()):
+                if srv._live or srv._pending:
+                    out.append((ver, srv.step()))
+                    self._digest(out[-1][1])
+        return out
+
+    def _has_work(self) -> bool:
+        return any(s._live or s._pending for s in self._servers.values())
+
+    # -- a decode group ------------------------------------------------------
+
+    def _send_pass(self, blocks: list[bytes], step: bool) -> None:
+        """The leader's pass over its group: the header, then the payloads'
+        lengths and bytes."""
+        self.group.bcast(np.array(
+            [len(blocks), int(step), 0, kv_mod.KV_CODECS.index(self.kv_codec)],
+            np.int64))
+        if blocks:
+            self.group.bcast(np.array([len(b) for b in blocks], np.int64))
+            self.group.bcast(np.frombuffer(b"".join(blocks), np.uint8))
+
+    def _release(self, stop: int) -> None:
+        """Stop the group's followers (once)."""
+        if self.group is None or not self.group.leader or self._released:
+            return
+        self._released = True
+        self.group.bcast(np.array([0, 0, stop, 0], np.int64))
+
+    def follow(self) -> None:
+        """A follower's loop: repeat each pass of the leader (its blocks,
+        then its step) until it closes; raises ServeError when the leader
+        failed."""
+        if self.group is None or self.group.leader:
+            raise RuntimeError("follow() runs on the followers of a mesh "
+                               "model's tp group")
+        while True:
+            n, step, stop, codec = (int(x) for x in self.group.bcast(
+                np.zeros(4, np.int64)))
+            if stop:
+                self._released = True
+                if stop == _STOP_FAILED:
+                    raise proto.ServeError(
+                        "the leader of this decode group failed")
+                return
+            self.kv_codec = kv_mod.KV_CODECS[codec]
+            if n:
+                lens = self.group.bcast(np.zeros(n, np.int64))
+                data = self.group.bcast(np.zeros(int(lens.sum()), np.uint8))
+                off = 0
+                for m in lens.tolist():
+                    self._admit(data[off:off + m].tobytes(), self.version)
+                    off += m
+            if step:
+                self._step()
+            self._first_pending.clear()  # only the leader reports
+            self._t_first.clear()
 
     def _report(self, finished_by_ver: list[tuple[int, list[dict]]]) -> None:
         # FIRST frames go out before any RESULT so the router's TTFT stamp
@@ -296,20 +406,32 @@ class DecodeWorker:
         `max_blocks` returns after ingesting that many KV blocks without
         draining (a chaos control). Each pass: scripted chaos, ingest, one
         window of every resident version, report, a poll of the live swap,
-        retire drained versions. Transport errors propagate."""
+        retire drained versions. Transport errors propagate; the leader
+        of a decode group releases its followers before it raises."""
+        try:
+            self._serve(idle_timeout, poll_interval, max_blocks)
+        except BaseException:
+            if self.group is not None:
+                with contextlib.suppress(Exception):
+                    self._release(_STOP_FAILED)
+            raise
+
+    def _serve(self, idle_timeout, poll_interval, max_blocks) -> None:
         draining = False
         idle_since = time.monotonic()
         while True:
             self._poll_chaos()
-            progressed, shutdown = self._ingest()
+            progressed, shutdown, blocks = self._ingest()
             draining = draining or shutdown
-            if max_blocks is not None and self.stats["blocks"] >= max_blocks:
+            done = (max_blocks is not None
+                    and self.stats["blocks"] >= max_blocks)
+            step = not done and self._has_work()
+            if self.group is not None and (blocks or step):
+                self._send_pass(blocks, step)
+            if done:
                 return
-            finished_by_ver = []
-            for ver, srv in list(self._servers.items()):
-                if srv._live or srv._pending:
-                    finished_by_ver.append((ver, srv.step()))
-                    progressed = True
+            finished_by_ver = self._step() if step else []
+            progressed |= step
             if finished_by_ver or self._first_pending:
                 self._report(finished_by_ver)
             progressed |= self._pump_swap()
@@ -317,8 +439,7 @@ class DecodeWorker:
             telemetry.serve_queue_depth(
                 "decode", sum(len(s._live) + len(s._pending)
                               for s in self._servers.values()))
-            if draining and not any(s._live or s._pending
-                                    for s in self._servers.values()):
+            if draining and not self._has_work():
                 return
             if (progressed or self._receiver is not None
                     or self._flip is not None):
@@ -330,12 +451,14 @@ class DecodeWorker:
                 time.sleep(poll_interval)
 
     def close(self) -> None:
-        """Abort a live weight receiver, then tear down the link (and the
-        engine, when this worker owns it)."""
+        """Release a group's followers, abort a live weight receiver, then
+        tear down the link (and the engine, when this worker owns it)."""
+        self._release(_STOP_CLOSE)
         if self._receiver is not None:
             self._receiver.abort()
             self._receiver = None
-        self.link.close()
+        if self.link is not None:
+            self.link.close()
         if self._net is not None:
             self._net.close()
             self._net = None
@@ -350,9 +473,16 @@ def connect(addr, model, params, *, slots: int, max_len: int,
     defers to TPUNET_KV_WIRE_DTYPE (default int8). `weight_version` rides
     the HELLO: a stale value (re-admission after dying mid-swap) is not a
     mismatch; the publisher catches the rank up. `server_kwargs` go to
-    every BatchServer (`device=` among them)."""
+    every BatchServer (`device=` among them). On a mesh model only the
+    leader of the tp group connects; its followers call
+    ``follow_decode``."""
     from tpunet_torch.config import Config
 
+    group = tier_group(model)
+    if group is not None and not group.leader:
+        raise ValueError("connect_decode runs on the leader of a decode "
+                         "group (tp index 0); its followers call "
+                         "follow_decode")
     if kv_codec is None:
         kv_codec = Config.from_env().kv_wire_dtype
     owns_net = net is None
@@ -367,4 +497,19 @@ def connect(addr, model, params, *, slots: int, max_len: int,
                           **server_kwargs)
     if owns_net:
         worker._net = net
+    return worker
+
+
+def follow_decode(model, params, *, slots: int, max_len: int,
+                  **server_kwargs) -> DecodeWorker:
+    """A follower of a mesh model's decode group: build its worker (the
+    same `slots`, `max_len` and server options as the leader's ``connect``)
+    and repeat the leader's passes until it closes; returns the worker."""
+    group = tier_group(model)
+    if group is None or group.leader:
+        raise ValueError("follow_decode runs on the followers of a mesh "
+                         "model's tp group; the leader calls connect_decode")
+    worker = DecodeWorker(model, params, None, slots=slots, max_len=max_len,
+                          **server_kwargs)
+    worker.follow()
     return worker

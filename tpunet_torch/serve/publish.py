@@ -56,6 +56,7 @@ import torch
 from tpunet_torch import _native, telemetry, transport
 from tpunet_torch._native import WeightSwapError
 from tpunet_torch.collectives import Communicator
+from tpunet_torch.models.serve import refuse_mesh
 from tpunet_torch.serve import protocol as proto
 from tpunet_torch.serve.prefill import PrefillEngine
 
@@ -500,6 +501,8 @@ class WeightPublisher:
                 f"weight wire codec must be f32 or bf16, got {codec!r} "
                 f"(int8 KV blocks carry per-block scales; whole-checkpoint "
                 f"int8 does not)")
+        refuse_mesh(getattr(getattr(router, "prefill", None), "model", None),
+                    "WeightPublisher")
         self.router = router
         self.codec = codec
         self.timeout_ms = int(timeout_ms or cfg.swap_timeout_ms)

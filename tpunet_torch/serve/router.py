@@ -39,6 +39,11 @@ replayed) on a rank where that version is resident. ``install_version``
 (called by the WeightPublisher once the fleet flipped) makes a new version
 current for new sessions; a drained old version is retired on both tiers
 (``_retire_sweep``, T_SWAP_RETIRE).
+
+**A mesh prefill group.** With a PrefillEngine over a mesh model the
+router runs on the group's leader; ``shutdown()`` and ``close()`` release
+the engine's followers. A live swap into such a group is not ported
+(ROADMAP A.12b): ``install_version`` raises.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from collections import deque
 import numpy as np
 
 from tpunet_torch import _native, telemetry, transport
+from tpunet_torch.models.serve import refuse_mesh
 from tpunet_torch.serve import kv as kv_mod
 from tpunet_torch.serve import protocol as proto
 from tpunet_torch.serve.prefill import PrefillEngine
@@ -408,6 +414,8 @@ class Router:
         it current for new sessions. The previous version's engine stays
         resident for its pinned in-flight sessions and retires once they
         drain; called by WeightPublisher after the fleet flipped."""
+        for eng in (self.prefill, engine):
+            refuse_mesh(eng.model, "Router.install_version")
         old = self.version
         self._prefills[version] = engine
         self.prefill = engine
@@ -477,7 +485,8 @@ class Router:
         return results
 
     def shutdown(self) -> None:
-        """Ask every live decode rank to drain and exit (best effort)."""
+        """Ask every live decode rank to drain and exit (best effort), and
+        release a mesh prefill engine's followers."""
         for rank in self._ranks:
             if not rank.alive:
                 continue
@@ -485,8 +494,14 @@ class Router:
                 rank.link.send_frame(proto.T_SHUTDOWN, 0, timeout=5.0)
             except Exception:  # noqa: BLE001 — teardown best-effort
                 pass
+        self._close_prefills()
+
+    def _close_prefills(self) -> None:
+        for eng in self._prefills.values():
+            eng.close()
 
     def close(self) -> None:
+        self._close_prefills()
         for rank in self._ranks:
             rank.link.close()
         self._net.close()
